@@ -4,7 +4,7 @@
     PYTHONPATH=src python3 chip_smoke.py [--device cuda:0] [--seed 0]
 
 1. Builds the four hand-written CUDA kernels from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, in parallel) and prints ptxas's resource lines.
+   (one ``nvcc`` per source, in parallel).
 2. Drives the main path through the public ops (``stencil1d_from_spec``,
    ``stencil2d_from_spec``, ``stencil3d``) with every launch count zeroed just
    before and read just after: the paper's §VI shapes in f32 (1D 17-pt
@@ -46,7 +46,6 @@ from repro_torch.core import (paper_stencil_1d, paper_stencil_2d,  # noqa: E402
 from repro_torch.kernels import (stencil1d_from_spec, stencil2d_from_spec,  # noqa: E402
                                  stencil3d)
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.stencil1d.kernel import MXU_TILE  # noqa: E402
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref  # noqa: E402
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref  # noqa: E402
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref  # noqa: E402
@@ -116,16 +115,14 @@ class Case:
         return out
 
     def bound(self, part: str) -> tuple[float, str]:
-        """Least time (ms) the card could take: one read and one write of
-        the grids at HBM rate, or the FP32 flops at the datasheet rate."""
+        """Least time (ms) the card could take for the function, whatever
+        the kernel: one read and one write of the grids at HBM rate, or one
+        FMA per non-zero tap per point and sweep at the FP32 datasheet rate."""
         bw, fp32 = PEAKS[part]
         n = self.x.numel()
         nbytes = 2 * n * self.x.element_size()
-        if self.kernel == "stencil1d_mxu":
-            per_point = MXU_TILE + 2 * self.spec.radii[0]   # band tile depth
-        else:
-            per_point = sum(1 for cs in self.spec.coeffs for c in cs if c != 0.0)
-        flops = 2 * per_point * n * self.spec.timesteps
+        taps = sum(1 for cs in self.spec.coeffs for c in cs if c != 0.0)
+        flops = 2 * taps * n * self.spec.timesteps
         t_bytes, t_ops = nbytes / bw * 1e3, flops / fp32 * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -177,16 +174,6 @@ def make_cases(dev: torch.device, seed: int) -> list[Case]:
     return cases
 
 
-def build() -> None:
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for name in libs:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
-
-
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -205,7 +192,10 @@ def main(argv: list[str] | None = None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
-    build()
+    t0 = time.perf_counter()
+    sources = sorted({Path(src).stem for _, src, _ in KERNELS.values()})
+    _build.build(*sources)
+    print(f"built {sources} in {time.perf_counter() - t0:.1f} s")
     cases = make_cases(dev, args.seed)
     torch.cuda.synchronize()
 
@@ -279,8 +269,7 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": name, "count": 1}}))   # the card it drove
     return 0
 
 

@@ -5,7 +5,8 @@ use with ``nvcc`` for ``sm_90a`` into its own shared library, which is loaded
 with :mod:`ctypes`.  Libraries live under ``build/repro_torch/`` at the root
 of the checkout (git-ignored), keyed by a hash of the source and the flags,
 so an edited source is rebuilt and an unchanged one is reused.
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+:func:`build` starts one ``nvcc`` per source it is given, all at once;
+:func:`library` builds its one source that way on first use.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises if that is not 0 and counts
@@ -26,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC")
 
 # kernel name -> launches since the last reset (chip_smoke.py zeroes these
 # before it drives the main path and reads them after).
@@ -58,59 +59,40 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    """Start ``nvcc`` for one source unless its library is already built."""
-    out = _lib_path(name)
-    if out.is_file():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    log = out.with_suffix(".log")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    with open(log, "w") as fh:
-        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
-    return proc, tmp, out
-
-
-def _finish_build(name: str, proc: subprocess.Popen, tmp: Path,
-                  out: Path) -> None:
-    rc = proc.wait()
-    log = out.with_suffix(".log")
-    if rc != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu (exit {rc}):\n"
-                           + log.read_text())
-    os.replace(tmp, out)
-
-
-def build_all() -> dict[str, Path]:
-    """Compile every ``csrc/*.cu`` not yet built, one ``nvcc`` each, all in
-    parallel; returns ``{name: library path}``."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    started = {n: _start_build(n) for n in names}
+def build(*names: str) -> None:
+    """Compile each ``csrc/<name>.cu`` not yet built, one ``nvcc`` each, all
+    started at once; raises with ``nvcc``'s output if any fails."""
+    jobs = []
     try:
-        for n, job in started.items():
-            if job is not None:
-                _finish_build(n, *job)
+        for name in names:
+            out = _lib_path(name)
+            if out.is_file():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            log = out.with_suffix(".log")
+            with open(log, "w") as fh:
+                proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+            jobs.append((name, proc, tmp, out))
+        for name, proc, tmp, out in jobs:
+            if proc.wait() != 0:
+                raise RuntimeError(f"nvcc failed on {name}.cu (exit "
+                                   f"{proc.returncode}):\n"
+                                   + out.with_suffix(".log").read_text())
+            os.replace(tmp, out)
     finally:
-        for job in started.values():
-            if job is not None and job[0].poll() is None:
-                job[0].kill()
-                job[0].wait()
-    return {n: _lib_path(n) for n in names}
-
-
-def build_log(name: str) -> str:
-    """``nvcc``'s output (registers, shared memory, spills) for one source."""
-    return _lib_path(name).with_suffix(".log").read_text()
+        for _, proc, _, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        job = _start_build(name)
-        if job is not None:
-            _finish_build(name, *job)
+        build(name)
         lib = ctypes.CDLL(str(_lib_path(name)))
         _libs[name] = lib
     return lib
@@ -139,21 +121,15 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def use_kernel(backend: str, x: torch.Tensor) -> bool:
-    """Resolve an op's ``backend``: ``"torch"`` runs the plain version;
-    ``"cuda"`` demands a CUDA tensor; ``"auto"`` hands the tensor to the
+def check_backend(backend: str, x: torch.Tensor) -> None:
+    """Validate an op's ``backend``: ``"auto"`` hands the tensor to the
     kernel wrapper, which launches on a CUDA tensor and runs the plain
-    version only on a CPU one."""
-    if backend == "torch":
-        return False
-    if backend == "cuda":
-        if x.device.type != "cuda":
-            raise ValueError(f"backend='cuda' needs a CUDA tensor, got one on "
-                             f"{x.device}")
-        return True
-    if backend == "auto":
-        return True
-    raise ValueError(f"unknown backend {backend!r} (auto, cuda or torch)")
+    version only on a CPU one; ``"cuda"`` also demands a CUDA tensor."""
+    if backend not in ("auto", "cuda"):
+        raise ValueError(f"unknown backend {backend!r} (auto or cuda)")
+    if backend == "cuda" and x.device.type != "cuda":
+        raise ValueError(f"backend='cuda' needs a CUDA tensor, got one on "
+                         f"{x.device}")
 
 
 def check_grid(x: torch.Tensor, ndim: int, name: str) -> int:

@@ -3,9 +3,9 @@
 ``stencil1d(x, coeffs)`` accepts any (..., N) tensor: it flattens the leading
 dims to a batch and hands it to the kernel wrapper, which launches the CUDA
 kernel on a CUDA tensor and runs the plain version on a CPU tensor
-(``backend="auto"``).  ``backend="cuda"`` insists on the kernel,
-``backend="torch"`` runs the plain version on any device.  The kernel masks
-the ragged edge itself, so there is no padding and no re-mask here.
+(``backend="auto"``); ``backend="cuda"`` insists on the kernel and raises
+on a CPU tensor.  The kernel masks the ragged edge itself, so there is no
+padding and no re-mask here.
 """
 from __future__ import annotations
 
@@ -14,7 +14,6 @@ import torch
 from repro_torch.core.spec import StencilSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.stencil1d.kernel import smem_bytes, stencil1d_kernel
-from repro_torch.kernels.stencil1d.ref import stencil1d_ref
 
 MAX_BLOCK_B = 4       # rows per tile: the mxu kernel's rows per warp
 MAX_BLOCK_N = 1024    # columns per tile: keeps a tile near 33-40 KB
@@ -52,8 +51,7 @@ def stencil1d(x: torch.Tensor, coeffs: tuple[float, ...], *,
               block: tuple[int, int] | None = None) -> torch.Tensor:
     """Batched 1D star stencil along the last axis. See ref.py for semantics."""
     coeffs = tuple(float(c) for c in coeffs)
-    if not _build.use_kernel(backend, x):
-        return stencil1d_ref(x, coeffs, timesteps=timesteps)
+    _build.check_backend(backend, x)
     r = (len(coeffs) - 1) // 2
     n = x.shape[-1]
     xb = x.reshape(-1, n).contiguous()

@@ -7,7 +7,6 @@ import torch
 from repro_torch.core.spec import StencilSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.stencil2d.kernel import smem_bytes, stencil2d_kernel
-from repro_torch.kernels.stencil2d.ref import stencil2d_ref
 
 MAX_BLOCK_Y = 32      # the tile grows to 32 x 128 outputs at most
 MAX_BLOCK_X = 128
@@ -51,8 +50,7 @@ def stencil2d(x: torch.Tensor, cy: tuple[float, ...], cx: tuple[float, ...], *,
     """Batched 2D star stencil over the last two axes (y=-2, x=-1)."""
     cy = tuple(float(c) for c in cy)
     cx = tuple(float(c) for c in cx)
-    if not _build.use_kernel(backend, x):
-        return stencil2d_ref(x, cy, cx, timesteps=timesteps)
+    _build.check_backend(backend, x)
     ry, rx = (len(cy) - 1) // 2, (len(cx) - 1) // 2
     ny, nx = x.shape[-2:]
     xb = x.reshape(-1, ny, nx).contiguous()

@@ -14,7 +14,6 @@ from repro_torch.core.mapping import plan_blocks
 from repro_torch.core.spec import StencilSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.stencil3d.kernel import stencil3d_kernel
-from repro_torch.kernels.stencil3d.ref import stencil3d_ref
 
 DEFAULT_BLOCK = (32, 16, 64)   # z chunk, then a 16 x 64 column tile
 
@@ -43,8 +42,7 @@ def stencil3d(x: torch.Tensor, cz, cy, cx, *, timesteps: int = 1,
     cz = tuple(float(c) for c in cz)
     cy = tuple(float(c) for c in cy)
     cx = tuple(float(c) for c in cx)
-    if not _build.use_kernel(backend, x):
-        return stencil3d_ref(x, cz, cy, cx, timesteps=timesteps)
+    _build.check_backend(backend, x)
     nz, ny, nx = x.shape[-3:]
     if block is None and x.is_cuda:
         block = _auto_block((nz, ny, nx), cz, cy, cx,

@@ -14,7 +14,12 @@ from repro_torch.kernels.stencil1d.ref import stencil1d_ref
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref
 
-pytestmark = pytest.mark.cuda
+pytestmark = [
+    pytest.mark.cuda,
+    pytest.mark.skipif(not torch.cuda.is_available(),
+                       reason="needs an NVIDIA GPU: the CUDA kernels have no "
+                              "CPU mode"),
+]
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -55,8 +60,6 @@ CASES_3D = [
 
 @pytest.fixture
 def dev():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
