@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's stencil main path on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's stencil main path and its RecurrentGemma-2B
+serving path on one NVIDIA GPU (H100).
 
     PYTHONPATH=src python3 chip_smoke.py [--device cuda:0] [--seed 0]
 
-1. Builds the four hand-written CUDA kernels from ``src/repro_torch/csrc``
+1. Builds the six hand-written CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel).
 2. Drives the main path through the public ops (``stencil1d_from_spec``,
    ``stencil2d_from_spec``, ``stencil3d``) with every launch count zeroed just
@@ -19,6 +20,20 @@
    (``library_ms``; TF32 off) and its bound, prints one JSON line per case,
    the ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
+5. The LM phase (``lm_phase``): K5 (causal conv1d) and K6 (sliding-window
+   attention) at RecurrentGemma-2B's shapes in f32 and bf16 against their
+   plain versions (tolerance: conv1d f32 2e-5, bf16 8e-2 plus one bf16
+   quantum, the kernel alone and the op with its bias; swa f32 2e-5, bf16
+   3e-2 and a norm-relative error of at most 1e-2), timed beside the plain version, one library call (``F.conv1d``
+   with ``groups=C``; ``scaled_dot_product_attention`` with a band mask) and
+   the bound; then ``make_prefill`` of the full 26-layer model (d_model 2560,
+   f32 weights, bf16 activations) on tokens (2, 4096), which must launch K5
+   18 times and K6 8 times; then the kernel-free check (``LM.decode`` token
+   by token against ``LM.forward``, f32 activations, 5 layers, S = 2112, so
+   the window and the ring buffer wrap); then ``BatchEngine`` at full width
+   and depth answering 4 requests on 2 slots.  One prefill and one decode
+   step run again under ``torch.profiler`` for the device's busy time by
+   kernel group and its idle share.
 
 Any build error, launch error, mismatch or kernel that the main path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
@@ -41,19 +56,48 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import ShapeSpec, get_config  # noqa: E402
 from repro_torch.core import (paper_stencil_1d, paper_stencil_2d,  # noqa: E402
                               star_3d, stencil_reference_np)
-from repro_torch.kernels import (stencil1d_from_spec, stencil2d_from_spec,  # noqa: E402
+from repro_torch.kernels import (causal_conv1d,  # noqa: E402
+                                 sliding_window_attention,
+                                 stencil1d_from_spec, stencil2d_from_spec,
                                  stencil3d)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.conv1d.kernel import conv1d_kernel  # noqa: E402
+from repro_torch.kernels.conv1d.ref import conv1d_ref  # noqa: E402
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref  # noqa: E402
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref  # noqa: E402
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref  # noqa: E402
+from repro_torch.kernels.swa.ops import swa_plain  # noqa: E402
+from repro_torch.models.registry import build_model, input_arrays  # noqa: E402
+from repro_torch.serving.engine import BatchEngine, Request  # noqa: E402
+from repro_torch.serving.serve_step import (make_decode_step,  # noqa: E402
+                                            make_prefill)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
-# Datasheet peaks (dense, no sparsity): HBM bytes/s and FP32 (non-tensor)
-# flop/s of the two H100 parts.
-PEAKS = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12)}
+# (atol, rtol) of K5/K6 against their plain versions, elementwise.  conv1d
+# in bf16: tests/test_kernels.py:122's 8e-2, and one bf16 quantum (2^-7 |y|)
+# beside it, as in tests/test_torch_cuda.py: the op adds the bias after the
+# kernel's cast to bf16, the plain version before its one cast, and the
+# kernel's fmaf chain and the plain version's rounded products may round to
+# neighbouring bf16 values.
+LM_TOL = {"conv1d": {torch.float32: (2e-5, 0.0), torch.bfloat16: (8e-2, 2**-7)},
+          "swa": {torch.float32: (2e-5, 0.0), torch.bfloat16: (3e-2, 0.0)}}
+# swa in bf16: past the first few hundred queries |out| is about 0.03, as
+# large as the 3e-2 above, so the output is also held to a limit scaled to
+# it: ||y - plain|| / ||plain|| <= 1e-2, which a fault that moves the
+# outputs by 10% fails.
+REL_TOL = {("swa", torch.bfloat16): 1e-2}
+# decode against forward at full width: the bar of tests/test_models.py
+DECODE_TOL = 5e-4
+# Datasheet peaks (dense, no sparsity): HBM bytes/s, FP32 (non-tensor)
+# flop/s and BF16 tensor-core flop/s of the two H100 parts.
+PEAKS = {"sxm": (3.35e12, 67e12, 989e12), "pcie": (2.0e12, 51e12, 756e12)}
+ARCH = "recurrentgemma-2b"
+PREFILL_BATCH, PREFILL_SEQ = 2, 4096      # cut from prefill_32k's (32, 32768)
+DECODE_LAYERS, DECODE_SEQ = 5, 2112       # one period + the 2-layer tail
+PREFILL_LAUNCHES = {"conv1d": 18, "swa": 8}
 KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
     "stencil1d_vpu": ("cuda", "src/repro_torch/csrc/stencil1d.cu",
                       "src/repro/kernels/stencil1d/kernel.py:147"),
@@ -63,7 +107,12 @@ KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
                   "src/repro/kernels/stencil2d/kernel.py:103"),
     "stencil3d": ("cuda", "src/repro_torch/csrc/stencil3d.cu",
                   "src/repro/kernels/stencil3d/kernel.py:97"),
+    "conv1d": ("cuda", "src/repro_torch/csrc/conv1d.cu",
+               "src/repro/kernels/conv1d/kernel.py:55"),
+    "swa": ("cuda", "src/repro_torch/csrc/swa.cu",
+            "src/repro/kernels/swa/kernel.py:99"),
 }
+STENCIL_KERNELS = ("stencil1d_vpu", "stencil1d_mxu", "stencil2d", "stencil3d")
 
 
 @dataclasses.dataclass
@@ -118,7 +167,7 @@ class Case:
         """Least time (ms) the card could take for the function, whatever
         the kernel: one read and one write of the grids at HBM rate, or one
         FMA per non-zero tap per point and sweep at the FP32 datasheet rate."""
-        bw, fp32 = PEAKS[part]
+        bw, fp32, _ = PEAKS[part]
         n = self.x.numel()
         nbytes = 2 * n * self.x.element_size()
         taps = sum(1 for cs in self.spec.coeffs for c in cs if c != 0.0)
@@ -174,6 +223,319 @@ def make_cases(dev: torch.device, seed: int) -> list[Case]:
     return cases
 
 
+def band_pairs(seq: int, window: int) -> int:
+    """(query, key) pairs inside the causal band: sum_i min(i + 1, window)."""
+    w = min(window, seq)
+    return w * (w + 1) // 2 + (seq - w) * w
+
+
+def lm_error(case_kernel: str, dtype: torch.dtype, y: torch.Tensor,
+             want: torch.Tensor) -> tuple[bool, float, float]:
+    """(within the limits, max |y - want|, ||y - want|| / ||want||)."""
+    if y.shape != want.shape or y.dtype != want.dtype:
+        return False, float("inf"), float("inf")
+    yf, wf = y.float(), want.float()
+    diff = (yf - wf).abs()
+    err = diff.max().item()
+    rel = (torch.linalg.vector_norm(diff)
+           / torch.linalg.vector_norm(wf)).item()
+    atol, rtol = LM_TOL[case_kernel][dtype]
+    good = (bool(torch.isfinite(y).all())
+            and bool((diff <= atol + rtol * wf.abs()).all())
+            and rel <= REL_TOL.get((case_kernel, dtype), float("inf")))
+    return good, err, rel
+
+
+@dataclasses.dataclass
+class LMCase:
+    """K5 or K6 at the model's shapes."""
+    kernel: str
+    dtype: torch.dtype
+    args: tuple
+    window: int = 0
+    bias: torch.Tensor | None = None    # conv1d: the (C,) bias the op adds
+
+    def run(self) -> torch.Tensor:
+        """The kernel's wrapper (conv1d without the bias the op adds after)."""
+        if self.kernel == "conv1d":
+            return conv1d_kernel(*self.args)
+        return sliding_window_attention(*self.args, window=self.window,
+                                        backend="cuda")
+
+    def plain(self) -> torch.Tensor:
+        if self.kernel == "conv1d":
+            return conv1d_ref(*self.args)
+        return swa_plain(*self.args, window=self.window)
+
+    def library(self) -> torch.Tensor:
+        """Yardstick only: one PyTorch call for the same function."""
+        if self.kernel == "conv1d":
+            x, w = self.args
+            k, c = w.shape
+            y = F.conv1d(x.transpose(1, 2), w.T[:, None, :], groups=c,
+                         padding=k - 1)
+            return y[..., :x.shape[1]].transpose(1, 2)
+        q, k, v = self.args
+        s = q.shape[2]
+        i = torch.arange(s, device=q.device)[:, None]
+        j = torch.arange(s, device=q.device)[None, :]
+        band = (j <= i) & (j > i - self.window)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                              enable_gqa=True)
+
+    def bound(self, part: str) -> tuple[float, str]:
+        bw, fp32, bf16 = PEAKS[part]
+        nbytes = sum(a.numel() * a.element_size() for a in self.args)
+        if self.kernel == "conv1d":
+            x, w = self.args
+            nbytes += x.numel() * x.element_size()           # y
+            flops, peak = 2 * w.shape[0] * x.numel(), fp32
+        else:
+            q = self.args[0]
+            b, hq, s, d = q.shape
+            nbytes += q.numel() * q.element_size()           # out
+            flops = band_pairs(s, self.window) * b * hq * 4 * d
+            peak = fp32 if self.dtype == torch.float32 else bf16
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lm_kernel_cases(dev: torch.device, seed: int) -> list[LMCase]:
+    cfg = get_config(ARCH)
+    b, s = PREFILL_BATCH, PREFILL_SEQ
+    c, kk = cfg.lru_width, cfg.conv_width
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        cases.append(LMCase("conv1d", dtype, (rnd(b, s, c), rnd(kk, c)),
+                            bias=rnd(c)))
+        cases.append(LMCase("swa", dtype, (rnd(b, hq, s, d), rnd(b, hkv, s, d),
+                                           rnd(b, hkv, s, d)), cfg.window))
+    return cases
+
+
+def time_host(fn, reps: int) -> float:
+    """Median wall ms of ``fn`` ending in a synchronise, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# kernel-name groups of the profile, first match wins
+PROFILE_GROUPS = (
+    ("K6 swa", ("swa_kernel",)),
+    ("K5 conv1d", ("conv1d_kernel",)),
+    ("matmul", ("gemm", "xmma", "cutlass", "gemv", "splitk", "nvjet")),
+    ("copy/cast", ("copy", "cat", "memcpy", "memset", "fill")),
+    ("reduce", ("reduce",)),
+)
+
+
+def device_profile(fn) -> dict:
+    """One run of ``fn`` under ``torch.profiler``: wall ms, the device's busy
+    ms (the sum of the kernels' own device time; one stream), its idle share
+    and the kernels that took most of it, grouped by name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict[str, list] = {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0 or e.device_type.name != "CUDA":
+            continue
+        n = e.key.lower()
+        group = next((g for g, words in PROFILE_GROUPS
+                      if any(w in n for w in words)), "elementwise")
+        g = groups.setdefault(group, [0.0, 0])
+        g[0] += us / 1e3
+        g[1] += e.count
+    busy_ms = sum(g[0] for g in groups.values())
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "by_group": {k: {"ms": v[0], "launches": v[1]} for k, v in
+                         sorted(groups.items(), key=lambda kv: -kv[1][0])}}
+
+
+def lm_phase(dev: torch.device, seed: int, part: str,
+             failures: list[str]) -> list[dict]:
+    """K5/K6 at the model's shapes, then prefill, serving and the
+    kernel-free decode check of recurrentgemma-2b; returns the K5/K6 rows of
+    the ``kernels`` line, whose launches are the prefill's."""
+    cfg = get_config(ARCH)
+
+    # -- K5/K6 at the model's shapes against their plain versions ---------
+    cases = lm_kernel_cases(dev, seed)
+    errs = {}
+    with torch.inference_mode():
+        for case in cases:
+            checks = [("kernel", case.run(), case.plain())]
+            if case.bias is not None:       # the op as the model calls it
+                checks.append(("op with bias",
+                               causal_conv1d(*case.args, case.bias,
+                                             backend="cuda"),
+                               conv1d_ref(*case.args, case.bias)))
+            for what, y, want in checks:
+                good, err, rel = lm_error(case.kernel, case.dtype, y, want)
+                errs.setdefault((case.kernel, case.dtype), err)
+                atol, rtol = LM_TOL[case.kernel][case.dtype]
+                rel_tol = REL_TOL.get((case.kernel, case.dtype))
+                if not good:
+                    failures.append(f"{case.kernel} {what} {case.dtype}: max "
+                                    f"err vs plain {err} (atol {atol}, rtol "
+                                    f"{rtol}), rel err {rel} (tol {rel_tol})")
+                print(json.dumps({
+                    "case": f"model_{case.kernel}", "kernel": case.kernel,
+                    "checked": what,
+                    "shape": [list(a.shape) for a in case.args],
+                    "dtype": str(case.dtype).removeprefix("torch."),
+                    "max_abs_err": err, "atol": atol, "rtol": rtol,
+                    "rel_err": rel, "rel_tol": rel_tol, "ok": good}))
+
+    # -- prefill at published width and depth, counted ---------------------
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = input_arrays(cfg, ShapeSpec("prefill_chip", PREFILL_SEQ,
+                                        PREFILL_BATCH, "prefill"), seed,
+                         device=dev)
+    prefill = make_prefill(model, cfg)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    logits = prefill(batch)
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in PREFILL_LAUNCHES}
+    want_shape = (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size)
+    finite = bool(torch.isfinite(logits).all())
+    ok = (launches == PREFILL_LAUNCHES and tuple(logits.shape) == want_shape
+          and logits.dtype == torch.float32 and finite)
+    if not ok:
+        failures.append(f"prefill: launches {launches} (want "
+                        f"{PREFILL_LAUNCHES}), logits {tuple(logits.shape)} "
+                        f"{logits.dtype}, finite {finite}")
+    del logits
+    ms = time_host(lambda: prefill(batch), reps=3)
+    tokens = PREFILL_BATCH * PREFILL_SEQ
+    print(json.dumps({"phase": "prefill", "arch": ARCH,
+                      "layers": cfg.num_layers, "d_model": cfg.d_model,
+                      "params": n_params, "param_dtype": cfg.param_dtype,
+                      "dtype": cfg.dtype, "tokens": list(batch["tokens"].shape),
+                      "reduced": "seq 4096 and batch 2, cut from prefill_32k's "
+                                 "(32, 32768): its f32 logits alone are 1 TB",
+                      "launches": launches, "logits_finite": finite,
+                      "ms": ms, "tokens_per_s": tokens / ms * 1e3, "ok": ok}))
+    print(json.dumps({"phase": "prefill_profile",
+                      **device_profile(lambda: prefill(batch))}))
+
+    # -- serving at full width and depth -----------------------------------
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               size=8).tolist(), max_new=8)
+            for i in range(4)]
+    engine = BatchEngine(model, cfg, batch_slots=2, cache_len=128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in done)
+    ok = len(done) == 4 and all(r.done and len(r.out) == 8 for r in done)
+    if not ok:
+        failures.append(f"serving: {len(done)}/4 requests completed")
+    print(json.dumps({"phase": "serve", "arch": ARCH, "requests": len(reqs),
+                      "completed": len(done), "slots": 2, "prompt": 8,
+                      "max_new": 8, "tokens": n_tok, "steps": engine.step_count,
+                      "s": serve_s, "tokens_per_s": n_tok / serve_s,
+                      "ok": ok}))
+    step = make_decode_step(model, cfg)
+    cache = model.init_cache(2, 128)
+    one = torch.zeros((2, 1), dtype=torch.int64, device=dev)
+    print(json.dumps({"phase": "decode_step_profile", "batch": 2,
+                      **device_profile(lambda: step(cache, one))}))
+    del cache
+    del model, engine, prefill
+    torch.cuda.empty_cache()
+
+    # -- kernel-free check: decode token by token against forward -----------
+    cfg5 = dataclasses.replace(cfg, num_layers=DECODE_LAYERS, dtype="float32")
+    m5 = build_model(cfg5, device=dev)
+    m5.init(torch.Generator(device=dev).manual_seed(seed + 1))
+    toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg5.vocab_size, size=(1, DECODE_SEQ)), device=dev)
+    with torch.inference_mode():
+        full, _ = m5(toks)
+        cache = m5.init_cache(1, DECODE_SEQ)
+        _build.reset_launches()
+        err = torch.zeros((), device=dev)
+        t0 = time.perf_counter()
+        for t in range(DECODE_SEQ):
+            lg, cache = m5.decode(cache, toks[:, t:t + 1])
+            err = torch.maximum(err, (lg[:, 0] - full[:, t]).abs().max())
+        err = err.item()
+        decode_s = time.perf_counter() - t0
+    decode_launches = sum(_build.LAUNCHES.values())
+    ok = err <= DECODE_TOL and decode_launches == 0
+    if not ok:
+        failures.append(f"decode vs forward: max err {err} (tol {DECODE_TOL}), "
+                        f"{decode_launches} kernel launches in decode")
+    print(json.dumps({"phase": "decode_vs_forward", "arch": ARCH,
+                      "layers": DECODE_LAYERS, "d_model": cfg5.d_model,
+                      "dtype": cfg5.dtype, "seq": DECODE_SEQ,
+                      "window": cfg5.window,
+                      "reduced": f"depth cut to {DECODE_LAYERS} layers (one "
+                                 "period + the 2-layer tail)",
+                      "max_abs_err": err, "tol": DECODE_TOL,
+                      "decode_launches": decode_launches,
+                      "decode_ms_per_token": decode_s / DECODE_SEQ * 1e3,
+                      "ok": ok}))
+    del m5, full, cache
+    torch.cuda.empty_cache()
+
+    # -- timing of K5/K6 (not counted above) -------------------------------
+    rows = []
+    with torch.inference_mode():
+        for case in cases:
+            ms = median_ms(case.run, reps=20)
+            plain_ms = median_ms(case.plain, reps=5)
+            library_ms = median_ms(case.library, reps=5)
+            bound_ms, bound_by = case.bound(part)
+            dt = str(case.dtype).removeprefix("torch.")
+            # the yardstick computes the same function (printed, not gated)
+            library_err = (case.library().float()
+                           - case.plain().float()).abs().max().item()
+            print(json.dumps({"case": f"model_{case.kernel}_{dt}", "ms": ms,
+                              "plain_ms": plain_ms, "library_ms": library_ms,
+                              "library_err": library_err,
+                              "bound_ms": bound_ms, "bound_by": bound_by}))
+            if case.dtype != torch.bfloat16:    # the prefill's type is bf16
+                continue
+            route, source, replaces = KERNELS[case.kernel]
+            rows.append({
+                "name": case.kernel, "route": route, "source": source,
+                "replaces": replaces, "launches": launches[case.kernel],
+                "dtype": dt, "max_abs_err": errs[(case.kernel, case.dtype)],
+                "tol": LM_TOL[case.kernel][case.dtype][0],
+                "max_abs_err_f32": errs[(case.kernel, torch.float32)],
+                "tol_f32": LM_TOL[case.kernel][torch.float32][0],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+                "shape": [list(a.shape) for a in case.args], "part": part})
+    return rows
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -206,7 +568,7 @@ def main(argv: list[str] | None = None) -> int:
         case.y = case.run()
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in STENCIL_KERNELS}
     print(f"main path: {len(cases)} calls in {main_s:.3f} s, launches {launches}")
 
     # -- correctness --------------------------------------------------------
@@ -240,6 +602,12 @@ def main(argv: list[str] | None = None) -> int:
         print("\n".join(failures), file=sys.stderr)
         return 1
 
+    # -- the LM path: K5/K6, prefill, decode check, serving -----------------
+    lm_rows = lm_phase(dev, args.seed, part, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+
     # -- timing (launches here are not counted above) -----------------------
     rows = []
     for case in cases:
@@ -259,6 +627,7 @@ def main(argv: list[str] | None = None) -> int:
             rows.append({
                 "name": case.kernel, "route": route, "source": source,
                 "replaces": replaces, "launches": launches[case.kernel],
+                "dtype": "float32",
                 "max_abs_err": errs[(case.kernel, torch.float32)],
                 "tol": TOL[torch.float32],
                 "max_abs_err_bf16": errs[(case.kernel, torch.bfloat16)],
@@ -266,7 +635,7 @@ def main(argv: list[str] | None = None) -> int:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
                 "shape": list(case.x.shape), "part": part})
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + lm_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1}}))   # the card it drove

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use with ``nvcc`` for ``sm_90a`` into its own shared library, which is loaded
 with :mod:`ctypes`.  Libraries live under ``build/repro_torch/`` at the root
-of the checkout (git-ignored), keyed by a hash of the source and the flags,
-so an edited source is rebuilt and an unchanged one is reused.
+of the checkout (git-ignored), keyed by a hash of the source, the shared
+``csrc/common.cuh`` and the flags, so an edited source is rebuilt and an
+unchanged one is reused.
 :func:`build` starts one ``nvcc`` per source it is given, all at once;
 :func:`library` builds its one source that way on first use.
 
@@ -53,8 +54,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update((CSRC / "common.cuh").read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -145,6 +146,16 @@ def check_grid(x: torch.Tensor, ndim: int, name: str) -> int:
     if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous tensor")
     return DTYPE_CODES[x.dtype]
+
+
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Refuse CUDA inputs that autograd tracks: the kernels have no backward
+    (none had one on the TPU either), and nothing falls back to the plain
+    version for them.  Serving runs under ``torch.inference_mode()``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it "
+                           "on tensors that do not require grad (for example "
+                           "under torch.inference_mode())")
 
 
 def radius(coeffs, name: str) -> int:

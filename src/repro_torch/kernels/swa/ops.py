@@ -1,0 +1,38 @@
+"""Public entry point for sliding-window attention: backend dispatch.
+
+``backend="auto"`` follows the tensor: on a CUDA tensor it launches K6,
+which masks by the true length, so nothing is padded; on a CPU tensor it runs
+the plain versions with the JAX package's switch between the dense and the
+chunked formulation.  ``backend="cuda"`` raises on a CPU tensor.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.swa.kernel import swa_kernel
+from repro_torch.kernels.swa.ref import swa_ref, swa_ref_chunked
+
+# beyond this many positions the dense (S x S) mask path is replaced by the
+# strip-mined chunked path (linear memory in S).
+CHUNKED_THRESHOLD = 4096
+
+
+def swa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              window: int) -> torch.Tensor:
+    """The plain versions as the JAX package's XLA path picks them."""
+    s = q.shape[2]
+    if s > CHUNKED_THRESHOLD or (s > 2 * window and s > 1024):
+        return swa_ref_chunked(q, k, v, window=window)
+    return swa_ref(q, k, v, window=window)
+
+
+def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, window: int,
+                             backend: str = "auto") -> torch.Tensor:
+    """Causal local attention. q: (B, Hq, S, D); k/v: (B, Hkv, S, D)."""
+    _build.check_backend(backend, q)
+    if q.device.type == "cpu":
+        _build.check_grid(q, 4, "swa")
+        return swa_plain(q, k, v, window=window)
+    return swa_kernel(q.contiguous(), k, v, window=window)

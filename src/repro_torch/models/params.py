@@ -1,0 +1,59 @@
+"""Parameter specs (port of ``repro.models.params``): shape, logical axis
+names and init recipe for every parameter, and the five recipes drawn from
+an explicit ``torch.Generator``.
+
+The JAX package materialises a spec tree with ``jax.random``; the port fills
+the tensors an ``nn.Module`` already holds, in place, from one generator in
+a fixed order.  The two give different numbers from the same seed: tests
+carry weights across with :mod:`repro_torch.models.convert` instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    shape: tuple[int, ...]
+    logical: tuple[str | None, ...]
+    init: str = "fan_in"        # fan_in | normal | zeros | ones | embed
+    scale: float = 1.0
+    dtype: str | None = None    # override (norm scales stay fp32)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} and logical axes "
+                             f"{self.logical} differ in rank")
+
+
+def _fan_in(shape: tuple[int, ...]) -> int:
+    # convention: last dim is the output features; everything else is fan-in
+    return max(1, math.prod(shape[:-1]))
+
+
+def spec_dtype(spec: Spec, default_dtype: str) -> torch.dtype:
+    return getattr(torch, spec.dtype or default_dtype)
+
+
+@torch.no_grad()
+def init_leaf_(t: torch.Tensor, spec: Spec,
+               generator: torch.Generator) -> torch.Tensor:
+    """Fill ``t`` (already of the spec's shape, type and device) in place."""
+    if spec.init == "zeros":
+        return t.zero_()
+    if spec.init == "ones":
+        return t.fill_(1.0)
+    if spec.init in ("normal", "embed"):
+        std = spec.scale
+    elif spec.init == "fan_in":
+        std = spec.scale / math.sqrt(_fan_in(spec.shape))
+    else:
+        raise ValueError(f"unknown init {spec.init!r}")
+    return t.normal_(0.0, std, generator=generator)
+
+
+def param_count(specs: dict[str, Spec]) -> int:
+    return sum(math.prod(s.shape) for s in specs.values())

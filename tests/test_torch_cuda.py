@@ -3,16 +3,22 @@
 Needs an NVIDIA GPU (sm_90a) and ``nvcc``: a CUDA kernel has no CPU mode, so
 every test here skips on a host without a card.  On the card, run
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
-Tolerances: ``TOL`` of ``tests/test_kernels.py`` (f32 2e-5, bf16 3e-2).
+Tolerances: ``TOL`` of ``tests/test_kernels.py`` (f32 2e-5, bf16 3e-2;
+conv1d bf16 8e-2, ``tests/test_kernels.py:122``: the kernel path adds the
+bias after its cast to bf16, the plain version before it).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, stencil1d, stencil2d, stencil3d
+from repro_torch.kernels import (_build, causal_conv1d,
+                                 sliding_window_attention, stencil1d,
+                                 stencil2d, stencil3d)
+from repro_torch.kernels.conv1d.ref import conv1d_ref
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref
+from repro_torch.kernels.swa.ops import swa_plain
 
 pytestmark = [
     pytest.mark.cuda,
@@ -57,6 +63,39 @@ CASES_3D = [
     (2, 37, 19, 70, 2, 2, 2, 3, "float32"),
 ]
 
+# (b, s, c, k, dtype): the sweep of tests/test_kernels.py, then ragged
+# channels, a sequence shorter than the halo, the widest taps, model widths
+CASES_CONV = [
+    (2, 128, 64, 4, "float32"),
+    (1, 100, 48, 7, "float32"),
+    (3, 256, 128, 2, "float32"),
+    (1, 64, 16, 16, "float32"),
+    (2, 128, 64, 4, "bfloat16"),
+    (1, 37, 5, 32, "float32"),
+    (2, 3, 200, 4, "float32"),
+    (1, 1, 9, 1, "float32"),
+    (2, 4099, 2560, 4, "bfloat16"),
+    (2, 1000, 2560, 4, "float32"),
+]
+# (b, hq, hkv, s, d, window, dtype): the sweep of tests/test_kernels.py, then
+# S < window, window 1, ragged S, head dims that are not multiples of 32 or
+# 4, and the model's MQA at D = 256
+CASES_SWA = [
+    (1, 4, 4, 256, 32, 64, "float32"),
+    (2, 8, 2, 256, 64, 128, "float32"),
+    (1, 2, 1, 300, 32, 100, "float32"),
+    (1, 4, 4, 512, 32, 512, "float32"),
+    (2, 6, 3, 128, 16, 1, "float32"),
+    (1, 4, 2, 256, 32, 96, "bfloat16"),
+    (1, 10, 1, 1000, 256, 2048, "float32"),
+    (2, 10, 1, 777, 256, 128, "bfloat16"),
+    (1, 4, 2, 130, 40, 1, "float32"),
+    (1, 2, 2, 50, 18, 7, "float32"),
+    (1, 3, 1, 1, 256, 5, "float32"),
+    (1, 10, 1, 2113, 256, 2048, "float32"),
+    (1, 10, 1, 2113, 256, 2048, "bfloat16"),
+]
+
 
 @pytest.fixture
 def dev():
@@ -68,11 +107,12 @@ def _x(rng, shape, dtype, dev):
     return torch.from_numpy(a).to(dev, getattr(torch, dtype))
 
 
-def _close(y, want, atol):
+def _close(y, want, atol, rtol=1e-7):
     torch.cuda.synchronize()
     assert y.dtype == want.dtype and y.shape == want.shape
     np.testing.assert_allclose(y.float().cpu().numpy(),
-                               want.float().cpu().numpy(), atol=atol)
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.parametrize("b,n,r,t,variant,dtype", CASES_1D)
@@ -144,3 +184,49 @@ def test_zero_and_centre_taps(dev, rng):
     x = _x(rng, (2, 20, 30, 40), "float32", dev)
     _close(stencil3d(x, cz, cy, cx, timesteps=2, backend="cuda"),
            stencil3d_ref(x, cz, cy, cx, 2), TOL["float32"])
+
+
+@pytest.mark.parametrize("b,s,c,k,dtype", CASES_CONV)
+def test_conv1d_kernel(dev, rng, b, s, c, k, dtype):
+    x, w, bias = (_x(rng, shape, dtype, dev) for shape in ((b, s, c), (k, c),
+                                                          (c,)))
+    before = _build.LAUNCHES.get("conv1d", 0)
+    y = causal_conv1d(x, w, bias, backend="cuda")
+    assert _build.LAUNCHES["conv1d"] == before + 1
+    # bf16, one quantum (at most 2^-7 |y|) beside the absolute limit:
+    # - with bias, the op rounds twice (after the kernel, after the bias),
+    #   the plain version once: 0.125 apart at |y| ~ 16, where
+    #   tests/test_kernels.py's 8e-2 alone would fail;
+    # - without bias, both round once, but the kernel sums with fmaf and the
+    #   plain version rounds each product first, so the float32 sums differ
+    #   in their last bits and may land on either side of a bf16 rounding.
+    rtol = 2 ** -7 if dtype == "bfloat16" else 0.0
+    _close(y, conv1d_ref(x, w, bias), 8e-2 if dtype == "bfloat16" else
+           TOL[dtype], rtol)
+    _close(causal_conv1d(x, w, backend="cuda"), conv1d_ref(x, w), TOL[dtype],
+           rtol)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,w,dtype", CASES_SWA)
+def test_swa_kernel(dev, rng, b, hq, hkv, s, d, w, dtype):
+    q = _x(rng, (b, hq, s, d), dtype, dev)
+    k = _x(rng, (b, hkv, s, d), dtype, dev)
+    v = _x(rng, (b, hkv, s, d), dtype, dev)
+    before = _build.LAUNCHES.get("swa", 0)
+    y = sliding_window_attention(q, k, v, window=w, backend="cuda")
+    assert _build.LAUNCHES["swa"] == before + 1
+    _close(y, swa_plain(q, k, v, window=w), TOL[dtype])
+
+
+def test_kernels_refuse_tensors_that_require_grad(dev):
+    x = torch.randn(1, 8, 4, device=dev, requires_grad=True)
+    w = torch.randn(4, 4, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        causal_conv1d(x, w)
+    q = torch.randn(1, 2, 8, 16, device=dev, requires_grad=True)
+    kv = torch.randn(1, 1, 8, 16, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sliding_window_attention(q, kv, kv, window=4)
+    with torch.inference_mode():
+        causal_conv1d(x.detach(), w)
+        sliding_window_attention(q.detach(), kv, kv, window=4)

@@ -10,12 +10,16 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.kernels import _build, stencil1d, stencil2d, stencil3d
+from repro_torch.kernels import (_build, causal_conv1d,
+                                 sliding_window_attention, stencil1d,
+                                 stencil2d, stencil3d)
+from repro_torch.kernels.conv1d.kernel import conv1d_kernel
 from repro_torch.kernels.stencil1d.kernel import stencil1d_kernel
 from repro_torch.kernels.stencil1d.ops import plan_1d_blocks
 from repro_torch.kernels.stencil2d.kernel import stencil2d_kernel
 from repro_torch.kernels.stencil2d.ops import plan_2d_blocks
 from repro_torch.kernels.stencil3d.kernel import stencil3d_kernel
+from repro_torch.kernels.swa.kernel import swa_kernel
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 C1 = (0.25, 0.5, 0.25)
@@ -23,7 +27,13 @@ CY, CX = (0.1, 0.6, 0.1), (0.1, 0.0, 0.1)
 
 
 def test_import_loads_no_jax_and_no_repro():
-    code = ("import json, sys, repro_torch, repro_torch.core, repro_torch.kernels;"
+    """Every module of the port, the LM path's entry points named first."""
+    code = ("import importlib, json, pkgutil, sys, repro_torch;"
+            "import repro_torch.core, repro_torch.kernels, repro_torch.models,"
+            " repro_torch.serving, repro_torch.launch.serve,"
+            " repro_torch.configs;"
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "repro_torch.__path__, 'repro_torch.')];"
             "print(json.dumps(sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -48,12 +58,17 @@ def test_sources_import_no_jax_and_no_repro():
     (stencil1d, (torch.zeros(2, 64), C1)),
     (stencil2d, (torch.zeros(1, 16, 16), CY, CX)),
     (stencil3d, (torch.zeros(1, 8, 8, 8), CY, CX, CX)),
+    (causal_conv1d, (torch.zeros(1, 8, 4), torch.zeros(4, 4))),
+    (sliding_window_attention, (torch.zeros(1, 2, 8, 16),
+                                torch.zeros(1, 1, 8, 16),
+                                torch.zeros(1, 1, 8, 16))),
 ])
 def test_cuda_backend_on_cpu_tensor_raises(op, args):
+    kw = {"window": 4} if op is sliding_window_attention else {}
     with pytest.raises(ValueError, match="CUDA tensor"):
-        op(*args, backend="cuda")
+        op(*args, backend="cuda", **kw)
     with pytest.raises(ValueError, match="unknown backend"):
-        op(*args, backend="pallas")
+        op(*args, backend="pallas", **kw)
 
 
 @pytest.mark.parametrize("wrapper,args,kw", [
@@ -61,6 +76,18 @@ def test_cuda_backend_on_cpu_tensor_raises(op, args):
     (stencil2d_kernel, (torch.zeros(1, 16, 16, dtype=torch.float64), CY, CX), {}),
     (stencil3d_kernel, (torch.zeros(1, 8, 8, 8, dtype=torch.float64), CY, CX, CX),
      {"block": (8, 8, 8)}),
+    (conv1d_kernel, (torch.zeros(1, 8, 4, dtype=torch.float64),
+                     torch.zeros(4, 4, dtype=torch.float64)), {}),
+    (swa_kernel, (torch.zeros(1, 2, 8, 16, dtype=torch.float64),
+                  torch.zeros(1, 1, 8, 16, dtype=torch.float64),
+                  torch.zeros(1, 1, 8, 16, dtype=torch.float64)),
+     {"window": 4}),
+    (causal_conv1d, (torch.zeros(1, 8, 4, dtype=torch.float64),
+                     torch.zeros(4, 4, dtype=torch.float64)), {}),
+    (sliding_window_attention, (torch.zeros(1, 2, 8, 16, dtype=torch.float64),
+                                torch.zeros(1, 1, 8, 16, dtype=torch.float64),
+                                torch.zeros(1, 1, 8, 16, dtype=torch.float64)),
+     {"window": 4}),
 ])
 def test_float64_into_a_kernel_wrapper_raises(wrapper, args, kw):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -73,6 +100,32 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     y = stencil1d_kernel(x, C1, timesteps=2)
     assert y.shape == x.shape and torch.isfinite(y).all()
     assert dict(_build.LAUNCHES) == before
+
+
+def test_lm_wrappers_check_shapes_and_taps():
+    with pytest.raises(ValueError, match="taps"):
+        conv1d_kernel(torch.zeros(1, 8, 4), torch.zeros(4, 5))
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        swa_kernel(torch.zeros(1, 3, 8, 16), torch.zeros(1, 2, 8, 16),
+                   torch.zeros(1, 2, 8, 16), window=4)
+    with pytest.raises(ValueError, match="window"):
+        swa_kernel(torch.zeros(1, 2, 8, 16), torch.zeros(1, 1, 8, 16),
+                   torch.zeros(1, 1, 8, 16), window=0)
+
+
+def test_swa_smem_fits_the_h100_at_head_dim_256():
+    from repro_torch.kernels.swa.kernel import smem_bytes
+    assert smem_bytes(256) == 140_288 <= _build.H100_SMEM_PER_BLOCK
+
+
+def test_serve_cli_needs_a_gpu_unless_asked_for_the_cpu():
+    code = ("import torch, repro_torch.launch.serve as s;"
+            "torch.cuda.is_available = lambda: False;"
+            "s.main(['--reduced'])")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
 
 
 def test_unknown_variant_raises():
@@ -89,9 +142,9 @@ def test_missing_nvcc_raises_clearly(monkeypatch, tmp_path):
 
 def test_library_paths_are_keyed_by_source():
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert names == ["stencil1d", "stencil2d", "stencil3d"]
+    assert names == ["conv1d", "stencil1d", "stencil2d", "stencil3d", "swa"]
     paths = {_build._lib_path(n) for n in names}
-    assert len(paths) == 3
+    assert len(paths) == 5
     assert all(p.parent == _build.BUILD_DIR for p in paths)
 
 
@@ -123,3 +176,42 @@ def test_plan_1d_blocks(variant):
     assert plan_1d_blocks(200, 3, 1, 3, variant) == (3, 256)
     with pytest.raises(ValueError, match="shared memory"):
         plan_1d_blocks(10 ** 7, 1, 8, 4000, variant)
+
+
+def test_library_paths_cover_the_shared_header(monkeypatch, tmp_path):
+    """An edit to csrc/common.cuh rebuilds every kernel."""
+    for p in _build.CSRC.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._lib_path("swa")
+    with open(tmp_path / "common.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert _build._lib_path("swa") != before
+
+
+def test_chip_smoke_lm_limits_refuse_a_wrong_kernel():
+    """chip_smoke.py's K5/K6 limits pass the bf16 rounding of the op and
+    refuse a lost key tile and outputs 5% off, which the 3e-2 absolute
+    limit alone lets through where |out| is small."""
+    sys.path.insert(0, str(SRC.parent))
+    import chip_smoke
+    from repro_torch.kernels.conv1d.ref import conv1d_ref
+    from repro_torch.kernels.swa.ops import swa_plain
+    g = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(shape, generator=g).to(bf) for shape in
+               ((1, 4, 1024, 64), (1, 1, 1024, 64), (1, 1, 1024, 64)))
+    want = swa_plain(q, k, v, window=512)
+    assert chip_smoke.lm_error("swa", bf, want.clone(), want)[0]
+    v_lost = v.clone()
+    v_lost[:, :, 480:512] = 0                   # one 32-key tile lost
+    assert not chip_smoke.lm_error("swa", bf,
+                                   swa_plain(q, k, v_lost, window=512),
+                                   want)[0]
+    off = (want.float()[:, :, 600:] * 1.05).to(bf)  # past the early queries
+    good, err, rel = chip_smoke.lm_error("swa", bf, off, want[:, :, 600:])
+    assert not good and err < 3e-2 and rel > 1e-2
+    x, w, b = (torch.randn(shape, generator=g).to(bf)
+               for shape in ((2, 300, 64), (4, 64), (64,)))
+    assert chip_smoke.lm_error("conv1d", bf, causal_conv1d(x, w, b),
+                               conv1d_ref(x, w, b))[0]
