@@ -11,14 +11,18 @@ serving path on one NVIDIA GPU (H100).
    before and read just after: the paper's §VI shapes in f32 (1D 17-pt
    N=194400 through both variants, 2D 49-pt 449x960 at T=1 and T=4, 3D
    ``star_3d(64, 64, 256, r=2)``), then deployment sizes (1D 1024 x 194400,
-   2D 256 x 449 x 960, 3D 512^3) in f32 and bf16.
+   2D 256 x 449 x 960, 3D 512^3) in f32 and bf16, and the seismic T=4 2D
+   sweep on 16 x 449 x 960 in bf16.
 3. Holds every output against the kernel's plain PyTorch version on the card
    (tolerance: f32 2e-5, bf16 3e-2, the TOL table of tests/test_kernels.py),
    and the paper shapes also against the numpy oracle on the host.
 4. Times each kernel at its deployment shape (median of CUDA-event times
    after warm-up) beside its plain version, a cuDNN convolution yardstick
    (``library_ms``; TF32 off) and its bound, prints one JSON line per case,
-   the ``kernels`` JSON line, the card's name and power limit, and last
+   the ``kernels`` JSON line (each stencil row also with its bf16 time and
+   bound, the K5/K6 rows with their f32 ones, and the redesigned K3 and K6
+   with ``prev_ms``, their previous design's time), the card's name and
+   power limit, and last
    ``{"ok": true, "device": {...}}``.
 5. The LM phase (``lm_phase``): K5 (causal conv1d) and K6 (sliding-window
    attention) at RecurrentGemma-2B's shapes in f32 and bf16 against their
@@ -44,6 +48,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -113,6 +118,12 @@ KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
             "src/repro/kernels/swa/kernel.py:99"),
 }
 STENCIL_KERNELS = ("stencil1d_vpu", "stencil1d_mxu", "stencil2d", "stencil3d")
+# ms of the kernels' previous designs at the same shapes (this script, NVIDIA
+# H100 80GB HBM3, 700 W): K6 bf16 on the CUDA cores in f32, K3 f32 with one
+# output per thread and 50 shared loads per point.  Printed as prev_ms.
+PREV_MS = {"swa": 7.763, "stencil2d": 2.350}
+# sources whose register use and spills are printed (nvcc -Xptxas -v)
+PTXAS_SOURCES = ("swa", "stencil2d")
 
 
 @dataclasses.dataclass
@@ -176,6 +187,70 @@ class Case:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def start_ptxas(names) -> list:
+    """One ``nvcc -cubin -Xptxas -v`` per source, started at once beside the
+    build, into build/repro_torch/ptxas (git-ignored)."""
+    out = _build.BUILD_DIR / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        log = out / f"{name}.log"
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(
+                [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o",
+                 str(out / f"{name}.cubin"), str(_build.CSRC / f"{name}.cu")],
+                stdout=fh, stderr=subprocess.STDOUT)
+        jobs.append((name, proc, log))
+    return jobs
+
+
+def kernel_instance(mangled: str) -> str:
+    """``stencil2d_kernel<bf16,12>`` from a mangled template instance."""
+    k = re.search(r"(swa_wgmma_kernel|swa_f32_kernel|stencil2d_kernel)I(\w*?)EEv",
+                  mangled)
+    if not k:
+        return mangled
+    args, rest = [], k.group(2)
+    while rest:
+        if rest.startswith("13__nv_bfloat16"):
+            args.append("bf16")
+            rest = rest[len("13__nv_bfloat16"):]
+        elif rest.startswith("f"):
+            args.append("f32")
+            rest = rest[1:]
+        elif m := re.match(r"Li(\d+)E", rest):
+            args.append(m.group(1))
+            rest = rest[m.end():]
+        else:
+            args.append(rest)
+            break
+    return f"{k.group(1)}<{','.join(args)}>"
+
+
+def read_ptxas(jobs) -> list[dict]:
+    """Registers and spill bytes of every kernel instance ptxas reported."""
+    rows = []
+    for name, proc, log in jobs:
+        if proc.wait(timeout=600) != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed on {name}.cu:\n"
+                               + log.read_text())
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                rows.append({"source": f"{name}.cu",
+                             "kernel": kernel_instance(m.group(1))})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and rows:
+                rows[-1]["spill_stores"] = int(m.group(1))
+                rows[-1]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and rows:
+                rows[-1]["registers"] = int(m.group(1))
+    return rows
+
+
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -219,6 +294,7 @@ def make_cases(dev: torch.device, seed: int) -> list[Case]:
              grid((1024, 194400), bf16), "mxu"),
         Case("deploy_2d_bf16", "stencil2d", s2, grid((256, 449, 960), bf16)),
         Case("deploy_3d_bf16", "stencil3d", s3d, grid(s3d.grid_shape, bf16)),
+        Case("seismic_2d_t4_bf16", "stencil2d", s2t4, grid((16, 449, 960), bf16)),
     ]
     return cases
 
@@ -332,7 +408,7 @@ def time_host(fn, reps: int) -> float:
 
 # kernel-name groups of the profile, first match wins
 PROFILE_GROUPS = (
-    ("K6 swa", ("swa_kernel",)),
+    ("K6 swa", ("swa_wgmma_kernel", "swa_f32_kernel")),
     ("K5 conv1d", ("conv1d_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "gemv", "splitk", "nvjet")),
     ("copy/cast", ("copy", "cat", "memcpy", "memset", "fill")),
@@ -506,6 +582,7 @@ def lm_phase(dev: torch.device, seed: int, part: str,
 
     # -- timing of K5/K6 (not counted above) -------------------------------
     rows = []
+    timed = {}
     with torch.inference_mode():
         for case in cases:
             ms = median_ms(case.run, reps=20)
@@ -520,19 +597,30 @@ def lm_phase(dev: torch.device, seed: int, part: str,
                               "plain_ms": plain_ms, "library_ms": library_ms,
                               "library_err": library_err,
                               "bound_ms": bound_ms, "bound_by": bound_by}))
-            if case.dtype != torch.bfloat16:    # the prefill's type is bf16
-                continue
-            route, source, replaces = KERNELS[case.kernel]
-            rows.append({
-                "name": case.kernel, "route": route, "source": source,
-                "replaces": replaces, "launches": launches[case.kernel],
-                "dtype": dt, "max_abs_err": errs[(case.kernel, case.dtype)],
-                "tol": LM_TOL[case.kernel][case.dtype][0],
-                "max_abs_err_f32": errs[(case.kernel, torch.float32)],
-                "tol_f32": LM_TOL[case.kernel][torch.float32][0],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms,
-                "shape": [list(a.shape) for a in case.args], "part": part})
+            timed[(case.kernel, case.dtype)] = (ms, plain_ms, library_ms,
+                                                bound_ms, bound_by)
+    for case in cases:
+        if case.dtype != torch.bfloat16:        # the prefill's type is bf16
+            continue
+        ms, plain_ms, library_ms, bound_ms, bound_by = timed[(case.kernel,
+                                                              case.dtype)]
+        f32 = timed[(case.kernel, torch.float32)]
+        route, source, replaces = KERNELS[case.kernel]
+        row = {
+            "name": case.kernel, "route": route, "source": source,
+            "replaces": replaces, "launches": launches[case.kernel],
+            "dtype": "bfloat16", "max_abs_err": errs[(case.kernel, case.dtype)],
+            "tol": LM_TOL[case.kernel][case.dtype][0],
+            "max_abs_err_f32": errs[(case.kernel, torch.float32)],
+            "tol_f32": LM_TOL[case.kernel][torch.float32][0],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "ms_f32": f32[0], "bound_ms_f32": f32[3],
+            "library_ms_f32": f32[2],
+            "shape": [list(a.shape) for a in case.args], "part": part}
+        if case.kernel in PREV_MS:
+            row["prev_ms"] = PREV_MS[case.kernel]
+        rows.append(row)
     return rows
 
 
@@ -556,8 +644,16 @@ def main(argv: list[str] | None = None) -> int:
 
     t0 = time.perf_counter()
     sources = sorted({Path(src).stem for _, src, _ in KERNELS.values()})
-    _build.build(*sources)
+    ptxas = start_ptxas(PTXAS_SOURCES)
+    try:
+        _build.build(*sources)
+    except BaseException:
+        for _, proc, _ in ptxas:
+            proc.kill()
+            proc.wait()
+        raise
     print(f"built {sources} in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ptxas": read_ptxas(ptxas)}))
     cases = make_cases(dev, args.seed)
     torch.cuda.synchronize()
 
@@ -609,7 +705,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     # -- timing (launches here are not counted above) -----------------------
-    rows = []
+    timed = {}
     for case in cases:
         if not case.name.startswith("deploy"):
             print(json.dumps({"case": case.name,
@@ -622,19 +718,31 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps({"case": case.name, "ms": ms, "plain_ms": plain_ms,
                           "library_ms": library_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by}))
-        if case.timed:
-            route, source, replaces = KERNELS[case.kernel]
-            rows.append({
-                "name": case.kernel, "route": route, "source": source,
-                "replaces": replaces, "launches": launches[case.kernel],
-                "dtype": "float32",
-                "max_abs_err": errs[(case.kernel, torch.float32)],
-                "tol": TOL[torch.float32],
-                "max_abs_err_bf16": errs[(case.kernel, torch.bfloat16)],
-                "tol_bf16": TOL[torch.bfloat16],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms,
-                "shape": list(case.x.shape), "part": part})
+        timed[(case.kernel, case.x.dtype)] = (ms, plain_ms, library_ms,
+                                              bound_ms, bound_by)
+    rows = []
+    for case in cases:
+        if not case.timed:
+            continue
+        ms, plain_ms, library_ms, bound_ms, bound_by = timed[(case.kernel,
+                                                              torch.float32)]
+        bf = timed[(case.kernel, torch.bfloat16)]
+        route, source, replaces = KERNELS[case.kernel]
+        row = {
+            "name": case.kernel, "route": route, "source": source,
+            "replaces": replaces, "launches": launches[case.kernel],
+            "dtype": "float32",
+            "max_abs_err": errs[(case.kernel, torch.float32)],
+            "tol": TOL[torch.float32],
+            "max_abs_err_bf16": errs[(case.kernel, torch.bfloat16)],
+            "tol_bf16": TOL[torch.bfloat16],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "ms_bf16": bf[0], "bound_ms_bf16": bf[3], "bound_by_bf16": bf[4],
+            "shape": list(case.x.shape), "part": part}
+        if case.kernel in PREV_MS:
+            row["prev_ms"] = PREV_MS[case.kernel]
+        rows.append(row)
     print(json.dumps({"kernels": rows + lm_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -133,8 +133,11 @@ def check_backend(backend: str, x: torch.Tensor) -> None:
                          f"{x.device}")
 
 
-def check_grid(x: torch.Tensor, ndim: int, name: str) -> int:
-    """Validate a kernel wrapper's input; returns the kernel's dtype code."""
+def check_grid(x: torch.Tensor, ndim: int, name: str, *,
+               strided: bool = False) -> int:
+    """Validate a kernel wrapper's input; returns the kernel's dtype code.
+    A CUDA tensor must be contiguous unless the kernel takes ``strided``
+    input."""
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16 (the kernel sums in "
                         f"float32), got {x.dtype}")
@@ -143,7 +146,7 @@ def check_grid(x: torch.Tensor, ndim: int, name: str) -> int:
                          f"{tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.device.type == "cuda" and not x.is_contiguous():
+    if x.device.type == "cuda" and not strided and not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous tensor")
     return DTYPE_CODES[x.dtype]
 

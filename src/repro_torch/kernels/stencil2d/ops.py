@@ -8,7 +8,7 @@ from repro_torch.core.spec import StencilSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.stencil2d.kernel import smem_bytes, stencil2d_kernel
 
-MAX_BLOCK_Y = 32      # the tile grows to 32 x 128 outputs at most
+MAX_BLOCK_Y = 128     # the tile grows to 128 x 128 outputs at most
 MAX_BLOCK_X = 128
 
 
@@ -18,10 +18,13 @@ def plan_2d_blocks(ny: int, nx: int, ry: int, rx: int, timesteps: int,
     """(block_y, block_x) under a shared-memory budget per thread block
     (on the card: its opt-in limit, ``_build.smem_per_block``).
 
-    Starts from an 8 x 32 tile and doubles x (to 128), then y (to 32), while
-    the haloed ping-pong workspace fits and the grid still needs the room.
-    Raises ValueError when not even the 8 x 32 tile fits: the halo
-    ``(ry·T, rx·T)`` is then too wide for one block."""
+    Starts from an 8 x 32 tile and doubles x (to 128), then y (to 128),
+    while the haloed workspace fits and the grid still needs the room: the
+    larger the tile, the smaller the share of halo it reads (at r = 12 and
+    T = 1, 1.48x the outputs at 128 x 128 against 2.08x at 32 x 128).
+    At T = 1 and r = 12 the 128 x 128 tile takes 97,280 B, so two blocks
+    share an SM.  Raises ValueError when not even the 8 x 32 tile fits: the
+    halo ``(ry·T, rx·T)`` is then too wide for one block."""
     by, bx = 8, 32
 
     def fits(by_: int, bx_: int) -> bool:
@@ -32,15 +35,10 @@ def plan_2d_blocks(ny: int, nx: int, ry: int, rx: int, timesteps: int,
             f"an 8 x 32 tile of the 2D stencil at r=({ry}, {rx}), "
             f"T={timesteps} needs {smem_bytes(ry, rx, timesteps, by, bx)} B of "
             f"shared memory; the budget is {smem_budget} B")
-    progress = True
-    while progress:
-        progress = False
-        if bx < min(nx, MAX_BLOCK_X) and fits(by, bx * 2):
-            bx *= 2
-            progress = True
-        elif by < min(ny, MAX_BLOCK_Y) and fits(by * 2, bx):
-            by *= 2
-            progress = True
+    while bx < min(nx, MAX_BLOCK_X) and fits(by, bx * 2):
+        bx *= 2
+    while by < min(ny, MAX_BLOCK_Y) and fits(by * 2, bx):
+        by *= 2
     return by, bx
 
 

@@ -30,9 +30,10 @@ def swa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, window: int,
                              backend: str = "auto") -> torch.Tensor:
-    """Causal local attention. q: (B, Hq, S, D); k/v: (B, Hkv, S, D)."""
+    """Causal local attention. q: (B, Hq, S, D); k/v: (B, Hkv, S, D), in
+    any memory layout (the kernel reads them through their strides)."""
     _build.check_backend(backend, q)
     if q.device.type == "cpu":
         _build.check_grid(q, 4, "swa")
         return swa_plain(q, k, v, window=window)
-    return swa_kernel(q.contiguous(), k, v, window=window)
+    return swa_kernel(q, k, v, window=window)

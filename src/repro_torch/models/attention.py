@@ -76,9 +76,10 @@ def attend_local(p, x: torch.Tensor, cfg: ArchConfig, *,
     """Sliding-window attention, prefill path (kernel K6). x: (B, S, D)."""
     q, k, v = _project(p, x)
     q, k = _rope_qk(q, k, cfg, positions)
-    out = sliding_window_attention(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), window=cfg.window)
+    # (B, S, H, hd) viewed as (B, H, S, hd): K6 reads the views through their
+    # strides and writes its output in q's layout, so nothing is copied
+    out = sliding_window_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), window=cfg.window)
     return _out(p, out.transpose(1, 2))
 
 

@@ -54,6 +54,11 @@ CASES_2D = [
     (2, 40, 140, 3, 1, 1, "float32"),
     (1, 64, 128, 1, 1, 2, "bfloat16"),
     (3, 113, 240, 12, 12, 4, "float32"),
+    # the paper's radius on ragged grids (neither axis a multiple of the
+    # tile; 517 also not of the 16-byte chunk), bf16 at T = 1 and T = 4
+    (2, 301, 517, 12, 12, 1, "bfloat16"),
+    (1, 150, 333, 12, 12, 4, "bfloat16"),
+    (1, 200, 968, 12, 12, 1, "float32"),
 ]
 CASES_3D = [
     (1, 16, 16, 128, 1, 1, 1, 1, "float32"),
@@ -94,6 +99,14 @@ CASES_SWA = [
     (1, 3, 1, 1, 256, 5, "float32"),
     (1, 10, 1, 2113, 256, 2048, "float32"),
     (1, 10, 1, 2113, 256, 2048, "bfloat16"),
+    # the tensor-core path: head dims that are not multiples of 16 (D = 18
+    # also not of 8: element-wise loads), the prefill's S = 4096 with
+    # window 2048, and windows that reach past S
+    (1, 4, 2, 300, 18, 64, "bfloat16"),
+    (2, 4, 2, 333, 40, 100, "bfloat16"),
+    (1, 10, 1, 4096, 256, 2048, "bfloat16"),
+    (1, 4, 2, 500, 64, 600, "bfloat16"),
+    (1, 4, 1, 300, 256, 300, "bfloat16"),
 ]
 
 
@@ -216,6 +229,34 @@ def test_swa_kernel(dev, rng, b, hq, hkv, s, d, w, dtype):
     y = sliding_window_attention(q, k, v, window=w, backend="cuda")
     assert _build.LAUNCHES["swa"] == before + 1
     _close(y, swa_plain(q, k, v, window=w), TOL[dtype])
+
+
+@pytest.mark.parametrize("d,dtype", [(256, "bfloat16"), (40, "bfloat16"),
+                                     (18, "bfloat16"), (256, "float32")])
+def test_swa_kernel_reads_strided_views(dev, rng, d, dtype):
+    """(B, S, H, D) tensors viewed as (B, H, S, D), as the model passes
+    them: no copy, the output in q's layout, the plain version's values."""
+    q = _x(rng, (2, 700, 4, d), dtype, dev).transpose(1, 2)
+    k = _x(rng, (2, 700, 2, d), dtype, dev).transpose(1, 2)
+    v = _x(rng, (2, 700, 2, d), dtype, dev).transpose(1, 2)
+    y = sliding_window_attention(q, k, v, window=300, backend="cuda")
+    assert y.stride() == q.stride()
+    _close(y, swa_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                        window=300), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 4])
+def test_stencil2d_zero_interior_taps_at_radius_12(dev, rng, dtype, t):
+    """Zero taps inside both chains of the compile-time r = 12 instance are
+    skipped, on a grid that is ragged against the tile."""
+    cy = rng.normal(size=25) / 49
+    cx = rng.normal(size=25) / 49
+    cy[5] = cx[12] = cx[20] = 0.0
+    cy, cx = tuple(cy.tolist()), tuple(cx.tolist())
+    x = _x(rng, (2, 181, 403), dtype, dev)
+    _close(stencil2d(x, cy, cx, timesteps=t, backend="cuda"),
+           stencil2d_ref(x, cy, cx, t), TOL[dtype])
 
 
 def test_kernels_refuse_tensors_that_require_grad(dev):

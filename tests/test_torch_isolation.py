@@ -114,8 +114,12 @@ def test_lm_wrappers_check_shapes_and_taps():
 
 
 def test_swa_smem_fits_the_h100_at_head_dim_256():
+    """bf16: Q (128 rows) and two stages of K and V (64 rows each) of 256
+    bf16, and 1024 B of alignment; f32: the CUDA-core kernel's tiles."""
     from repro_torch.kernels.swa.kernel import smem_bytes
-    assert smem_bytes(256) == 140_288 <= _build.H100_SMEM_PER_BLOCK
+    assert smem_bytes(256) == 2 * (128 + 4 * 64) * 256 + 1024 == 197_632
+    assert smem_bytes(256, torch.bfloat16) == 197_632 <= _build.H100_SMEM_PER_BLOCK
+    assert smem_bytes(256, torch.float32) == 140_288 <= _build.H100_SMEM_PER_BLOCK
 
 
 def test_serve_cli_needs_a_gpu_unless_asked_for_the_cpu():
@@ -149,10 +153,10 @@ def test_library_paths_are_keyed_by_source():
 
 
 @pytest.mark.parametrize("ny,nx,r,t,want", [
-    (449, 960, 12, 1, (32, 128)),     # the paper's seismic stencil
-    (449, 960, 12, 4, (32, 128)),     # ... fused 4 steps: ~208 KB of 227 KB
-    (64, 128, 1, 1, (32, 128)),
-    (40, 48, 3, 1, (32, 64)),
+    (449, 960, 12, 1, (128, 128)),    # the paper's seismic stencil: 97,280 B
+    (449, 960, 12, 4, (16, 128)),     # ... fused 4 steps: 230,400 of 232,448 B
+    (64, 128, 1, 1, (64, 128)),
+    (40, 48, 3, 1, (64, 64)),
 ])
 def test_plan_2d_blocks_fits_the_h100(ny, nx, r, t, want):
     from repro_torch.kernels.stencil2d.kernel import smem_bytes

@@ -1,0 +1,190 @@
+"""Host-side planning of the K3 and K6 kernels, and the arithmetic of K6's
+tensor-core path, on the CPU (no jax, no card).
+
+- Shared memory of K6 (bf16 tensor-core and f32 layouts) and of K3 (one
+  buffer at T = 1, two with margins for fused sweeps) against the H100's
+  opt-in 232,448 B per block.
+- The compacted tap list K3 takes: ascending order kept, zero taps dropped,
+  laid out as ``struct Taps`` of ``csrc/stencil2d.cu``.
+- A torch emulation of where K6's bf16 path rounds (bf16 products summed in
+  f32, the scale on the f32 scores, an online softmax over 64-key tiles, P
+  rounded to bf16 before an f32 P·V) held to ``chip_smoke.py``'s limits
+  against the plain version, so the design fits the limits before any run
+  on the card.
+"""
+import math
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build, sliding_window_attention
+from repro_torch.kernels.stencil2d import kernel as k3
+from repro_torch.kernels.stencil2d.ops import plan_2d_blocks
+from repro_torch.kernels.swa import kernel as k6
+from repro_torch.kernels.swa.ops import swa_plain
+
+ROOT = Path(__file__).resolve().parents[1]
+LIMIT = _build.H100_SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("d,want", [(256, 197_632), (18, 50_176),
+                                    (40, 50_176), (64, 50_176),
+                                    (65, 99_328), (128, 99_328)])
+def test_swa_tensor_core_smem(d, want):
+    """2 B x (128 Q rows + 2 stages x 64 K + 64 V rows) x (D zero-filled to
+    64, 128 or 256), and 1024 B to align the swizzled tiles."""
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    assert k6.smem_bytes(d, torch.bfloat16) == 2 * 384 * dp + 1024 == want
+    assert want <= LIMIT
+
+
+@pytest.mark.parametrize("d", [18, 40, 256])
+def test_swa_f32_smem_fits(d):
+    assert k6.smem_bytes(d, torch.float32) <= LIMIT
+
+
+@pytest.mark.parametrize("ry,rx,t,by,bx,want", [
+    (12, 12, 1, 128, 128, 4 * 152 * 160),             # 97,280: 2 blocks an SM
+    (12, 12, 4, 16, 128, 4 * 2 * 120 * 240),          # 230,400
+    (1, 1, 1, 64, 128, 4 * 66 * 144),
+    (3, 1, 2, 8, 32, 4 * 2 * (8 + 12 + 8) * (32 + 2 * (8 + 8))),
+])
+def test_stencil2d_smem(ry, rx, t, by, bx, want):
+    """T = 1: one buffer of (by + 2ry) rows x (bx + 2·pad8(rx)) columns;
+    T > 1: two, each with 8 margin columns a side and 8 rows below."""
+    assert k3.smem_bytes(ry, rx, t, by, bx) == want
+
+
+@pytest.mark.parametrize("ny,nx,r,t", [(449, 960, 12, 1), (449, 960, 12, 4),
+                                       (113, 240, 12, 4), (4096, 4096, 1, 1),
+                                       (300, 517, 2, 3), (16, 8, 1, 1)])
+def test_plan_2d_blocks_tiles(ny, nx, r, t):
+    """Tiles are multiples of 8 (the kernel's chunks and micro-tiles), no
+    larger than 128 x 128, fit the H100, and cannot double in y without
+    leaving the budget or outgrowing the grid."""
+    by, bx = plan_2d_blocks(ny, nx, r, r, t)
+    assert by % 8 == 0 and bx % 8 == 0 and by <= 128 and bx <= 128
+    assert k3.smem_bytes(r, r, t, by, bx) <= LIMIT
+    assert (by >= min(ny, 128)
+            or k3.smem_bytes(r, r, t, 2 * by, bx) > LIMIT)
+
+
+def test_plan_2d_blocks_cuts_the_halo_share():
+    """At the paper's r = 12, T = 1 the 128 x 128 tile reads 1.48x its
+    outputs, against 2.08x at a 32 x 128 tile."""
+    by, bx = plan_2d_blocks(449, 960, 12, 12, 1)
+    assert (by, bx) == (128, 128)
+    assert (by + 24) * (bx + 32) / (by * bx) == pytest.approx(1.484, abs=1e-3)
+    assert (32 + 24) * (128 + 24) / (32 * 128) == pytest.approx(2.078, abs=1e-3)
+
+
+@pytest.mark.parametrize("coeffs,offsets,values", [
+    ((0.1, 0.0, 0.5, 0.0, 0.2), [0, 2, 4], [0.1, 0.5, 0.2]),
+    ((0.0, 0.0, 0.0), [], []),
+    ((-0.25, 1.0, -0.25), [0, 1, 2], [-0.25, 1.0, -0.25]),
+    ((0.0, 3.0, 0.0, 0.0, 0.0, -1.0, 0.0), [1, 5], [3.0, -1.0]),
+])
+def test_compact_taps_keeps_order_and_drops_zeros(coeffs, offsets, values):
+    got_o, got_v = k3.compact_taps(coeffs)
+    assert got_o == offsets and got_v == values
+    assert all(a < b for a, b in zip(got_o, got_o[1:]))
+
+
+def test_pack_taps_lays_out_struct_taps():
+    """ny, nx, oy[128], ox[128], cy[128], cx[128] (compacted), then the
+    dense dy[128], dx[128]: the field order of csrc/stencil2d.cu."""
+    rng = np.random.default_rng(3)
+    cy = rng.normal(size=25)
+    cx = rng.normal(size=25)
+    cy[7] = cx[12] = cx[20] = 0.0
+    buf = k3.pack_taps(tuple(cy.tolist()), tuple(cx.tolist()))
+    n = k3.MAX_TAPS
+    assert buf.dtype == np.int32 and buf.size == 2 + 6 * n
+    f = buf.view(np.float32)
+    assert (buf[0], buf[1]) == (24, 23)
+    assert buf[2:2 + 24].tolist() == [k for k in range(25) if k != 7]
+    assert buf[2 + n:2 + n + 23].tolist() == [k for k in range(25)
+                                              if k not in (12, 20)]
+    np.testing.assert_array_equal(f[2 + 2 * n:2 + 2 * n + 24],
+                                  cy[cy != 0].astype(np.float32))
+    np.testing.assert_array_equal(f[2 + 3 * n:2 + 3 * n + 23],
+                                  cx[cx != 0].astype(np.float32))
+    np.testing.assert_array_equal(f[2 + 4 * n:2 + 4 * n + 25],
+                                  cy.astype(np.float32))
+    np.testing.assert_array_equal(f[2 + 5 * n:2 + 5 * n + 25],
+                                  cx.astype(np.float32))
+    assert not buf[2 + 24:2 + n].any() and not f[2 + 4 * n + 25:2 + 5 * n].any()
+    assert not f[2 + 5 * n + 25:].any()
+
+
+def test_pack_taps_refuses_more_than_the_struct_holds():
+    with pytest.raises(ValueError, match="taps per axis"):
+        k3.pack_taps((0.1,) * 129, (0.1,) * 3)
+
+
+def emulate_k6_bf16(q, k, v, *, window: int, tile: int = 64):
+    """K6's bf16 arithmetic in torch (a test helper, never on the main
+    path): q·k of bf16 values summed in f32, times 1/sqrt(D) in f32, masked
+    to -1e30, an online softmax over 64-key tiles in f32, the probabilities
+    rounded to bf16 against the running max, then P·V summed in f32; l sums
+    the unrounded probabilities and is floored at 1e-30."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf = k.repeat_interleave(group, dim=1).float()
+    vf = v.repeat_interleave(group, dim=1).float()
+    scale = 1.0 / math.sqrt(d)
+    m = torch.full((b, hq, s, 1), -1e30)
+    l = torch.zeros((b, hq, s, 1))
+    acc = torch.zeros((b, hq, s, d))
+    i = torch.arange(s)[:, None]
+    for k0 in range(0, s, tile):
+        j = torch.arange(k0, min(k0 + tile, s))[None, :]
+        sc = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * scale
+        mask = (j <= i) & (j > i - window)
+        sc = torch.where(mask, sc, torch.tensor(-1e30))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp(sc - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def test_k6_bf16_rounding_fits_chip_smoke_limits():
+    """D = 256, window 512, S = 1100, GQA 2:1: the emulated kernel within
+    chip_smoke.py's bf16 limits of the plain version (3e-2 elementwise,
+    1e-2 norm-relative)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(bf)
+               for shape in ((1, 2, 1100, 256), (1, 1, 1100, 256),
+                             (1, 1, 1100, 256)))
+    want = swa_plain(q, k, v, window=512)
+    got = emulate_k6_bf16(q, k, v, window=512)
+    good, err, rel = chip_smoke.lm_error("swa", bf, got, want)
+    assert good, (err, rel)
+    assert err <= chip_smoke.LM_TOL["swa"][bf][0]
+    assert rel <= chip_smoke.REL_TOL[("swa", bf)]
+    # the rounding of P is visible: the emulation is not the plain version
+    assert err > 0
+
+
+def test_swa_takes_strided_views_on_cpu():
+    """The model hands over (B, S, H, D) projections viewed as (B, H, S, D);
+    the result equals that of contiguous copies."""
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(1, 70, 4, 32, generator=g)
+    kv = torch.randn(1, 70, 2, 32, generator=g)
+    got = sliding_window_attention(q.transpose(1, 2), kv.transpose(1, 2),
+                                   kv.transpose(1, 2), window=16)
+    want = sliding_window_attention(q.transpose(1, 2).contiguous(),
+                                    kv.transpose(1, 2).contiguous(),
+                                    kv.transpose(1, 2).contiguous(), window=16)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
