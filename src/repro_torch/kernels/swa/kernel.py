@@ -6,11 +6,12 @@ query head, 128-query tile) computes QKᵀ and P·V with ``wgmma`` out of bf16
 tiles in shared memory (Q, and a two-stage ring of 64-key K/V tiles filled
 by ``cp.async``, all in the 128-byte swizzle).  float32 runs on the CUDA
 cores, one block of 8 warps per 64 queries walking 32-key tiles, because
-its 2e-5 limit rules out bf16 and TF32 products.  Both mask by the true sequence length, so nothing is padded,
-and both read q, k, v and write the output through (batch, head, position)
-strides, so a (B, S, H, D) tensor viewed as (B, H, S, D) goes in without a
-copy and the output takes q's layout.  Shared memory is :func:`smem_bytes`.
-On a CPU tensor the wrapper runs the plain version, :func:`swa_ref`.
+its 2e-5 limit rules out bf16 and TF32 products.  Both mask by the true
+sequence length, so nothing is padded, and both read q, k, v and write the
+output through (batch, head, position) strides, so a (B, S, H, D) tensor
+viewed as (B, H, S, D) goes in without a copy and the output takes q's
+layout.  Shared memory is :func:`smem_bytes`.  On a CPU tensor the wrapper
+runs the plain version, :func:`swa_ref`.
 """
 from __future__ import annotations
 
