@@ -20,12 +20,13 @@ serving path on one NVIDIA GPU (H100).
    after warm-up) beside its plain version, a cuDNN convolution yardstick
    (``library_ms``; TF32 off) and its bound, prints one JSON line per case,
    the ``kernels`` JSON line (each stencil row also with its bf16 time and
-   bound, the K5/K6 rows with their f32 ones, and the redesigned K3 and K6
-   with ``prev_ms``, their previous design's time), the card's name and
-   power limit, and last
-   ``{"ok": true, "device": {...}}``.
+   bound, the K5/K6 rows with their f32 ones), the registers and spills
+   that ``ptxas`` reported for K3 and K6 in the build's own log, the card's
+   name and power limit, and last ``{"ok": true, "device": {...}}``.
 5. The LM phase (``lm_phase``): K5 (causal conv1d) and K6 (sliding-window
-   attention) at RecurrentGemma-2B's shapes in f32 and bf16 against their
+   attention) at RecurrentGemma-2B's shapes in f32 and bf16 (K6 on the
+   (B, S, H, D) projections viewed as (B, H, S, D), as the prefill hands
+   them over, its output in q's layout) against their
    plain versions (tolerance: conv1d f32 2e-5, bf16 8e-2 plus one bf16
    quantum, the kernel alone and the op with its bias; swa f32 2e-5, bf16
    3e-2 and a norm-relative error of at most 1e-2), timed beside the plain version, one library call (``F.conv1d``
@@ -118,11 +119,7 @@ KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
             "src/repro/kernels/swa/kernel.py:99"),
 }
 STENCIL_KERNELS = ("stencil1d_vpu", "stencil1d_mxu", "stencil2d", "stencil3d")
-# ms of the kernels' previous designs at the same shapes (this script, NVIDIA
-# H100 80GB HBM3, 700 W): K6 bf16 on the CUDA cores in f32, K3 f32 with one
-# output per thread and 50 shared loads per point.  Printed as prev_ms.
-PREV_MS = {"swa": 7.763, "stencil2d": 2.350}
-# sources whose register use and spills are printed (nvcc -Xptxas -v)
+# sources whose register use and spills are printed from the build's log
 PTXAS_SOURCES = ("swa", "stencil2d")
 
 
@@ -187,59 +184,19 @@ class Case:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def start_ptxas(names) -> list:
-    """One ``nvcc -cubin -Xptxas -v`` per source, started at once beside the
-    build, into build/repro_torch/ptxas (git-ignored)."""
-    out = _build.BUILD_DIR / "ptxas"
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name in names:
-        log = out / f"{name}.log"
-        with open(log, "w") as fh:
-            proc = subprocess.Popen(
-                [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o",
-                 str(out / f"{name}.cubin"), str(_build.CSRC / f"{name}.cu")],
-                stdout=fh, stderr=subprocess.STDOUT)
-        jobs.append((name, proc, log))
-    return jobs
-
-
-def kernel_instance(mangled: str) -> str:
-    """``stencil2d_kernel<bf16,12>`` from a mangled template instance."""
-    k = re.search(r"(swa_wgmma_kernel|swa_f32_kernel|stencil2d_kernel)I(\w*?)EEv",
-                  mangled)
-    if not k:
-        return mangled
-    args, rest = [], k.group(2)
-    while rest:
-        if rest.startswith("13__nv_bfloat16"):
-            args.append("bf16")
-            rest = rest[len("13__nv_bfloat16"):]
-        elif rest.startswith("f"):
-            args.append("f32")
-            rest = rest[1:]
-        elif m := re.match(r"Li(\d+)E", rest):
-            args.append(m.group(1))
-            rest = rest[m.end():]
-        else:
-            args.append(rest)
-            break
-    return f"{k.group(1)}<{','.join(args)}>"
-
-
-def read_ptxas(jobs) -> list[dict]:
-    """Registers and spill bytes of every kernel instance ptxas reported."""
+def read_ptxas(names) -> list[dict]:
+    """Registers and spill bytes of every kernel instance in the ``nvcc``
+    log kept beside each built library (``_build.NVCC_FLAGS`` has
+    ``-Xptxas -v``); kernels are named as mangled, without the source's
+    anonymous namespace and the argument list."""
     rows = []
-    for name, proc, log in jobs:
-        if proc.wait(timeout=600) != 0:
-            raise RuntimeError(f"nvcc -Xptxas -v failed on {name}.cu:\n"
-                               + log.read_text())
-        for line in log.read_text().splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
+    for name in names:
+        for line in _build.build_log(name).splitlines():
+            m = re.search(r"Compiling entry function '(\S+?)(?:EEv\S*)?'", line)
             if m:
-                rows.append({"source": f"{name}.cu",
-                             "kernel": kernel_instance(m.group(1))})
+                kernel = re.sub(r"^_ZN\d+_GLOBAL__N_\w+?_cu_[0-9a-f]{8}\d+", "",
+                                m.group(1))
+                rows.append({"source": f"{name}.cu", "kernel": kernel})
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m and rows:
@@ -341,7 +298,8 @@ class LMCase:
     def plain(self) -> torch.Tensor:
         if self.kernel == "conv1d":
             return conv1d_ref(*self.args)
-        return swa_plain(*self.args, window=self.window)
+        return swa_plain(*(a.contiguous() for a in self.args),
+                         window=self.window)
 
     def library(self) -> torch.Tensor:
         """Yardstick only: one PyTorch call for the same function."""
@@ -388,8 +346,10 @@ def lm_kernel_cases(dev: torch.device, seed: int) -> list[LMCase]:
             return torch.randn(shape, generator=gen, device=dev).to(dtype)
         cases.append(LMCase("conv1d", dtype, (rnd(b, s, c), rnd(kk, c)),
                             bias=rnd(c)))
-        cases.append(LMCase("swa", dtype, (rnd(b, hq, s, d), rnd(b, hkv, s, d),
-                                           rnd(b, hkv, s, d)), cfg.window))
+        # (B, S, H, D) viewed as (B, H, S, D), as attend_local passes them
+        cases.append(LMCase("swa", dtype, tuple(
+            rnd(b, s, h, d).transpose(1, 2) for h in (hq, hkv, hkv)),
+            cfg.window))
     return cases
 
 
@@ -466,20 +426,26 @@ def lm_phase(dev: torch.device, seed: int, part: str,
                                conv1d_ref(*case.args, case.bias)))
             for what, y, want in checks:
                 good, err, rel = lm_error(case.kernel, case.dtype, y, want)
+                # K6 writes its output in q's layout, which the prefill reads
+                layout_ok = (case.kernel != "swa"
+                             or y.stride() == case.args[0].stride())
+                good = good and layout_ok
                 errs.setdefault((case.kernel, case.dtype), err)
                 atol, rtol = LM_TOL[case.kernel][case.dtype]
                 rel_tol = REL_TOL.get((case.kernel, case.dtype))
                 if not good:
                     failures.append(f"{case.kernel} {what} {case.dtype}: max "
                                     f"err vs plain {err} (atol {atol}, rtol "
-                                    f"{rtol}), rel err {rel} (tol {rel_tol})")
+                                    f"{rtol}), rel err {rel} (tol {rel_tol}), "
+                                    f"output in q's layout {layout_ok}")
                 print(json.dumps({
                     "case": f"model_{case.kernel}", "kernel": case.kernel,
                     "checked": what,
                     "shape": [list(a.shape) for a in case.args],
                     "dtype": str(case.dtype).removeprefix("torch."),
                     "max_abs_err": err, "atol": atol, "rtol": rtol,
-                    "rel_err": rel, "rel_tol": rel_tol, "ok": good}))
+                    "rel_err": rel, "rel_tol": rel_tol,
+                    "strides": list(y.stride()), "ok": good}))
 
     # -- prefill at published width and depth, counted ---------------------
     model = build_model(cfg, device=dev)
@@ -606,7 +572,7 @@ def lm_phase(dev: torch.device, seed: int, part: str,
                                                               case.dtype)]
         f32 = timed[(case.kernel, torch.float32)]
         route, source, replaces = KERNELS[case.kernel]
-        row = {
+        rows.append({
             "name": case.kernel, "route": route, "source": source,
             "replaces": replaces, "launches": launches[case.kernel],
             "dtype": "bfloat16", "max_abs_err": errs[(case.kernel, case.dtype)],
@@ -617,10 +583,7 @@ def lm_phase(dev: torch.device, seed: int, part: str,
             "bound_by": bound_by, "library_ms": library_ms,
             "ms_f32": f32[0], "bound_ms_f32": f32[3],
             "library_ms_f32": f32[2],
-            "shape": [list(a.shape) for a in case.args], "part": part}
-        if case.kernel in PREV_MS:
-            row["prev_ms"] = PREV_MS[case.kernel]
-        rows.append(row)
+            "shape": [list(a.shape) for a in case.args], "part": part})
     return rows
 
 
@@ -644,16 +607,9 @@ def main(argv: list[str] | None = None) -> int:
 
     t0 = time.perf_counter()
     sources = sorted({Path(src).stem for _, src, _ in KERNELS.values()})
-    ptxas = start_ptxas(PTXAS_SOURCES)
-    try:
-        _build.build(*sources)
-    except BaseException:
-        for _, proc, _ in ptxas:
-            proc.kill()
-            proc.wait()
-        raise
+    _build.build(*sources)
     print(f"built {sources} in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"ptxas": read_ptxas(ptxas)}))
+    print(json.dumps({"ptxas": read_ptxas(PTXAS_SOURCES)}))
     cases = make_cases(dev, args.seed)
     torch.cuda.synchronize()
 
@@ -728,7 +684,7 @@ def main(argv: list[str] | None = None) -> int:
                                                               torch.float32)]
         bf = timed[(case.kernel, torch.bfloat16)]
         route, source, replaces = KERNELS[case.kernel]
-        row = {
+        rows.append({
             "name": case.kernel, "route": route, "source": source,
             "replaces": replaces, "launches": launches[case.kernel],
             "dtype": "float32",
@@ -739,10 +695,7 @@ def main(argv: list[str] | None = None) -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "ms_bf16": bf[0], "bound_ms_bf16": bf[3], "bound_by_bf16": bf[4],
-            "shape": list(case.x.shape), "part": part}
-        if case.kernel in PREV_MS:
-            row["prev_ms"] = PREV_MS[case.kernel]
-        rows.append(row)
+            "shape": list(case.x.shape), "part": part})
     print(json.dumps({"kernels": rows + lm_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

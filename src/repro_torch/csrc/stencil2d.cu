@@ -388,6 +388,8 @@ int stencil2d_launch(const void* x, void* y, const void* taps, int dtype,
   return (int)cudaErrorInvalidValue;
 }
 
+// sizeof(struct Taps): kernels/stencil2d/kernel.py refuses a library whose
+// struct is not the buffer it packs.
 int stencil2d_taps_bytes() { return (int)sizeof(Taps); }
 
 const char* stencil2d_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -5,7 +5,9 @@ use with ``nvcc`` for ``sm_90a`` into its own shared library, which is loaded
 with :mod:`ctypes`.  Libraries live under ``build/repro_torch/`` at the root
 of the checkout (git-ignored), keyed by a hash of the source, the shared
 ``csrc/common.cuh`` and the flags, so an edited source is rebuilt and an
-unchanged one is reused.
+unchanged one is reused.  Each build's ``nvcc`` output, with the registers
+and spills ``ptxas`` reports (``-Xptxas -v``), is kept beside its library
+(:func:`build_log`).
 :func:`build` starts one ``nvcc`` per source it is given, all at once;
 :func:`library` builds its one source that way on first use.
 
@@ -28,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last reset (chip_smoke.py zeroes these
 # before it drives the main path and reads them after).
@@ -87,6 +89,13 @@ def build(*names: str) -> None:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def build_log(name: str) -> str:
+    """The ``nvcc`` output of the build of ``csrc/<name>.cu``, built first if
+    needed."""
+    build(name)
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -8,7 +8,8 @@ padded so that 16-byte chunks line up with the grid's rows; for T > 1 a
 second buffer of the same size and margins of 8 columns a side and 8 rows
 below (:func:`smem_bytes`).  The taps go to the kernel as a struct
 (:func:`pack_taps`): the compacted non-zero taps of each chain in ascending
-order (:func:`compact_taps`), and the dense ones by offset.  The kernel
+order (:func:`compact_taps`), and the dense ones by offset.  The struct
+holds 128 taps per axis, so the kernel takes radii up to 63.  The kernel
 zero-fills outside the grid and masks the rim itself, so no padding is
 needed.  On a CPU tensor the wrapper runs the plain version,
 :func:`stencil2d_ref`.
@@ -76,6 +77,18 @@ def pack_taps(cy: tuple[float, ...], cx: tuple[float, ...]) -> np.ndarray:
     return buf
 
 
+@functools.cache
+def _check_taps_layout() -> None:
+    """Refuse a library whose ``struct Taps`` is not the buffer
+    :func:`pack_taps` builds (the launch copies that many bytes from it)."""
+    fn = _build.library("stencil2d").stencil2d_taps_bytes
+    fn.restype = ctypes.c_int
+    want = pack_taps((0.0,), (0.0,)).nbytes
+    if fn() != want:
+        raise RuntimeError(f"stencil2d.cu's struct Taps is {fn()} B, pack_taps "
+                           f"builds {want} B: MAX_TAPS and kMaxTaps differ")
+
+
 def stencil2d_kernel(x: torch.Tensor, cy: tuple[float, ...],
                      cx: tuple[float, ...], *, timesteps: int = 1,
                      block: tuple[int, int] | None = None) -> torch.Tensor:
@@ -94,6 +107,7 @@ def stencil2d_kernel(x: torch.Tensor, cy: tuple[float, ...],
         raise ValueError(f"stencil2d block {block} must be positive multiples "
                          "of 8")
     taps = pack_taps(tuple(float(c) for c in cy), tuple(float(c) for c in cx))
+    _check_taps_layout()
     smem = smem_bytes(ry, rx, timesteps, by, bx)
     _build.require_smem(f"stencil2d block {block} at r=({ry}, {rx}), "
                         f"T={timesteps}", smem, x.device)

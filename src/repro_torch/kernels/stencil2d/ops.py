@@ -45,7 +45,8 @@ def plan_2d_blocks(ny: int, nx: int, ry: int, rx: int, timesteps: int,
 def stencil2d(x: torch.Tensor, cy: tuple[float, ...], cx: tuple[float, ...], *,
               timesteps: int = 1, backend: str = "auto",
               block: tuple[int, int] | None = None) -> torch.Tensor:
-    """Batched 2D star stencil over the last two axes (y=-2, x=-1)."""
+    """Batched 2D star stencil over the last two axes (y=-2, x=-1).  On the
+    card the radius of each axis is at most 63 (the kernel's tap struct)."""
     cy = tuple(float(c) for c in cy)
     cx = tuple(float(c) for c in cx)
     _build.check_backend(backend, x)

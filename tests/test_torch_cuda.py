@@ -181,6 +181,20 @@ def test_block_too_large_raises(dev):
         stencil2d(x, (0.1,) * 25, (0.1,) * 25, timesteps=1, block=(512, 1024))
 
 
+def test_stencil2d_radius_limit(dev, rng):
+    """The kernel's tap struct holds 128 taps per axis: r = 63 runs through
+    the compacted-tap instance, r = 64 is refused before any launch."""
+    cy = tuple((rng.normal(size=127) / 127).tolist())
+    cx = tuple((rng.normal(size=3) / 3).tolist())
+    x = _x(rng, (1, 200, 300), "float32", dev)
+    _close(stencil2d(x, cy, cx, backend="cuda"), stencil2d_ref(x, cy, cx, 1),
+           TOL["float32"])
+    before = _build.LAUNCHES.get("stencil2d", 0)
+    with pytest.raises(ValueError, match="radius <= 63"):
+        stencil2d(x, (0.01,) * 129, cx, backend="cuda")
+    assert _build.LAUNCHES.get("stencil2d", 0) == before
+
+
 def test_zero_and_centre_taps(dev, rng):
     """Zero taps inside a chain are skipped and every axis's centre tap is
     applied, in the kernels as in the plain versions."""
