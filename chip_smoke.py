@@ -21,8 +21,13 @@ serving path on one NVIDIA GPU (H100).
    (``library_ms``; TF32 off) and its bound, prints one JSON line per case,
    the ``kernels`` JSON line (each stencil row also with its bf16 time and
    bound, the K5/K6 rows with their f32 ones), the registers and spills
-   that ``ptxas`` reported for K3 and K6 in the build's own log, the card's
-   name and power limit, and last ``{"ok": true, "device": {...}}``.
+   that ``ptxas`` reported for K3, K4 and K6 in the build's own log, the
+   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+   Before the ``kernels`` line, K4's generic instance (every radius or
+   pattern of taps but the star pattern at (1, 1, 1) and (2, 2, 2), which
+   run compile-time instances) is checked against the plain version and
+   timed once at ``star_3d(512, 512, 512, r=3)`` in f32 and bf16
+   (``generic_3d_r3`` lines).
 5. The LM phase (``lm_phase``): K5 (causal conv1d) and K6 (sliding-window
    attention) at RecurrentGemma-2B's shapes in f32 and bf16 (K6 on the
    (B, S, H, D) projections viewed as (B, H, S, D), as the prefill hands
@@ -120,7 +125,9 @@ KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
 }
 STENCIL_KERNELS = ("stencil1d_vpu", "stencil1d_mxu", "stencil2d", "stencil3d")
 # sources whose register use and spills are printed from the build's log
-PTXAS_SOURCES = ("swa", "stencil2d")
+PTXAS_SOURCES = ("swa", "stencil2d", "stencil3d")
+# K4's generic instance, timed at a radius that is not a compile-time one
+GENERIC_3D_RADIUS = 3
 
 
 @dataclasses.dataclass
@@ -254,6 +261,33 @@ def make_cases(dev: torch.device, seed: int) -> list[Case]:
         Case("seismic_2d_t4_bf16", "stencil2d", s2t4, grid((16, 449, 960), bf16)),
     ]
     return cases
+
+
+def generic_3d(dev: torch.device, seed: int, part: str,
+               failures: list[str]) -> None:
+    """K4's generic instance at ``star_3d(512, 512, 512, r=3)``, f32 and
+    bf16: checked against the plain version, timed, one line each."""
+    spec = star_3d(512, 512, 512, r=GENERIC_3D_RADIUS, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        case = Case(f"generic_3d_r{GENERIC_3D_RADIUS}", "stencil3d", spec,
+                    torch.randn(spec.grid_shape, generator=gen,
+                                device=dev).to(dtype))
+        err = (case.run().float() - case.plain().float()).abs().max().item()
+        ok = err <= TOL[dtype]
+        if not ok:
+            failures.append(f"{case.name} {dtype}: err vs plain {err}, tol "
+                            f"{TOL[dtype]}")
+        bound_ms, bound_by = case.bound(part)
+        print(json.dumps({"case": case.name, "kernel": case.kernel,
+                          "shape": list(case.x.shape),
+                          "dtype": str(dtype).removeprefix("torch."),
+                          "radii": list(spec.radii), "max_abs_err": err,
+                          "tol": TOL[dtype], "ms": median_ms(case.run, reps=10),
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "ok": ok}))
+        del case
+        torch.cuda.empty_cache()
 
 
 def band_pairs(seq: int, window: int) -> int:
@@ -676,6 +710,10 @@ def main(argv: list[str] | None = None) -> int:
                           "bound_by": bound_by}))
         timed[(case.kernel, case.x.dtype)] = (ms, plain_ms, library_ms,
                                               bound_ms, bound_by)
+    generic_3d(dev, args.seed, part, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
     rows = []
     for case in cases:
         if not case.timed:

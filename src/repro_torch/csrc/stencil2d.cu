@@ -66,27 +66,8 @@ struct Taps {
 
 __host__ __device__ inline int pad8(int v) { return (v + 7) & ~7; }
 
-__device__ __forceinline__ void fma4(float4& acc, float c, const float4& v) {
-  acc.x = fmaf(c, v.x, acc.x);
-  acc.y = fmaf(c, v.y, acc.y);
-  acc.z = fmaf(c, v.z, acc.z);
-  acc.w = fmaf(c, v.w, acc.w);
-}
-
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// 16 bytes global -> shared; src_bytes 0 zero-fills
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void bf16x8_to_f32(const uint4& a, float (&v)[8]) {

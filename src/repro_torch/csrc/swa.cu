@@ -222,23 +222,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; src_bytes < 16 zero-fills the rest (0: all)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 // 2^x, x <= 0 here (scores minus their running max)
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -497,9 +480,9 @@ swa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_blk<DP, kWK>(nk, kb, st.k[2], kv0 + kWK, seq, dim, vec, tid);
       load_blk<DP, kWK>(nk + kWK * DP, vb, st.v[2], kv0 + kWK, seq, dim, vec, tid);
       cp_async_commit();
-      cp_async_wait<1>();
+      cp_async_wait_group<1>();
     } else {
-      cp_async_wait<0>();
+      cp_async_wait_group<0>();
     }
     fence_async_shared();
     __syncthreads();

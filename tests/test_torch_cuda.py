@@ -66,6 +66,22 @@ CASES_3D = [
     (1, 24, 16, 128, 1, 2, 1, 2, "float32"),
     (1, 16, 16, 128, 1, 1, 1, 1, "bfloat16"),
     (2, 37, 19, 70, 2, 2, 2, 3, "float32"),
+    # the compile-time instances (1, 1, 1) and (2, 2, 2) on grids ragged
+    # against the tile, nx odd (rows not 16-byte aligned), batch 3, T = 3
+    # in f32 and T = 2 in bf16; nz < 2rz + 1; the generic instance at
+    # (2, 1, 3) in bf16 and at rz = 4 and 5; a last z chunk of one plane
+    # (nz = 33 against the default chunk of 32), in both kinds of instance
+    (3, 41, 37, 131, 2, 2, 2, 1, "float32"),
+    (1, 35, 45, 257, 1, 1, 1, 3, "float32"),
+    (2, 29, 33, 136, 2, 2, 2, 2, "bfloat16"),
+    (1, 23, 21, 77, 2, 2, 2, 1, "bfloat16"),
+    (2, 3, 20, 64, 2, 2, 2, 1, "float32"),
+    (1, 4, 9, 40, 2, 1, 3, 1, "float32"),
+    (3, 30, 27, 101, 2, 1, 3, 2, "bfloat16"),
+    (1, 26, 21, 90, 4, 1, 2, 1, "float32"),
+    (2, 33, 30, 60, 5, 5, 5, 1, "float32"),
+    (1, 33, 20, 72, 2, 2, 2, 1, "bfloat16"),
+    (2, 33, 13, 40, 3, 1, 2, 2, "float32"),
 ]
 
 # (b, s, c, k, dtype): the sweep of tests/test_kernels.py, then ragged
@@ -170,9 +186,51 @@ def test_stencil3d_kernel(dev, rng, b, nz, ny, nx, rz, ry, rx, t, dtype):
     y = stencil3d(x, cz, cy, cx, timesteps=t, backend="cuda")
     assert _build.LAUNCHES["stencil3d"] == before + t
     _close(y, want, TOL[dtype])
-    for block in (None, (8, 16, 128), (5, 3, 32)):
+    for block in ("plan", (8, 16, 128), (5, 4, 32)):
         _close(stencil3d(x, cz, cy, cx, timesteps=t, backend="cuda",
                          block=block), want, TOL[dtype])
+
+
+def test_stencil3d_refuses_blocks_and_radii_it_does_not_take(dev, rng):
+    """K4's tile is by x bx columns in 4 x 4 micro-tiles (by a multiple of 4,
+    bx of 8, at most 256 threads), and its tap struct holds 64 taps per axis:
+    rz = 31 runs through the generic instance, rz = 32 is refused; neither
+    refusal launches."""
+    c3 = (0.1, 0.2, 0.1)
+    x = _x(rng, (1, 70, 8, 16), "float32", dev)
+    cz = tuple((rng.normal(size=63) / 63).tolist())
+    _close(stencil3d(x, cz, c3, c3, backend="cuda", block=(16, 4, 8)),
+           stencil3d_ref(x, cz, c3, c3, 1), TOL["float32"])
+    before = _build.LAUNCHES.get("stencil3d", 0)
+    for block in ((5, 3, 32), (4, 8, 12), (0, 8, 32), (4, 64, 128)):
+        with pytest.raises(ValueError, match="must be"):
+            stencil3d(x, c3, c3, c3, backend="cuda", block=block)
+    with pytest.raises(ValueError, match="radius <= 31"):
+        stencil3d(x, (0.01,) * 65, c3, c3, backend="cuda", block=(16, 4, 8))
+    assert _build.LAUNCHES.get("stencil3d", 0) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rz,ry,rx,star", [
+    (1, 1, 1, True), (2, 2, 2, True),
+    (1, 1, 1, False), (2, 2, 2, False), (2, 1, 3, False)])
+def test_stencil3d_zero_interior_taps(dev, rng, dtype, rz, ry, rx, star):
+    """Zero taps are skipped: the y and x centres of the star pattern in
+    both compile-time instances, and zero taps inside every chain of the
+    generic instance, which also runs r = 1 and 2 off the star pattern and
+    sums their non-zero y and x centres.  An infinite input point reaches
+    the outputs behind a zero tap as 0 * inf = nan unless the tap is
+    skipped, as the plain version skips it."""
+    cz, cy, cx = (rng.normal(size=2 * r + 1) / 13 for r in (rz, ry, rx))
+    if star:
+        cy[ry] = cx[rx] = 0.0
+    else:
+        cz[0] = cy[-1] = cx[0] = 0.0
+    cz, cy, cx = (tuple(c.tolist()) for c in (cz, cy, cx))
+    x = _x(rng, (2, 29, 37, 75), dtype, dev)
+    x[1, 14, 18, 40] = float("inf")
+    _close(stencil3d(x, cz, cy, cx, timesteps=2, backend="cuda"),
+           stencil3d_ref(x, cz, cy, cx, 2), TOL[dtype])
 
 
 def test_block_too_large_raises(dev):

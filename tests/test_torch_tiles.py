@@ -1,11 +1,15 @@
-"""Host-side planning of the K3 and K6 kernels, and the arithmetic of K6's
-tensor-core path, on the CPU (no jax, no card).
+"""Host-side planning of the K3, K4 and K6 kernels, and the arithmetic of
+K6's tensor-core path, on the CPU (no jax, no card).
 
 - Shared memory of K6 (bf16 tensor-core and f32 layouts) and of K3 (one
   buffer at T = 1, two with margins for fused sweeps) against the H100's
   opt-in 232,448 B per block.
 - The compacted tap list K3 takes: ascending order kept, zero taps dropped,
   laid out as ``struct Taps`` of ``csrc/stencil2d.cu``.
+- K4's ring of haloed planes against the same limit, its block rule, the
+  tiles that ``DEFAULT_BLOCK``, ``fit_block`` and ``_auto_block`` give, the
+  instance that runs a set of taps, and its tap struct (``struct Taps`` of
+  ``csrc/stencil3d.cu``).
 - A torch emulation of where K6's bf16 path rounds (bf16 products summed in
   f32, the scale on the f32 scores, an online softmax over 64-key tiles, P
   rounded to bf16 before an f32 P·V) held to ``chip_smoke.py``'s limits
@@ -23,6 +27,9 @@ import torch
 from repro_torch.kernels import _build, sliding_window_attention
 from repro_torch.kernels.stencil2d import kernel as k3
 from repro_torch.kernels.stencil2d.ops import plan_2d_blocks
+from repro_torch.kernels.stencil3d import kernel as k4
+from repro_torch.kernels.stencil3d.ops import (DEFAULT_BLOCK, _auto_block,
+                                               fit_block)
 from repro_torch.kernels.swa import kernel as k6
 from repro_torch.kernels.swa.ops import swa_plain
 
@@ -123,6 +130,163 @@ def test_pack_taps_lays_out_struct_taps():
 def test_pack_taps_refuses_more_than_the_struct_holds():
     with pytest.raises(ValueError, match="taps per axis"):
         k3.pack_taps((0.1,) * 129, (0.1,) * 3)
+
+
+@pytest.mark.parametrize("r,itemsize,by,bx,queued,want", [
+    # the (2, 2, 2) instance at the default block: 2 + 1 + 2 slots of
+    # 36 x 136 f32 (two blocks an SM) or of 36 x 144 bf16
+    ((2, 2, 2), 4, 32, 128, True, 5 * 36 * 136 * 4),        # 97,920
+    ((2, 2, 2), 2, 32, 128, True, 5 * 36 * 144 * 2),        # 51,840
+    ((1, 1, 1), 4, 32, 128, True, 4 * 34 * 136 * 4),        # 73,984
+    ((1, 1, 1), 2, 32, 128, True, 4 * 34 * 144 * 2),        # 39,168
+    # the generic instance keeps all 2rz + 1 planes of the z taps, also at
+    # r = 2 for taps off the star pattern
+    ((2, 2, 2), 4, 32, 128, False, 7 * 36 * 136 * 4),       # 137,088
+    ((2, 1, 3), 4, 32, 128, False, 7 * 34 * 136 * 4),       # 129,472
+    ((3, 3, 3), 2, 32, 128, False, 9 * 38 * 144 * 2),       # 98,496
+    ((4, 4, 4), 4, 16, 128, False, 11 * 24 * 136 * 4),      # 143,616
+    ((2, 2, 2), 4, 16, 64, True, 5 * 20 * 72 * 4),
+])
+def test_stencil3d_smem(r, itemsize, by, bx, queued, want):
+    """Ring slots x (by + 2ry) rows x (bx + 2px) columns in the grid's type,
+    px being rx rounded up to one 16-byte chunk."""
+    assert k4.smem_bytes(*r, by, bx, itemsize, queued) == want <= LIMIT
+
+
+@pytest.mark.parametrize("rz,queued", [(1, True), (2, True), (3, False),
+                                       (2, False), (1, False), (0, False)])
+def test_stencil3d_ring_slots(rz, queued):
+    """The compile-time instances hold the planes still to be centres; the
+    generic one every plane of the z taps; both the planes in flight."""
+    held = rz if queued else 2 * rz
+    assert k4.ring_slots(rz, queued) == held + 1 + k4.AHEAD
+
+
+def _star(r: int, cz: float = 0.1) -> tuple[tuple[float, ...], ...]:
+    """The taps of ``star_3d``'s pattern at radius ``r``: the y and x centres
+    zero, every other tap non-zero."""
+    side = tuple(0.0 if k == r else 0.1 for k in range(2 * r + 1))
+    return (cz,) * (2 * r + 1), side, side
+
+
+@pytest.mark.parametrize("taps,want", [
+    (_star(1), 1), (_star(2), 2), (_star(3), 0),
+    # a non-zero y or x centre, a zero z tap or another zero tap: generic
+    (((0.1,) * 5,) * 3, 0),
+    ((_star(2)[0], (0.1, 0.0, 0.0, 0.0, 0.1), _star(2)[2]), 0),
+    (((0.1, 0.0, 0.1, 0.1, 0.1),) + _star(2)[1:], 0),
+    # unequal radii
+    ((_star(2)[0], _star(1)[1], _star(2)[2]), 0),
+    # a z tap that is zero only in float32, as the kernel gets it
+    (_star(1, 1e-50), 0),
+])
+def test_stencil3d_instance(taps, want):
+    """Only the star pattern at radius 1 or 2 runs a compile-time instance,
+    which sums its taps without a zero test."""
+    assert k4.instance(*taps) == want
+
+
+def test_stencil3d_default_block():
+    """The default tile is legal, fits both instances and the generic one at
+    r = 2 in both types, reads at most 1.35x the grid at r = 2 (f32) and
+    gives 512^3 about four waves of two blocks on each of the H100's 132
+    SMs."""
+    k4.check_block(DEFAULT_BLOCK)
+    bz, by, bx = DEFAULT_BLOCK
+    for r in k4.INSTANCES:
+        for itemsize in (4, 2):
+            for queued in (True, False):
+                assert fit_block(DEFAULT_BLOCK, (r,) * 3, itemsize, LIMIT,
+                                 queued) == DEFAULT_BLOCK
+    assert 2 * k4.smem_bytes(2, 2, 2, by, bx, 4, True) <= LIMIT
+    reads = (bz + 4) * (by + 4) * (bx + 8) / (bz * by * bx)
+    assert reads == pytest.approx(1.345, abs=1e-3)
+    blocks = (512 // bz) * (512 // by) * (512 // bx)
+    assert blocks == 1024 and blocks >= 2 * 2 * 132
+
+
+@pytest.mark.parametrize("block", [(5, 3, 32), (4, 8, 12), (0, 8, 32),
+                                   (4, 64, 128), (4, 0, 8), (4, 4, 4)])
+def test_stencil3d_refuses_illegal_blocks(block):
+    with pytest.raises(ValueError, match="must be"):
+        k4.check_block(block)
+
+
+@pytest.mark.parametrize("block", [(1, 4, 8), (5, 4, 32), (8, 16, 128),
+                                   (64, 32, 128), (7, 4, 1024), (3, 64, 64)])
+def test_stencil3d_takes_legal_blocks(block):
+    k4.check_block(block)
+
+
+@pytest.mark.parametrize("shape", [(512, 512, 512), (64, 64, 256),
+                                   (37, 19, 70), (3, 20, 64), (16, 16, 8)])
+@pytest.mark.parametrize("r", [(1, 1, 1), (2, 2, 2), (2, 1, 3), (5, 5, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("budget", [LIMIT, 60_000, 20_000])
+@pytest.mark.parametrize("star", [False, True])
+def test_stencil3d_auto_block_is_legal_and_fits(shape, r, dtype, budget,
+                                                star):
+    """``_auto_block`` gives only tiles the kernel takes, within the budget
+    of the instance that runs the taps, also where the planner shrinks
+    toward (1, 1, 1) under a tight budget or the grid is no wider than its
+    halo; it refuses only where not even a 4 x 8 column tile fits."""
+    cs = [tuple(0.0 if star and a and j == k else 0.1
+                for j in range(2 * k + 1)) for a, k in enumerate(r)]
+    queued = k4.instance(*cs) > 0
+    assert queued == (star and r in ((1, 1, 1), (2, 2, 2)))
+    itemsize = 4 if dtype == "float32" else 2
+    if k4.smem_bytes(*r, 4, 8, itemsize, queued) > budget:
+        with pytest.raises(ValueError, match="shared memory"):
+            _auto_block(shape, *cs, dtype, budget)
+        return
+    block = _auto_block(shape, *cs, dtype, budget)
+    k4.check_block(block)
+    assert k4.smem_bytes(*r, *block[1:], itemsize, queued) <= budget
+
+
+@pytest.mark.parametrize("r,itemsize,want", [
+    ((4, 4, 4), 4, (32, 16, 128)), ((8, 8, 8), 4, (32, 4, 128)),
+    ((8, 8, 8), 2, (32, 16, 128)), ((31, 1, 1), 4, (32, 4, 128)),
+])
+def test_fit_block_halves_the_default_for_wide_halos(r, itemsize, want):
+    assert fit_block(DEFAULT_BLOCK, r, itemsize, LIMIT) == want
+    assert k4.smem_bytes(*r, *want[1:], itemsize) <= LIMIT
+
+
+def test_fit_block_refuses_what_cannot_fit():
+    with pytest.raises(ValueError, match="4 x 8 column tile"):
+        fit_block(DEFAULT_BLOCK, (30, 30, 30), 4, LIMIT)
+
+
+def test_stencil3d_pack_taps_lays_out_struct_taps():
+    """nz, ny, nx, oz/oy/ox[64] (compacted, ascending), cz/cy/cx[64], then
+    the dense dz/dy/dx[64]: the field order of csrc/stencil3d.cu."""
+    rng = np.random.default_rng(5)
+    cz, cy, cx = rng.normal(size=7), rng.normal(size=3), rng.normal(size=9)
+    cz[0] = cz[4] = cy[1] = cx[4] = cx[8] = 0.0
+    buf = k4.pack_taps(*(tuple(c.tolist()) for c in (cz, cy, cx)))
+    n = k4.MAX_TAPS
+    assert buf.dtype == np.int32 and buf.size == 3 + 9 * n
+    f = buf.view(np.float32)
+    assert buf[:3].tolist() == [5, 2, 7]
+    for axis, c in enumerate((cz, cy, cx)):
+        keep = np.flatnonzero(c)
+        o = 3 + axis * n
+        v = 3 + (3 + axis) * n
+        d = 3 + (6 + axis) * n
+        assert buf[o:o + len(keep)].tolist() == keep.tolist()
+        assert not buf[o + len(keep):o + n].any()
+        np.testing.assert_array_equal(f[v:v + len(keep)],
+                                      c[keep].astype(np.float32))
+        assert not f[v + len(keep):v + n].any()
+        np.testing.assert_array_equal(f[d:d + len(c)], c.astype(np.float32))
+        assert not f[d + len(c):d + n].any()
+
+
+def test_stencil3d_pack_taps_refuses_radius_past_31():
+    k4.pack_taps((0.1,) * 63, (0.1,) * 3, (0.1,) * 3)
+    with pytest.raises(ValueError, match="radius <= 31"):
+        k4.pack_taps((0.1,) * 3, (0.1,) * 65, (0.1,) * 3)
 
 
 def emulate_k6_bf16(q, k, v, *, window: int, tile: int = 64):
