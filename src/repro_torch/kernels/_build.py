@@ -64,7 +64,12 @@ def _lib_path(name: str) -> Path:
 
 def build(*names: str) -> None:
     """Compile each ``csrc/<name>.cu`` not yet built, one ``nvcc`` each, all
-    started at once; raises with ``nvcc``'s output if any fails."""
+    started at once; raises with ``nvcc``'s output if any fails.
+
+    Each process writes its library and ``nvcc``'s output to temp files of
+    its own (named by pid) and moves both into place on success, so a
+    library and the log beside it come from one build, whatever other
+    processes build the same source at the same time."""
     jobs = []
     try:
         for name in names:
@@ -73,27 +78,29 @@ def build(*names: str) -> None:
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            log = out.with_suffix(f".{os.getpid()}.log.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            log = out.with_suffix(".log")
             with open(log, "w") as fh:
                 proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
-            jobs.append((name, proc, tmp, out))
-        for name, proc, tmp, out in jobs:
+            jobs.append((name, proc, tmp, log, out))
+        for name, proc, tmp, log, out in jobs:
             if proc.wait() != 0:
                 raise RuntimeError(f"nvcc failed on {name}.cu (exit "
-                                   f"{proc.returncode}):\n"
-                                   + out.with_suffix(".log").read_text())
+                                   f"{proc.returncode}):\n" + log.read_text())
+            os.replace(log, out.with_suffix(".log"))
             os.replace(tmp, out)
     finally:
-        for _, proc, _, _ in jobs:
+        for _, proc, tmp, log, _ in jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+            tmp.unlink(missing_ok=True)
+            log.unlink(missing_ok=True)
 
 
 def build_log(name: str) -> str:
-    """The ``nvcc`` output of the build of ``csrc/<name>.cu``, built first if
-    needed."""
+    """The ``nvcc`` output of the build of ``csrc/<name>.cu`` whose library
+    is in place, built first if needed."""
     build(name)
     return _lib_path(name).with_suffix(".log").read_text()
 

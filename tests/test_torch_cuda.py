@@ -45,6 +45,24 @@ CASES_1D = [
     (9, 777, 2, 1, "mxu", "bfloat16"),
     (2, 3000, 4, 40, "vpu", "float32"),     # halo 160 wider than a 128 tile
     (2, 3000, 4, 40, "mxu", "float32"),
+    # K2 on the tensor cores: the r = 8 instance at T = 1 and T = 4 in both
+    # types; batches that are not a multiple of 16 (an mma's rows); odd n
+    # (rows not 16-byte aligned) at r = 8; the instance's other radii (r = 5
+    # with K = 24, r = 1 with K = 16); the generic instance at r = 13
+    (5, 4096, 8, 1, "mxu", "float32"),
+    (5, 4096, 8, 1, "mxu", "bfloat16"),
+    (3, 3000, 8, 4, "mxu", "float32"),
+    (3, 3000, 8, 4, "mxu", "bfloat16"),
+    (37, 1000, 8, 1, "mxu", "float32"),
+    (19, 777, 8, 2, "mxu", "bfloat16"),
+    (4, 1001, 5, 2, "mxu", "float32"),
+    (2, 640, 1, 3, "mxu", "bfloat16"),
+    (18, 2000, 13, 2, "mxu", "float32"),
+    (3, 1500, 13, 1, "mxu", "bfloat16"),
+    # more tiles than resident blocks (at the (8, 128) block), so each
+    # persistent block walks several tiles and the last round is partial
+    (1100, 1000, 8, 1, "mxu", "float32"),
+    (300, 2000, 8, 2, "mxu", "bfloat16"),
 ]
 CASES_2D = [
     (1, 64, 128, 1, 1, 1, "float32"),

@@ -144,6 +144,65 @@ def test_missing_nvcc_raises_clearly(monkeypatch, tmp_path):
         _build._nvcc()
 
 
+def _fake_nvcc(monkeypatch, tmp_path, body: str) -> Path:
+    """A shell script in place of ``nvcc`` and a build directory of its own.
+    In ``body``, ``$out`` is the ``-o`` path (the library's temp file) and
+    ``$LOG`` the log beside the library, which a concurrent build of the
+    same source would write."""
+    script = tmp_path / "nvcc"
+    script.write_text(
+        "#!/bin/sh\n"
+        'out=""\n'
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+        'LOG="${out%.*.tmp}.log"\n' + body)
+    script.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(script))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "build").mkdir()
+    return tmp_path / "build"
+
+
+def test_failed_build_raises_with_its_own_output(monkeypatch, tmp_path):
+    """The error quotes this build's nvcc output, although another build of
+    the same source rewrote the log beside the library meanwhile, and
+    leaves no temp file behind."""
+    build_dir = _fake_nvcc(monkeypatch, tmp_path, (
+        'echo "error: fake failure in $$"\n'
+        'echo "another process\'s log" > "$LOG"\n'
+        'exit 2\n'))
+    lib = _build._lib_path("conv1d")
+    with pytest.raises(RuntimeError, match="exit 2") as err:
+        _build.build("conv1d")
+    assert "error: fake failure in" in str(err.value)
+    assert "another process's log" not in str(err.value)
+    assert not lib.exists()
+    assert [p.name for p in build_dir.iterdir()] == [
+        lib.with_suffix(".log").name]
+
+
+def test_good_build_moves_library_and_log_into_place(monkeypatch, tmp_path):
+    """Each process writes nvcc's output to a log of its own (named by pid,
+    like the library's temp file) and a good build moves both beside each
+    other: the log in place is this build's, whatever another build wrote
+    there meanwhile, and another process's temp log is left alone."""
+    build_dir = _fake_nvcc(monkeypatch, tmp_path, (
+        'echo "ptxas info    : Used 42 registers, pid $$"\n'
+        'echo "another process\'s log" > "$LOG"\n'
+        'echo library > "$out"\n'))
+    other = _build._lib_path("swa").with_suffix(".1.log.tmp")
+    other.write_text("a build in process 1")
+    _build.build("conv1d", "swa")
+    names = sorted(p.name for p in build_dir.iterdir())
+    want = sorted([other.name] + [_build._lib_path(n).with_suffix(s).name
+                                  for n in ("conv1d", "swa")
+                                  for s in (".so", ".log")])
+    assert names == want
+    assert _build._lib_path("conv1d").read_text() == "library\n"
+    log = _build.build_log("conv1d")
+    assert "Used 42 registers" in log and "another process" not in log
+    assert other.read_text() == "a build in process 1"
+
+
 def test_library_paths_are_keyed_by_source():
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert names == ["conv1d", "stencil1d", "stencil2d", "stencil3d", "swa"]
@@ -170,12 +229,16 @@ def test_plan_2d_blocks_refuses_what_cannot_fit():
         plan_2d_blocks(4096, 4096, 12, 12, 40)
 
 
-@pytest.mark.parametrize("variant", ["vpu", "mxu"])
-def test_plan_1d_blocks(variant):
+@pytest.mark.parametrize("variant,one_row,fused", [
+    ("vpu", (1, 1024), (4, 1024)),
+    # mxu: 16 rows (an mma's) by up to 512 columns, two blocks an SM
+    ("mxu", (1, 512), (16, 256)),
+])
+def test_plan_1d_blocks(variant, one_row, fused):
     from repro_torch.kernels.stencil1d.kernel import smem_bytes
-    assert plan_1d_blocks(194400, 1, 8, 1, variant) == (1, 1024)
+    assert plan_1d_blocks(194400, 1, 8, 1, variant) == one_row
     bb, bn = plan_1d_blocks(194400, 1024, 8, 4, variant)
-    assert (bb, bn) == (4, 1024)
+    assert (bb, bn) == fused
     assert smem_bytes(variant, 8, 4, bb, bn) <= _build.H100_SMEM_PER_BLOCK
     assert plan_1d_blocks(200, 3, 1, 3, variant) == (3, 256)
     with pytest.raises(ValueError, match="shared memory"):

@@ -1,5 +1,11 @@
-"""Host-side planning of the K3, K4 and K6 kernels, and the arithmetic of
-K6's tensor-core path, on the CPU (no jax, no card).
+"""Host-side planning of the K2, K3, K4 and K6 kernels, and the arithmetic of
+the K2 and K6 tensor-core paths, on the CPU (no jax, no card).
+
+- K2's shared memory (the split band, two raw tiles and the output tile in
+  the grid's type, two f32 sweep buffers for T > 1) and the tiles
+  ``plan_1d_blocks`` picks for it, against the H100's opt-in 232,448 B per block; an emulation of its
+  3xTF32 split (``cvt.rna`` to TF32, the small products summed apart) held
+  to the f32 limit of 2e-5 over fused sweeps, which plain TF32 misses.
 
 - Shared memory of K6 (bf16 tensor-core and f32 layouts) and of K3 (one
   buffer at T = 1, two with margins for fused sweeps) against the H100's
@@ -25,6 +31,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, sliding_window_attention
+from repro_torch.kernels.stencil1d import kernel as k2
+from repro_torch.kernels.stencil1d.ops import plan_1d_blocks
+from repro_torch.kernels.stencil1d.ref import stencil1d_ref
 from repro_torch.kernels.stencil2d import kernel as k3
 from repro_torch.kernels.stencil2d.ops import plan_2d_blocks
 from repro_torch.kernels.stencil3d import kernel as k4
@@ -35,6 +44,112 @@ from repro_torch.kernels.swa.ops import swa_plain
 
 ROOT = Path(__file__).resolve().parents[1]
 LIMIT = _build.H100_SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("r,t,itemsize,bb,bn,want", [
+    # the paper's r = 8 at the planned (16, 512): K = 24; two raw tiles of
+    # 544 columns loaded for 528 needed, rows of 548 words (16 B past a
+    # multiple of 128); the output tile, rows of 520 words (32 B past)
+    (8, 1, 4, 16, 512, 4 * (2 * 32 + 16 * (2 * 548 + 520))),        # 103,680
+    (8, 1, 2, 16, 512, 4 * (2 * 32 + 16 * (2 * 292 + 260))),        # 54,272
+    # T = 4: and two f32 sweep buffers of 356 / 612 floats a row
+    (8, 4, 4, 16, 256, 4 * (2 * 32 + 16 * (2 * 356 + 264 + 2 * 356))),
+    (8, 4, 4, 16, 512, 4 * (2 * 32 + 16 * (2 * 612 + 520 + 2 * 612))),
+    # block_b rounds up to 16 rows; r = 13 is generic (K = 40)
+    (13, 1, 4, 3, 128, 4 * (2 * 48 + 16 * (2 * 196 + 136))),
+    (2, 2, 2, 9, 128, 4 * (2 * 24 + 16 * (2 * 100 + 68 + 2 * 164))),
+])
+def test_stencil1d_mxu_smem(r, t, itemsize, bb, bn, want):
+    got = k2.smem_bytes("mxu", r, t, bb, bn, itemsize)
+    assert got == want <= LIMIT
+
+
+@pytest.mark.parametrize("n", [77, 200, 5003, 194400])
+@pytest.mark.parametrize("batch", [1, 7, 16, 1024])
+@pytest.mark.parametrize("r,t", [(1, 1), (8, 1), (8, 4), (13, 2), (4, 40)])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_plan_1d_blocks_mxu_fits(n, batch, r, t, itemsize):
+    """K2's tile: at most 16 rows (all of a short batch), a power of two
+    from 128 to 512 columns, no wider than the row needs, within one
+    block's budget, and two blocks an SM where a 128-column tile allows
+    it."""
+    bb, bn = plan_1d_blocks(n, batch, r, t, "mxu", itemsize=itemsize)
+    assert bb == min(batch, 16)
+    assert bn in (128, 256, 512) and (bn == 128 or bn < 2 * n)
+    smem = k2.smem_bytes("mxu", r, t, bb, bn, itemsize)
+    assert smem <= LIMIT
+    half = (LIMIT - 1024) // 2
+    if k2.smem_bytes("mxu", r, t, bb, 128, itemsize) <= half:
+        assert smem <= half
+        assert (bn == 512 or bn >= n
+                or k2.smem_bytes("mxu", r, t, bb, 2 * bn, itemsize) > half)
+
+
+def test_plan_1d_blocks_mxu_deployment_tile():
+    """(1024, 194400) at r = 8, T = 1: 16 x 512 in both types, two blocks
+    an SM by shared memory in f32 and four in bf16; the tile reads
+    (512 + 16) / 512 of its outputs."""
+    for itemsize, blocks in ((4, 2), (2, 4)):
+        assert plan_1d_blocks(194400, 1024, 8, 1, "mxu",
+                              itemsize=itemsize) == (16, 512)
+        smem = k2.smem_bytes("mxu", 8, 1, 16, 512, itemsize)
+        assert blocks * (smem + 1024) <= LIMIT + 1024
+
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round to 10 mantissa bits, ties away from zero."""
+    b = v.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def emulate_k2(x: torch.Tensor, coeffs, timesteps: int,
+               split: bool = True) -> torch.Tensor:
+    """K2's arithmetic in torch (a test helper, never on the main path):
+    each sweep's input and the taps split into TF32 parts, x_hi·c_hi summed
+    apart from x_lo·c_hi + x_hi·c_lo, the two added, in f32; ``split=False``
+    is plain TF32 (x_hi·c_hi alone)."""
+    r = (len(coeffs) - 1) // 2
+    n = x.shape[-1]
+    c = torch.tensor(coeffs, dtype=torch.float32)
+    ch = _tf32(c)
+    cl = _tf32(c - ch)
+    idx = torch.arange(n)
+    out = x.float()
+    for t in range(1, timesteps + 1):
+        xh = _tf32(out)
+        xl = _tf32(out - xh)
+        ph, pl = (torch.nn.functional.pad(v, (r, r)) for v in (xh, xl))
+        big = torch.zeros_like(out)
+        small = torch.zeros_like(out)
+        for k in range(2 * r + 1):
+            big = big + ch[k] * ph[..., k:k + n]
+            if split:
+                small = small + ch[k] * pl[..., k:k + n] + cl[k] * ph[..., k:k + n]
+        valid = (idx >= r * t) & (idx < n - r * t)
+        out = torch.where(valid, big + small, 0.0)
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("b,n,r,t,shrinks", [
+    # the card tests' 40 fused sweeps: taps of norm 1/3 shrink the values to
+    # ~1e-14, so there plain TF32 passes too
+    (2, 3000, 4, 40, True), (4, 4096, 8, 4, False), (3, 2000, 13, 2, False)])
+def test_k2_split_keeps_the_f32_limit(b, n, r, t, shrinks):
+    """3xTF32 holds 2e-5 against the plain version, over fused sweeps and
+    at the paper's taps; plain TF32 does not where the values keep their
+    size."""
+    rng = np.random.default_rng(r)
+    if r == 8:
+        from repro_torch.core import paper_stencil_1d
+        coeffs = paper_stencil_1d(dtype="float32").coeffs[0]
+    else:
+        coeffs = tuple((rng.normal(size=2 * r + 1) / (2 * r + 1)).tolist())
+    x = torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32))
+    want = stencil1d_ref(x, coeffs, t)
+    err = (emulate_k2(x, coeffs, t) - want).abs().max().item()
+    assert err <= 2e-5, err
+    plain = (emulate_k2(x, coeffs, t, split=False) - want).abs().max().item()
+    assert shrinks or (plain > 2e-5 and plain > 20 * err), (plain, err)
 
 
 @pytest.mark.parametrize("d,want", [(256, 197_632), (18, 50_176),
