@@ -27,10 +27,12 @@ serving path on one NVIDIA GPU (H100).
    pattern of taps but the star pattern at (1, 1, 1) and (2, 2, 2), which
    run compile-time instances) is checked against the plain version and
    timed once at ``star_3d(512, 512, 512, r=3)`` in f32 and bf16
-   (``generic_3d_r3`` lines); so are K2 at T = 4 on (1024, 194400) in f32
-   (``deploy_1d_mxu_t4``, where 3xTF32's error adds up over fused sweeps)
-   and K2's generic instance at r = 13 on (1024, 194400) in f32 and bf16
-   (``generic_1d_r13`` lines; radii 1-8 run compile-time instances).
+   (``generic_3d_r3`` lines); so are K2 and K1 at T = 4 on (1024, 194400)
+   in f32 (``deploy_1d_mxu_t4``, where 3xTF32's error adds up over fused
+   sweeps, and ``deploy_1d_vpu_t4``) and their generic instances at r = 13
+   on (1024, 194400) in f32 and bf16 (``generic_1d_r13`` lines, told apart
+   by ``kernel``; K2's radii 1-8 and K1's r = 8 with all 17 taps non-zero
+   run compile-time instances).
 5. The LM phase (``lm_phase``): K5 (causal conv1d) and K6 (sliding-window
    attention) at RecurrentGemma-2B's shapes in f32 and bf16 (K6 on the
    (B, S, H, D) projections viewed as (B, H, S, D), as the prefill hands
@@ -129,8 +131,8 @@ KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
 STENCIL_KERNELS = ("stencil1d_vpu", "stencil1d_mxu", "stencil2d", "stencil3d")
 # sources whose register use and spills are printed from the build's log
 PTXAS_SOURCES = ("swa", "stencil1d", "stencil2d", "stencil3d")
-# K4's and K2's generic instances, timed at a radius that is not a
-# compile-time one
+# the generic instances of K4 and of K1 and K2, timed at a radius that is
+# not a compile-time one
 GENERIC_3D_RADIUS = 3
 GENERIC_1D_RADIUS = 13
 
@@ -295,11 +297,12 @@ def generic_3d(dev: torch.device, seed: int, part: str,
         torch.cuda.empty_cache()
 
 
-def k2_lines(dev: torch.device, seed: int, part: str,
-             failures: list[str]) -> None:
-    """K2 on (1024, 194400) at T = 4 in f32 (the paper's 17-pt taps), and
-    its generic instance at r = 13 in f32 and bf16: checked against the
-    plain version, timed, one line each."""
+def stencil1d_lines(dev: torch.device, seed: int, part: str,
+                    failures: list[str]) -> None:
+    """K2, then K1, on (1024, 194400) at T = 4 in f32 (the paper's 17-pt
+    taps: K2's compile-time instance, and K1's), and the generic instances
+    at r = 13 in f32 and bf16: checked against the plain version, timed,
+    one line each."""
     spec = dataclasses.replace(paper_stencil_1d(dtype="float32"), timesteps=4)
     rng = np.random.default_rng(seed + GENERIC_1D_RADIUS)
     taps = tuple((rng.normal(size=2 * GENERIC_1D_RADIUS + 1)
@@ -307,33 +310,37 @@ def k2_lines(dev: torch.device, seed: int, part: str,
     wide = dataclasses.replace(spec, radii=(GENERIC_1D_RADIUS,),
                                coeffs=(taps,), timesteps=1)
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
-    for name, sp, dtype in (("deploy_1d_mxu_t4", spec, torch.float32),
-                            (f"generic_1d_r{GENERIC_1D_RADIUS}", wide,
-                             torch.float32),
-                            (f"generic_1d_r{GENERIC_1D_RADIUS}", wide,
-                             torch.bfloat16)):
-        case = Case(name, "stencil1d_mxu", sp,
-                    torch.randn((1024, 194400), generator=gen,
-                                device=dev).to(dtype), "mxu")
-        y = case.run()
-        finite = bool(torch.isfinite(y).all())
-        err = (y.float() - case.plain().float()).abs().max().item()
-        ok = finite and err <= TOL[dtype]
-        if not ok:
-            failures.append(f"{name} {dtype}: finite {finite}, err vs plain "
-                            f"{err}, tol {TOL[dtype]}")
-        del y
-        bound_ms, bound_by = case.bound(part)
-        print(json.dumps({"case": name, "kernel": case.kernel,
-                          "shape": list(case.x.shape),
-                          "dtype": str(dtype).removeprefix("torch."),
-                          "radius": sp.radii[0], "timesteps": sp.timesteps,
-                          "max_abs_err": err, "tol": TOL[dtype],
-                          "ms": median_ms(case.run, reps=10),
-                          "bound_ms": bound_ms, "bound_by": bound_by,
-                          "ok": ok}))
-        del case
-        torch.cuda.empty_cache()
+    for variant in ("mxu", "vpu"):
+        for name, sp, dtype in ((f"deploy_1d_{variant}_t4", spec,
+                                 torch.float32),
+                                (f"generic_1d_r{GENERIC_1D_RADIUS}", wide,
+                                 torch.float32),
+                                (f"generic_1d_r{GENERIC_1D_RADIUS}", wide,
+                                 torch.bfloat16)):
+            case = Case(name, f"stencil1d_{variant}", sp,
+                        torch.randn((1024, 194400), generator=gen,
+                                    device=dev).to(dtype), variant)
+            y = case.run()
+            finite = bool(torch.isfinite(y).all())
+            err = (y.float() - case.plain().float()).abs().max().item()
+            ok = finite and err <= TOL[dtype]
+            if not ok:
+                failures.append(f"{name} {case.kernel} {dtype}: finite "
+                                f"{finite}, err vs plain {err}, tol "
+                                f"{TOL[dtype]}")
+            del y
+            bound_ms, bound_by = case.bound(part)
+            print(json.dumps({"case": name, "kernel": case.kernel,
+                              "shape": list(case.x.shape),
+                              "dtype": str(dtype).removeprefix("torch."),
+                              "radius": sp.radii[0],
+                              "timesteps": sp.timesteps,
+                              "max_abs_err": err, "tol": TOL[dtype],
+                              "ms": median_ms(case.run, reps=10),
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "ok": ok}))
+            del case
+            torch.cuda.empty_cache()
 
 
 def band_pairs(seq: int, window: int) -> int:
@@ -757,7 +764,7 @@ def main(argv: list[str] | None = None) -> int:
         timed[(case.kernel, case.x.dtype)] = (ms, plain_ms, library_ms,
                                               bound_ms, bound_by)
     generic_3d(dev, args.seed, part, failures)
-    k2_lines(dev, args.seed, part, failures)
+    stencil1d_lines(dev, args.seed, part, failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1

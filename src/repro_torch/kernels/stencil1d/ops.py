@@ -16,7 +16,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.stencil1d.kernel import smem_bytes, stencil1d_kernel
 
 MAX_BLOCK_B = 4       # vpu rows per tile
-MAX_BLOCK_N = 1024    # vpu columns per tile: keeps a tile near 33-40 KB
+MAX_BLOCK_N = 2048    # vpu columns per tile: a 0.8% halo at r = 8
 MXU_BLOCK = (16, 512)  # mxu tile: one mma's 16 rows; a 3% halo at r = 8
 # The H100 gives an SM 1 KB of shared memory more than a block may opt in
 # to, and reserves 1 KB a block: two blocks fit where each takes at most
@@ -31,12 +31,11 @@ def plan_1d_blocks(n: int, batch: int, radius: int, timesteps: int,
     """Pick (block_b, block_n) whose shared-memory workspace fits
     ``smem_budget`` bytes, for a grid of ``itemsize``-byte elements.
 
-    vpu: up to 4 rows, and the widest power-of-two column count from 128 to
-    1024 (no wider than the row needs).  mxu: up to 16 rows (one mma's),
-    and the widest power of two from 128 to 512 (no wider than the row
-    needs) at which two blocks share an SM; failing that, the widest that
-    fits one block.  Raises ValueError when not even a one-row, 128-column
-    tile fits."""
+    Rows: all of a short batch, up to 4 (vpu) or 16 (mxu, one mma's).
+    Columns: the widest power of two from 128 to 2048 (vpu) or 512 (mxu),
+    no wider than the row needs, at which two blocks share an SM; failing
+    that, the widest that fits one block.  Raises ValueError when not even
+    a one-row, 128-column tile fits."""
     def fits(bb: int, bn: int, budget: int = smem_budget) -> bool:
         return smem_bytes(variant, radius, timesteps, bb, bn,
                           itemsize) <= budget
@@ -53,8 +52,7 @@ def plan_1d_blocks(n: int, batch: int, radius: int, timesteps: int,
                 f"{smem_bytes(variant, radius, timesteps, 1, 128, itemsize)} "
                 f"B of shared memory; the budget is {smem_budget} B")
     budget = smem_budget
-    if variant == "mxu" and fits(block_b, block_n,
-                                 (smem_budget - _BLOCK_RESERVE) // 2):
+    if fits(block_b, block_n, (smem_budget - _BLOCK_RESERVE) // 2):
         budget = (smem_budget - _BLOCK_RESERVE) // 2
     while block_n < min(n, max_n) and fits(block_b, 2 * block_n, budget):
         block_n *= 2

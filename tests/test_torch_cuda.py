@@ -63,6 +63,23 @@ CASES_1D = [
     # persistent block walks several tiles and the last round is partial
     (1100, 1000, 8, 1, "mxu", "float32"),
     (300, 2000, 8, 2, "mxu", "bfloat16"),
+    # K1's register window: the r = 8 instance at T = 1 and T = 4 in both
+    # types; batches that are not a multiple of the tile's rows (4); odd n
+    # (rows not 16-byte aligned) at r = 8; the generic instance at r = 13
+    # (and at r = 8 with a zero tap in test_stencil1d_vpu_skips_zero_taps)
+    (5, 4096, 8, 1, "vpu", "float32"),
+    (5, 4096, 8, 1, "vpu", "bfloat16"),
+    (3, 3000, 8, 4, "vpu", "float32"),
+    (3, 3000, 8, 4, "vpu", "bfloat16"),
+    (37, 1000, 8, 1, "vpu", "float32"),
+    (19, 777, 8, 2, "vpu", "bfloat16"),
+    (4, 1001, 8, 1, "vpu", "float32"),
+    (18, 2000, 13, 2, "vpu", "float32"),
+    (3, 1500, 13, 1, "vpu", "bfloat16"),
+    # more tiles than resident blocks (at the (8, 128) block), so each
+    # persistent block walks several tiles and the last round is partial
+    (1100, 1000, 8, 1, "vpu", "float32"),
+    (600, 2000, 8, 2, "vpu", "bfloat16"),
 ]
 CASES_2D = [
     (1, 64, 128, 1, 1, 1, "float32"),
@@ -350,6 +367,25 @@ def test_stencil2d_zero_interior_taps_at_radius_12(dev, rng, dtype, t):
     x[0, 90, 200] = float("inf")
     _close(stencil2d(x, cy, cx, timesteps=t, backend="cuda"),
            stencil2d_ref(x, cy, cx, t), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,t,zeros", [
+    (8, 1, (3, 13)), (8, 3, (0, 8)), (5, 2, (1,)), (8, 2, ())])
+def test_stencil1d_vpu_skips_zero_taps(dev, rng, dtype, r, t, zeros):
+    """K1 skips zero taps: r = 8 with a zero tap runs the generic instance
+    over the compacted taps, as does r = 5; all 17 non-zero run the
+    compile-time instance.  An infinite input point reaches the outputs
+    behind a zero tap as 0 * inf = nan unless the tap is skipped, as the
+    plain version skips it; one inside the rim leaves the rim zero."""
+    c = rng.normal(size=2 * r + 1) / (2 * r + 1)
+    c[list(zeros)] = 0.0
+    c = tuple(c.tolist())
+    x = _x(rng, (3, 1500), dtype, dev)
+    x[1, 700] = float("inf")
+    x[2, 3] = float("inf")
+    _close(stencil1d(x, c, timesteps=t, backend="cuda", variant="vpu"),
+           stencil1d_ref(x, c, t), TOL[dtype])
 
 
 def test_kernels_refuse_tensors_that_require_grad(dev):

@@ -230,7 +230,8 @@ def test_plan_2d_blocks_refuses_what_cannot_fit():
 
 
 @pytest.mark.parametrize("variant,one_row,fused", [
-    ("vpu", (1, 1024), (4, 1024)),
+    # vpu: up to 4 rows by up to 2048 columns, two blocks an SM
+    ("vpu", (1, 2048), (4, 1024)),
     # mxu: 16 rows (an mma's) by up to 512 columns, two blocks an SM
     ("mxu", (1, 512), (16, 256)),
 ])

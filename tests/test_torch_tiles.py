@@ -1,6 +1,10 @@
-"""Host-side planning of the K2, K3, K4 and K6 kernels, and the arithmetic of
-the K2 and K6 tensor-core paths, on the CPU (no jax, no card).
+"""Host-side planning of the K1, K2, K3, K4 and K6 kernels, and the
+arithmetic of the K2 and K6 tensor-core paths, on the CPU (no jax, no card).
 
+- K1's shared memory (its taps, two raw tiles and the output tile in the
+  grid's type, two f32 sweep buffers for T > 1) and the tiles
+  ``plan_1d_blocks`` picks for it; the instance that runs a set of taps
+  and the compacted taps the generic instance sums.
 - K2's shared memory (the split band, two raw tiles and the output tile in
   the grid's type, two f32 sweep buffers for T > 1) and the tiles
   ``plan_1d_blocks`` picks for it, against the H100's opt-in 232,448 B per block; an emulation of its
@@ -94,6 +98,96 @@ def test_plan_1d_blocks_mxu_deployment_tile():
                               itemsize=itemsize) == (16, 512)
         smem = k2.smem_bytes("mxu", 8, 1, 16, 512, itemsize)
         assert blocks * (smem + 1024) <= LIMIT + 1024
+
+
+@pytest.mark.parametrize("r,t,itemsize,bb,bn,want", [
+    # the paper's r = 8 at the planned (4, 2048): 17 tap pairs in 144 B; two
+    # raw tiles of 2064 columns, rows of 2084 words (16 B past a multiple of
+    # 128); the output tile, rows of 2056 words (32 B past)
+    (8, 1, 4, 4, 2048, 144 + 4 * 4 * (2 * 2084 + 2056)),            # 99,728
+    (8, 1, 2, 4, 2048, 144 + 4 * 4 * (2 * 1060 + 1028)),            # 50,512
+    # T = 4 at the planned (4, 1024): the halo 32, and two f32 sweep
+    # buffers of 1092 floats a row
+    (8, 4, 4, 4, 1024, 144 + 4 * 4 * (2 * 1092 + 1032 + 2 * 1092)),
+    # r = 13 (generic): the halo rounds up to 16 columns, 27 pairs in 224 B
+    (13, 1, 4, 3, 128, 224 + 4 * 3 * (2 * 164 + 136)),
+    # one row of odd width: 88 columns loaded for 8 + 77 + 3
+    (1, 3, 2, 1, 77, 32 + 4 * (2 * 68 + 68 + 2 * 100)),
+])
+def test_stencil1d_vpu_smem(r, t, itemsize, bb, bn, want):
+    got = k2.smem_bytes("vpu", r, t, bb, bn, itemsize)
+    assert got == want <= LIMIT
+
+
+@pytest.mark.parametrize("n", [77, 200, 5003, 194400])
+@pytest.mark.parametrize("batch", [1, 7, 16, 1024])
+@pytest.mark.parametrize("r,t", [(1, 1), (8, 1), (8, 4), (13, 2), (4, 40)])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_plan_1d_blocks_vpu_fits(n, batch, r, t, itemsize):
+    """K1's tile: at most 4 rows (all of a short batch, one row for a batch
+    of one), a power of two from 128 to 2048 columns, no wider than the row
+    needs, within one block's budget, and two blocks an SM where a
+    128-column tile allows it."""
+    bb, bn = plan_1d_blocks(n, batch, r, t, "vpu", itemsize=itemsize)
+    assert bb == min(batch, 4)
+    assert bn in (128, 256, 512, 1024, 2048) and (bn == 128 or bn < 2 * n)
+    smem = k2.smem_bytes("vpu", r, t, bb, bn, itemsize)
+    assert smem <= LIMIT
+    half = (LIMIT - 1024) // 2
+    if k2.smem_bytes("vpu", r, t, bb, 128, itemsize) <= half:
+        assert smem <= half
+        assert (bn == 2048 or bn >= n
+                or k2.smem_bytes("vpu", r, t, bb, 2 * bn, itemsize) > half)
+
+
+def test_plan_1d_blocks_vpu_deployment_tile():
+    """(1024, 194400) at r = 8, T = 1: 4 x 2048 in both types, two blocks
+    an SM by shared memory in f32 and four in bf16; the tile reads
+    (2048 + 16) / 2048 of its outputs; the paper's batch of one gets a
+    one-row tile."""
+    for itemsize, blocks in ((4, 2), (2, 4)):
+        assert plan_1d_blocks(194400, 1024, 8, 1, "vpu",
+                              itemsize=itemsize) == (4, 2048)
+        smem = k2.smem_bytes("vpu", 8, 1, 4, 2048, itemsize)
+        assert blocks * (smem + 1024) <= LIMIT + 1024
+        assert plan_1d_blocks(194400, 1, 8, 1, "vpu",
+                              itemsize=itemsize) == (1, 2048)
+
+
+_PAPER_1D = tuple(float(c) for c in np.linspace(0.02, 0.1, 17))
+
+
+@pytest.mark.parametrize("coeffs,want", [
+    (_PAPER_1D, 8),                                    # all 17 non-zero
+    (_PAPER_1D[:4] + (0.0,) + _PAPER_1D[5:], 0),       # one zero tap
+    (_PAPER_1D[:8] + (-0.0,) + _PAPER_1D[9:], 0),      # a negative zero
+    (_PAPER_1D[:16] + (1e-50,), 0),                    # zero in float32
+    (tuple(float(c) for c in np.linspace(0.01, 0.1, 27)), 0),   # r = 13
+    ((0.25, 0.5, 0.25), 0),                            # r = 1
+    (tuple(float(c) for c in np.linspace(0.1, 0.5, 9)), 0),     # r = 4
+])
+def test_stencil1d_vpu_instance(coeffs, want):
+    """The compile-time instance runs r = 8 with every tap non-zero as the
+    kernel gets them (float32); a zero tap or any other radius runs the
+    generic one."""
+    assert k2.instance(coeffs) == want
+
+
+@pytest.mark.parametrize("coeffs,offsets", [
+    ((0.1, 0.0, -0.5, 0.0, 0.2), [0, 2, 4]),
+    ((0.0, 0.0, 1.5), [2]),
+    ((0.0, 0.0, 0.0), []),
+    (_PAPER_1D, list(range(17))),
+])
+def test_stencil1d_vpu_pack_taps(coeffs, offsets):
+    """K1's compacted taps: zero taps dropped, each kept tap's offset and
+    float32 value as int32 pairs, in ascending order."""
+    packed = k2.pack_taps(coeffs)
+    assert packed.dtype == np.int32 and packed.shape == (len(offsets), 2)
+    assert packed[:, 0].tolist() == offsets
+    np.testing.assert_array_equal(
+        packed[:, 1].copy().view(np.float32),
+        np.asarray([coeffs[k] for k in offsets], dtype=np.float32))
 
 
 def _tf32(v: torch.Tensor) -> torch.Tensor:
