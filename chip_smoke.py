@@ -21,7 +21,7 @@ serving path on one NVIDIA GPU (H100).
    (``library_ms``; TF32 off) and its bound, prints one JSON line per case,
    the ``kernels`` JSON line (each stencil row also with its bf16 time and
    bound, the K5/K6 rows with their f32 ones), the registers and spills
-   that ``ptxas`` reported for K1-K4 and K6 in the build's own log, the
+   that ``ptxas`` reported for K1-K6 in the build's own log, the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
    Before the ``kernels`` line, K4's generic instance (every radius or
    pattern of taps but the star pattern at (1, 1, 1) and (2, 2, 2), which
@@ -39,11 +39,17 @@ serving path on one NVIDIA GPU (H100).
    them over, its output in q's layout) against their
    plain versions (tolerance: conv1d f32 2e-5, bf16 8e-2 plus one bf16
    quantum, the kernel alone and the op with its bias; swa f32 2e-5, bf16
-   3e-2 and a norm-relative error of at most 1e-2), timed beside the plain version, one library call (``F.conv1d``
-   with ``groups=C``; ``scaled_dot_product_attention`` with a band mask) and
-   the bound; then ``make_prefill`` of the full 26-layer model (d_model 2560,
-   f32 weights, bf16 activations) on tokens (2, 4096), which must launch K5
-   18 times and K6 8 times; then the kernel-free check (``LM.decode`` token
+   3e-2 and a norm-relative error of at most 1e-2), the op's fused bias
+   also bit for bit against the kernel followed by the bias in f32, timed
+   beside the plain version, one library call (``F.conv1d`` with
+   ``groups=C``; ``scaled_dot_product_attention`` with a band mask) and the
+   bound.  K5 is timed with a cold L2 (a read of ``FLUSH_L2`` times the L2
+   before each call, outside the events): its kernel cold and warm (min /
+   median / max), the op with its bias, the plain version and the library
+   call; its row carries the launch ``plan`` chose (``instance``).  Then
+   ``make_prefill`` of the full 26-layer model (d_model 2560, f32 weights,
+   bf16 activations) on tokens (2, 4096), which must launch K5 18 times
+   and K6 8 times; then the kernel-free check (``LM.decode`` token
    by token against ``LM.forward``, f32 activations, 5 layers, S = 2112, so
    the window and the ring buffer wrap); then ``BatchEngine`` at full width
    and depth answering 4 requests on 2 slots.  One prefill and one decode
@@ -80,7 +86,8 @@ from repro_torch.kernels import (causal_conv1d,  # noqa: E402
                                  stencil1d_from_spec, stencil2d_from_spec,
                                  stencil3d)
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.conv1d.kernel import conv1d_kernel  # noqa: E402
+from repro_torch.kernels.conv1d.kernel import (conv1d_kernel,  # noqa: E402
+                                              launch_plan)
 from repro_torch.kernels.conv1d.ref import conv1d_ref  # noqa: E402
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref  # noqa: E402
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref  # noqa: E402
@@ -130,7 +137,12 @@ KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
 }
 STENCIL_KERNELS = ("stencil1d_vpu", "stencil1d_mxu", "stencil2d", "stencil3d")
 # sources whose register use and spills are printed from the build's log
-PTXAS_SOURCES = ("swa", "stencil1d", "stencil2d", "stencil3d")
+PTXAS_SOURCES = ("conv1d", "swa", "stencil1d", "stencil2d", "stencil3d")
+# K5 is timed with a cold L2: its bf16 input at the model's shape (42 MB)
+# fits the 50 MB L2, so launches on the same buffers find part of it there,
+# and only a cold time stands against a bound that counts HBM bytes.  A read
+# of FLUSH_L2 times the L2 between launches evicts it.
+FLUSH_L2 = 4
 # the generic instances of K4 and of K1 and K2, timed at a radius that is
 # not a compile-time one
 GENERIC_3D_RADIUS = 3
@@ -222,17 +234,39 @@ def read_ptxas(names) -> list[dict]:
     return rows
 
 
-def median_ms(fn, reps: int, warmup: int = 2) -> float:
+def event_times(fn, reps: int, warmup: int = 2,
+                flush: torch.Tensor | None = None) -> list[float]:
+    """CUDA-event times (ms) of ``reps`` calls of ``fn`` after ``warmup``.
+    With ``flush`` (:func:`l2_flush`), the whole buffer is read before each
+    call, outside the events: the call finds none of its inputs in the L2,
+    and no dirty lines there whose write-back it would pay for."""
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
+        if flush is not None:
+            flush.sum()
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+    return [s.elapsed_time(e) for s, e in zip(starts, ends)]
+
+
+def median_ms(fn, reps: int, warmup: int = 2) -> float:
+    return statistics.median(event_times(fn, reps, warmup))
+
+
+def l2_flush(dev: torch.device) -> torch.Tensor:
+    """A device buffer of FLUSH_L2 times the card's L2, for cold timing."""
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    return torch.ones(FLUSH_L2 * l2 // 4, dtype=torch.float32, device=dev)
+
+
+def spread(times: list[float]) -> dict:
+    return {"min": min(times), "median": statistics.median(times),
+            "max": max(times)}
 
 
 def make_cases(dev: torch.device, seed: int) -> list[Case]:
@@ -382,6 +416,10 @@ class LMCase:
         return sliding_window_attention(*self.args, window=self.window,
                                         backend="cuda")
 
+    def op(self) -> torch.Tensor:
+        """conv1d as the model calls it: one launch, the bias fused."""
+        return causal_conv1d(*self.args, self.bias, backend="cuda")
+
     def plain(self) -> torch.Tensor:
         if self.kernel == "conv1d":
             return conv1d_ref(*self.args)
@@ -456,7 +494,7 @@ def time_host(fn, reps: int) -> float:
 # kernel-name groups of the profile, first match wins
 PROFILE_GROUPS = (
     ("K6 swa", ("swa_wgmma_kernel", "swa_f32_kernel")),
-    ("K5 conv1d", ("conv1d_kernel",)),
+    ("K5 conv1d", ("conv1d_vec_kernel", "conv1d_generic_kernel")),
     ("matmul", ("gemm", "xmma", "cutlass", "gemv", "splitk", "nvjet")),
     ("copy/cast", ("copy", "cat", "memcpy", "memset", "fill")),
     ("reduce", ("reduce",)),
@@ -507,10 +545,22 @@ def lm_phase(dev: torch.device, seed: int, part: str,
         for case in cases:
             checks = [("kernel", case.run(), case.plain())]
             if case.bias is not None:       # the op as the model calls it
-                checks.append(("op with bias",
-                               causal_conv1d(*case.args, case.bias,
-                                             backend="cuda"),
+                fused = case.op()
+                checks.append(("op with bias", fused,
                                conv1d_ref(*case.args, case.bias)))
+                # the fused bias has the bits of the kernel and a bias
+                # added after it, in f32, as the op added it before
+                unfused = (case.run().float()
+                           + case.bias.float()).to(case.dtype)
+                exact = torch.equal(fused, unfused)
+                if not exact:
+                    failures.append(f"conv1d op {case.dtype}: fused bias "
+                                    "differs from the kernel + bias")
+                print(json.dumps({
+                    "case": "model_conv1d", "kernel": "conv1d",
+                    "checked": "fused bias against kernel + bias",
+                    "dtype": str(case.dtype).removeprefix("torch."),
+                    "bit_exact": exact, "ok": exact}))
             for what, y, want in checks:
                 good, err, rel = lm_error(case.kernel, case.dtype, y, want)
                 # K6 writes its output in q's layout, which the prefill reads
@@ -634,29 +684,41 @@ def lm_phase(dev: torch.device, seed: int, part: str,
     torch.cuda.empty_cache()
 
     # -- timing of K5/K6 (not counted above) -------------------------------
+    # K5 cold (every time of it; FLUSH_L2), its warm time beside it
     rows = []
     timed = {}
+    flush = l2_flush(dev)
     with torch.inference_mode():
         for case in cases:
-            ms = median_ms(case.run, reps=20)
-            plain_ms = median_ms(case.plain, reps=5)
-            library_ms = median_ms(case.library, reps=5)
-            bound_ms, bound_by = case.bound(part)
+            k5 = case.kernel == "conv1d"
+            cold = flush if k5 else None
+            times = event_times(case.run, 20, flush=cold)
+            t = {"ms": statistics.median(times),
+                 "plain_ms": statistics.median(event_times(case.plain, 5,
+                                                           flush=cold)),
+                 "library_ms": statistics.median(event_times(case.library, 5,
+                                                             flush=cold))}
+            if k5:
+                warm = event_times(case.run, 20)
+                t.update(cold=spread(times), warm=spread(warm),
+                         ms_warm=statistics.median(warm),
+                         op_ms=statistics.median(event_times(case.op, 20,
+                                                             flush=flush)),
+                         instance=dataclasses.asdict(
+                             launch_plan(*case.args)))
+            t["bound_ms"], t["bound_by"] = case.bound(part)
             dt = str(case.dtype).removeprefix("torch.")
             # the yardstick computes the same function (printed, not gated)
             library_err = (case.library().float()
                            - case.plain().float()).abs().max().item()
-            print(json.dumps({"case": f"model_{case.kernel}_{dt}", "ms": ms,
-                              "plain_ms": plain_ms, "library_ms": library_ms,
-                              "library_err": library_err,
-                              "bound_ms": bound_ms, "bound_by": bound_by}))
-            timed[(case.kernel, case.dtype)] = (ms, plain_ms, library_ms,
-                                                bound_ms, bound_by)
+            print(json.dumps({"case": f"model_{case.kernel}_{dt}", **t,
+                              "library_err": library_err}))
+            timed[(case.kernel, case.dtype)] = t
+    del flush
     for case in cases:
         if case.dtype != torch.bfloat16:        # the prefill's type is bf16
             continue
-        ms, plain_ms, library_ms, bound_ms, bound_by = timed[(case.kernel,
-                                                              case.dtype)]
+        t = timed[(case.kernel, case.dtype)]
         f32 = timed[(case.kernel, torch.float32)]
         route, source, replaces = KERNELS[case.kernel]
         rows.append({
@@ -666,10 +728,12 @@ def lm_phase(dev: torch.device, seed: int, part: str,
             "tol": LM_TOL[case.kernel][case.dtype][0],
             "max_abs_err_f32": errs[(case.kernel, torch.float32)],
             "tol_f32": LM_TOL[case.kernel][torch.float32][0],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "ms_f32": f32[0], "bound_ms_f32": f32[3],
-            "library_ms_f32": f32[2],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            **{k: t[k] for k in ("ms_warm", "op_ms", "instance") if k in t},
+            "ms_f32": f32["ms"], "bound_ms_f32": f32["bound_ms"],
+            "library_ms_f32": f32["library_ms"],
+            **{f"{k}_f32": f32[k] for k in ("ms_warm", "op_ms") if k in f32},
             "shape": [list(a.shape) for a in case.args], "part": part})
     return rows
 

@@ -1,52 +1,137 @@
 """Wrapper of the hand-written CUDA kernel K5 in ``csrc/conv1d.cu``, which
-replaces ``repro.kernels.conv1d.kernel``'s ``conv1d_pallas``.
+replaces ``repro.kernels.conv1d.kernel``'s ``conv1d_pallas`` and the bias
+its op adds after it.
 
-One thread per channel walks ``SEQ_TILE`` sequence positions with the K
-taps and the K-1 previous inputs in registers; the kernel zero-fills before
-position 0 and reads its left halo from the previous tile's rows itself, so
-nothing is padded.  It sums in float32 and stores in ``x.dtype``; the bias is
-added by ``ops.causal_conv1d``.  On a CPU tensor the wrapper runs the plain
-version, :func:`conv1d_ref`.
+Work is split into runs of consecutive positions of one batch row, one a
+thread.  Where K <= 4, ``C * itemsize`` is a multiple of 16 and ``x``,
+``w`` and ``y`` start on 16-byte boundaries, a vector instance runs: a
+thread owns a 16-byte chunk of channels and keeps several rows' loads in
+flight; every other case runs the generic instance, one channel a thread
+(:func:`plan`).
+The kernel zero-fills before position 0, reads its left halo itself, sums in
+float32 in tap order, casts to ``x.dtype`` and adds the optional bias after
+that cast in float32, rounding again.  On a CPU tensor the wrapper runs the
+plain version, :func:`conv1d_ref`, which adds the bias before its one cast.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv1d.ref import conv1d_ref
 
-MAX_TAPS = 32      # the widest register window conv1d.cu is instantiated for
-SEQ_TILE = 64      # sequence positions per thread (kSeqTile in conv1d.cu)
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-             ctypes.c_void_p]
+MAX_TAPS = 32      # the widest register window of the generic instance
+VEC_TAPS = 4       # the vector instances: K = 1 .. VEC_TAPS (kVecTaps)
+MAX_THREADS = 256  # threads per block the kernels are built for (kMaxThreads)
+AHEADS = (1, 2, 4, 8)   # rows in flight a vector thread is built for
+# The vector plan (scripts/k5_tiles.py measures it): runs of RUN positions
+# with AHEAD rows in flight in blocks of THREADS, the run shorter where the
+# grid would leave an SM fewer than MIN_THREADS_PER_SM threads.
+RUN, AHEAD, THREADS, MIN_THREADS_PER_SM = 8, 8, 64, 512
+GENERIC_RUN, GENERIC_THREADS = 64, 128
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def conv1d_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, C) float32/bfloat16, w: (K, C) of the same type -> (B, S, C)
-    in ``x.dtype``, no bias.  Launches K5 on a CUDA tensor; runs
-    :func:`conv1d_ref` on a CPU one."""
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch of K5: ``instance`` is the vector instance's K, or 0 for
+    the generic instance; a thread owns ``run`` positions; ``threads`` a
+    block; ``ahead`` rows in flight a vector thread (1 for the generic)."""
+    instance: int
+    run: int
+    threads: int
+    ahead: int
+
+
+def plan(batch: int, seq: int, ch: int, taps: int, itemsize: int, sms: int,
+         aligned: bool) -> Plan:
+    """K5's launch for x (batch, seq, ch) and ``taps`` taps on a card with
+    ``sms`` SMs; ``aligned``: x, w and y start on 16-byte boundaries.
+
+    A vector instance where ``taps <= VEC_TAPS``, the rows are whole
+    16-byte chunks and ``aligned``: runs of ``RUN`` positions, halved while
+    the grid (a thread a run and chunk) gives the SMs fewer than
+    ``MIN_THREADS_PER_SM`` threads each, ``min(AHEAD, run)`` rows in flight,
+    ``THREADS`` a block.  Else the generic instance over runs of
+    ``GENERIC_RUN``."""
+    if not (aligned and taps <= VEC_TAPS and ch * itemsize % 16 == 0):
+        return Plan(0, GENERIC_RUN, GENERIC_THREADS, 1)
+    chunks = ch * itemsize // 16
+    run = RUN
+    while (run > 1
+           and batch * chunks * -(-seq // run) < sms * MIN_THREADS_PER_SM):
+        run //= 2
+    return Plan(taps, run, THREADS, min(AHEAD, run))
+
+
+def _check_plan(p: Plan, taps: int) -> None:
+    if (p.instance not in (0, taps) or p.instance > VEC_TAPS or p.run < 1
+            or p.threads < 32 or p.threads > MAX_THREADS or p.threads % 32
+            or p.ahead not in AHEADS):
+        raise ValueError(f"conv1d: {p} does not fit {taps} taps (instance 0 "
+                         f"or K <= {VEC_TAPS}, threads a multiple of 32 up to "
+                         f"{MAX_THREADS}, ahead in {AHEADS})")
+
+
+def conv1d_kernel(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor | None = None, *,
+                  launch: Plan | None = None) -> torch.Tensor:
+    """x: (B, S, C) float32/bfloat16, w: (K, C) of the same type, optional
+    bias b: (C,) float32 or bfloat16 -> (B, S, C) in ``x.dtype``.  Launches
+    K5 on a CUDA tensor, with :func:`plan`'s launch unless ``launch`` gives
+    another (the launcher refuses a vector instance the tensors do not
+    allow); runs :func:`conv1d_ref` on a CPU one."""
     dtype_code = _build.check_grid(x, 3, "conv1d")
     if w.dim() != 2 or w.shape[1] != x.shape[2] or w.dtype != x.dtype:
         raise ValueError(f"conv1d takes taps (K, {x.shape[2]}) of type "
                          f"{x.dtype}, got {tuple(w.shape)} {w.dtype}")
-    if w.device != x.device:
-        raise ValueError(f"conv1d: taps on {w.device}, input on {x.device}")
+    if b is not None and tuple(b.shape) != (x.shape[2],):
+        raise ValueError(f"conv1d takes a bias ({x.shape[2]},), got "
+                         f"{tuple(b.shape)}")
+    for t in (w, b):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"conv1d: taps or bias on {t.device}, input on "
+                             f"{x.device}")
     if x.device.type == "cpu":
-        return conv1d_ref(x, w)
-    _build.check_no_grad("conv1d", x, w)
+        return conv1d_ref(x, w, b)
+    _build.check_no_grad("conv1d", x, w, *(() if b is None else (b,)))
     kk = w.shape[0]
     if not 1 <= kk <= MAX_TAPS:
         raise ValueError(f"conv1d kernel takes 1 to {MAX_TAPS} taps, got {kk}")
     w = w.contiguous()
-    b, s, c = x.shape
+    bias_code, bias_ptr = -1, None
+    if b is not None:
+        if b.dtype not in _build.DTYPE_CODES:
+            b = b.float()             # the bits of the op's b.float()
+        b = b.contiguous()
+        bias_code, bias_ptr = _build.DTYPE_CODES[b.dtype], b.data_ptr()
+    bs, s, c = x.shape
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    if launch is None:
+        launch = launch_plan(x, w)
+    _check_plan(launch, kk)
     with torch.cuda.device(x.device):
         _build.launch("conv1d", "conv1d", _ARGTYPES, x.data_ptr(),
-                      w.data_ptr(), out.data_ptr(), dtype_code, b, s, c, kk,
+                      w.data_ptr(), bias_ptr, out.data_ptr(), dtype_code,
+                      bias_code, bs, s, c, kk, launch.instance, launch.run,
+                      launch.threads, launch.ahead,
                       _build.stream_handle(x.device))
     return out
+
+
+def launch_plan(x: torch.Tensor, w: torch.Tensor) -> Plan:
+    """:func:`plan` for these CUDA tensors.  The output comes from
+    ``torch.empty_like``, whose caching allocator starts every block on a
+    512-byte boundary; the launcher checks it with x and w all the same."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    bs, s, c = x.shape
+    return plan(bs, s, c, w.shape[0], x.element_size(), sms, aligned)

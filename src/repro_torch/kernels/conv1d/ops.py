@@ -1,10 +1,11 @@
 """Public entry point for depthwise causal conv1d.
 
-``backend="auto"`` follows the tensor: on a CUDA tensor it launches K5 and
-adds the bias outside the kernel, in float32 after the kernel's cast to
-``x.dtype`` (as the JAX package's Pallas path does); on a CPU tensor it runs
-the plain version, which adds the bias before its single cast (as the JAX
-package's XLA path does).  ``backend="cuda"`` raises on a CPU tensor.
+``backend="auto"`` follows the tensor: on a CUDA tensor it launches K5 once,
+with the bias fused: added in float32 after the kernel's cast to
+``x.dtype`` and rounded again (as the JAX package's Pallas path adds it); on
+a CPU tensor it runs the plain version, which adds the bias before its
+single cast (as the JAX package's XLA path does).  ``backend="cuda"`` raises
+on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -23,7 +24,4 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         _build.check_grid(x, 3, "conv1d")
         return conv1d_ref(x, w, b)
-    y = conv1d_kernel(x.contiguous(), w)
-    if b is not None:
-        y = (y.float() + b[None, None, :].float()).to(x.dtype)
-    return y
+    return conv1d_kernel(x.contiguous(), w, b)

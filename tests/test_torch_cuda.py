@@ -7,6 +7,8 @@ Tolerances: ``TOL`` of ``tests/test_kernels.py`` (f32 2e-5, bf16 3e-2;
 conv1d bf16 8e-2, ``tests/test_kernels.py:122``: the kernel path adds the
 bias after its cast to bf16, the plain version before it).
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ import torch
 from repro_torch.kernels import (_build, causal_conv1d,
                                  sliding_window_attention, stencil1d,
                                  stencil2d, stencil3d)
+from repro_torch.kernels.conv1d import kernel as k5
 from repro_torch.kernels.conv1d.ref import conv1d_ref
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref
@@ -325,6 +328,148 @@ def test_conv1d_kernel(dev, rng, b, s, c, k, dtype):
            TOL[dtype], rtol)
     _close(causal_conv1d(x, w, backend="cuda"), conv1d_ref(x, w), TOL[dtype],
            rtol)
+
+
+def _device_kernels(fn):
+    """(fn's result, the names of the device kernels it launched), from
+    torch.profiler.  The host sleeps a few ms on either side of fn inside
+    the profiled window, so that fn's one short kernel lies well inside it:
+    a window that held nothing but that kernel once came back empty."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.005)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.005)
+    names = [e.key for e in prof.key_averages()
+             if e.device_type.name == "CUDA" for _ in range(e.count)]
+    return out, names
+
+
+def _conv1d_close(y, x, w, bias, dtype):
+    """K5 against the plain version, with the limits of test_conv1d_kernel."""
+    rtol = 2 ** -7 if dtype == "bfloat16" else 0.0
+    atol = 8e-2 if dtype == "bfloat16" and bias is not None else TOL[dtype]
+    _close(y, conv1d_ref(x, w, bias), atol, rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_conv1d_vector_instances(dev, rng, k, dtype):
+    """K = 1-4 at 16-byte rows run the vector instance of their K, with and
+    without the bias."""
+    x, w, bias = (_x(rng, shape, dtype, dev)
+                  for shape in ((2, 300, 256), (k, 256), (256,)))
+    assert k5.launch_plan(x, w).instance == k
+    for b in (bias, None):
+        y, names = _device_kernels(lambda: causal_conv1d(x, w, b,
+                                                         backend="cuda"))
+        assert len(names) == 1 and "conv1d_vec_kernel" in names[0], names
+        _conv1d_close(y, x, w, b, dtype)
+
+
+def _misaligned(rng, shape, dtype, dev):
+    """A contiguous tensor whose storage starts one element past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    buf = _x(rng, (n + 1,), dtype, dev)
+    return buf[1:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("what", ["ragged channels", "misaligned input"])
+def test_conv1d_generic_instance_where_vectors_do_not_fit(dev, rng, what,
+                                                          dtype):
+    """Rows that are not whole 16-byte chunks, or an input off a 16-byte
+    boundary, run the generic instance; the launcher refuses a vector
+    instance forced onto them."""
+    c = 258 if what == "ragged channels" else 256   # 258 * 2, 258 * 4 % 16
+    shape = (2, 300, c)
+    x = (_x(rng, shape, dtype, dev) if what == "ragged channels"
+         else _misaligned(rng, shape, dtype, dev))
+    w, bias = _x(rng, (4, c), dtype, dev), _x(rng, (c,), dtype, dev)
+    assert x.is_contiguous()
+    assert k5.launch_plan(x, w).instance == 0
+    y, names = _device_kernels(lambda: causal_conv1d(x, w, bias,
+                                                     backend="cuda"))
+    assert len(names) == 1 and "conv1d_generic_kernel" in names[0], names
+    _conv1d_close(y, x, w, bias, dtype)
+    before = _build.LAUNCHES.get("conv1d", 0)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        k5.conv1d_kernel(x, w, launch=k5.Plan(4, 64, 256, 8))
+    assert _build.LAUNCHES.get("conv1d", 0) == before
+
+
+# (b, s, c, k, dtype, launch): S shorter than K; S not a multiple of the run
+# or of the rows in flight; several runs a row, so the halo is read at every
+# run and batch boundary; the generic instance at short runs
+CASES_CONV_RUNS = [
+    (2, 2, 256, 4, "float32", None),
+    (3, 3, 64, 4, "bfloat16", None),
+    (3, 1001, 128, 4, "bfloat16", k5.Plan(4, 16, 64, 8)),
+    (3, 130, 128, 3, "float32", k5.Plan(3, 32, 128, 4)),
+    (5, 77, 256, 2, "bfloat16", k5.Plan(2, 8, 256, 2)),
+    (2, 500, 64, 1, "float32", k5.Plan(1, 64, 32, 1)),
+    (4, 203, 72, 4, "float32", k5.Plan(4, 24, 96, 8)),
+    (3, 130, 100, 5, "float32", k5.Plan(0, 16, 64, 1)),
+    (3, 130, 100, 4, "bfloat16", k5.Plan(0, 7, 32, 1)),
+]
+
+
+@pytest.mark.parametrize("b,s,c,k,dtype,launch", CASES_CONV_RUNS)
+def test_conv1d_runs_and_batch_boundaries(dev, rng, b, s, c, k, dtype,
+                                          launch):
+    """Every row's last K-1 inputs are infinite, so a halo read across a
+    batch boundary shows in the next row's first outputs."""
+    x, w, bias = (_x(rng, shape, dtype, dev)
+                  for shape in ((b, s, c), (k, c), (c,)))
+    halo = min(k - 1, s)
+    if halo:
+        x[:, -halo:] = float("inf")
+    y = k5.conv1d_kernel(x, w, bias, launch=launch)
+    assert bool(torch.isfinite(y[:, :s - halo]).all())
+    _conv1d_close(y, x, w, bias, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [3, 5, 9])
+def test_conv1d_skips_padded_slots(dev, rng, k, dtype):
+    """An infinite input reaches only the K outputs whose taps read it; the
+    generic instance's padded window slots (K = 5 in 8 slots, K = 9 in 16)
+    would carry it further as 0 * inf = nan."""
+    x, w, bias = (_x(rng, shape, dtype, dev)
+                  for shape in ((2, 200, 64), (k, 64), (64,)))
+    x[1, 100, 7] = float("inf")
+    y = causal_conv1d(x, w, bias, backend="cuda")
+    assert bool(torch.isfinite(y[1, 100 + k:, 7]).all())
+    assert bool(torch.isfinite(y[0]).all())
+    _conv1d_close(y, x, w, bias, dtype)
+
+
+@pytest.mark.parametrize("bias_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [2560, 258])
+def test_conv1d_fused_bias_is_bit_exact(dev, rng, c, dtype, bias_dtype):
+    """The op with its bias fused has the bits of the kernel followed by
+    the bias added in f32 and cast, as the op computed it before: at the
+    model's width (vector instance) and at ragged channels (generic)."""
+    x = _x(rng, (2, 1000, c), dtype, dev) * 8
+    w = _x(rng, (4, c), dtype, dev)
+    bias = _x(rng, (c,), bias_dtype, dev) * 8
+    want = (k5.conv1d_kernel(x, w).float() + bias.float()).to(x.dtype)
+    assert torch.equal(causal_conv1d(x, w, bias, backend="cuda"), want)
+
+
+def test_conv1d_op_launches_one_kernel(dev, rng):
+    """causal_conv1d at the model's width, bias fused: one device kernel."""
+    x = _x(rng, (1, 512, 2560), "bfloat16", dev)
+    w = _x(rng, (4, 2560), "bfloat16", dev)
+    bias = _x(rng, (2560,), "bfloat16", dev)
+    with torch.inference_mode():
+        _, names = _device_kernels(lambda: causal_conv1d(x, w, bias))
+    assert len(names) == 1 and "conv1d_vec_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,w,dtype", CASES_SWA)

@@ -46,6 +46,7 @@ def test_sources_import_no_jax_and_no_repro():
     root = SRC.parent
     paths = sorted((SRC / "repro_torch").rglob("*.py"))
     paths += [root / "chip_smoke.py", root / "tests" / "test_torch_cuda.py"]
+    paths += sorted((root / "scripts").glob("*.py"))
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()

@@ -20,6 +20,11 @@ arithmetic of the K2 and K6 tensor-core paths, on the CPU (no jax, no card).
   tiles that ``DEFAULT_BLOCK``, ``fit_block`` and ``_auto_block`` give, the
   instance that runs a set of taps, and its tap struct (``struct Taps`` of
   ``csrc/stencil3d.cu``).
+- K5's launch plan: the vector instance for K <= 4 at whole 16-byte rows
+  and aligned tensors, the generic one otherwise, and the run, threads and
+  rows in flight for the model's shape and the edge cases; a torch
+  emulation of K5's bf16 double rounding (sum cast to bf16, bias added in
+  f32, cast again) held to ``chip_smoke.py``'s limits.
 - A torch emulation of where K6's bf16 path rounds (bf16 products summed in
   f32, the scale on the f32 scores, an online softmax over 64-key tiles, P
   rounded to bf16 before an f32 P·V) held to ``chip_smoke.py``'s limits
@@ -35,6 +40,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, sliding_window_attention
+from repro_torch.kernels.conv1d import kernel as k5
+from repro_torch.kernels.conv1d.ref import conv1d_ref
 from repro_torch.kernels.stencil1d import kernel as k2
 from repro_torch.kernels.stencil1d.ops import plan_1d_blocks
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref
@@ -561,3 +568,108 @@ def test_swa_takes_strided_views_on_cpu():
                                     kv.transpose(1, 2).contiguous(),
                                     kv.transpose(1, 2).contiguous(), window=16)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+SMS = 132   # the H100 SXM's SMs
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_conv1d_plan_model_shape(itemsize):
+    """RecurrentGemma-2B's prefill, x (2, 4096, 2560), K = 4: the vector
+    instance over runs of 8 with 8 rows in flight in blocks of 64 threads,
+    which divide a row's 320 bf16 / 640 f32 chunks: 163,840 / 327,680
+    threads."""
+    p = k5.plan(2, 4096, 2560, 4, itemsize, SMS, True)
+    assert p == k5.Plan(4, 8, 64, 8)
+    assert (2560 * itemsize // 16) % p.threads == 0
+
+
+@pytest.mark.parametrize("b,s,c,k,itemsize,aligned,want", [
+    *((2, 4096, 2560, k, 2, True, k) for k in (1, 2, 3, 4)),
+    (2, 4096, 2560, 5, 2, True, 0),        # K past the vector instances
+    (1, 100, 2561, 4, 2, True, 0),         # rows not whole 16-byte chunks
+    (1, 100, 2562, 4, 4, True, 0),
+    (1, 100, 2564, 4, 4, True, 4),
+    (1, 100, 2560, 4, 2, False, 0),        # x, w or y off a 16-byte boundary
+    (2, 3, 200, 4, 4, True, 4),            # S shorter than K
+    (1, 1, 9, 1, 4, True, 0),
+    (1, 37, 5, 32, 4, True, 0),
+])
+def test_conv1d_plan_instance(b, s, c, k, itemsize, aligned, want):
+    p = k5.plan(b, s, c, k, itemsize, SMS, aligned)
+    assert p.instance == want
+    if want == 0:
+        assert p == k5.Plan(0, k5.GENERIC_RUN, k5.GENERIC_THREADS, 1)
+
+
+@pytest.mark.parametrize("b,s,c,itemsize", [
+    (1, 1, 8, 2), (1, 3, 64, 4), (2, 4096, 2560, 2), (2, 4096, 2560, 4),
+    (1, 4096, 2560, 2), (1, 512, 2560, 2), (32, 32768, 2560, 2),
+    (1, 100, 4096, 4), (7, 1001, 128, 2), (1, 10 ** 6, 8, 2),
+    (1, 64, 1000, 4)])
+def test_conv1d_plan_run_fills_the_card(b, s, c, itemsize):
+    """The run is RUN, or the longest power of two under it whose grid
+    gives every SM MIN_THREADS_PER_SM threads (1 where none does); rows in
+    flight never pass the run."""
+    p = k5.plan(b, s, c, 4, itemsize, SMS, True)
+    chunks = c * itemsize // 16
+    budget = SMS * k5.MIN_THREADS_PER_SM
+
+    def grid(run):
+        return b * chunks * -(-s // run)
+    assert p.instance == 4 and p.run.bit_count() == 1 and p.run <= k5.RUN
+    assert p.run == 1 or grid(p.run) >= budget
+    assert p.run == k5.RUN or grid(2 * p.run) < budget
+    assert p.ahead == min(k5.AHEAD, p.run) and p.ahead in k5.AHEADS
+    assert p.threads == k5.THREADS
+
+
+def emulate_k5(x: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor | None = None) -> torch.Tensor:
+    """K5's arithmetic in torch (a test helper, never on the main path):
+    fmaf in tap order from 0 (each product and sum in float64, rounded once
+    to float32: fmaf's result but for rare double roundings), the sum cast
+    to x.dtype, then the bias added in float32 and cast again."""
+    kk, s = w.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x.double(), (0, 0, kk - 1, 0))
+    acc = torch.zeros(x.shape, dtype=torch.float32)
+    for k in range(kk):
+        acc = (xp[:, k:k + s] * w[k].double() + acc.double()).float()
+    y = acc.to(x.dtype)
+    return y if b is None else (y.float() + b.float()).to(x.dtype)
+
+
+def test_k5_bf16_double_rounding_fits_chip_smoke_limits():
+    """bf16 at the model's conv width: the emulated kernel with its bias
+    within chip_smoke.py's conv1d limits (8e-2 plus one quantum) of the
+    plain version, which adds the bias before its one cast; without the
+    bias, within them too.  The second rounding is visible."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    x, w, b = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(bf) * scale
+               for shape, scale in (((2, 512, 256), 4), ((4, 256), 1),
+                                    ((256,), 4)))
+    got, want = emulate_k5(x, w, b), conv1d_ref(x, w, b)
+    good, err, _ = chip_smoke.lm_error("conv1d", bf, got, want)
+    assert good, err
+    assert err > 0
+    good, err, _ = chip_smoke.lm_error("conv1d", bf, emulate_k5(x, w),
+                                       conv1d_ref(x, w))
+    assert good, err
+
+
+def test_k5_f32_emulation_keeps_the_f32_limit():
+    """f32: the fmaf chain and the plain version's rounded products agree
+    within chip_smoke.py's 2e-5, with the bias added after the sum."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rng = np.random.default_rng(1)
+    x, w, b = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               for shape in ((2, 512, 256), (4, 256), (256,)))
+    good, err, _ = chip_smoke.lm_error("conv1d", torch.float32,
+                                       emulate_k5(x, w, b),
+                                       conv1d_ref(x, w, b))
+    assert good, err
