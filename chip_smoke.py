@@ -33,7 +33,24 @@ serving path on one NVIDIA GPU (H100).
    on (1024, 194400) in f32 and bf16 (``generic_1d_r13`` lines, told apart
    by ``kernel``; K2's radii 1-8 and K1's r = 8 with all 17 taps non-zero
    run compile-time instances).
-5. The LM phase (``lm_phase``): K5 (causal conv1d) and K6 (sliding-window
+5. The CGRA phase (``cgra_phase``): the paper's cases at their own sizes
+   (1D 17-pt N=194400 and 2D 49-pt 449x960 at w* from the §VI roofline on
+   the CGRA, ``heat_3d(64, 64, 64)`` at w=8; the 2D case at 32x64 when the
+   other two simulations take more than half of ``CGRA_SIM_BUDGET_S``) are
+   mapped and simulated on the host with the vector engine and held
+   against the numpy oracle; the same inputs, cast to f32, go through K1
+   and K2 (1D), K3 (2D) and K4 (3D) on the card with the launch counts
+   zeroed just before and read just after (each of K1-K4 must launch), and
+   each output is held within 2e-5 of the simulated one and of the oracle
+   (``phase: "cgra"`` lines).  Interp and vector must agree bit for bit on
+   the quickstart spec and ``paper_stencil_1d(n=2400)``
+   (``cgra_interp_vector``); the paper-size 1D plan is placed and routed on
+   a 16x16 mesh, and the n=2400 plan simulated routed and ideal must give
+   the same output bits, routed no faster (``cgra_fabric``).  After the
+   timing of the paper shapes, ``cgra_roofline`` lines put the §VI
+   roofline of the 1D and 2D paper cases at f32 on the CGRA, the V100 and
+   this H100 part beside what K1, K2 and K3 achieved there.
+6. The LM phase (``lm_phase``): K5 (causal conv1d) and K6 (sliding-window
    attention) at RecurrentGemma-2B's shapes in f32 and bf16 (K6 on the
    (B, S, H, D) projections viewed as (B, H, S, D), as the prefill hands
    them over, its output in q's layout) against their
@@ -79,8 +96,11 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import ShapeSpec, get_config  # noqa: E402
-from repro_torch.core import (paper_stencil_1d, paper_stencil_2d,  # noqa: E402
+from repro_torch.core import (CGRA, H100_PCIE, H100_SXM, V100,  # noqa: E402
+                              StencilSpec, analyze, heat_3d, map_nd,
+                              paper_stencil_1d, paper_stencil_2d, simulate,
                               star_3d, stencil_reference_np)
+from repro_torch.fabric import FabricTopology, place, route  # noqa: E402
 from repro_torch.kernels import (causal_conv1d,  # noqa: E402
                                  sliding_window_attention,
                                  stencil1d_from_spec, stencil2d_from_spec,
@@ -115,8 +135,11 @@ REL_TOL = {("swa", torch.bfloat16): 1e-2}
 # decode against forward at full width: the bar of tests/test_models.py
 DECODE_TOL = 5e-4
 # Datasheet peaks (dense, no sparsity): HBM bytes/s, FP32 (non-tensor)
-# flop/s and BF16 tensor-core flop/s of the two H100 parts.
-PEAKS = {"sxm": (3.35e12, 67e12, 989e12), "pcie": (2.0e12, 51e12, 756e12)}
+# flop/s and BF16 tensor-core flop/s of the two H100 parts; the first two
+# from the roofline's machines.
+H100 = {"sxm": H100_SXM, "pcie": H100_PCIE}
+PEAKS = {part: (H100[part].bw_gbps * 1e9, H100[part].peak_gflops * 1e9, bf16)
+         for part, bf16 in (("sxm", 989e12), ("pcie", 756e12))}
 ARCH = "recurrentgemma-2b"
 PREFILL_BATCH, PREFILL_SEQ = 2, 4096      # cut from prefill_32k's (32, 32768)
 DECODE_LAYERS, DECODE_SEQ = 5, 2112       # one period + the 2-layer tail
@@ -738,6 +761,204 @@ def lm_phase(dev: torch.device, seed: int, part: str,
     return rows
 
 
+# -- the CGRA model (host numpy) held against K1-K4 on the card ---------------
+# The three paper cases' simulations take 35-40 s of host CPU, the 2D one
+# about as long as the 1D and 3D together: when those two take more than
+# CGRA_SIM_BUDGET_S / 2, the three would pass the budget, and the 2D case
+# runs at benchmarks/fabric_bench.py's reduced grid and workers instead.
+CGRA_SIM_BUDGET_S = 90.0
+CGRA_REDUCED_2D = ((32, 64), 8)
+CGRA_ORACLE_TOL = 1e-9        # simulated (float64) against the numpy oracle
+CGRA_MESH = (16, 16)
+
+
+@dataclasses.dataclass
+class CgraCase:
+    name: str
+    spec: StencilSpec     # the simulated spec, float64
+    workers: int
+    kernels: tuple        # (kernel, variant) pairs the card runs it through
+    reduced: bool = False
+    x: np.ndarray | None = None
+    res: object = None    # the SimResult
+    host_s: float = 0.0
+    oracle: np.ndarray | None = None
+    card: dict = dataclasses.field(default_factory=dict)
+
+
+def cgra_simulate(case: CgraCase, seed: int) -> None:
+    """Map and simulate one case with the vector engine, on the host."""
+    case.x = np.random.default_rng(seed).normal(size=case.spec.grid_shape)
+    plan = map_nd(case.spec, workers=case.workers)
+    t0 = time.perf_counter()
+    case.res = simulate(plan, case.x, CGRA, engine="vector")
+    case.host_s = time.perf_counter() - t0
+    case.oracle = stencil_reference_np(case.x, case.spec)
+
+
+def cgra_simulations(seed: int) -> list[CgraCase]:
+    """The paper's cases at their own sizes: 1D and 2D at w* from the §VI
+    roofline on the CGRA, ``heat_3d(64, 64, 64)`` at w = 8."""
+    s1, s2 = paper_stencil_1d(), paper_stencil_2d()
+    cases = [CgraCase("paper_1d", s1, analyze(s1, CGRA).workers,
+                      (("stencil1d_vpu", "vpu"), ("stencil1d_mxu", "mxu"))),
+             CgraCase("heat_3d", heat_3d(64, 64, 64, dtype="float64"), 8,
+                      (("stencil3d", "vpu"),))]
+    for i, case in enumerate(cases):
+        cgra_simulate(case, seed + i)
+    reduced = sum(c.host_s for c in cases) > CGRA_SIM_BUDGET_S / 2
+    w2 = analyze(s2, CGRA).workers
+    if reduced:
+        (ny, nx), w2 = CGRA_REDUCED_2D
+        s2 = paper_stencil_2d(ny, nx)
+    case = CgraCase("paper_2d", s2, w2, (("stencil2d", "vpu"),),
+                    reduced=reduced)
+    cgra_simulate(case, seed + 2)
+    return cases[:1] + [case] + cases[1:]
+
+
+def sim_fingerprint(plan, res) -> tuple:
+    """Every observable of a simulation that interp and vector share."""
+    return (res.cycles, res.fires, res.loads, res.stores, res.flops,
+            res.max_queue_total, res.output.tobytes(),
+            {n.name: n.fires for n in plan.dfg.nodes})
+
+
+def cgra_phase(dev: torch.device, seed: int, failures: list[str]) -> None:
+    """Simulate the paper's cases, run the same inputs (cast to f32) through
+    K1-K4 with the launches counted, hold the card against the simulation
+    and the oracle; then interp against vector, and the network-aware mode."""
+    cases = cgra_simulations(seed)
+    for case in cases:
+        err = float(np.abs(case.res.output - case.oracle).max())
+        if err > CGRA_ORACLE_TOL:
+            failures.append(f"cgra {case.name}: simulated vs oracle {err}")
+    # -- the card, on the simulated inputs: counted ------------------------
+    _build.reset_launches()
+    outs = {}
+    for case in cases:
+        x32 = torch.tensor(case.x, dtype=torch.float32, device=dev)
+        spec32 = dataclasses.replace(case.spec, dtype="float32")
+        for kernel, variant in case.kernels:
+            outs[(case.name, kernel)] = Case(case.name, kernel, spec32, x32,
+                                             variant).run()
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in STENCIL_KERNELS}
+    failures += [f"cgra: {k} not launched" for k, n in launches.items()
+                 if n == 0]
+    tol = TOL[torch.float32]
+    for case in cases:
+        for kernel, _variant in case.kernels:
+            y = outs[(case.name, kernel)].double().cpu().numpy()
+            e_sim = float(np.abs(y - case.res.output).max())
+            e_oracle = float(np.abs(y - case.oracle).max())
+            case.card[kernel] = {"err_vs_sim": e_sim,
+                                 "err_vs_oracle": e_oracle}
+            if not (np.isfinite(y).all() and e_sim <= tol
+                    and e_oracle <= tol):
+                failures.append(f"cgra {case.name} {kernel}: card vs "
+                                f"simulated {e_sim}, vs oracle {e_oracle}, "
+                                f"tol {tol}")
+        r = case.res
+        print(json.dumps({
+            "phase": "cgra", "case": case.name,
+            "grid": list(case.spec.grid_shape),
+            "radii": list(case.spec.radii), "reduced": case.reduced,
+            "workers": case.workers, "cycles": r.cycles, "loads": r.loads,
+            "stores": r.stores, "flops": r.flops,
+            "sim_gflops": r.gflops, "roofline_share": r.pct_of_roofline,
+            "compute_peak_share": r.pct_of_compute_peak,
+            "host_sim_s": case.host_s,
+            "sim_err_vs_oracle": float(np.abs(r.output - case.oracle).max()),
+            "card": case.card, "tol": tol,
+            "launches": {k: launches[k] for k, _ in case.kernels}}))
+    del outs
+    # -- interp against vector, bit for bit --------------------------------
+    quick = StencilSpec((6000,), (2,), ((0.1, 0.2, 0.4, 0.2, 0.1),),
+                        dtype="float64")
+    for name, spec in (("quickstart", quick),
+                       ("paper_1d_2400", paper_stencil_1d(n=2400))):
+        w = analyze(spec, CGRA).workers
+        x = np.random.default_rng(seed).normal(size=spec.grid_shape)
+        prints, walls = {}, {}
+        for engine in ("interp", "vector"):
+            plan = map_nd(spec, workers=w)
+            t0 = time.perf_counter()
+            res = simulate(plan, x, CGRA, engine=engine)
+            walls[engine] = time.perf_counter() - t0
+            prints[engine] = sim_fingerprint(plan, res)
+        same = prints["interp"] == prints["vector"]
+        if not same:
+            failures.append(f"cgra_interp_vector {name}: engines differ")
+        print(json.dumps({"phase": "cgra_interp_vector", "case": name,
+                          "workers": w, "cycles": res.cycles,
+                          "identical": same, "host_s": walls}))
+    # -- network-aware mode --------------------------------------------------
+    paper = cases[0]
+    t0 = time.perf_counter()
+    rf = route(place(map_nd(paper.spec, workers=paper.workers),
+                     FabricTopology.mesh(*CGRA_MESH), seed=0))
+    place_s = time.perf_counter() - t0
+    st = rf.stats()
+    spec = paper_stencil_1d(n=2400)
+    x = np.random.default_rng(seed).normal(size=2400)
+    ideal = simulate(map_nd(spec, workers=paper.workers), x, CGRA,
+                     engine="vector")
+    plan = map_nd(spec, workers=paper.workers)
+    routed = simulate(plan, x, CGRA, engine="vector",
+                      fabric=route(place(plan, FabricTopology.mesh(*CGRA_MESH),
+                                         seed=0)))
+    same = routed.output.tobytes() == ideal.output.tobytes()
+    ok = same and routed.cycles >= ideal.cycles
+    if not ok:
+        failures.append(f"cgra_fabric: routed output identical {same}, "
+                        f"cycles routed {routed.cycles} ideal {ideal.cycles}")
+    print(json.dumps({
+        "phase": "cgra_fabric", "mesh": list(CGRA_MESH), "seed": 0,
+        "paper_1d": {k: st[k] for k in ("pes_used", "edges_routed",
+                                         "hops_mean", "hops_max",
+                                         "max_channel_load",
+                                         "channel_capacity",
+                                         "link_utilization")},
+        "place_route_host_s": place_s, "reduced_1d": list(spec.grid_shape),
+        "cycles_ideal": ideal.cycles, "cycles_routed": routed.cycles,
+        "token_hops": routed.fabric["token_hops"],
+        "outputs_identical": same, "ok": ok}))
+
+
+def cgra_roofline_lines(paper_ms: dict, part: str) -> None:
+    """The §VI roofline of the 1D and 2D paper cases at f32, the type the
+    card ran, on the CGRA, the V100 and this H100 part, beside what K1 (and
+    K2) and K3 achieved at the paper shape.  Claims nothing."""
+    timed = (("paper_1d", paper_stencil_1d(dtype="float32"),
+              {"stencil1d_vpu": "paper_1d_vpu",
+               "stencil1d_mxu": "paper_1d_mxu"}),
+             ("paper_2d", paper_stencil_2d(dtype="float32"),
+              {"stencil2d": "paper_2d_t1"}))
+    for name, spec, kernels in timed:
+        flops = spec.total_flops()
+        card = {}
+        for kernel, case_name in kernels.items():
+            ms = paper_ms[case_name]
+            gflops = flops / (ms * 1e-3) / 1e9
+            card[kernel] = {"ms": ms, "gflops": gflops}
+        roofs = {}
+        for m in (CGRA, V100, H100[part]):
+            rep = analyze(spec, m)
+            roofs[m.name] = {
+                "ai": rep.arithmetic_intensity,
+                "bw_bound_gflops": rep.bw_bound_gflops,
+                "compute_bound_gflops": rep.compute_bound_gflops,
+                "achievable_gflops": rep.achievable_gflops,
+                "bound": rep.bound, "workers": rep.workers}
+        share = {k: v["gflops"] / roofs[H100[part].name]["achievable_gflops"]
+                 for k, v in card.items()}
+        print(json.dumps({"phase": "cgra_roofline", "case": name,
+                          "grid": list(spec.grid_shape), "dtype": "float32",
+                          "flops": flops, "roofline": roofs, "card": card,
+                          "card_share_of_h100_roofline": share}))
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -805,6 +1026,12 @@ def main(argv: list[str] | None = None) -> int:
         print("\n".join(failures), file=sys.stderr)
         return 1
 
+    # -- the CGRA model against K1-K4 (launches counted anew) ---------------
+    cgra_phase(dev, args.seed, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+
     # -- the LM path: K5/K6, prefill, decode check, serving -----------------
     lm_rows = lm_phase(dev, args.seed, part, failures)
     if failures:
@@ -812,11 +1039,11 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     # -- timing (launches here are not counted above) -----------------------
-    timed = {}
+    timed, paper_ms = {}, {}
     for case in cases:
         if not case.name.startswith("deploy"):
-            print(json.dumps({"case": case.name,
-                              "ms": median_ms(case.run, reps=20)}))
+            paper_ms[case.name] = median_ms(case.run, reps=20)
+            print(json.dumps({"case": case.name, "ms": paper_ms[case.name]}))
             continue
         ms = median_ms(case.run, reps=20)
         plain_ms = median_ms(case.plain, reps=10)
@@ -827,6 +1054,7 @@ def main(argv: list[str] | None = None) -> int:
                           "bound_by": bound_by}))
         timed[(case.kernel, case.x.dtype)] = (ms, plain_ms, library_ms,
                                               bound_ms, bound_by)
+    cgra_roofline_lines(paper_ms, part)
     generic_3d(dev, args.seed, part, failures)
     stencil1d_lines(dev, args.seed, part, failures)
     if failures:

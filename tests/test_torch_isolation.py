@@ -31,21 +31,35 @@ def test_import_loads_no_jax_and_no_repro():
     code = ("import importlib, json, pkgutil, sys, repro_torch;"
             "import repro_torch.core, repro_torch.kernels, repro_torch.models,"
             " repro_torch.serving, repro_torch.launch.serve,"
-            " repro_torch.configs;"
+            " repro_torch.configs, repro_torch.core.simulator,"
+            " repro_torch.fabric, repro_torch.analysis,"
+            " repro_torch.telemetry;"
             "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
             "repro_torch.__path__, 'repro_torch.')];"
             "print(json.dumps(sorted(m for m in sys.modules"
-            " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))")
+            " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))));"
+            "print(json.dumps(sorted(m for m in sys.modules"
+            " if m.startswith('repro_torch.'))))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, timeout=120)
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    foreign, loaded = (json.loads(line)
+                       for line in out.stdout.strip().splitlines()[-2:])
+    assert foreign == []
+    # the walk reached the CGRA model's modules
+    for mod in ("core.roofline", "core.temporal", "core.dfg",
+                "core.mapping.nd", "core.engine.vector", "core.simulator",
+                "fabric.route", "analysis.static_verify",
+                "telemetry.attribution"):
+        assert f"repro_torch.{mod}" in loaded
 
 
 def test_sources_import_no_jax_and_no_repro():
     root = SRC.parent
     paths = sorted((SRC / "repro_torch").rglob("*.py"))
-    paths += [root / "chip_smoke.py", root / "tests" / "test_torch_cuda.py"]
+    paths += [root / "chip_smoke.py", root / "tests" / "test_torch_cuda.py",
+              root / "examples" / "quickstart_torch.py",
+              root / "tests" / "test_torch_cgra_model.py"]
     paths += sorted((root / "scripts").glob("*.py"))
     for path in paths:
         for line in path.read_text().splitlines():
