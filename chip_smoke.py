@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's stencil main path and its RecurrentGemma-2B
-serving path on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's stencil main path, its CGRA model with the
+tuner's batched stage 1, and its RecurrentGemma-2B serving path on one
+NVIDIA GPU (H100).
 
     PYTHONPATH=src python3 chip_smoke.py [--device cuda:0] [--seed 0]
 
-1. Builds the six hand-written CUDA kernels from ``src/repro_torch/csrc``
+1. Builds the seven hand-written CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel).
 2. Drives the main path through the public ops (``stencil1d_from_spec``,
    ``stencil2d_from_spec``, ``stencil3d``) with every launch count zeroed just
@@ -50,7 +51,31 @@ serving path on one NVIDIA GPU (H100).
    timing of the paper shapes, ``cgra_roofline`` lines put the §VI
    roofline of the 1D and 2D paper cases at f32 on the CGRA, the V100 and
    this H100 part beside what K1, K2 and K3 achieved there.
-6. The LM phase (``lm_phase``): K5 (causal conv1d) and K6 (sliding-window
+6. The ``cgra_batch`` phase (``cgra_batch_phase``): K7, the batched cycle
+   engine.  With the launch counts zeroed, benchmarks/run.py's tuner
+   sweep at full size (``heat_2d(48, 96)``, temporal 1-2, capacities
+   auto/unbounded, the full grid and ``tile_candidates`` at 2 and 8 KiB, 2
+   workload sweeps: 84 configs, of which pruning keeps 30) runs through
+   ``explore(..., budget=Budget(batch_size=32))`` on the card, then again
+   sequentially with the vector engine: per-config cycles and the Pareto
+   front must be identical.  ``K7Watch`` records what the sweep's own
+   calls of K7's wrapper took and returned, and times their launches
+   (CUDA events): every lane's final carry must equal its plain version's
+   on the card, on the same lanes, in every field (max difference 0).
+   Then the paper's 2D 449x960 stage-1 sweep (workers 1-5, capacities
+   auto/unbounded: 10 lanes) runs as one ``simulate_batch`` launch: every
+   lane's output within 1e-9 of the numpy oracle; the analytic seed lane
+   (w = 5, auto) equal to the ``cgra`` phase's vector result in cycles,
+   fires, loads/stores/flops and output bits, and its w = 5 unbounded lane
+   (the ``cgra`` phase's own plan) in every observable; the other 8 lanes
+   equal in every observable to the vector engine, run on the same inputs
+   in ``VECTOR_WORKERS`` worker processes.  Prints configs/s of both
+   paths, K7's device ms, ns per simulated cycle, host packing and
+   value-pass seconds apart, and K7's bound: the largest over a launch's
+   lanes of the lane's cycles x ``K7_FLOOR_BARRIERS`` (1) barrier a cycle
+   x one barrier's time at the lane's own thread count, measured by a
+   barrier-only instance of the kernel.
+7. The LM phase (``lm_phase``): K5 (causal conv1d) and K6 (sliding-window
    attention) at RecurrentGemma-2B's shapes in f32 and bf16 (K6 on the
    (B, S, H, D) projections viewed as (B, H, S, D), as the prefill hands
    them over, its output in q's layout) against their
@@ -73,7 +98,7 @@ serving path on one NVIDIA GPU (H100).
    step run again under ``torch.profiler`` for the device's busy time by
    kernel group and its idle share.
 
-Any build error, launch error, mismatch or kernel that the main path did not
+Any build error, launch error, mismatch or kernel that its path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
 one it exits non-zero before doing anything.
 """
@@ -81,7 +106,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
+import multiprocessing
 import re
 import statistics
 import subprocess
@@ -97,9 +124,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import ShapeSpec, get_config  # noqa: E402
 from repro_torch.core import (CGRA, H100_PCIE, H100_SXM, V100,  # noqa: E402
-                              StencilSpec, analyze, heat_3d, map_nd,
+                              StencilSpec, analyze, heat_2d, heat_3d, map_nd,
                               paper_stencil_1d, paper_stencil_2d, simulate,
                               star_3d, stencil_reference_np)
+from repro_torch.core.engine import cuda_engine  # noqa: E402
+from repro_torch.core.simulator import simulate_batch  # noqa: E402
+from repro_torch.explore import (Budget, SpaceOptions, as_target,  # noqa: E402
+                                 enumerate_space, explore, prune_space,
+                                 tile_candidates)
 from repro_torch.fabric import FabricTopology, place, route  # noqa: E402
 from repro_torch.kernels import (causal_conv1d,  # noqa: E402
                                  sliding_window_attention,
@@ -109,6 +141,8 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv1d.kernel import (conv1d_kernel,  # noqa: E402
                                               launch_plan)
 from repro_torch.kernels.conv1d.ref import conv1d_ref  # noqa: E402
+from repro_torch.kernels.simbatch import kernel as k7  # noqa: E402
+from repro_torch.kernels.simbatch.ref import simbatch_plain  # noqa: E402
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref  # noqa: E402
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref  # noqa: E402
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref  # noqa: E402
@@ -157,10 +191,14 @@ KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
                "src/repro/kernels/conv1d/kernel.py:55"),
     "swa": ("cuda", "src/repro_torch/csrc/swa.cu",
             "src/repro/kernels/swa/kernel.py:99"),
+    # no pallas_call: the jax.jit of the vmapped lax.while_loop(_cycle_step)
+    "simbatch": ("cuda", "src/repro_torch/csrc/simbatch.cu",
+                 "src/repro/core/engine/jax_engine.py:409"),
 }
 STENCIL_KERNELS = ("stencil1d_vpu", "stencil1d_mxu", "stencil2d", "stencil3d")
 # sources whose register use and spills are printed from the build's log
-PTXAS_SOURCES = ("conv1d", "swa", "stencil1d", "stencil2d", "stencil3d")
+PTXAS_SOURCES = ("conv1d", "swa", "stencil1d", "stencil2d", "stencil3d",
+                 "simbatch")
 # K5 is timed with a cold L2: its bf16 input at the model's shape (42 MB)
 # fits the 50 MB L2, so launches on the same buffers find part of it there,
 # and only a cold time stands against a bound that counts HBM bytes.  A read
@@ -781,6 +819,7 @@ class CgraCase:
     reduced: bool = False
     x: np.ndarray | None = None
     res: object = None    # the SimResult
+    plan: object = None   # the simulated MappingPlan
     host_s: float = 0.0
     oracle: np.ndarray | None = None
     card: dict = dataclasses.field(default_factory=dict)
@@ -789,9 +828,9 @@ class CgraCase:
 def cgra_simulate(case: CgraCase, seed: int) -> None:
     """Map and simulate one case with the vector engine, on the host."""
     case.x = np.random.default_rng(seed).normal(size=case.spec.grid_shape)
-    plan = map_nd(case.spec, workers=case.workers)
+    case.plan = map_nd(case.spec, workers=case.workers)
     t0 = time.perf_counter()
-    case.res = simulate(plan, case.x, CGRA, engine="vector")
+    case.res = simulate(case.plan, case.x, CGRA, engine="vector")
     case.host_s = time.perf_counter() - t0
     case.oracle = stencil_reference_np(case.x, case.spec)
 
@@ -824,10 +863,12 @@ def sim_fingerprint(plan, res) -> tuple:
             {n.name: n.fires for n in plan.dfg.nodes})
 
 
-def cgra_phase(dev: torch.device, seed: int, failures: list[str]) -> None:
+def cgra_phase(dev: torch.device, seed: int,
+               failures: list[str]) -> list[CgraCase]:
     """Simulate the paper's cases, run the same inputs (cast to f32) through
     K1-K4 with the launches counted, hold the card against the simulation
-    and the oracle; then interp against vector, and the network-aware mode."""
+    and the oracle; then interp against vector, and the network-aware mode.
+    Returns the simulated cases."""
     cases = cgra_simulations(seed)
     for case in cases:
         err = float(np.abs(case.res.output - case.oracle).max())
@@ -924,6 +965,7 @@ def cgra_phase(dev: torch.device, seed: int, failures: list[str]) -> None:
         "cycles_ideal": ideal.cycles, "cycles_routed": routed.cycles,
         "token_hops": routed.fabric["token_hops"],
         "outputs_identical": same, "ok": ok}))
+    return cases
 
 
 def cgra_roofline_lines(paper_ms: dict, part: str) -> None:
@@ -957,6 +999,339 @@ def cgra_roofline_lines(paper_ms: dict, part: str) -> None:
                           "grid": list(spec.grid_shape), "dtype": "float32",
                           "flops": flops, "roofline": roofs, "card": card,
                           "card_share_of_h100_roofline": share}))
+
+
+# -- the batched cycle engine (K7) and the tuner's stage 1 on the card ---------
+# benchmarks/run.py's stage-1 tuner sweep at full size (its non-smoke branch):
+# heat_2d(48, 96), temporal 1-2, capacities auto/unbounded, full-grid and
+# plan_blocks tiles at 2 and 8 KiB, two workload sweeps, stage 1 only.
+SWEEP_BATCH = 32
+SWEEP_BUDGETS = (2048, 8192)
+CARRY_FIELDS = ("qlen", "maxocc", "fires", "active", "credit", "cycles",
+                "status")
+# K7's floor counts one block barrier a simulated cycle: a cycle needs one
+# exchange across the block, since each node's eligibility reads queue
+# lengths that other threads wrote the cycle before.  Nothing else needs
+# the block barrier: the memory arbiter fits one warp (ballots), a queue
+# length can be kept as a push count and a pop count, each written by one
+# end, in buffers indexed by the cycle (so one barrier parts a cycle's
+# writes from the next one's reads), and "any fired" and the completed
+# cmp count can ride the barrier's reduction and such buffers.  K7 itself
+# pays k7.BARRIERS_PER_CYCLE.
+K7_FLOOR_BARRIERS = 1
+# worker processes that run the paper 2D sweep's other lanes through the
+# vector engine while the card's results are checked
+VECTOR_WORKERS = 4
+VECTOR_TIMEOUT_S = 600
+
+
+class K7Watch:
+    """What the main path hands K7 and what it gets back, observed without
+    changing it: each ``k7.simbatch`` call's lanes, ``max_cycles``, result
+    and host seconds, its launch's CUDA-event ms, and the seconds of the
+    value pass (``cuda_engine._finalize``) that follows it."""
+
+    def __enter__(self) -> "K7Watch":
+        self.calls: list[dict] = []
+        self._saved = simbatch, launch, finalize = (
+            k7.simbatch, k7.launch, cuda_engine._finalize)
+
+        def watched_simbatch(lanes, max_cycles, device):
+            call = {"lanes": lanes, "max_cycles": max_cycles, "events": [],
+                    "value_pass_s": 0.0}
+            self.calls.append(call)
+            t0 = time.perf_counter()
+            call["out"] = simbatch(lanes, max_cycles, device)
+            call["wall_s"] = time.perf_counter() - t0
+            return call["out"]
+
+        def watched_launch(d, max_cycles):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            launch(d, max_cycles)
+            end.record()
+            self.calls[-1]["events"].append((start, end))
+            self.calls[-1].update(threads=d.packed.threads,
+                                  smem=d.packed.smem)
+
+        def watched_finalize(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return finalize(*args, **kwargs)
+            finally:
+                self.calls[-1]["value_pass_s"] += time.perf_counter() - t0
+
+        k7.simbatch, k7.launch, cuda_engine._finalize = (
+            watched_simbatch, watched_launch, watched_finalize)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        k7.simbatch, k7.launch, cuda_engine._finalize = self._saved
+        torch.cuda.synchronize()
+        for call in self.calls:
+            call["ms"] = sum(s.elapsed_time(e) for s, e in call["events"])
+
+
+def carry_diff(cp, got: dict, want: dict) -> float:
+    """Largest difference of two final carries over every field (K7's
+    unpadded lane against the plain version's padded one)."""
+    nN, nE = cp.n_nodes, cp.n_edges
+    cut = {"qlen": nE + 1, "maxocc": nE, "fires": nN, "active": nN}
+    err = 0.0
+    for k in CARRY_FIELDS:
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        if k in cut:
+            a, b = a[:cut[k]], b[:cut[k]]
+            if a.shape != b.shape:
+                return float("inf")
+        err = max(err, float(np.abs(a.astype(np.float64)
+                                    - b.astype(np.float64)).max(initial=0)))
+    return err
+
+
+def k7_bound(lanes, carries, dev) -> tuple[float, dict]:
+    """K7's floor on one launch (ms), and the ns a barrier took at each
+    thread count: the lanes run side by side, so the launch takes at least
+    its slowest lane's chain of ``K7_FLOOR_BARRIERS`` barriers a cycle at
+    that lane's own thread count (``k7.plan_threads``), each chain timed by
+    the barrier-only instance of the kernel."""
+    longest: dict[int, int] = {}
+    for (cp, _), c in zip(lanes, carries):
+        t = k7.plan_threads(cp.n_nodes, cp.n_edges)
+        longest[t] = max(longest.get(t, 1), int(c["cycles"]))
+    ms = {t: k7.barrier_ms(t, K7_FLOOR_BARRIERS * n, dev)
+          for t, n in longest.items()}
+    return max(ms.values()), {t: ms[t] * 1e6 / (K7_FLOOR_BARRIERS * n)
+                              for t, n in longest.items()}
+
+
+def sim_digest(plan, res) -> tuple:
+    """``sim_fingerprint`` with the output bits as their SHA-256."""
+    *head, out, fires = sim_fingerprint(plan, res)
+    return (*head, hashlib.sha256(out).hexdigest(), fires)
+
+
+def vector_digest(spec, config, x: np.ndarray) -> tuple:
+    """One stage-1 lane of ``spec``'s sweep through the vector engine, in a
+    worker process: the plan built from ``config`` as the tuner builds it."""
+    plan = as_target(spec).build(config)
+    return sim_digest(plan, simulate(plan, x, CGRA, engine="vector"))
+
+
+def cgra_batch_phase(dev: torch.device, seed: int, cgra_cases: list,
+                     failures: list[str]) -> dict:
+    """The tuner's batched stage 1 on the card through K7, against the
+    sequential vector engine, and each of its launches against K7's plain
+    version; then the paper's 2D stage-1 sweep as one launch, every lane
+    against the oracle and the vector engine (the w = 5 lanes against the
+    ``cgra`` phase's result).  Returns K7's row of the ``kernels`` line."""
+    # -- the tuner sweep, counted: explore with Budget(batch_size=32) -------
+    heat = heat_2d(48, 96, dtype="float64")
+    opts = SpaceOptions(
+        temporal=(1, 2), capacities=("auto", "unbounded"),
+        tiles=(None,) + tuple(t for t in tile_candidates(heat, SWEEP_BUDGETS)
+                              if t is not None), fabrics=())
+    target = as_target(heat, workload_timesteps=2)
+    configs, analytic = enumerate_space(target, CGRA, opts)
+    kept, _log = prune_space(target, CGRA, configs, opts, keep=analytic)
+    # one launch on a small lane first, so that the timed launches below
+    # do not include loading K7 and setting its shared-memory limit
+    small = heat_2d(16, 16, dtype="float64")
+    simulate_batch([(map_nd(small, workers=2), np.zeros(small.grid_shape))],
+                   CGRA, device=dev)
+    with K7Watch() as watch:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        bat = explore(heat, CGRA, options=opts,
+                      budget=Budget(batch_size=SWEEP_BATCH),
+                      workload_timesteps=2, engine="vector", device=dev)
+        torch.cuda.synchronize()
+        bat_s = time.perf_counter() - t0
+        sweep_launches = _build.LAUNCHES.get("simbatch", 0)
+    t0 = time.perf_counter()
+    seq = explore(heat, CGRA, options=opts, budget=Budget(),
+                  workload_timesteps=2, engine="vector")
+    seq_s = time.perf_counter() - t0
+
+    def by_config(points):
+        return {json.dumps(p.config.canonical(), sort_keys=True):
+                (p.sim_cycles, p.cycles, p.pes) for p in points}
+
+    same_cycles = by_config(bat.ideal_points) == by_config(seq.ideal_points)
+    front_of = lambda r: sorted(p.objectives() for p in r.front)  # noqa: E731
+    same_front = front_of(bat) == front_of(seq)
+    n = len(seq.ideal_points)
+    watched = sum(len(c["lanes"]) for c in watch.calls)
+    ok = (same_cycles and same_front and n == len(kept) and sweep_launches
+          == -(-n // SWEEP_BATCH) == len(watch.calls) and watched == n
+          and not bat.failures and not seq.failures)
+    if not ok:
+        failures.append(f"cgra_batch sweep: cycles identical {same_cycles}, "
+                        f"fronts identical {same_front}, {n} of {len(kept)} "
+                        f"configs measured, {sweep_launches} K7 launches of "
+                        f"{watched} lanes, failures {bat.failures[:2]} "
+                        f"{seq.failures[:2]}")
+
+    # -- the sweep's own launches, K7 against its plain version on the card --
+    chunks, err, plain_ms, bound_ms, cycles_max = [], 0.0, 0.0, 0.0, 0
+    for call in watch.calls:
+        refused = [str(o) for o in call["out"] if isinstance(o, Exception)]
+        if refused:
+            failures.append(f"cgra_batch: K7 refused lanes: {refused[:2]}")
+            continue
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = simbatch_plain(call["lanes"], call["max_cycles"], dev)
+        end.record()
+        end.synchronize()
+        p_ms = start.elapsed_time(end)
+        e = max(carry_diff(cp, g, w) for (cp, _), g, w
+                in zip(call["lanes"], call["out"], want))
+        longest = max(int(g["cycles"]) for g in call["out"])
+        b_ms, barrier_ns = k7_bound(call["lanes"], call["out"], dev)
+        err, plain_ms, bound_ms = max(err, e), plain_ms + p_ms, bound_ms + b_ms
+        cycles_max = max(cycles_max, longest)
+        chunks.append({"lanes": len(call["lanes"]),
+                       "threads": call["threads"], "smem": call["smem"],
+                       "longest_cycles": longest, "ms": call["ms"],
+                       "ns_per_cycle": call["ms"] * 1e6 / longest,
+                       "plain_ms": p_ms, "bound_ms": b_ms,
+                       "barrier_ns": barrier_ns,
+                       "host_pack_copy_s": call["wall_s"] - call["ms"] / 1e3,
+                       "host_value_pass_s": call["value_pass_s"],
+                       "max_abs_err": e})
+    if err != 0.0:
+        failures.append(f"cgra_batch: K7 differs from its plain version by "
+                        f"{err}")
+    sweep_ms = sum(c["ms"] for c in chunks)
+    print(json.dumps({
+        "phase": "cgra_batch", "case": "heat2d_stage1_sweep",
+        "grid": list(heat.grid_shape), "configs": len(configs),
+        "kept": len(kept), "measured": n, "batch_size": SWEEP_BATCH,
+        "launches": sweep_launches, "cycles_identical": same_cycles,
+        "front_identical": same_front, "front": front_of(seq),
+        "batched_wall_s": bat_s, "sequential_vector_wall_s": seq_s,
+        "batched_configs_per_s": n / bat_s,
+        "sequential_configs_per_s": n / seq_s,
+        "sim_cycles_total": sum(p.sim_cycles for p in seq.ideal_points),
+        "chunks": chunks, "k7_max_abs_err_vs_plain": err, "ok": ok}))
+
+    # -- the paper's 2D sweep: one launch, counted --------------------------
+    s2 = paper_stencil_2d()
+    t2 = as_target(s2)
+    opts2 = SpaceOptions(capacities=("auto", "unbounded"), fabrics=())
+    cfg2, analytic2 = enumerate_space(t2, CGRA, opts2)
+    kept2, _ = prune_space(t2, CGRA, cfg2, opts2, keep=analytic2)
+    case2 = next(c for c in cgra_cases if c.name == "paper_2d")
+    if case2.reduced:          # the cgra phase ran 32x64: simulate it here
+        case2 = CgraCase("paper_2d", s2, analyze(s2, CGRA).workers, ())
+        cgra_simulate(case2, seed + 2)
+    t0 = time.perf_counter()
+    plans2 = [t2.build(c) for c in kept2]
+    build_s = time.perf_counter() - t0
+    with K7Watch() as watch2:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res2 = simulate_batch([(pl, case2.x) for pl in plans2], CGRA,
+                              device=dev)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        paper_launches = _build.LAUNCHES.get("simbatch", 0)
+    seed_i = kept2.index(analytic2)
+    same_i = kept2.index(dataclasses.replace(analytic2, capacity="unbounded"))
+    # every other lane through the vector engine, in worker processes,
+    # while the card's lanes are checked against the oracle and the bound
+    # is measured; the longest (fewest workers) first
+    others = sorted((i for i in range(len(kept2)) if i not in (seed_i, same_i)),
+                    key=lambda i: kept2[i].workers)
+    pool = multiprocessing.get_context("spawn").Pool(VECTOR_WORKERS)
+    try:
+        pending = {i: pool.apply_async(vector_digest, (s2, kept2[i], case2.x))
+                   for i in others}
+        want = case2.res
+        rows, errs = [], []
+        for cfg, pl, r in zip(kept2, plans2, res2):
+            if isinstance(r, Exception):
+                errs.append(f"{cfg.canonical()}: {type(r).__name__}: {r}")
+                continue
+            o_err = float(np.abs(r.output - case2.oracle).max())
+            if not o_err <= CGRA_ORACLE_TOL:
+                errs.append(f"{cfg.canonical()}: {o_err} from the oracle")
+            rows.append({"workers": cfg.workers, "capacity": cfg.capacity,
+                         "cycles": r.cycles, "status": "finished",
+                         "gflops": r.gflops, "roofline_share":
+                         r.pct_of_roofline, "oracle_err": o_err})
+        seed_res, same_res = res2[seed_i], res2[same_i]
+        seed_ok = (not isinstance(seed_res, Exception)
+                   and (seed_res.cycles, seed_res.fires, seed_res.loads,
+                        seed_res.stores, seed_res.flops,
+                        seed_res.output.tobytes())
+                   == (want.cycles, want.fires, want.loads, want.stores,
+                       want.flops, want.output.tobytes()))
+        plan_ok = (not isinstance(same_res, Exception)
+                   and sim_fingerprint(plans2[same_i], same_res)
+                   == sim_fingerprint(case2.plan, want))
+        call2 = watch2.calls[-1]
+        bound2, barrier_ns2 = (k7_bound(call2["lanes"], call2["out"], dev)
+                               if not errs else (float("nan"), {}))
+        longest2 = max((r["cycles"] for r in rows), default=0)
+        t0 = time.perf_counter()
+        vector_differs = [
+            kept2[i].canonical() for i in others
+            if isinstance(res2[i], Exception)
+            or pending[i].get(timeout=VECTOR_TIMEOUT_S)
+            != sim_digest(plans2[i], res2[i])]
+        vector_wait_s = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
+    ok = (not errs and seed_ok and plan_ok and paper_launches == 1
+          and len(watch2.calls) == 1 and not vector_differs
+          and analytic2.workers == case2.workers)
+    if not ok:
+        failures.append(f"cgra_batch paper_2d: lane errors {errs}, seed lane "
+                        f"(w={analytic2.workers}, auto) equal {seed_ok}, same "
+                        f"plan equal {plan_ok}, lanes unlike the vector "
+                        f"engine {vector_differs}, {paper_launches} launches")
+    print(json.dumps({
+        "phase": "cgra_batch", "case": "paper_2d_stage1_sweep",
+        "grid": list(s2.grid_shape), "configs": len(cfg2),
+        "lanes": rows, "launches": paper_launches,
+        "seed": analytic2.canonical(), "seed_cycles": seed_res.cycles
+        if seed_ok else None, "cgra_phase_cycles": want.cycles,
+        "seed_equal_to_cgra_phase": seed_ok,
+        "same_plan_equal_to_cgra_phase": plan_ok,
+        "other_lanes_equal_to_vector": not vector_differs,
+        "vector_lanes": len(others), "vector_wait_s": vector_wait_s,
+        "host_build_s": build_s, "simulate_batch_s": batch_s,
+        "cgra_phase_vector_s": case2.host_s,
+        "k7_ms": call2["ms"], "k7_threads": call2.get("threads"),
+        "k7_smem": call2.get("smem"), "longest_cycles": longest2,
+        "ns_per_cycle": call2["ms"] * 1e6 / max(longest2, 1),
+        "bound_ms": bound2, "barrier_ns": barrier_ns2,
+        "host_pack_copy_s": call2["wall_s"] - call2["ms"] / 1e3,
+        "host_value_pass_s": call2["value_pass_s"], "ok": ok}))
+
+    ptxas = next((r for r in read_ptxas(("simbatch",))
+                  if r["kernel"].startswith("simbatch_kernelE")), {})
+    route, source, replaces = KERNELS["simbatch"]
+    return {"name": "simbatch", "route": route, "source": source,
+            "replaces": replaces,
+            "launches": sweep_launches + paper_launches,
+            "max_abs_err": err, "tol": 0.0,
+            "ms": sweep_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "library_ms": None,
+            "barriers_per_cycle": k7.BARRIERS_PER_CYCLE,
+            "bound_barriers_per_cycle": K7_FLOOR_BARRIERS,
+            "registers": ptxas.get("registers"),
+            "spill_stores": ptxas.get("spill_stores"),
+            "spill_loads": ptxas.get("spill_loads"),
+            "shape": f"{n} heat2d 48x96 stage-1 lanes in "
+                     f"{len(chunks)} launch(es), longest {cycles_max} cycles",
+            "paper_2d_ms": call2["ms"], "paper_2d_bound_ms": bound2}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1027,7 +1402,13 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     # -- the CGRA model against K1-K4 (launches counted anew) ---------------
-    cgra_phase(dev, args.seed, failures)
+    cgra_cases = cgra_phase(dev, args.seed, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+
+    # -- K7: the tuner's batched stage 1 on the card (launches counted) ----
+    k7_row = cgra_batch_phase(dev, args.seed, cgra_cases, failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -1080,7 +1461,7 @@ def main(argv: list[str] | None = None) -> int:
             "bound_by": bound_by, "library_ms": library_ms,
             "ms_bf16": bf[0], "bound_ms_bf16": bf[3], "bound_by_bf16": bf[4],
             "shape": list(case.x.shape), "part": part})
-    print(json.dumps({"kernels": rows + lm_rows}))
+    print(json.dumps({"kernels": rows + lm_rows + [k7_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1}}))   # the card it drove

@@ -10,13 +10,13 @@ credit carried across cycles).
 
 The simulator *executes the numerics*: it produces the output grid, so every
 mapping is validated end-to-end against ``core.reference`` — not just timed.
-Program-graph plans (the reference's ``repro.program``, not ported yet) are
-simulated by the same machinery:
+Program-graph plans (``repro_torch.program``) are simulated by the same
+machinery:
 they carry several ``cmp`` completion nodes (one per output field — the run
 ends when *all* have fired), ``imux`` re-interleave nodes, and an
 ``out_shape`` that packs one grid-sized slot per output field.
 
-Two backends implement the identical semantics (see ``docs/simulator.md``):
+Three backends implement the identical semantics (see ``docs/simulator.md``):
 
 * ``engine="interp"`` — :mod:`repro_torch.core.engine.interp`, the reference
   per-node Python interpreter (the oracle).
@@ -26,6 +26,10 @@ Two backends implement the identical semantics (see ``docs/simulator.md``):
   and each cycle runs as a handful of vectorized passes per op-kind.  Cycle
   counts, fire counts, hop/stall stats and output grids are bit-identical to
   the interpreter; wall-clock is 5-20x faster on program-pipeline grids.
+* ``engine="cuda"`` — :mod:`repro_torch.core.engine.cuda_engine`, the
+  compiled tables' cycle loop run to its fixed point by one hand-written
+  CUDA kernel (K7), one block a plan, a whole batch in one launch
+  (:func:`simulate_batch`); identical results in ideal mode.
 
 **Network-aware mode** (``fabric=`` a placed-and-routed ``RoutedFabric`` from
 ``repro_torch.fabric``): every producer→consumer queue is no longer a free one-hop
@@ -40,10 +44,12 @@ cycle counts are >= ideal ones.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import TYPE_CHECKING
 
 import numpy as np
 
+from repro_torch.core.engine import cuda_engine as _cuda
 from repro_torch.core.engine import interp as _interp
 from repro_torch.core.engine import vector as _vector
 from repro_torch.core.engine.common import SimDeadlock, mem_elems_per_cycle
@@ -57,13 +63,7 @@ if TYPE_CHECKING:  # pragma: no cover - avoids core <-> fabric import cycle
 __all__ = ["SimDeadlock", "SimResult", "simulate", "simulate_batch",
            "ENGINES"]
 
-#: "jax" is listed so that asking for it meets ``_NO_DEVICE_ENGINE``, not an
-#: unknown-engine error: the batched device engine is not ported yet.
-ENGINES = ("interp", "vector", "jax")
-_NO_DEVICE_ENGINE = (
-    "the batched device engine (the reference's engine='jax' and "
-    "simulate_batch) is not ported yet: ROADMAP.md Queue 1 item 8, a "
-    "hand-written CUDA engine; simulate with engine='vector'")
+ENGINES = ("interp", "vector", "cuda")
 
 
 @dataclasses.dataclass
@@ -110,7 +110,7 @@ def simulate(plan: MappingPlan, x: np.ndarray, machine: Machine,
              fabric: "RoutedFabric | None" = None,
              engine: str = "interp",
              telemetry: "Telemetry | None" = None,
-             verify: str | None = None) -> SimResult:
+             verify: str | None = None, device=None) -> SimResult:
     """``mem_efficiency`` derates the memory-port bandwidth to model cache
     conflict misses (the paper observed "more conflict misses in the cache
     for stencil 2D" — its cycle-accurate 2D result corresponds to ~0.80;
@@ -119,10 +119,16 @@ def simulate(plan: MappingPlan, x: np.ndarray, machine: Machine,
     ``fabric``: a ``repro_torch.fabric.route.RoutedFabric`` for this plan turns on
     network-aware mode (routed hop latency + link-bandwidth contention).
 
-    ``engine``: ``"interp"`` (reference per-node interpreter) or
-    ``"vector"`` (compiled struct-of-arrays engine, identical results, much
-    faster).  ``"jax"``, the reference's batched device engine, has no
-    counterpart in the port yet and raises ``NotImplementedError``.
+    ``engine``: ``"interp"`` (reference per-node interpreter), ``"vector"``
+    (compiled struct-of-arrays engine, identical results, much faster), or
+    ``"cuda"`` (the compiled tables' cycle loop as one CUDA kernel, a batch
+    of one — identical results in ideal mode; raises
+    ``NotImplementedError`` with ``fabric=`` or ``telemetry=``, see
+    :mod:`repro_torch.core.engine.cuda_engine`).
+
+    ``device``: where ``engine="cuda"`` runs: ``None`` is the card (raises
+    without one), ``"cpu"`` the kernel's plain version.  The host engines
+    ignore it.
 
     ``telemetry``: a ``repro_torch.telemetry.Telemetry`` sink to record per-node
     fire/stall timelines, stall attribution and per-link occupancy into
@@ -137,8 +143,6 @@ def simulate(plan: MappingPlan, x: np.ndarray, machine: Machine,
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose one of {ENGINES}")
-    if engine == "jax":
-        raise NotImplementedError(_NO_DEVICE_ENGINE)
     if verify is not None:
         if verify != "static":
             raise ValueError(f"unknown verify mode {verify!r}; "
@@ -153,7 +157,10 @@ def simulate(plan: MappingPlan, x: np.ndarray, machine: Machine,
     flat_out = np.zeros(int(np.prod(out_shape)), dtype=np.float64)
 
     epc = mem_elems_per_cycle(spec, machine, mem_efficiency)
-    backend = _interp.run if engine == "interp" else _vector.run
+    if engine == "cuda":
+        backend = functools.partial(_cuda.run, device=device)
+    else:
+        backend = _interp.run if engine == "interp" else _vector.run
     if telemetry is not None:
         telemetry.attach(plan, fabric)
     try:
@@ -186,7 +193,64 @@ def _to_result(plan, machine: Machine, stats, flat_out, out_shape,
 def simulate_batch(items, machine: Machine,
                    max_cycles: int = 50_000_000,
                    mem_efficiency: float = 1.0,
-                   engine: str = "jax"):
-    """The reference's batched simulation; not ported yet.  Raises
-    ``NotImplementedError`` for every engine."""
-    raise NotImplementedError(_NO_DEVICE_ENGINE)
+                   engine: str = "cuda", device=None):
+    """Simulate B independent ``(plan, x)`` pairs and return a list of
+    per-lane outcomes, aligned with ``items``: a :class:`SimResult` on
+    success, or the failure **as a value** — ``SimDeadlock`` for
+    deadlock/timeout, ``NotImplementedError`` (``CudaLoweringError``) for
+    lanes the cuda engine rejects.  Nothing is raised for per-lane
+    failures, so one bad lane never poisons its siblings.
+
+    With ``engine="cuda"`` (the default) the whole batch runs as **one
+    launch** of K7 on ``device`` (``None``: the card, which raises where
+    there is none; ``"cpu"``: the kernel's plain version), one block a
+    plan (:mod:`repro_torch.core.engine.cuda_engine`); this is the
+    auto-tuner's batched stage-1 evaluator.  Any other engine falls back to
+    a sequential host loop with the same returns-as-values contract (handy
+    for benchmarking the batched path against the sequential one)."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; choose one of {ENGINES}")
+    prepped = []
+    for plan, x in items:
+        spec = plan.spec
+        flat_in = np.asarray(x, dtype=np.float64).reshape(-1)
+        out_shape = tuple(getattr(plan, "out_shape", None) or spec.grid_shape)
+        flat_out = np.zeros(int(np.prod(out_shape)), dtype=np.float64)
+        epc = mem_elems_per_cycle(spec, machine, mem_efficiency)
+        prepped.append((plan, flat_in, flat_out, out_shape, epc))
+
+    if engine == "cuda":
+        from repro_torch.core.engine.compile import compiled_for
+        batch, out = [], [None] * len(prepped)
+        for i, (plan, flat_in, flat_out, _os, epc) in enumerate(prepped):
+            try:
+                batch.append((i, compiled_for(plan, None), flat_in,
+                              flat_out, epc))
+            except ValueError as e:        # uncompilable op vocabulary
+                out[i] = _cuda.CudaLoweringError(str(e))
+        raw = _cuda.run_compiled_batch(
+            [(cp, fi, fo, epc) for _i, cp, fi, fo, epc in batch],
+            max_cycles=max_cycles, device=device) if batch else []
+        for (i, _cp, _fi, _fo, _epc), stats in zip(batch, raw):
+            plan, _flat_in, flat_out, out_shape, _e = prepped[i]
+            if isinstance(stats, SimDeadlock):
+                out[i] = _attach_hint(plan, stats)
+            elif isinstance(stats, Exception):
+                out[i] = stats
+            else:
+                out[i] = _to_result(plan, machine, stats, flat_out,
+                                    out_shape, None)
+        return out
+
+    results = []
+    for plan, flat_in, flat_out, out_shape, epc in prepped:
+        backend = _interp.run if engine == "interp" else _vector.run
+        try:
+            stats = backend(plan, flat_in, flat_out, epc, max_cycles,
+                            None, None)
+        except SimDeadlock as e:
+            results.append(_attach_hint(plan, e))
+            continue
+        results.append(_to_result(plan, machine, stats, flat_out, out_shape,
+                                  None))
+    return results

@@ -209,16 +209,32 @@ def test_quickstart_torch_on_cpu(capsys, tmp_path):
 
 
 def test_device_engine_is_not_ported(rng):
+    """The reference's device engine is not ported under its name: "jax"
+    is no engine of the port, for ``simulate`` and ``simulate_batch``
+    alike (the port's device engine is "cuda")."""
     spec = StencilSpec((120,), (1,), ((0.25, 0.5, 0.25),), dtype="float64")
     plan, x = map_1d(spec, workers=3), rng.normal(size=120)
-    assert "jax" in ENGINES
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        simulate(plan, x, CGRA, engine="jax")
-    for engine in ENGINES:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            simulate_batch([(plan, x)], CGRA, engine=engine)
+    assert "jax" not in ENGINES and "cuda" in ENGINES
     with pytest.raises(ValueError, match="unknown engine"):
-        simulate(plan, x, CGRA, engine="cuda")
+        simulate(plan, x, CGRA, engine="jax")
+    with pytest.raises(ValueError, match="unknown engine"):
+        simulate_batch([(plan, x)], CGRA, engine="jax")
+
+
+def test_cuda_engine_matches_vector(rng):
+    """``simulate_batch`` runs every engine of the port (the "cuda" one as
+    K7's plain version on the CPU), and ``simulate(engine="cuda")`` is a
+    batch of one: each equals the vector engine."""
+    spec = StencilSpec((120,), (1,), ((0.25, 0.5, 0.25),), dtype="float64")
+    plan, x = map_1d(spec, workers=3), rng.normal(size=120)
+    want = simulate(plan, x, CGRA, engine="vector")
+    for engine in ENGINES:
+        (got,) = simulate_batch([(plan, x)], CGRA, engine=engine,
+                                device="cpu")
+        assert got.cycles == want.cycles
+        assert got.output.tobytes() == want.output.tobytes()
+    got = simulate(plan, x, CGRA, engine="cuda", device="cpu")
+    assert (got.cycles, got.fires) == (want.cycles, want.fires)
 
 
 def test_h100_machines_match_chip_smoke_peaks():

@@ -545,3 +545,94 @@ def test_kernels_refuse_tensors_that_require_grad(dev):
     with torch.inference_mode():
         causal_conv1d(x.detach(), w)
         sliding_window_attention(q.detach(), kv, kv, window=4)
+
+
+# -- K7: the batched cycle engine ---------------------------------------------
+def _k7_plans():
+    """Ragged lanes: 65 to 1,665 nodes; bounded, unbounded and doomed
+    queues; imux re-interleave and filter-heavy program plans."""
+    from repro_torch.core import map_nd, paper_stencil_2d
+    from repro_torch.core.spec import heat_2d
+    from repro_torch.program import hdiff_program, lower, two_stage_heat
+    heat = heat_2d(48, 96, dtype="float64")
+    return [map_nd(heat, workers=4),                                  # N 65
+            map_nd(paper_stencil_2d(ny=40, nx=96), workers=16),       # 1665
+            map_nd(heat, workers=3, auto_capacity=True),
+            map_nd(heat_2d(18, 24, dtype="float64"), workers=4,
+                   queue_capacity=1),                                 # deadlock
+            map_nd(heat_2d(18, 24, dtype="float64"), workers=8),      # 98 cycles
+            lower(two_stage_heat(24, 32), workers={"heat1": 2, "heat2": 4}),
+            lower(hdiff_program(24, 32), workers=4)]
+
+
+def _k7_lanes(plans):
+    from repro_torch.core import CGRA
+    from repro_torch.core.engine.common import mem_elems_per_cycle
+    from repro_torch.core.engine.compile import compiled_for
+    return [(compiled_for(p), mem_elems_per_cycle(p.spec, CGRA, 1.0))
+            for p in plans]
+
+
+def _same_carry(cp, got, want):
+    nN, nE = cp.n_nodes, cp.n_edges
+    for k, n in (("qlen", nE), ("maxocc", nE), ("fires", nN),
+                 ("active", nN)):
+        assert np.array_equal(got[k][:n], want[k][:n]), k
+    assert got["qlen"][nE] == want["qlen"][nE]
+    for k in ("credit", "cycles", "status"):
+        assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("max_cycles", [10 ** 6, 150])
+def test_simbatch_matches_plain_version(dev, max_cycles):
+    """One launch of K7 over ragged lanes gives the plain version's final
+    carry in every field: finished, deadlocked and timed-out lanes side by
+    side (at max_cycles = 150 every lane still live is cut there)."""
+    from repro_torch.kernels.simbatch.kernel import simbatch
+    from repro_torch.kernels.simbatch.ref import simbatch_plain
+    lanes = _k7_lanes(_k7_plans())
+    before = _build.LAUNCHES.get("simbatch", 0)
+    got = simbatch(lanes, max_cycles, dev)
+    assert _build.LAUNCHES["simbatch"] == before + 1
+    want = simbatch_plain(lanes, max_cycles, dev)
+    for (cp, _), g, w in zip(lanes, got, want):
+        _same_carry(cp, g, w)
+    status = [int(g["status"]) for g in got]
+    assert status == ([1, 1, 1, 2, 1, 1, 1] if max_cycles > 150
+                      else [0, 0, 0, 2, 1, 0, 0])
+
+
+def _k7_input(plan, seed):
+    rng = np.random.default_rng(seed)
+    if hasattr(plan, "pack_inputs"):               # a program plan
+        return plan.pack_inputs({f: rng.normal(size=plan.program.grid_shape)
+                                 for f in plan.program.in_fields})
+    return rng.normal(size=plan.spec.grid_shape)
+
+
+def test_simbatch_results_equal_the_vector_engine(dev):
+    """simulate_batch on the card against the vector engine: every
+    observable, the deadlock as a value with the same message."""
+    from repro_torch.core import CGRA
+    from repro_torch.core.simulator import simulate_batch
+
+    def items():
+        return [(p, _k7_input(p, i)) for i, p in enumerate(_k7_plans())]
+
+    got = simulate_batch(items(), CGRA, device=dev)
+    want = simulate_batch(items(), CGRA, engine="vector")
+    assert len(got) == len(want) == 7
+    for a, b in zip(got, want):
+        if isinstance(b, Exception):
+            assert type(a) is type(b) and str(a) == str(b)
+            assert a.cycles == b.cycles
+            continue
+        assert (a.cycles, a.fires, a.loads, a.stores, a.flops,
+                a.max_queue_total) == (b.cycles, b.fires, b.loads, b.stores,
+                                       b.flops, b.max_queue_total)
+        assert a.output.tobytes() == b.output.tobytes()
+
+
+def test_simbatch_barrier_instance_runs(dev):
+    from repro_torch.kernels.simbatch.kernel import barrier_ms
+    assert 0 < barrier_ms(128, 3000, dev) < 1e3

@@ -33,7 +33,9 @@ def test_import_loads_no_jax_and_no_repro():
             " repro_torch.serving, repro_torch.launch.serve,"
             " repro_torch.configs, repro_torch.core.simulator,"
             " repro_torch.fabric, repro_torch.analysis,"
-            " repro_torch.telemetry;"
+            " repro_torch.telemetry, repro_torch.program,"
+            " repro_torch.explore, repro_torch.core.engine.cuda_engine,"
+            " repro_torch.kernels.simbatch.kernel;"
             "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
             "repro_torch.__path__, 'repro_torch.')];"
             "print(json.dumps(sorted(m for m in sys.modules"
@@ -50,7 +52,10 @@ def test_import_loads_no_jax_and_no_repro():
     for mod in ("core.roofline", "core.temporal", "core.dfg",
                 "core.mapping.nd", "core.engine.vector", "core.simulator",
                 "fabric.route", "analysis.static_verify",
-                "telemetry.attribution"):
+                "telemetry.attribution", "core.engine.cuda_engine",
+                "kernels.simbatch.kernel", "kernels.simbatch.ref",
+                "program.lower", "program.oracle", "explore.search",
+                "explore.space"):
         assert f"repro_torch.{mod}" in loaded
 
 
@@ -59,7 +64,8 @@ def test_sources_import_no_jax_and_no_repro():
     paths = sorted((SRC / "repro_torch").rglob("*.py"))
     paths += [root / "chip_smoke.py", root / "tests" / "test_torch_cuda.py",
               root / "examples" / "quickstart_torch.py",
-              root / "tests" / "test_torch_cgra_model.py"]
+              root / "tests" / "test_torch_cgra_model.py",
+              root / "tests" / "test_torch_engine_batch.py"]
     paths += sorted((root / "scripts").glob("*.py"))
     for path in paths:
         for line in path.read_text().splitlines():
@@ -220,9 +226,10 @@ def test_good_build_moves_library_and_log_into_place(monkeypatch, tmp_path):
 
 def test_library_paths_are_keyed_by_source():
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert names == ["conv1d", "stencil1d", "stencil2d", "stencil3d", "swa"]
+    assert names == ["conv1d", "simbatch", "stencil1d", "stencil2d",
+                     "stencil3d", "swa"]
     paths = {_build._lib_path(n) for n in names}
-    assert len(paths) == 5
+    assert len(paths) == 6
     assert all(p.parent == _build.BUILD_DIR for p in paths)
 
 
@@ -298,3 +305,48 @@ def test_chip_smoke_lm_limits_refuse_a_wrong_kernel():
                for shape in ((2, 300, 64), (4, 64), (64,)))
     assert chip_smoke.lm_error("conv1d", bf, causal_conv1d(x, w, b),
                                conv1d_ref(x, w, b))[0]
+
+
+def _heat_items(n=2):
+    import numpy as np
+    from repro_torch.core import map_2d
+    from repro_torch.core.spec import heat_2d
+    spec = heat_2d(10, 20, dtype="float64")
+    x = np.random.default_rng(0).normal(size=spec.grid_shape)
+    return [(map_2d(spec, workers=2), x) for _ in range(n)]
+
+
+def test_cuda_engine_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
+    """simulate_batch, simulate(engine="cuda") and the tuner's batched stage
+    1 default to the card and raise without one; nothing runs the plain
+    version unless the caller passes device="cpu"."""
+    from repro_torch.core import CGRA, simulate
+    from repro_torch.core.simulator import simulate_batch
+    from repro_torch.explore import Budget, SpaceOptions, explore
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        simulate_batch(_heat_items(), CGRA)
+    (plan, x), = _heat_items(1)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        simulate(plan, x, CGRA, engine="cuda")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        explore(plan.spec, CGRA, options=SpaceOptions(workers=(2,),
+                                                      fabrics=()),
+                budget=Budget(batch_size=4))
+    got = simulate_batch(_heat_items(), CGRA, device="cpu")
+    assert [r.cycles for r in got] == [
+        simulate(p, x, CGRA, engine="vector").cycles for p, x in _heat_items()]
+
+
+def test_failed_k7_build_raises(monkeypatch, tmp_path):
+    """A K7 build that fails raises with nvcc's output from the build and
+    from the barrier-only instance's loader; nothing falls back."""
+    from repro_torch.kernels.simbatch import kernel as k7
+    _fake_nvcc(monkeypatch, tmp_path, 'echo "error: no sm_90a"\nexit 1\n')
+    monkeypatch.setattr(_build, "_libs", {})
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc failed on simbatch.cu"):
+        _build.build("simbatch")
+    with pytest.raises(RuntimeError, match="error: no sm_90a"):
+        k7.barrier_ms(64, 10, "cuda")
+    assert dict(_build.LAUNCHES) == before
