@@ -4,15 +4,19 @@ replaces the reference's batched device loop,
 ``lax.while_loop(_cycle_step)``; no ``pallas_call``).
 
 :func:`pack` lays every lane's compiled tables out unpadded and
-concatenated: a 9-int record a node (:data:`NODE_FIELDS`), an ``int4`` a
-edge (src, dst, pop flags, capacity clamped to ``_CAPBIG``), the in- and
-out-edge lists, the filters' keep bits packed 32 to a word, the imux
-patterns and the memory nodes in arbiter order, with a 16-int descriptor
-a lane (:data:`LANE_FIELDS`) and its ``(epc, cap4)``.  The values are those
-of the reference's padded tables; only the layout differs.  One launch
-runs the batch, one block a lane, :func:`plan_threads` threads and
-:func:`smem_bytes` of shared memory each; a lane whose state does not fit
-the card's shared memory comes back as a ``CudaLoweringError`` value.
+concatenated: an ``int4`` a node (:data:`NODE_FIELDS`: kind, fire limit
+and two aux words), an ``int4`` a edge (src, dst, pop flags, capacity
+clamped to ``_CAPBIG``), the filters' keep bits packed 32 to a word, the
+imux patterns as the edges they select, the memory nodes in arbiter order
+and the other nodes grouped by kind (the node owners' slots), with a
+16-int descriptor a lane (:data:`LANE_FIELDS`) and its ``(epc, cap4)``.
+The values are those of the reference's padded tables; only the layout
+differs.  One launch runs the batch, one block a lane, with one ``ITEMS``
+instance (the largest that :func:`plan` gives a lane: warp 0 arbitrates
+the memory nodes, every other thread owns ``ITEMS`` node slots, every
+thread ``ITEMS`` edges, in registers), each lane at its own thread count
+and with :func:`smem_bytes` of shared memory; a lane whose state does not
+fit the card's shared memory comes back as a ``CudaLoweringError`` value.
 
 :func:`simbatch` launches K7 for lanes on a CUDA device and runs the plain
 version (:func:`repro_torch.kernels.simbatch.ref.simbatch_plain`) only for
@@ -36,33 +40,63 @@ from repro_torch.kernels import _build
 F_MEM, F_SYNC, F_CMP, F_IMUX, F_FLT, F_OUTOPT, F_ACTIVE0 = (
     1, 2, 4, 8, 16, 32, 64)
 E_POP_FIRST, E_POP_STATIC = 1, 2
-NODE_FIELDS = ("kind", "limit", "sync_exp", "in_start", "in_cnt",
-               "out_start", "out_cnt", "aux0", "aux1")
-LANE_FIELDS = ("node_off", "edge_off", "in_off", "out_off", "keep_off",
-               "pat_off", "mem_off", "nodes", "edges", "n_mem", "n_cmp",
-               "threads")
+# aux0, aux1: sync (expected count, -), filter (keep-bit offset, count),
+# imux (pattern offset, length)
+NODE_FIELDS = ("kind", "limit", "aux0", "aux1")
+LANE_FIELDS = ("node_off", "edge_off", "keep_off", "pat_off", "mem_off",
+               "order_off", "nodes", "edges", "n_mem", "threads")
 LANE_WIDTH = 16            # int64 words a lane descriptor (kLaneFields)
-MAX_THREADS = 1024         # kMaxThreads
-ITEMS_PER_THREAD = 2       # nodes or edges a thread owns in a cycle's phase
-BARRIERS_PER_CYCLE = 3
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-             + [ctypes.c_void_p] * 8)
-
-
-def plan_threads(nodes: int, edges: int) -> int:
-    """A lane's threads: one per ``ITEMS_PER_THREAD`` of its nodes or edges
-    (whichever are more), whole warps, 32 to ``MAX_THREADS``."""
-    want = -(-max(nodes, edges) // ITEMS_PER_THREAD)
-    return min(MAX_THREADS, max(32, -(-want // 32) * 32))
+# ITEMS instance -> the most threads it runs (csrc/simbatch.cu:
+# SIMBATCH_INSTANCES): as many as keep a thread's records in registers; 32
+# (the widest lanes') spills to local memory.  A batch runs at the largest
+# instance any of its lanes needs.
+INSTANCES = {1: 1024, 4: 768, 32: 1024}
+ARBITER = 32               # warp 0's threads: the memory arbiter, no nodes
+BARRIERS_PER_CYCLE = 2
+# the clocked instance's record of a lane (csrc/simbatch.cu: cNode ...):
+# clock64() sums a phase, the loop's clocks, %globaltimer ns at start, end
+PHASES = ("node", "arbiter", "bar_or", "edge", "bar_end")
+CLOCK_FIELDS = PHASES + ("total", "start_ns", "end_ns")
+CLOCK_WIDTH = len(CLOCK_FIELDS)   # int64 words a lane's record (kClockFields)
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p] * 9)
 
 
 def smem_bytes(nodes: int, edges: int, n_mem: int) -> int:
-    """Shared memory of a lane (csrc/simbatch.cu: carve): int32 qlen and
-    maxocc a edge and the sentinel, int32 fires and sel and uint8 active
-    and flags a node and the sentinel, the memory nodes' eligibility
-    words, one int32 counter."""
-    used = 4 * 2 * (edges + 1) + 4 * 2 * (nodes + 1) + 2 * (nodes + 1)
-    return -(-used // 4) * 4 + 4 * -(-n_mem // 32) + 4
+    """Shared memory of a lane (csrc/simbatch.cu: carve), all int32: qlen a
+    edge and the sentinel, sel and a word (flags, starved, blocked) a node
+    and the sentinel, node id and fires left a memory slot, the memory
+    nodes' eligibility words."""
+    return (4 * (edges + 1) + 8 * (nodes + 1) + 8 * n_mem
+            + 4 * -(-n_mem // 32))
+
+
+def lane_threads(nodes: int, edges: int, n_mem: int, items: int) -> int:
+    """A lane's threads under the ``items`` instance: warp 0 (the memory
+    arbiter) and one thread per ``items`` of its other nodes, or one per
+    ``items`` of its edges if that is more, in whole warps."""
+    def warps(n: int) -> int:          # threads for n items, whole warps
+        per = -(-n // items)
+        return -(-per // 32) * 32
+    return max(ARBITER + warps(nodes - n_mem), warps(edges), 2 * ARBITER)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A lane's launch: the ``ITEMS`` instance, threads, shared memory."""
+    items: int
+    threads: int
+    smem: int
+
+
+def plan(nodes: int, edges: int, n_mem: int) -> Plan | None:
+    """The smallest instance whose threads hold the lane: one node and one
+    edge a thread up to 1,024 threads (``None`` past 32 x 1,024)."""
+    for items, most in sorted(INSTANCES.items()):
+        t = lane_threads(nodes, edges, n_mem, items)
+        if t <= most:
+            return Plan(items, t, smem_bytes(nodes, edges, n_mem))
+    return None
 
 
 @dataclasses.dataclass
@@ -70,13 +104,13 @@ class Packed:
     """A batch's tables as K7 reads them (host numpy)."""
     lanes: np.ndarray        # (B, LANE_WIDTH) int64
     rates: np.ndarray        # (B, 2) float64: epc, cap4
-    node_info: np.ndarray    # (sum(nN + 1), 9) int32
+    node_info: np.ndarray    # (sum(nN + 1), 4) int32
     edge_info: np.ndarray    # (sum(nE + 1), 4) int32
-    in_flat: np.ndarray
-    out_flat: np.ndarray
     keep: np.ndarray         # uint32 words
-    pat: np.ndarray
+    pat: np.ndarray          # edge ids
     mem_flat: np.ndarray
+    order: np.ndarray        # non-memory node ids, grouped by kind
+    items: int               # the instance: ITEMS nodes and edges a thread
     threads: int             # the widest lane's
     smem: int                # the largest lane's
 
@@ -96,21 +130,18 @@ def _lane_tables(cp: CompiledPlan) -> dict:
     info[:, 1] = _CNTBIG
     info[cp.addr_ids, 1] = np.clip(cp.addr_cnt, 0, _CNTBIG)
     info[cp.cmp_ids, 1] = 1
-    info[:, 2] = _CNTBIG
     info[cp.sync_ids, 2] = np.minimum(cp.sync_exp, _CNTBIG)
-    ins: list[int] = []
-    for nd in cp.nodes:                    # imux: its ports, in port order
-        info[nd.nid, 3] = len(ins)
-        ins.extend(e.eid for e in nd.in_edges)
-        info[nd.nid, 4] = len(nd.in_edges)
-    info[:nN, 5] = cp.out_start[:-1]
-    info[:nN, 6] = np.diff(cp.out_start)
-    info[cp.flt_ids, 7] = cp.flt_koff
-    info[cp.flt_ids, 8] = np.maximum(cp.flt_klen, 1)
-    pats = [np.asarray(p, dtype=np.int64) for p in cp.imux_pat]
+    info[cp.flt_ids, 2] = cp.flt_koff
+    info[cp.flt_ids, 3] = np.maximum(cp.flt_klen, 1)
+    # an imux's pattern as the in-edges it selects (the sentinel nE for a
+    # port past its in-edges: never empty)
+    in_edges = {nd.nid: [e.eid for e in nd.in_edges] for nd in cp.nodes}
+    pats = [np.asarray([in_edges[n][p] if p < len(in_edges[n]) else nE
+                        for p in np.asarray(pt).tolist()], dtype=np.int64)
+            for n, pt in zip(cp.imux_ids.tolist(), cp.imux_pat)]
     starts = np.cumsum([0] + [len(p) for p in pats])
-    info[cp.imux_ids, 7] = starts[:-1]
-    info[cp.imux_ids, 8] = [len(p) for p in pats]
+    info[cp.imux_ids, 2] = starts[:-1]
+    info[cp.imux_ids, 3] = [len(p) for p in pats]
 
     edge = np.zeros((nE + 1, 4), dtype=np.int64)
     for e in cp.edges:
@@ -120,25 +151,42 @@ def _lane_tables(cp: CompiledPlan) -> dict:
     edge[:nE, 3] = np.minimum(cp.cap[:nE], _CAPBIG)
     keep = np.packbits(cp.keep_flat.astype(bool), bitorder="little")
     keep = np.concatenate([keep, np.zeros(-len(keep) % 4, dtype=np.uint8)])
-    return dict(node_info=info, edge_info=edge,
-                in_flat=np.asarray(ins, dtype=np.int64),
-                out_flat=cp.out_flat, keep=keep.view("<u4"),
+    # the node owners' slots: the non-memory nodes, grouped by kind so that
+    # a warp's nodes mostly take one path
+    group = kind[:nN] & (F_FLT | F_SYNC | F_IMUX | F_CMP)
+    order = np.argsort(group, kind="stable")
+    return dict(node_info=info, edge_info=edge, keep=keep.view("<u4"),
                 pat=(np.concatenate(pats) if pats
                      else np.zeros(0, dtype=np.int64)),
-                mem_flat=cp.mem_ids)
+                mem_flat=cp.mem_ids,
+                order=order[(kind[:nN] & F_MEM)[order] == 0])
 
 
-def pack(lanes: list[tuple[CompiledPlan, float]]) -> Packed:
-    """Every lane's tables, concatenated, with its descriptor."""
+def pack(lanes: list[tuple[CompiledPlan, float]],
+         items: int | None = None) -> Packed:
+    """Every lane's tables, concatenated, with its descriptor, for one
+    launch of the ``items`` instance (by default the largest that
+    :func:`plan` gives a lane; a lane that a forced instance cannot hold is
+    a ``ValueError``)."""
+    sizes = [(cp.n_nodes, cp.n_edges, len(cp.mem_ids)) for cp, _ in lanes]
+    if items is None:
+        plans = [plan(*sz) for sz in sizes]
+        if None in plans:
+            raise ValueError("a lane has more nodes or edges than any K7 "
+                             "instance holds")
+        items = max(p.items for p in plans)
+    threads = [lane_threads(n, e, m, items) for n, e, m in sizes]
+    if items not in INSTANCES or max(threads) > INSTANCES[items]:
+        raise ValueError(f"K7's ITEMS = {items} instance cannot hold a lane "
+                         f"of {max(threads)} threads (instances: "
+                         f"{INSTANCES})")
     parts = [_lane_tables(cp) for cp, _ in lanes]
     desc = np.zeros((len(lanes), LANE_WIDTH), dtype=np.int64)
     offs = dict.fromkeys(parts[0], 0)
-    for i, ((cp, _), p) in enumerate(zip(lanes, parts)):
-        desc[i, :7] = [offs[k] for k in ("node_info", "edge_info", "in_flat",
-                                         "out_flat", "keep", "pat",
-                                         "mem_flat")]
-        desc[i, 7:12] = (cp.n_nodes, cp.n_edges, len(cp.mem_ids), cp.n_cmp,
-                         plan_threads(cp.n_nodes, cp.n_edges))
+    for i, ((n, e, m), t, p) in enumerate(zip(sizes, threads, parts)):
+        desc[i, :6] = [offs[k] for k in ("node_info", "edge_info", "keep",
+                                         "pat", "mem_flat", "order")]
+        desc[i, 6:10] = (n, e, m, t)
         for k in offs:
             offs[k] += len(p[k])
     cat = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
@@ -146,9 +194,12 @@ def pack(lanes: list[tuple[CompiledPlan, float]]) -> Packed:
     i32 = {k: v.astype(np.int32) for k, v in cat.items() if k != "keep"}
     return Packed(
         lanes=desc, rates=np.stack([epc, 4.0 * epc], axis=1),
-        keep=cat["keep"], threads=int(desc[:, 11].max()),
-        smem=max(smem_bytes(cp.n_nodes, cp.n_edges, len(cp.mem_ids))
-                 for cp, _ in lanes), **i32)
+        keep=cat["keep"], items=items, threads=max(threads),
+        smem=max(smem_bytes(*sz) for sz in sizes), **i32)
+
+
+_TABLES = ("lanes", "rates", "node_info", "edge_info", "keep", "pat",
+           "mem_flat", "order")
 
 
 @dataclasses.dataclass
@@ -161,9 +212,7 @@ class OnDevice:
 
 def upload(packed: Packed, device: torch.device) -> OnDevice:
     tables = {k: torch.from_numpy(np.ascontiguousarray(getattr(packed, k)))
-              .to(device) for k in ("lanes", "rates", "node_info",
-                                    "edge_info", "in_flat", "out_flat",
-                                    "keep", "pat", "mem_flat")}
+              .to(device) for k in _TABLES}
     n_nodes, n_edges = len(packed.node_info), len(packed.edge_info)
     b = len(packed.lanes)
     empty = lambda n, dt: torch.empty(n, dtype=dt, device=device)  # noqa: E731
@@ -177,24 +226,35 @@ def upload(packed: Packed, device: torch.device) -> OnDevice:
     return OnDevice(packed, tables, out)
 
 
-def launch(d: OnDevice, max_cycles: int) -> None:
+def launch(d: OnDevice, max_cycles: int,
+           clocks: torch.Tensor | None = None) -> None:
     """One launch of K7 over the batch (on the current stream); the cycle
-    counter is int32, so ``max_cycles`` is clamped to ``MAX_CYCLES``."""
+    counter is int32, so ``max_cycles`` is clamped to ``MAX_CYCLES``.
+    With ``clocks`` (int64, ``(lanes, CLOCK_WIDTH)`` on the card) the
+    clocked instance runs instead and fills it (:data:`CLOCK_FIELDS`); it
+    is counted as ``simbatch_clocked``, never as K7."""
     t, o, p = d.tables, d.out, d.packed
+    if clocks is not None and (
+            clocks.dtype != torch.int64 or not clocks.is_contiguous()
+            or clocks.device != o["credit"].device
+            or clocks.numel() < len(p.lanes) * CLOCK_WIDTH):
+        raise ValueError(f"clocks must be a contiguous int64 tensor of "
+                         f"{len(p.lanes) * CLOCK_WIDTH} values on "
+                         f"{o['credit'].device}")
 
     def ptr(x):       # an empty table: a valid pointer the kernel never reads
         return x.data_ptr() if x.numel() else o["credit"].data_ptr()
 
     with torch.cuda.device(o["credit"].device):
         _build.launch(
-            "simbatch", "simbatch", _ARGTYPES,
-            *(ptr(t[k]) for k in ("lanes", "rates", "node_info", "edge_info",
-                                  "in_flat", "out_flat", "keep", "pat",
-                                  "mem_flat")),
-            len(p.lanes), p.threads, p.smem,
+            "simbatch" if clocks is None else "simbatch_clocked", "simbatch",
+            _ARGTYPES,
+            *(ptr(t[k]) for k in _TABLES),
+            len(p.lanes), p.items, p.threads, p.smem,
             min(max(int(max_cycles), 0), MAX_CYCLES),
             *(o[k].data_ptr() for k in ("qlen", "maxocc", "fires", "active",
                                         "credit", "cycles", "status")),
+            None if clocks is None else clocks.data_ptr(),
             _build.stream_handle(o["credit"].device))
 
 
@@ -221,7 +281,8 @@ def simbatch(lanes: list[tuple[CompiledPlan, float]], max_cycles: int,
     CUDA ``device``; the plain version on the CPU.  ``lanes``:
     ``(compiled_plan, elems_per_cycle)`` pairs.  Returns each lane's final
     carry as a dict, or a ``CudaLoweringError`` value for a lane whose
-    state does not fit one block's shared memory on the card."""
+    state does not fit one block's shared memory on the card (or that has
+    more nodes or edges than any instance holds)."""
     device = torch.device(device)
     if device.type == "cpu":
         from repro_torch.kernels.simbatch.ref import simbatch_plain
@@ -237,12 +298,14 @@ def simbatch(lanes: list[tuple[CompiledPlan, float]], max_cycles: int,
     out: list = [None] * len(lanes)
     fit = []
     for i, (cp, epc) in enumerate(lanes):
-        need = smem_bytes(cp.n_nodes, cp.n_edges, len(cp.mem_ids))
-        if need > limit:
+        p = plan(cp.n_nodes, cp.n_edges, len(cp.mem_ids))
+        if p is None or p.smem > limit:
             out[i] = CudaLoweringError(
                 f"lane of {cp.n_nodes} nodes and {cp.n_edges} edges needs "
-                f"{need} B of shared memory; the card allows {limit} B per "
-                "block")
+                f"{smem_bytes(cp.n_nodes, cp.n_edges, len(cp.mem_ids))} B "
+                f"of shared memory and {max(cp.n_nodes, cp.n_edges)} items; "
+                f"the card allows {limit} B per block and K7 holds "
+                f"{max(k * t for k, t in INSTANCES.items())}")
         else:
             fit.append(i)
     if fit:

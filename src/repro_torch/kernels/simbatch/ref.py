@@ -6,9 +6,11 @@ It steps every lane of the batch in lockstep, as the reference's ``vmap``
 of ``lax.while_loop`` does: a lane whose loop condition has dropped keeps
 its carry while the others go on.  State is int32 (``qlen``, ``fires``,
 ``maxocc``, ``cycles``, ``status``), bool (``active``) and a float64 memory
-credit, on whatever device the tables lie.  The CPU tests run it, and
-``chip_smoke.py`` runs it on the card as K7's yardstick; nothing on the
-main path calls it when a card is present.
+credit, on whatever device the tables lie: on the CPU an eager loop of
+cycles, on a card a CUDA graph of :data:`GRAPH_STEPS` cycles, replayed.
+The CPU tests run it, and ``chip_smoke.py`` and the card tests run it on
+the card as K7's yardstick; nothing on the main path calls it when a card
+is present.
 """
 from __future__ import annotations
 
@@ -19,6 +21,9 @@ from repro_torch.core.engine.cuda_engine import (_DEADLOCKED, _FINISHED,
                                                  _RUNNING, lower,
                                                  shared_dims)
 
+#: cycles a CUDA graph of the sweep holds on a card (a launch per op and
+#: cycle would take some 12 minutes on the paper sweep's 431,035 cycles)
+GRAPH_STEPS = 64
 #: carry field names, in the order of the reference's carry tuple
 CARRY = ("qlen", "active", "fires", "maxocc", "credit", "cycles", "status")
 #: tables that index nodes, edges or buckets: int64 on the device, as torch
@@ -119,10 +124,28 @@ def cycle_step(t: dict, carry: tuple) -> tuple:
     return (qlen3, active2, fires2, maxocc, credit, cycles, status)
 
 
+def _live(carry: tuple, max_cycles: int) -> torch.Tensor:
+    return (carry[6] == _RUNNING) & (carry[5] < max_cycles)
+
+
+def _step_live(t: dict, carry: tuple, max_cycles: int) -> tuple:
+    """One cycle of every lane whose loop condition holds; the others keep
+    their carry, as under the reference's ``vmap`` of ``while_loop``."""
+    live = _live(carry, max_cycles)
+    B = live.shape[0]
+    return tuple(torch.where(live.view(B, *([1] * (o.dim() - 1))), n, o)
+                 for n, o in zip(cycle_step(t, carry), carry))
+
+
 def sweep(t: dict, max_cycles: int) -> tuple:
     """Every lane's fixed-point loop over the stacked tables ``t`` (tensors
     on one device): lanes step in lockstep until the last one stops; a
-    stopped lane's carry is frozen, as under the reference's ``vmap``."""
+    stopped lane's carry is frozen, as under the reference's ``vmap``.
+
+    On a CUDA device the steps run as a CUDA graph of :data:`GRAPH_STEPS`
+    cycles, replayed until every lane has stopped (a stopped lane's carry
+    stays frozen through the surplus steps), with no host launch for each
+    of its ops; on the CPU one cycle at a time."""
     qlen0 = t["qlen0"]
     B = qlen0.shape[0]
     dev = qlen0.device
@@ -132,13 +155,32 @@ def sweep(t: dict, max_cycles: int) -> tuple:
                                                   device=dev),
              torch.zeros(B, dtype=torch.int32, device=dev),
              torch.full((B,), _RUNNING, dtype=torch.int32, device=dev))
-    while True:
-        live = (carry[6] == _RUNNING) & (carry[5] < max_cycles)
-        if not bool(live.any()):
-            return carry
-        new = cycle_step(t, carry)
-        carry = tuple(torch.where(live.view(B, *([1] * (o.dim() - 1))), n, o)
-                      for n, o in zip(new, carry))
+    if dev.type != "cuda":
+        while bool(_live(carry, max_cycles).any()):
+            carry = _step_live(t, carry, max_cycles)
+        return carry
+    state = tuple(c.clone() for c in carry)
+
+    def steps():
+        c = state
+        for _ in range(GRAPH_STEPS):
+            c = _step_live(t, c, max_cycles)
+        for st, new in zip(state, c):
+            st.copy_(new)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):           # warm-up before the capture
+        steps()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        steps()
+    for st, c in zip(state, carry):         # undo the warm-up's steps
+        st.copy_(c)
+    while bool(_live(state, max_cycles).any()):
+        graph.replay()
+    return state
 
 
 def stack_tables(lows, epcs, device) -> dict:

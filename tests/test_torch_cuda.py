@@ -23,12 +23,7 @@ from repro_torch.kernels.stencil2d.ref import stencil2d_ref
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref
 from repro_torch.kernels.swa.ops import swa_plain
 
-pytestmark = [
-    pytest.mark.cuda,
-    pytest.mark.skipif(not torch.cuda.is_available(),
-                       reason="needs an NVIDIA GPU: the CUDA kernels have no "
-                              "CPU mode"),
-]
+pytestmark = pytest.mark.cuda
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -166,6 +161,8 @@ CASES_SWA = [
 
 @pytest.fixture
 def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -565,6 +562,23 @@ def _k7_plans():
             lower(hdiff_program(24, 32), workers=4)]
 
 
+def _k7_matrix():
+    """_k7_plans and the lanes of tests/test_torch_engine_batch.py's
+    emulation that it lacks: one with 40 memory nodes (K7's arbiter keeps
+    up to 32 in registers and more in shared memory) and a re-interleave
+    whose imux nodes take two ports."""
+    from repro_torch.core import StencilSpec, map_nd
+    from repro_torch.core.spec import heat_2d
+    from repro_torch.program import lower, two_stage_heat
+    small = heat_2d(18, 24, dtype="float64")
+    line = StencilSpec((960,), (1,), ((0.25, 0.5, 0.25),), dtype="float64")
+    return _k7_plans() + [map_nd(small, workers=2),
+                          map_nd(small, workers=3, auto_capacity=True),
+                          map_nd(line, workers=20),
+                          lower(two_stage_heat(24, 32),       # 2-port imux
+                                workers={"heat1": 4, "heat2": 2})]
+
+
 def _k7_lanes(plans):
     from repro_torch.core import CGRA
     from repro_torch.core.engine.common import mem_elems_per_cycle
@@ -600,6 +614,50 @@ def test_simbatch_matches_plain_version(dev, max_cycles):
     status = [int(g["status"]) for g in got]
     assert status == ([1, 1, 1, 2, 1, 1, 1] if max_cycles > 150
                       else [0, 0, 0, 2, 1, 0, 0])
+
+
+@pytest.fixture(scope="module")
+def k7_plain():
+    """``max_cycles -> (lanes, the plain version's carries)`` on the card,
+    each computed once for the module (~1.7 ms a cycle)."""
+    from repro_torch.kernels.simbatch.ref import simbatch_plain
+    done = {}
+
+    def get(max_cycles):
+        if max_cycles not in done:
+            lanes = _k7_lanes(_k7_matrix())
+            done[max_cycles] = lanes, simbatch_plain(lanes, max_cycles,
+                                                     "cuda")
+        return done[max_cycles]
+    return get
+
+
+@pytest.mark.parametrize("items", [1, 4, 32])
+@pytest.mark.parametrize("max_cycles", [10 ** 6, 150])
+def test_simbatch_instances_match_plain_version(dev, k7_plain, items,
+                                                max_cycles):
+    """Each ITEMS instance, forced on every lane it holds, gives the plain
+    version's final carry in every field: ragged lanes up to the paper's
+    w = 16 (1,665 nodes, 2,432 edges: past 1,024 threads at ITEMS 1,
+    which refuses it), 40 memory nodes, a deadlock and lanes cut at
+    max_cycles = 150."""
+    from repro_torch.kernels.simbatch import kernel as k7
+    lanes, want = k7_plain(max_cycles)
+    held = [i for i, (cp, _) in enumerate(lanes)
+            if k7.lane_threads(cp.n_nodes, cp.n_edges, len(cp.mem_ids), items)
+            <= k7.INSTANCES[items]]
+    refused = [lanes[i][0].n_nodes for i in range(len(lanes))
+               if i not in held]
+    assert refused == ([1665] if items == 1 else [])
+    if refused:
+        with pytest.raises(ValueError, match="cannot hold"):
+            k7.pack(lanes, items=items)
+    d = k7.upload(k7.pack([lanes[i] for i in held], items=items), dev)
+    k7.launch(d, max_cycles)
+    torch.cuda.synchronize()
+    assert d.packed.items == items
+    for i, g in zip(held, k7.unpack(d)):
+        _same_carry(lanes[i][0], g, want[i])
 
 
 def _k7_input(plan, seed):

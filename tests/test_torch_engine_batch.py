@@ -251,154 +251,281 @@ def test_batch_of_one_matches_single(rng):
 # ---------------------------------------------------------------------------
 # K7's layout and phases, emulated: pack() + the kernel's loop in Python
 # ---------------------------------------------------------------------------
-def emulate_k7(p: k7.Packed, max_cycles: int) -> list[dict]:
+def emulate_k7(p: k7.Packed, max_cycles: int, check=None) -> list[dict]:
     """``csrc/simbatch.cu`` line for line in Python over :func:`k7.pack`'s
-    tables: the three phases a cycle (eligibility; arbiter and commits;
-    edges) with the kernel's flags, bits and credit arithmetic."""
+    tables: thread ``t >= 32`` owns the node slots ``t - 32 + i * (T -
+    32)`` (``p.order``: the non-memory nodes) and every thread the edges
+    ``t + i * T`` (``i < p.items``), with their records and state in its
+    "registers" (dicts keyed by ``(t, i)``); warp 0 is the memory arbiter.
+    Shared memory holds the imux edges' lengths, ``sel``, the memory
+    slots, ``flags`` and the ``starved``/``blocked`` bytes.  A cycle is the
+    node phase (every non-memory node decided and committed; warp 0's
+    ballots and rotated prefix), then the edge phase.  ``check(lane,
+    starved, blocked, qlen)`` runs at the start of every node phase."""
     lanes = []
     for b in range(len(p.lanes)):
-        (no, eo, io, oo, ko, po, mo, nN, nE, n_mem, n_cmp,
-         _threads) = (int(v) for v in p.lanes[b, :12])
+        no, eo, ko, po, mo_, oo, nN, nE, n_mem, T = (
+            int(v) for v in p.lanes[b, :10])
         nodes = p.node_info[no:no + nN + 1].tolist()
-        edges = p.edge_info[eo:eo + nE + 1].tolist()
-        ins, outs = p.in_flat[io:].tolist(), p.out_flat[oo:].tolist()
         kbits, pats = p.keep[ko:].tolist(), p.pat[po:].tolist()
-        mems = p.mem_flat[mo:mo + n_mem].tolist()
+        mems = p.mem_flat[mo_:mo_ + n_mem].tolist()
+        order = p.order[oo:oo + nN - n_mem].tolist()
+        assert sorted(order + mems) == list(range(nN))
         epc, cap4 = p.rates[b].tolist()
-        qlen, maxocc = [0] * nE + [1 << 29], [0] * (nE + 1)
-        fires, sel, flags = [0] * (nN + 1), [nE] * (nN + 1), [0] * (nN + 1)
-        active = [n < nN and bool(nodes[n][0] & k7.F_ACTIVE0)
-                  for n in range(nN + 1)]
-        cmpsum = cycles = status = 0
+        W = T - 32
+        owned = [(t, i) for t in range(T) for i in range(p.items)]
+        # registers
+        nid, nd, fires, aux, act, ed, ql, mo = ({} for _ in range(8))
+        for t, i in owned:
+            k, e = t - 32 + i * W, t + i * T
+            own = t >= 32 and k < len(order)
+            nid[t, i] = order[k] if own else nN
+            nd[t, i] = nodes[nid[t, i]] if own else [k7.F_MEM, 0, 0, 0]
+            kind, _lim, a0, _a1 = nd[t, i]
+            fires[t, i] = 0
+            act[t, i] = bool(kind & k7.F_ACTIVE0)
+            aux[t, i] = (pats[a0] if kind & k7.F_IMUX else
+                         kbits[a0 >> 5] if kind & k7.F_FLT else 0)
+            ed[t, i] = (p.edge_info[eo + e].tolist() if e < nE
+                        else [0, 0, 0, 0])
+            ql[t, i] = mo[t, i] = 0
+        assert sorted(n for n in nid.values() if n < nN) == sorted(order)
+        # shared memory
+        qlen = [0] * nE + [1 << 29]
+        sel, flags = [nE] * (nN + 1), [0] * (nN + 1)
+        starved, blocked = [0] * (nN + 1), [0] * (nN + 1)
+        mnode = list(mems)
+        mleft = [max(nodes[n][1], 1) if nodes[n][0] & k7.F_ACTIVE0 else 0
+                 for n in mems]
+        for t, i in owned:                     # the bytes from qlen = 0
+            if t + i * T < nE:
+                src, dst, ef, cap = ed[t, i]
+                if ef & k7.E_POP_STATIC:
+                    starved[dst] = 1
+                if 0 >= cap:
+                    blocked[src] = 1
+        cycles = status = 0
         credit = 0.0
-
-        def commit(n, kind, fired):
-            nonlocal cmpsum
-            f, fr, sync = flags[n], fires[n], kind & k7.F_SYNC
-            gate = not sync or (fr + 1 == nodes[n][2] and f & 8)
-            emits = bool(fired and gate and not f & 16)
-            fires[n] = fr + fired
-            active[n] = (active[n] and fires[n] < nodes[n][1]
-                         and not (emits and sync))
-            flags[n] = (2 if fired else 0) | (4 if emits else 0)
-            cmpsum += bool(fired and kind & k7.F_CMP)
-            return fired
-
         while status == 0 and cycles < max_cycles:
-            for n in range(nN):                        # 1. eligibility
+            if check is not None:
+                lens = [0] * nE
+                for t, i in owned:
+                    if t + i * T < nE:
+                        lens[t + i * T] = ql[t, i]
+                check(b, starved, blocked, lens)
+            cycles += 1
+            any_fired = pending = 0
+            for t, i in owned:                 # 1. nodes
+                n = nid[t, i]
+                kind, limit, a0, a1 = nd[t, i]
+                if kind & k7.F_MEM:
+                    continue
                 f = 0
-                if active[n]:
-                    kind, _lim, _se, i0, ic, o0, oc, a0, a1 = nodes[n]
-                    in_ok = out_ok = True
-                    drop = False
-                    if kind & k7.F_IMUX:
-                        port = pats[a0 + fires[n] % a1]
-                        sel[n] = ins[i0 + port] if port < ic else nE
-                        in_ok = qlen[sel[n]] > 0
-                    else:
-                        in_ok = all(qlen[ins[k]] > 0 for k in range(i0, i0 + ic))
-                    out_ok = all(qlen[outs[k]] < edges[outs[k]][3]
-                                 for k in range(o0, o0 + oc))
-                    if kind & k7.F_FLT:
-                        bit = a0 + min(max(fires[n], 0), a1 - 1)
-                        drop = not (kbits[bit >> 5] >> (bit & 31)) & 1
-                    elig = in_ok and (out_ok or drop or kind & k7.F_OUTOPT)
-                    f = (1 if elig else 0) | (8 if out_ok else 0) \
-                        | (16 if drop else 0)
+                if act[t, i]:
+                    in_ok = (qlen[aux[t, i]] > 0 if kind & k7.F_IMUX
+                             else not starved[n])
+                    out_ok = not blocked[n]
+                    kk = a0 + min(fires[t, i], a1 - 1)
+                    drop = bool(kind & k7.F_FLT) and not (
+                        aux[t, i] >> (kk & 31)) & 1
+                    fired = in_ok and (out_ok or drop
+                                       or bool(kind & k7.F_OUTOPT))
+                    sync = bool(kind & k7.F_SYNC)
+                    emits = fired and not drop and (
+                        not sync or (fires[t, i] + 1 == a0 and out_ok))
+                    if fired:
+                        fires[t, i] += 1
+                        f2 = fires[t, i]
+                        if kind & k7.F_IMUX:
+                            sel[n] = aux[t, i]
+                            aux[t, i] = pats[a0 + f2 % a1]
+                        elif kind & k7.F_FLT:
+                            k2 = a0 + min(f2, a1 - 1)
+                            if k2 >> 5 != kk >> 5:
+                                aux[t, i] = kbits[k2 >> 5]
+                        any_fired = 1
+                    act[t, i] = fires[t, i] < limit and not (emits and sync)
+                    f = (1 if fired else 0) | (2 if emits else 0)
+                starved[n] = blocked[n] = 0
                 flags[n] = f
-            cycles += 1                                # 2. arbiter, commits
-            credit = min(credit + epc, cap4)
+                if kind & k7.F_CMP:
+                    pending |= fires[t, i] == 0
+            credit = min(credit + epc, cap4)   # 1. warp 0: the arbiter
             allowed = int(np.floor(credit))
             rot = cycles % max(n_mem, 1)
-            el = [bool(flags[m] & 1) for m in mems]
-            total, p_rot = sum(el), sum(el[:rot])
-            any_fired = 0
-            for j, m in enumerate(mems):
-                pj = sum(el[:j])
-                before = pj - p_rot if j >= rot else total - p_rot + pj
-                any_fired |= commit(m, k7.F_MEM, int(el[j] and before < allowed))
+            el = []
+            for j in range(n_mem):
+                n = mnode[j]
+                el.append(mleft[j] > 0 and not starved[n]
+                          and not blocked[n])
+                starved[n] = blocked[n] = 0
+            words = [sum(1 << lane for lane in range(32)
+                         if w * 32 + lane < n_mem and el[w * 32 + lane])
+                     for w in range(-(-n_mem // 32))]
+            total = sum(bin(w).count("1") for w in words)
+            p_rot = (sum(bin(w).count("1") for w in words[:rot >> 5])
+                     + bin(words[rot >> 5] & ((1 << (rot & 31)) - 1)).count(
+                         "1") if words else 0)
+            for j in range(n_mem):
+                w, lane = divmod(j, 32)
+                fire = 0
+                if el[j]:
+                    pj = (sum(bin(x).count("1") for x in words[:w])
+                          + bin(words[w] & ((1 << lane) - 1)).count("1"))
+                    before = pj - p_rot if j >= rot else total - p_rot + pj
+                    fire = int(before < allowed)
+                mleft[j] -= fire
+                flags[mnode[j]] = 3 if fire else 0
+                any_fired |= fire
             credit = credit - float(min(total, max(allowed, 0)))
-            for n in range(nN):
-                if not nodes[n][0] & k7.F_MEM:
-                    any_fired |= commit(n, nodes[n][0], flags[n] & 1)
-            status = 1 if cmpsum >= n_cmp else (0 if any_fired else 2)
-            for e in range(nE):                        # 3. edges
-                src, dst, ef, _cap = edges[e]
-                popped = int(bool(flags[dst] & 2)
-                             and (bool(ef & 2) or sel[dst] == e))
-                if flags[src] & 4:
-                    occ = qlen[e] + 1 - int(bool(ef & 1) and popped)
-                    maxocc[e] = max(maxocc[e], occ)
-                    qlen[e] += 1 - popped
-                else:
-                    qlen[e] -= popped
-        lanes.append(dict(qlen=qlen, maxocc=maxocc, fires=fires,
-                          active=active, credit=credit, cycles=cycles,
-                          status=status))
+            for t, i in owned:                 # 2. edges
+                e = t + i * T
+                if e >= nE:
+                    continue
+                src, dst, ef, cap = ed[t, i]
+                popped = int(bool(flags[dst] & 1) and (
+                    bool(ef & k7.E_POP_STATIC) or sel[dst] == e))
+                q = ql[t, i]
+                if flags[src] & 2:
+                    occ = q + 1 - int(bool(ef & k7.E_POP_FIRST) and popped)
+                    mo[t, i] = max(mo[t, i], occ)
+                    q += 1
+                q -= popped
+                ql[t, i] = q
+                if not ef & k7.E_POP_STATIC:
+                    qlen[e] = q
+                elif q == 0:
+                    starved[dst] = 1
+                if q >= cap:
+                    blocked[src] = 1
+            status = 1 if not pending else 0 if any_fired else 2
+        out = {"qlen": [0] * nE + [1 << 29], "maxocc": [0] * (nE + 1),
+               "fires": [0] * (nN + 1), "active": [False] * (nN + 1)}
+        for t, i in owned:
+            n, e = nid[t, i], t + i * T
+            if not nd[t, i][0] & k7.F_MEM:
+                out["fires"][n], out["active"][n] = fires[t, i], act[t, i]
+            if e < nE:
+                out["qlen"][e], out["maxocc"][e] = ql[t, i], mo[t, i]
+        for j, n in enumerate(mnode):
+            lim = nodes[n][1]
+            start = max(lim, 1) if nodes[n][0] & k7.F_ACTIVE0 else 0
+            out["fires"][n], out["active"][n] = start - mleft[j], mleft[j] > 0
+        lanes.append(dict(out, credit=credit, cycles=cycles, status=status))
     return lanes
 
 
 def _k7_lanes():
     spec = heat_2d(18, 24, dtype="float64")
+    line = StencilSpec((960,), (1,), ((0.25, 0.5, 0.25),), dtype="float64")
     plans = [map_2d(spec, workers=2),
              map_2d(spec, workers=4, queue_capacity=1),      # deadlocks
              map_2d(spec, workers=3, auto_capacity=True),
              lower(two_stage_heat(24, 32), workers={"heat1": 2, "heat2": 4}),
-             lower(hdiff_program(24, 32), workers=4)]
+             lower(two_stage_heat(24, 32),                   # 2-port imux
+                   workers={"heat1": 4, "heat2": 2}),
+             lower(hdiff_program(24, 32), workers=4),
+             map_1d(line, workers=20)]                       # 40 memory nodes
     return [(compiled_for(p), mem_elems_per_cycle(p.spec, CGRA, 0.8))
             for p in plans]
 
 
 @pytest.mark.parametrize("max_cycles", [10 ** 6, 37])
 def test_k7_emulated_equals_plain_version(max_cycles):
-    """pack()'s unpadded layout through the kernel's phases gives the plain
-    version's final carry in every field, for finished, deadlocked and
-    timed-out lanes, imux and filter-heavy program plans among them."""
+    """pack()'s unpadded layout through the kernel's phases, under each
+    ITEMS instance that holds the lanes, gives the plain version's final
+    carry in every field, for finished, deadlocked and timed-out lanes,
+    imux and filter-heavy program plans among them."""
     lanes = _k7_lanes()
-    got = emulate_k7(k7.pack(lanes), max_cycles)
     want = simbatch_plain(lanes, max_cycles, "cpu")
-    for (cp, _), g, w in zip(lanes, got, want):
-        nN, nE = cp.n_nodes, cp.n_edges
-        for k, n in (("qlen", nE), ("maxocc", nE), ("fires", nN),
-                     ("active", nN)):
-            assert np.array_equal(np.asarray(g[k][:n]), w[k][:n]), k
-        assert g["qlen"][nE] == w["qlen"][nE] == 1 << 29
-        assert (g["credit"], g["cycles"], g["status"]) == (
-            w["credit"], w["cycles"], w["status"])
+    for items in sorted(k7.INSTANCES):
+        got = emulate_k7(k7.pack(lanes, items=items), max_cycles)
+        for (cp, _), g, w in zip(lanes, got, want):
+            nN, nE = cp.n_nodes, cp.n_edges
+            for k, n in (("qlen", nE), ("maxocc", nE), ("fires", nN),
+                         ("active", nN)):
+                assert np.array_equal(np.asarray(g[k][:n]), w[k][:n]), (
+                    items, k)
+            assert g["qlen"][nE] == w["qlen"][nE] == 1 << 29
+            assert (g["credit"], g["cycles"], g["status"]) == (
+                w["credit"], w["cycles"], w["status"]), items
     assert {int(w["status"]) for w in want} == (
         {1, 2} if max_cycles > 37 else {0, 2})
 
 
-def test_pack_layout():
-    """Offsets, thread counts and shared memory of the packed batch."""
+@pytest.mark.parametrize("max_cycles", [10 ** 6, 37])
+def test_k7_starved_blocked_bytes_track_qlen(max_cycles):
+    """At the start of every node phase each node's starved byte is "some
+    in-edge of a non-imux node is empty" and its blocked byte "some
+    out-edge is at capacity", recomputed from the queue lengths and the
+    capacities: bounded queues, imux remux programs, deadlock and timeout."""
     lanes = _k7_lanes()
     p = k7.pack(lanes)
+    seen = [0] * len(lanes)
+
+    def check(b, starved, blocked, lens):
+        eo, nN, nE = (int(p.lanes[b, k7.LANE_FIELDS.index(k)])
+                      for k in ("edge_off", "nodes", "edges"))
+        want_s, want_b = [0] * (nN + 1), [0] * (nN + 1)
+        for e, (src, dst, ef, cap) in enumerate(
+                p.edge_info[eo:eo + nE].tolist()):
+            if ef & k7.E_POP_STATIC and lens[e] == 0:
+                want_s[dst] = 1
+            if lens[e] >= cap:
+                want_b[src] = 1
+        assert starved == want_s and blocked == want_b
+        seen[b] += 1
+
+    got = emulate_k7(p, max_cycles, check)
+    assert seen == [int(g["cycles"]) for g in got]
+    assert any(any(cp.cap[:cp.n_edges] < 1 << 20) for cp, _ in lanes)
+    assert any(len(cp.imux_ids) for cp, _ in lanes)
+
+
+def test_pack_layout():
+    """Offsets, the instance, thread counts, node slots and shared memory
+    of the packed batch."""
+    lanes = _k7_lanes()
+    p = k7.pack(lanes)
+    col = {k: i for i, k in enumerate(k7.LANE_FIELDS)}
     for i, (cp, epc) in enumerate(lanes):
-        assert p.lanes[i, 7:11].tolist() == [cp.n_nodes, cp.n_edges,
-                                             len(cp.mem_ids), cp.n_cmp]
-        assert p.lanes[i, 11] == k7.plan_threads(cp.n_nodes, cp.n_edges)
+        n_mem = len(cp.mem_ids)
+        assert p.lanes[i, col["nodes"]:col["threads"]].tolist() == [
+            cp.n_nodes, cp.n_edges, n_mem]
+        assert p.lanes[i, col["threads"]] == k7.lane_threads(
+            cp.n_nodes, cp.n_edges, n_mem, p.items)
         assert p.rates[i].tolist() == [epc, 4.0 * epc]
+        oo = p.lanes[i, col["order_off"]]
+        order = p.order[oo:oo + cp.n_nodes - n_mem].tolist()
+        assert sorted(order + cp.mem_ids.tolist()) == list(range(cp.n_nodes))
     assert p.lanes[1:, 0].tolist() == np.cumsum(
         [cp.n_nodes + 1 for cp, _ in lanes])[:-1].tolist()
     assert len(p.node_info) == sum(cp.n_nodes + 1 for cp, _ in lanes)
-    assert p.threads == max(p.lanes[:, 11]) and p.threads % 32 == 0
-    assert p.edge_info.dtype == np.int32 and p.edge_info.shape[1] == 4
+    assert p.items == 1
+    assert p.threads == max(p.lanes[:, col["threads"]]) and p.threads % 32 == 0
+    assert p.smem == max(k7.smem_bytes(cp.n_nodes, cp.n_edges,
+                                       len(cp.mem_ids)) for cp, _ in lanes)
+    assert p.node_info.dtype == p.edge_info.dtype == np.int32
+    assert p.node_info.shape[1] == p.edge_info.shape[1] == 4
 
 
-@pytest.mark.parametrize("nodes,edges,threads", [
-    (33, 40, 32), (65, 80, 64), (521, 760, 384), (1665, 2432, 1024)])
-def test_plan_threads(nodes, edges, threads):
-    """A thread owns about two nodes or edges; a 65-node lane holds 64
-    threads at its barriers, not 1024."""
-    assert k7.plan_threads(nodes, edges) == threads
+@pytest.mark.parametrize("nodes,edges,n_mem,items,threads", [
+    (33, 40, 4, 1, 64), (65, 80, 8, 1, 96), (521, 760, 10, 1, 768),
+    (1665, 2432, 32, 4, 608)])
+def test_plan_threads(nodes, edges, n_mem, items, threads):
+    """Warp 0 arbitrates and every other thread owns one node, and every
+    thread one edge, up to 1,024 threads; a 65-node lane holds 96 threads
+    at its barriers, not 1024, and the paper's w = 16 lane needs ITEMS 4."""
+    got = k7.plan(nodes, edges, n_mem)
+    assert (got.items, got.threads) == (items, threads)
 
 
 def test_smem_of_the_widest_paper_lane_fits_the_h100():
     """The paper's 2D grid at w = 16: 1,665 nodes, 2,432 edges, 32 memory
-    nodes, about 36 KB of the 227 KB a block may use."""
+    nodes, about 23 KB of the 227 KB a block may use."""
     from repro_torch.kernels import _build
     need = k7.smem_bytes(1665, 2432, 32)
-    assert need == 4 * 2 * 2433 + 4 * 2 * 1666 + 2 * 1666 + 4 + 4
+    assert need == 4 * 2433 + 8 * 1666 + 8 * 32 + 4
     assert need < _build.H100_SMEM_PER_BLOCK
 
 

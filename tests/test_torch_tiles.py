@@ -25,6 +25,10 @@ arithmetic of the K2 and K6 tensor-core paths, on the CPU (no jax, no card).
   rows in flight for the model's shape and the edge cases; a torch
   emulation of K5's bf16 double rounding (sum cast to bf16, bias added in
   f32, cast again) held to ``chip_smoke.py``'s limits.
+- K7's planner: the ``ITEMS`` instance and threads of the paper's 2D
+  stage-1 lanes (w = 1-5 and 16) and the heat2d sweep's, and an instance
+  for every lane whose state fitted one block's shared memory when K7 kept
+  every node's and edge's state there.
 - A torch emulation of where K6's bf16 path rounds (bf16 products summed in
   f32, the scale on the f32 scores, an online softmax over 64-key tiles, P
   rounded to bf16 before an f32 P·V) held to ``chip_smoke.py``'s limits
@@ -32,6 +36,7 @@ arithmetic of the K2 and K6 tensor-core paths, on the CPU (no jax, no card).
   on the card.
 """
 import math
+import re
 import sys
 from pathlib import Path
 
@@ -673,3 +678,72 @@ def test_k5_f32_emulation_keeps_the_f32_limit():
                                        emulate_k5(x, w, b),
                                        conv1d_ref(x, w, b))
     assert good, err
+
+
+# -- K7: the batched cycle engine's planner -----------------------------------
+@pytest.mark.parametrize("nodes,edges,n_mem,items,threads", [
+    (105, 152, 2, 1, 160), (209, 304, 4, 1, 320), (313, 456, 6, 1, 480),
+    (417, 608, 8, 1, 608), (521, 760, 10, 1, 768),    # paper 2D, w = 1-5
+    (1665, 2432, 32, 4, 608),                          # paper 2D, w = 16
+    (17, 20, 2, 1, 64), (28, 35, 2, 1, 64), (65, 80, 8, 1, 96),
+    (163, 210, 12, 1, 224)])                           # heat_2d(48, 96) sweep
+def test_k7_plan(nodes, edges, n_mem, items, threads):
+    """The smallest instance that holds the lane: warp 0 and one thread a
+    non-memory node, or one an edge, in whole warps; the paper's w = 16
+    lane is past 1,024 threads at ITEMS 1."""
+    from repro_torch.kernels.simbatch import kernel as k7
+    p = k7.plan(nodes, edges, n_mem)
+    assert (p.items, p.threads) == (items, threads)
+    assert threads <= k7.INSTANCES[items] and threads % 32 == 0
+    assert all(k7.lane_threads(nodes, edges, n_mem, i) > k7.INSTANCES[i]
+               for i in k7.INSTANCES if i < items)
+    assert p.smem == k7.smem_bytes(nodes, edges, n_mem) <= LIMIT
+
+
+def test_k7_instances_match_the_kernel_source():
+    """The planner's instance table is the one the kernel is built with
+    (``csrc/simbatch.cu``: ``SIMBATCH_INSTANCES``, each instance's
+    ``__launch_bounds__``)."""
+    from repro_torch.kernels.simbatch import kernel as k7
+    src = (ROOT / "src/repro_torch/csrc/simbatch.cu").read_text()
+    table = re.search(r"#define SIMBATCH_INSTANCES\(X\) (.*)", src).group(1)
+    built = {int(i): int(t)
+             for i, t in re.findall(r"X\((\d+), (\d+)\)", table)}
+    assert built == k7.INSTANCES
+
+
+def _smem_state_in_shared(nodes: int, edges: int, n_mem: int) -> int:
+    """A lane's shared memory when K7 kept all its state there: int32 qlen
+    and maxocc a edge and the sentinel, int32 fires and sel and uint8
+    active and flags a node and the sentinel, the memory nodes' eligibility
+    words and one counter."""
+    used = 8 * (edges + 1) + 10 * (nodes + 1)
+    return -(-used // 4) * 4 + 4 * -(-n_mem // 32) + 4
+
+
+def test_k7_every_lane_that_fitted_gets_an_instance():
+    """Every lane whose state fitted one block when K7 kept it all in
+    shared memory has an instance now, in less shared memory: up to
+    29,052 edges or 23,243 nodes, ITEMS 32 at 1,024 threads.  Lanes as
+    compiled plans make them: each memory node has its own address node
+    and an edge from it, so nodes and edges are at least twice the memory
+    nodes."""
+    from repro_torch.kernels.simbatch import kernel as k7
+    sizes = [2, 3, 32, 33, 100, 1000, 1024, 1025, 3072, 3073, 4096, 4097,
+             8000, 16000, 23243, 29052, 29053]
+    held = 0
+    for nodes in sizes:
+        for edges in sizes:
+            for n_mem in {1, 32, 33, nodes // 4, nodes // 2}:
+                if not (1 <= n_mem and 2 * n_mem <= min(nodes, edges)):
+                    continue
+                if _smem_state_in_shared(nodes, edges, n_mem) > LIMIT:
+                    continue
+                p = k7.plan(nodes, edges, n_mem)
+                assert p is not None, (nodes, edges, n_mem)
+                assert p.threads <= k7.INSTANCES[p.items]
+                assert p.smem <= _smem_state_in_shared(nodes, edges, n_mem)
+                held += 1
+    assert held > 100
+    assert k7.plan(29052, 29052, 1).items == 32
+    assert k7.plan(32768 + 1, 100, 1) is None
