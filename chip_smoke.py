@@ -103,6 +103,21 @@ NVIDIA GPU (H100).
    step run again under ``torch.profiler`` for the device's busy time by
    kernel group and its idle share.
 
+8. The ``observe`` phase (``observe_phase``, ~10 s): the CGRA model's
+   observability and its gates; the steps that launch kernels run with the
+   launch counts zeroed just before and read just after.  ``lint``: the lint CLI's
+   ``lint_paths`` over the five ``examples/*_torch.py`` walkthroughs (7
+   plans, 2 routed, 0 failed).  ``trace``: a batched ``explore`` of
+   ``heat_2d(24, 48)`` on the card (``device=None``, one K7 launch) with a
+   ``Telemetry`` sink, written with ``write_trace`` into ``build/`` and
+   validated as read back from disk (measured spans = ``n_measured`` > 0);
+   then the routed ``paper_stencil_2d(ny=30, nx=48, r=12)`` simulated with
+   the vector engine and a sink, its trace validated from disk and
+   ``render_report``'s first bottleneck row printed.
+   ``seismic_example``: ``examples/seismic_stencil2d_torch.py``'s ``main``
+   on the card, which must launch K3: its error against the oracle within
+   2e-5 and its 1/16-grid simulation exact.
+
 Any build error, launch error, mismatch or kernel that its path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
 one it exits non-zero before doing anything.
@@ -112,6 +127,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import importlib.util
+import io
 import json
 import multiprocessing
 import re
@@ -152,6 +169,10 @@ from repro_torch.kernels.stencil1d.ref import stencil1d_ref  # noqa: E402
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref  # noqa: E402
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref  # noqa: E402
 from repro_torch.kernels.swa.ops import swa_plain  # noqa: E402
+from repro_torch.analysis.lint import lint_paths  # noqa: E402
+from repro_torch.telemetry import (Telemetry, bottleneck_table,  # noqa: E402
+                                   render_report, validate_trace,
+                                   write_trace)
 from repro_torch.models.registry import build_model, input_arrays  # noqa: E402
 from repro_torch.serving.engine import BatchEngine, Request  # noqa: E402
 from repro_torch.serving.serve_step import (make_decode_step,  # noqa: E402
@@ -1378,6 +1399,126 @@ def cgra_batch_phase(dev: torch.device, seed: int, cgra_cases: list,
             "paper_2d_max_abs_err": err2}
 
 
+ROOT = Path(__file__).resolve().parent
+WALKTHROUGHS = ("quickstart", "fabric_heat1d", "hdiff_program",
+                "heat3d_fabric", "seismic_stencil2d")
+LINT_PLANS = 7            # 1 + 2 + 1 + 2 + 1, as the reference's examples
+
+
+def traced_from_disk(tel: Telemetry, name: str) -> tuple[dict, int]:
+    """Write ``tel``'s Perfetto trace into ``build/`` and validate the file
+    as read back: (the object read back, its non-metadata event count)."""
+    path = ROOT / "build" / f"{name}.trace.json"
+    path.parent.mkdir(exist_ok=True)
+    write_trace(tel, str(path))
+    obj = json.loads(path.read_text())
+    return obj, validate_trace(obj)
+
+
+def observe_phase(seed: int, failures: list[str]) -> None:
+    """The CGRA model's observability on its user-facing entry points: the
+    lint CLI over the walkthroughs, a traced batched tuner sweep through K7
+    and a traced routed simulation, and the seismic walkthrough through K3.
+    The steps that launch kernels run with the launch counts zeroed just
+    before and read just after."""
+    # -- lint: the walkthroughs' plans through the static verifier ---------
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    n_plans, n_failed = lint_paths(
+        [str(ROOT / "examples" / f"{n}_torch.py") for n in WALKTHROUGHS],
+        out=out)
+    routed = out.getvalue().count("(routed)")
+    ok = (n_plans, n_failed, routed) == (LINT_PLANS, 0, 2)
+    if not ok:
+        failures.append(f"observe lint: {n_plans} plans, {n_failed} failed, "
+                        f"{routed} routed:\n{out.getvalue()}")
+    print(json.dumps({"phase": "lint", "n_plans": n_plans,
+                      "n_failed": n_failed, "routed": routed,
+                      "s": time.perf_counter() - t0, "ok": ok}))
+
+    # -- trace: a batched tuner sweep on the card, with a sink -------------
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tel = Telemetry()
+    res = explore(heat_2d(24, 48, dtype="float64"), CGRA,
+                  options=SpaceOptions(workers=(1, 2, 3, 4, 6),
+                                       temporal=(1, 2),
+                                       capacities=("auto", "unbounded")),
+                  budget=Budget(batch_size=32), telemetry=tel, device=None)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    k7_launches = _build.LAUNCHES.get("simbatch", 0)
+    obj, n_events = traced_from_disk(tel, "observe_sweep")
+    spans = [e for e in obj["traceEvents"]
+             if e["ph"] == "X" and e.get("cat") == "tuner"
+             and e["args"].get("outcome") == "measured"]
+    wall_s = time.perf_counter() - t0
+    n_measured = res.stats["n_measured"]
+    ok = (len(spans) == n_measured > 0 and k7_launches == 1
+          and not res.failures)
+    if not ok:
+        failures.append(f"observe trace: {len(spans)} measured spans, "
+                        f"n_measured {n_measured}, {k7_launches} K7 "
+                        f"launches, failures {res.failures[:2]}")
+    print(json.dumps({"phase": "trace", "case": "heat2d_24x48_stage1_sweep",
+                      "events": len(obj["traceEvents"]),
+                      "validated_events": n_events,
+                      "measured_spans": len(spans),
+                      "n_measured": n_measured, "k7_launches": k7_launches,
+                      "sweep_s": sweep_s, "wall_s": wall_s, "ok": ok}))
+
+    #    ... and a routed simulation with the vector engine
+    t0 = time.perf_counter()
+    spec = paper_stencil_2d(ny=30, nx=48, r=12)
+    plan = map_nd(spec, workers=8)
+    fab = route(place(plan, FabricTopology.mesh(16, 16), seed=0))
+    tel = Telemetry()
+    sim = simulate(plan, np.random.default_rng(seed).normal(size=(30, 48)),
+                   CGRA, fabric=fab, engine="vector", telemetry=tel)
+    obj, n_events = traced_from_disk(tel, "observe_paper_2d_routed")
+    report = render_report(tel)
+    top = bottleneck_table(tel).splitlines()[2].strip()
+    totals = tel.totals()
+    ok = (n_events > 0 and totals["cycles"] == sim.cycles
+          and report.startswith("telemetry: ") and top
+          and top != "(no stalls recorded)")
+    if not ok:
+        failures.append(f"observe trace (routed paper 2D): {n_events} "
+                        f"events, sink cycles {totals['cycles']} against "
+                        f"{sim.cycles}, top bottleneck {top!r}")
+    print(json.dumps({"phase": "trace", "case": "paper_2d_30x48_routed",
+                      "cycles": sim.cycles, "events": len(obj["traceEvents"]),
+                      "validated_events": n_events,
+                      "token_hops": totals["token_hops"],
+                      "top_bottleneck": top,
+                      "wall_s": time.perf_counter() - t0, "ok": ok}))
+
+    # -- the seismic walkthrough on the card: K3 ---------------------------
+    path = ROOT / "examples" / "seismic_stencil2d_torch.py"
+    mod_spec = importlib.util.spec_from_file_location("_seismic_walkthrough",
+                                                      path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = mod.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    k3 = _build.LAUNCHES.get("stencil2d", 0)
+    tol = TOL[torch.float32]
+    ok = got["exact"] and got["max_abs_err"] <= tol and k3 >= 1
+    if not ok:
+        failures.append(f"observe seismic_example: exact {got['exact']}, "
+                        f"K3 error {got['max_abs_err']} (tol {tol}), "
+                        f"{k3} K3 launches")
+    print(json.dumps({"phase": "seismic_example", "exact": got["exact"],
+                      "cycles": got["cycles"], "blocks": got["blocks"],
+                      "max_abs_err": got["max_abs_err"], "tol": tol,
+                      "k3_launches": k3, "s": time.perf_counter() - t0,
+                      "ok": ok}))
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -1459,6 +1600,12 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- the LM path: K5/K6, prefill, decode check, serving -----------------
     lm_rows = lm_phase(dev, args.seed, part, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+
+    # -- observability: lint, traces, the seismic walkthrough ---------------
+    observe_phase(args.seed, failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1

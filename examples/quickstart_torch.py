@@ -70,5 +70,13 @@ def main(argv=None):
         print(f"DFG written to {args.dot} (render with graphviz)")
 
 
+def lint_plans():
+    """Static-verifier hook
+    (``python -m repro_torch.analysis.lint examples/*_torch.py``)."""
+    spec = StencilSpec((600,), (2,), ((0.1, 0.2, 0.4, 0.2, 0.1),),
+                       dtype="float64")
+    yield map_1d(spec, workers=4)
+
+
 if __name__ == "__main__":
     main()

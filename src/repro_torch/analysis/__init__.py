@@ -1,7 +1,8 @@
-"""Static analysis passes, carried over from ``repro.analysis``: so far the
-plan verifier (``static_verify``, see docs/analysis.md), which ``simulate``
-calls on every deadlock.  The reference's lints, HLO and roofline helpers
-are not ported yet.
+"""Static analysis passes, carried over from ``repro.analysis``: the plan
+verifier (``static_verify``, see docs/analysis.md), which ``simulate`` calls
+on every deadlock, is the front door; the lint CLI
+(``python -m repro_torch.analysis.lint``) is imported directly by its
+users and, as in the reference, not re-exported here.
 """
 from repro_torch.analysis.static_verify import (STATIC_SEMANTICS,  # noqa: F401
                                                 Counterexample, Finding,

@@ -43,7 +43,8 @@ capacity the abstract model counts — routed execution is just another
 fair schedule of the same system.  The fabric is used for the routed
 lints and for hop-aware latency in the throughput bound.
 
-The reference's lint CLI (``python -m repro.analysis.lint``) is not ported yet.
+CLI: ``python -m repro_torch.analysis.lint examples/*_torch.py --strict`` (see
+``lint.py``).
 """
 from __future__ import annotations
 

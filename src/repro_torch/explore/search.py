@@ -480,8 +480,8 @@ def explore(target, machine: Machine, *,
 
     ``telemetry``: a ``repro_torch.telemetry.Telemetry`` sink — the search records
     one structured span per evaluation into it (config hash, outcome or
-    prune reason, cache hit/miss, wall time, budget remaining), kept in its
-    ``spans`` list (the port has no trace export yet).
+    prune reason, cache hit/miss, wall time, budget remaining), exportable
+    as a search-timeline trace via ``repro_torch.telemetry.write_trace``.
 
     ``static_verify`` (default on) runs every freshly-built plan through the
     static verifier (``repro_torch.analysis.static_verify``) before paying for any

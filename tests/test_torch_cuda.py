@@ -13,6 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:          # hosts where hypothesis can't be installed
+    from repro_torch.testing.minihyp import given, settings, strategies as st
+
 from repro_torch.kernels import (_build, causal_conv1d,
                                  sliding_window_attention, stencil1d,
                                  stencil2d, stencil3d)
@@ -694,3 +699,43 @@ def test_simbatch_results_equal_the_vector_engine(dev):
 def test_simbatch_barrier_instance_runs(dev):
     from repro_torch.kernels.simbatch.kernel import barrier_ms
     assert 0 < barrier_ms(128, 3000, dev) < 1e3
+
+
+@st.composite
+def _spec_1d(draw):
+    """``spec_1d`` of tests/test_property.py: r 1-4, n up to 160."""
+    from repro_torch.core.spec import StencilSpec
+    r = draw(st.integers(1, 4))
+    n = draw(st.integers(max(8 * r + 2, 24), 160))
+    coeffs = tuple(
+        draw(st.lists(st.floats(-1, 1, allow_nan=False, width=32),
+                      min_size=2 * r + 1, max_size=2 * r + 1)))
+    return StencilSpec((n,), (r,), (coeffs,), dtype="float32")
+
+
+def test_kernel_matches_oracle_property(dev):
+    """tests/test_property.py's "kernel == oracle" on the card: K1 (vpu) and
+    K2 (mxu) with ``backend="cuda"`` (nothing can fall back), the same
+    strategies, settings, block and atol, against ``stencil1d_ref``.  The
+    property runs inside the test, as ``dev`` cannot feed a hypothesis
+    test."""
+    @given(_spec_1d(), st.integers(0, 2 ** 31 - 1), st.integers(1, 2),
+           st.sampled_from(["vpu", "mxu"]))
+    @settings(max_examples=25, deadline=None)
+    def prop(spec, seed, t, variant):
+        rng = np.random.default_rng(seed)
+        (n,) = spec.grid_shape
+        if spec.radii[0] * t * 2 >= n:
+            return
+        x = torch.tensor(rng.normal(size=(1, n)), dtype=torch.float32,
+                         device=dev)
+        name = f"stencil1d_{variant}"
+        before = _build.LAUNCHES.get(name, 0)
+        y = stencil1d(x, spec.coeffs[0], timesteps=t, backend="cuda",
+                      variant=variant, block=(1, 128))
+        assert _build.LAUNCHES[name] == before + 1
+        yr = stencil1d_ref(x, spec.coeffs[0], timesteps=t)
+        np.testing.assert_allclose(y.cpu().numpy(), yr.cpu().numpy(),
+                                   atol=1e-4)
+
+    prop()

@@ -55,7 +55,8 @@ def test_import_loads_no_jax_and_no_repro():
                 "telemetry.attribution", "core.engine.cuda_engine",
                 "kernels.simbatch.kernel", "kernels.simbatch.ref",
                 "program.lower", "program.oracle", "explore.search",
-                "explore.space"):
+                "explore.space", "telemetry.metrics", "telemetry.report",
+                "telemetry.trace", "analysis.lint", "testing.minihyp"):
         assert f"repro_torch.{mod}" in loaded
 
 
@@ -63,9 +64,11 @@ def test_sources_import_no_jax_and_no_repro():
     root = SRC.parent
     paths = sorted((SRC / "repro_torch").rglob("*.py"))
     paths += [root / "chip_smoke.py", root / "tests" / "test_torch_cuda.py",
-              root / "examples" / "quickstart_torch.py",
               root / "tests" / "test_torch_cgra_model.py",
-              root / "tests" / "test_torch_engine_batch.py"]
+              root / "tests" / "test_torch_engine_batch.py",
+              root / "tests" / "test_torch_property.py"]
+    paths += sorted((root / "examples").glob("*_torch.py"))
+    assert len([p for p in paths if p.parent.name == "examples"]) == 5
     paths += sorted((root / "scripts").glob("*.py"))
     for path in paths:
         for line in path.read_text().splitlines():
