@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stencil main path, its CGRA model with the
-tuner's batched stage 1, and its RecurrentGemma-2B serving path on one
-NVIDIA GPU (H100).
+tuner's batched stage 1, its RecurrentGemma-2B serving path and the other
+LM families on one NVIDIA GPU (H100).
 
     PYTHONPATH=src python3 chip_smoke.py [--device cuda:0] [--seed 0]
 
@@ -103,7 +103,28 @@ NVIDIA GPU (H100).
    step run again under ``torch.profiler`` for the device's busy time by
    kernel group and its idle share.
 
-8. The ``observe`` phase (``observe_phase``, ~10 s): the CGRA model's
+8. The ``families`` phase (``families_phase``, ~20 s): the other LM
+   families, whose paths run no hand-written kernel (full attention, the
+   MoE and the WKV recurrence are plain PyTorch, as the reference runs
+   them outside any Pallas kernel).  Granite-MoE-3B-A800M at its published
+   width and depth (32 layers, d_model 1536, 40 experts top-8, f32
+   weights, bf16 activations): ``make_prefill`` on (2, 4096) tokens, whose
+   logits must be finite and (2, 4096, 49155) f32, timed (median of 3
+   synchronised calls) with its peak memory, then under ``torch.profiler``
+   split into matmuls, the MoE's dispatch and combine (the model's
+   ``MOE_DISPATCH`` ranges), attention softmax, copies and casts and other
+   elementwise kernels, with the idle share; ``BatchEngine`` answering 4
+   requests on 2 slots and a decode step's profile; decode token by token
+   against the forward on (2, 32) tokens (dropless, f32 activations)
+   within 5e-4.  Then tinyllama-1.1b, qwen2.5-3b, qwen3-32b,
+   command-r-plus-104b, qwen2-vl-2b (patches and M-RoPE positions),
+   rwkv6-7b and granite-moe-1b-a400m at full width and 2 layers, and
+   whisper-tiny whole: a (1, 256) prefill (finite logits of the right
+   shape, timed) and decode against forward over 8 tokens within 5e-4.
+   Last, the WKV recurrence alone at rwkv6-7b's heads, (1, 256) and
+   (2, 4096) (``families_wkv`` lines).
+
+9. The ``observe`` phase (``observe_phase``, ~10 s): the CGRA model's
    observability and its gates; the steps that launch kernels run with the
    launch counts zeroed just before and read just after.  ``lint``: the lint CLI's
    ``lint_paths`` over the five ``examples/*_torch.py`` walkthroughs (7
@@ -173,6 +194,9 @@ from repro_torch.analysis.lint import lint_paths  # noqa: E402
 from repro_torch.telemetry import (Telemetry, bottleneck_table,  # noqa: E402
                                    render_report, validate_trace,
                                    write_trace)
+from repro_torch.models.mlp import MOE_DISPATCH  # noqa: E402
+from repro_torch.models.rwkv6 import _wkv_scan as wkv_scan  # noqa: E402
+from repro_torch.models.mlp import capacity as moe_capacity  # noqa: E402
 from repro_torch.models.registry import build_model, input_arrays  # noqa: E402
 from repro_torch.serving.engine import BatchEngine, Request  # noqa: E402
 from repro_torch.serving.serve_step import (make_decode_step,  # noqa: E402
@@ -578,20 +602,27 @@ def time_host(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-# kernel-name groups of the profile, first match wins
+# kernel-name groups of the profile, first match wins; the MoE's dispatch
+# and combine are told apart by the model's profiler range (MOE_DISPATCH)
 PROFILE_GROUPS = (
     ("K6 swa", ("swa_wgmma_kernel", "swa_f32_kernel")),
     ("K5 conv1d", ("conv1d_vec_kernel", "conv1d_generic_kernel")),
+    ("attention softmax", ("softmax",)),
     ("matmul", ("gemm", "xmma", "cutlass", "gemv", "splitk", "nvjet")),
     ("copy/cast", ("copy", "cat", "memcpy", "memset", "fill")),
     ("reduce", ("reduce",)),
 )
+MOE_GROUP = "moe dispatch/combine"
 
 
 def device_profile(fn) -> dict:
     """One run of ``fn`` under ``torch.profiler``: wall ms, the device's busy
-    ms (the sum of the kernels' own device time; one stream), its idle share
-    and the kernels that took most of it, grouped by name."""
+    ms (the kernels' own device time; one stream) and idle share, the busy
+    ms split into the MoE's dispatch and combine (every kernel launched
+    inside the model's ``MOE_DISPATCH`` ranges) and, for every other
+    kernel, its name's group of ``PROFILE_GROUPS`` or elementwise, and the
+    ten kernels that took most.  ``busy_ms_by_device_events`` sums the
+    device events themselves: it must agree with the walk."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -601,21 +632,44 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups: dict[str, list] = {}
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if us <= 0 or e.device_type.name != "CUDA":
-            continue
-        n = e.key.lower()
-        group = next((g for g, words in PROFILE_GROUPS
-                      if any(w in n for w in words)), "elementwise")
-        g = groups.setdefault(group, [0.0, 0])
-        g[0] += us / 1e3
-        g[1] += e.count
+    kernels: dict[tuple[str, str], list] = {}
+
+    def walk(ev, label):
+        if ev.name == MOE_DISPATCH:
+            label = MOE_GROUP
+        for k in ev.kernels:
+            if k.name == MOE_DISPATCH:
+                continue
+            n = k.name.lower()
+            group = label or next((g for g, words in PROFILE_GROUPS
+                                   if any(w in n for w in words)),
+                                  "elementwise")
+            for acc in (groups.setdefault(group, [0.0, 0]),
+                        kernels.setdefault((group, k.name[:90]), [0.0, 0])):
+                acc[0] += k.duration / 1e3
+                acc[1] += 1
+        for ch in ev.cpu_children:
+            walk(ch, label)
+
+    events = prof.events()
+    for ev in events:
+        if ev.device_type.name == "CPU" and ev.cpu_parent is None:
+            walk(ev, None)
     busy_ms = sum(g[0] for g in groups.values())
+    by_events = sum(e.self_device_time_total for e in events
+                    if e.device_type.name == "CUDA"
+                    and e.name != MOE_DISPATCH) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_ms_by_device_events": by_events,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "by_group": {k: {"ms": v[0], "launches": v[1]} for k, v in
-                         sorted(groups.items(), key=lambda kv: -kv[1][0])}}
+            "by_group": {k: {"ms": v[0], "launches": v[1],
+                             "share": v[0] / busy_ms if busy_ms else 0.0}
+                         for k, v in sorted(groups.items(),
+                                            key=lambda kv: -kv[1][0])},
+            "top_kernels": [{"group": g, "kernel": n, "ms": v[0],
+                             "launches": v[1]}
+                            for (g, n), v in sorted(
+                                kernels.items(), key=lambda kv: -kv[1][0])[:10]]}
 
 
 def lm_phase(dev: torch.device, seed: int, part: str,
@@ -730,7 +784,7 @@ def lm_phase(dev: torch.device, seed: int, part: str,
     cache = model.init_cache(2, 128)
     one = torch.zeros((2, 1), dtype=torch.int64, device=dev)
     print(json.dumps({"phase": "decode_step_profile", "batch": 2,
-                      **device_profile(lambda: step(cache, one))}))
+                      **device_profile(lambda: step(cache, one, 0))}))
     del cache
     del model, engine, prefill
     torch.cuda.empty_cache()
@@ -823,6 +877,236 @@ def lm_phase(dev: torch.device, seed: int, part: str,
             **{f"{k}_f32": f32[k] for k in ("ms_warm", "op_ms") if k in f32},
             "shape": [list(a.shape) for a in case.args], "part": part})
     return rows
+
+
+# -- the other LM families: dense, MoE, RWKV-6, VLM, enc-dec -----------------
+# No hand-written kernel lies on these paths (the reference runs them as XLA
+# einsums, the port as PyTorch ones): the phase shows that the published
+# widths build, prefill, decode and serve on the card.
+FAMILY_ARCH = "granite-moe-3b-a800m"      # full width and depth
+FAMILY_PREFILL = (2, 4096)                # cut from prefill_32k's (32, 32768)
+FAMILY_DECODE = (2, 32)                   # B·S = 64: the forward is dropless
+FAMILY_CASES = ("tinyllama-1.1b", "qwen2.5-3b", "qwen3-32b",
+                "command-r-plus-104b", "qwen2-vl-2b", "rwkv6-7b",
+                "granite-moe-1b-a400m", "whisper-tiny")
+FAMILY_LAYERS = 2                         # whisper-tiny runs whole
+FAMILY_SEQ = 256
+FAMILY_DECODE_TOKENS = 8
+def decode_error(model, cfg, toks: torch.Tensor,
+                 frames: torch.Tensor | None = None) -> float:
+    """Max |logits| difference of ``model.decode`` token by token against
+    one forward over ``toks`` (B, S): vlm on the text path with the M-RoPE
+    positions of tests/test_models.py, audio with the cross K/V primed from
+    the encoder output."""
+    b, s = toks.shape
+    vlm = cfg.family == "vlm"
+    with torch.inference_mode():
+        if cfg.family == "audio":
+            full, _ = model(toks, frames)
+            cache = model.init_cache(b, s)
+            enc = model.encode(frames)
+            kv = [model._cross_kv(bp, enc) for bp in model.dec]
+            cache["cross_k"] = torch.stack([k for k, _ in kv])
+            cache["cross_v"] = torch.stack([v for _, v in kv])
+        else:
+            pos = (torch.arange(s, device=toks.device).expand(3, b, s)
+                   if vlm else None)
+            full, _ = model(toks, positions=pos)
+            cache = model.init_cache(b, s)
+        err = torch.zeros((), device=toks.device)
+        for t in range(s):
+            kw = ({"positions": torch.full((3, b, 1), t, dtype=torch.int32,
+                                           device=toks.device)}
+                  if vlm else {})
+            lg, cache = model.decode(cache, toks[:, t:t + 1], **kw)
+            err = torch.maximum(err, (lg[:, 0] - full[:, t]).abs().max())
+    return err.item()
+
+
+def family_model(cfg, dev: torch.device, seed: int):
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
+def param_stats(model) -> dict:
+    return {"params": sum(p.numel() for p in model.parameters()),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters())}
+
+
+def families_phase(dev: torch.device, seed: int,
+                   failures: list[str]) -> None:
+    """Granite-MoE-3B-A800M at full width and depth (prefill, its profile
+    split, serving, decode against forward), then every other new family at
+    full width and ``FAMILY_LAYERS`` layers (whisper-tiny whole): a (1, 256)
+    prefill and decode against forward over 8 tokens."""
+    t_phase = time.perf_counter()
+    cfg = get_config(FAMILY_ARCH)
+    model = family_model(cfg, dev, seed)
+    b, s = FAMILY_PREFILL
+    batch = input_arrays(cfg, ShapeSpec("families", s, b, "prefill"), seed,
+                         device=dev)
+    prefill = make_prefill(model, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)   # the weights and the rest
+    _build.reset_launches()
+    logits = prefill(batch)
+    torch.cuda.synchronize()
+    launches = sum(_build.LAUNCHES.values())
+    peak = torch.cuda.max_memory_allocated(dev) - resident
+    want = (b, s, cfg.vocab_size)
+    finite = bool(torch.isfinite(logits).all())
+    ok = (tuple(logits.shape) == want and logits.dtype == torch.float32
+          and finite)
+    if not ok:
+        failures.append(f"families {FAMILY_ARCH} prefill: logits "
+                        f"{tuple(logits.shape)} {logits.dtype} (want {want} "
+                        f"float32), finite {finite}")
+    del logits
+    ms = time_host(lambda: prefill(batch), reps=3)
+    print(json.dumps({
+        "phase": "families_prefill", "arch": FAMILY_ARCH,
+        "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+        "group": cfg.moe_group_size,
+        "capacity": moe_capacity(cfg.moe_group_size, cfg),
+        **param_stats(model), "param_dtype": cfg.param_dtype,
+        "dtype": cfg.dtype, "tokens": [b, s],
+        "reduced": "seq 4096 and batch 2, cut from prefill_32k's "
+                   "(32, 32768): its f32 logits alone are 206 GB",
+        "logits_shape": list(want), "logits_finite": finite,
+        "kernel_launches": launches, "resident_bytes": resident,
+        "prefill_peak_bytes": peak, "ms": ms,
+        "tokens_per_s": b * s / ms * 1e3, "ok": ok}))
+    print(json.dumps({"phase": "families_prefill_profile",
+                      "arch": FAMILY_ARCH,
+                      **device_profile(lambda: prefill(batch))}))
+    del prefill, batch
+
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               size=8).tolist(), max_new=8)
+            for i in range(4)]
+    engine = BatchEngine(model, cfg, batch_slots=2, cache_len=128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in done)
+    ok = len(done) == 4 and all(r.done and len(r.out) == 8 for r in done)
+    if not ok:
+        failures.append(f"families {FAMILY_ARCH} serving: {len(done)}/4 "
+                        "requests completed")
+    print(json.dumps({"phase": "families_serve", "arch": FAMILY_ARCH,
+                      "requests": len(reqs), "completed": len(done),
+                      "slots": 2, "prompt": 8, "max_new": 8, "tokens": n_tok,
+                      "steps": engine.step_count, "s": serve_s,
+                      "tokens_per_s": n_tok / serve_s, "ok": ok}))
+    step = make_decode_step(model, cfg)
+    cache = model.init_cache(2, 128)
+    one = torch.zeros((2, 1), dtype=torch.int64, device=dev)
+    print(json.dumps({"phase": "families_decode_step_profile",
+                      "arch": FAMILY_ARCH, "batch": 2,
+                      **device_profile(lambda: step(cache, one, 0))}))
+    del model, engine, cache
+    torch.cuda.empty_cache()
+
+    # decode against forward with f32 activations (the bar of PERF.md §2)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = family_model(cfg32, dev, seed)
+    b, s = FAMILY_DECODE
+    toks = input_arrays(cfg32, ShapeSpec("families_decode", s, b, "prefill"),
+                        seed + 1, device=dev)["tokens"]
+    t0 = time.perf_counter()
+    err = decode_error(model, cfg32, toks)
+    ok = err <= DECODE_TOL
+    if not ok:
+        failures.append(f"families {FAMILY_ARCH} decode vs forward: max err "
+                        f"{err} (tol {DECODE_TOL})")
+    print(json.dumps({"phase": "families_decode_vs_forward",
+                      "arch": FAMILY_ARCH, "layers": cfg32.num_layers,
+                      "d_model": cfg32.d_model, "dtype": cfg32.dtype,
+                      "tokens": [b, s], "dropless": b * s <= 64,
+                      "max_abs_err": err, "tol": DECODE_TOL,
+                      "s": time.perf_counter() - t0, "ok": ok}))
+    del model
+    torch.cuda.empty_cache()
+
+    for arch in FAMILY_CASES:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = (full if full.family == "audio"
+               else dataclasses.replace(full, num_layers=FAMILY_LAYERS))
+        model = family_model(cfg, dev, seed)
+        stats = param_stats(model)
+        batch = input_arrays(cfg, ShapeSpec("families", FAMILY_SEQ, 1,
+                                            "prefill"), seed, device=dev)
+        prefill = make_prefill(model, cfg)
+        logits = prefill(batch)
+        torch.cuda.synchronize()
+        want = (1, FAMILY_SEQ, cfg.vocab_size)
+        finite = bool(torch.isfinite(logits).all())
+        prefill_ok = (tuple(logits.shape) == want and finite
+                      and logits.dtype == torch.float32)
+        build_s = time.perf_counter() - t0
+        del logits
+        prefill_ms = time_host(lambda: prefill(batch), reps=3)
+        del model, prefill, batch
+        torch.cuda.empty_cache()
+
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model = family_model(cfg32, dev, seed)
+        inp = input_arrays(cfg32, ShapeSpec("families_decode",
+                                            FAMILY_DECODE_TOKENS, 1,
+                                            "prefill"), seed + 1, device=dev)
+        err = decode_error(model, cfg32, inp["tokens"], inp.get("frames"))
+        del model, inp
+        torch.cuda.empty_cache()
+        ok = prefill_ok and err <= DECODE_TOL
+        if not ok:
+            failures.append(f"families {arch}: prefill logits {want} finite "
+                            f"{prefill_ok}, decode vs forward max err {err} "
+                            f"(tol {DECODE_TOL})")
+        print(json.dumps({
+            "phase": "families", "arch": arch, "family": cfg.family,
+            "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+            "published_layers": full.num_layers, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+            "experts": cfg.num_experts, "mrope": cfg.mrope_sections,
+            **stats, "prefill_tokens": [1, FAMILY_SEQ],
+            "logits_ok": prefill_ok, "build_and_first_prefill_s": build_s,
+            "prefill_ms": prefill_ms,
+            "decode_tokens": FAMILY_DECODE_TOKENS, "max_abs_err": err,
+            "tol": DECODE_TOL, "wall_s": time.perf_counter() - t0,
+            "ok": ok}))
+    wkv_lines(dev, seed)
+    print(json.dumps({"phase": "families_wall",
+                      "s": time.perf_counter() - t_phase}))
+
+
+def wkv_lines(dev: torch.device, seed: int) -> None:
+    """RWKV-6's WKV recurrence alone (the plain loop over the sequence) at
+    rwkv6-7b's heads (64 of 64 channels): the families phase's (1, 256) and
+    one layer of a (2, 4096) prefill."""
+    cfg = get_config("rwkv6-7b")
+    h, n = cfg.num_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for b, s in ((1, FAMILY_SEQ), FAMILY_PREFILL):
+        r, k, v = (torch.randn(b, s, h, n, generator=g, device=dev)
+                   for _ in range(3))
+        w = torch.rand(b, s, h, n, generator=g, device=dev)
+        u = torch.randn(h, n, generator=g, device=dev)
+        s0 = torch.zeros(b, h, n, n, device=dev)
+        with torch.inference_mode():
+            ms = time_host(lambda: wkv_scan(r, k, v, w, u, s0), reps=3)
+        print(json.dumps({"phase": "families_wkv", "arch": "rwkv6-7b",
+                          "shape": [b, s, h, n], "steps": s, "ms": ms,
+                          "us_per_step": ms / s * 1e3}))
 
 
 # -- the CGRA model (host numpy) held against K1-K4 on the card ---------------
@@ -1600,6 +1884,12 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- the LM path: K5/K6, prefill, decode check, serving -----------------
     lm_rows = lm_phase(dev, args.seed, part, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+
+    # -- the other LM families (no hand-written kernel on their paths) -------
+    families_phase(dev, args.seed, failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1

@@ -3,8 +3,8 @@
 
 Each architecture the port can build has its own ``configs/<id>.py`` with the
 exact published config; this module holds the :class:`ArchConfig` schema, the
-shape table and the ``--arch`` registry.  The registry lists only what
-``repro_torch.models`` builds so far: ``recurrentgemma-2b``.
+shape table and the ``--arch`` registry, the same ten architectures as the
+JAX package's.
 """
 from __future__ import annotations
 
@@ -21,7 +21,8 @@ class ShapeSpec:
     kind: str            # "train" | "prefill" | "decode"
 
 
-# Assigned LM shape set (the same four for every arch).
+# Assigned LM shape set (the same four for every arch; applicability filtered
+# by arch family, see cells()).
 SHAPES: dict[str, ShapeSpec] = {
     "train_4k":    ShapeSpec("train_4k", 4_096, 256, "train"),
     "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
@@ -110,7 +111,16 @@ class ArchConfig:
 
 
 _REGISTRY: dict[str, str] = {
-    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "recurrentgemma-2b":    "repro_torch.configs.recurrentgemma_2b",
+    "tinyllama-1.1b":       "repro_torch.configs.tinyllama_1_1b",
+    "qwen3-32b":            "repro_torch.configs.qwen3_32b",
+    "command-r-plus-104b":  "repro_torch.configs.command_r_plus_104b",
+    "qwen2.5-3b":           "repro_torch.configs.qwen2_5_3b",
+    "qwen2-vl-2b":          "repro_torch.configs.qwen2_vl_2b",
+    "rwkv6-7b":             "repro_torch.configs.rwkv6_7b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "whisper-tiny":         "repro_torch.configs.whisper_tiny",
 }
 
 
@@ -129,3 +139,14 @@ def get_reduced_config(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; the port builds: {list_archs()}")
     return importlib.import_module(_REGISTRY[name]).reduced()
+
+
+def cells() -> list[tuple[str, str]]:
+    """All (arch, shape) dry-run cells, with family-based skips applied."""
+    out = []
+    for arch in list_archs():
+        cfg = get_config(arch)
+        for sname, sh in SHAPES.items():
+            if cfg.supports_shape(sh):
+                out.append((arch, sname))
+    return out

@@ -1,7 +1,10 @@
 """Serving driver: batched requests through the BatchEngine.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       [--reduced] [--device cuda]
+
+``--arch`` takes every registered decoder-only arch; the audio family
+(enc-dec) returns 1, as in the JAX package.
 
 Weights are random, drawn from ``--seed`` with one ``torch.Generator`` on the
 device; prompts from ``np.random.default_rng(seed)``.  ``--device`` defaults
@@ -23,7 +26,7 @@ from repro_torch.serving.engine import BatchEngine, Request
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=4)
@@ -41,6 +44,10 @@ def main(argv=None) -> int:
                          "--device cpu to run on the CPU")
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
+    if cfg.family == "audio":
+        print("the serve CLI runs decoder-only archs; use examples for "
+              "enc-dec")
+        return 1
     model = build_model(cfg, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)

@@ -29,6 +29,10 @@ class Spec:
                              f"{self.logical} differ in rank")
 
 
+def is_spec(x) -> bool:
+    return isinstance(x, Spec)
+
+
 def _fan_in(shape: tuple[int, ...]) -> int:
     # convention: last dim is the output features; everything else is fan-in
     return max(1, math.prod(shape[:-1]))
@@ -55,5 +59,21 @@ def init_leaf_(t: torch.Tensor, spec: Spec,
     return t.normal_(0.0, std, generator=generator)
 
 
-def param_count(specs: dict[str, Spec]) -> int:
-    return sum(math.prod(s.shape) for s in specs.values())
+def _leaves(tree: dict):
+    for v in tree.values():
+        if is_spec(v):
+            yield v
+        else:
+            yield from _leaves(v)
+
+
+def param_count(specs: dict) -> int:
+    """Elements of every Spec in a (nested) dict of specs."""
+    return sum(math.prod(s.shape) for s in _leaves(specs))
+
+
+def param_bytes(specs: dict, default_dtype: str = "float32") -> int:
+    """Bytes of every Spec in a (nested) dict of specs, each at its own type
+    or ``default_dtype``."""
+    return sum(math.prod(s.shape) * spec_dtype(s, default_dtype).itemsize
+               for s in _leaves(specs))

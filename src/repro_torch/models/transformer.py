@@ -1,6 +1,6 @@
-"""Decoder-only LM stack (port of ``repro.models.transformer``) for the
-block kinds the port has: ``"rglru"`` and ``"local"`` (the hybrid family,
-RecurrentGemma).
+"""Decoder-only LM stack (port of ``repro.models.transformer``) for every
+block kind: ``"attn"`` (full attention, with a dense or MoE MLP), ``"local"``
+and ``"rglru"`` (the hybrid family) and ``"rwkv"``.
 
 The block pattern is cycled over ``num_layers``.  The JAX package stacks
 full pattern periods for ``lax.scan`` and applies the ``num_layers %
@@ -8,6 +8,8 @@ period`` remainder unrolled; here every layer is its own :class:`Block`,
 applied in order.  Layer ``i`` is scan period ``i // period``, slot
 ``i % period`` for ``i < n_full·period``, then the tail
 (:mod:`repro_torch.models.convert` maps the JAX pytree onto that order).
+The cache is a list with one state per layer: a KVCache (full or ring
+buffer), an RGLRUState or an RWKVState.
 """
 from __future__ import annotations
 
@@ -19,27 +21,32 @@ from torch import nn
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import params as pr
-from repro_torch.models.attention import (KVCache, attend_local,
+from repro_torch.models.attention import (KVCache, attend_full, attend_local,
                                           attention_specs,
                                           decode_step as attn_decode)
 from repro_torch.models.common import (embed, embed_spec, rmsnorm,
                                        rmsnorm_spec, unembed)
-from repro_torch.models.mlp import mlp, mlp_specs
+from repro_torch.models.mlp import mlp, mlp_specs, moe, moe_specs
 from repro_torch.models.rglru import (rglru_block, rglru_decode,
                                       rglru_init_state, rglru_specs)
+from repro_torch.models.rwkv6 import (RWKVState, rwkv_channel_mix,
+                                      rwkv_init_state, rwkv_specs,
+                                      rwkv_time_mix)
+
 
 def block_specs(cfg: ArchConfig, kind: str) -> dict[str, Any]:
-    out: dict[str, Any] = {"ln1": rmsnorm_spec(cfg.d_model),
-                           "ln2": rmsnorm_spec(cfg.d_model)}
-    if kind == "local":
+    d = cfg.d_model
+    out: dict[str, Any] = {"ln1": rmsnorm_spec(d), "ln2": rmsnorm_spec(d)}
+    if kind in ("attn", "local"):
         out["attn"] = attention_specs(cfg)
+        out["mlp"] = moe_specs(cfg) if cfg.num_experts else mlp_specs(cfg)
     elif kind == "rglru":
         out["rec"] = rglru_specs(cfg)
+        out["mlp"] = moe_specs(cfg) if cfg.num_experts else mlp_specs(cfg)
+    elif kind == "rwkv":
+        out["rwkv"] = rwkv_specs(cfg)
     else:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md Queue 1, "
-            "slice 4: the other LM families)")
-    out["mlp"] = mlp_specs(cfg)
+        raise ValueError(f"unknown block kind {kind!r}")
     return out
 
 
@@ -49,42 +56,89 @@ def _empty(spec: pr.Spec, default_dtype: str, device) -> nn.Parameter:
                                     device=device))
 
 
+def add_params(module: nn.Module, specs: dict[str, Any], default_dtype: str,
+               device) -> None:
+    """Give ``module`` an uninitialised parameter per Spec of ``specs`` (a
+    ``ParameterDict`` per nested dict), named as in the JAX tree."""
+    for name, spec in specs.items():
+        if pr.is_spec(spec):
+            setattr(module, name, _empty(spec, default_dtype, device))
+        else:
+            setattr(module, name, nn.ParameterDict(
+                {k: _empty(s, default_dtype, device)
+                 for k, s in spec.items()}))
+
+
+def flat_specs(prefix: str, specs: dict[str, Any]) -> dict[str, pr.Spec]:
+    """A block's nested specs under their ``state_dict`` names."""
+    out = {}
+    for name, spec in specs.items():
+        if pr.is_spec(spec):
+            out[f"{prefix}{name}"] = spec
+        else:
+            out |= flat_specs(f"{prefix}{name}.", spec)
+    return out
+
+
 class Block(nn.Module):
-    """One layer: pre-norm mixer (RG-LRU or local attention) and pre-norm
-    MLP, each with a residual.  Parameters are named as in the JAX tree."""
+    """One layer: a pre-norm mixer (attention, RG-LRU or RWKV time-mix) and
+    a pre-norm MLP (dense, MoE or RWKV channel-mix), each with a residual.
+    Parameters are named as in the JAX tree."""
 
     def __init__(self, cfg: ArchConfig, kind: str, device=None):
         super().__init__()
         self.cfg, self.kind = cfg, kind
-        for name, spec in block_specs(cfg, kind).items():
-            if isinstance(spec, pr.Spec):
-                setattr(self, name, _empty(spec, cfg.param_dtype, device))
-            else:
-                setattr(self, name, nn.ParameterDict(
-                    {k: _empty(s, cfg.param_dtype, device)
-                     for k, s in spec.items()}))
+        add_params(self, block_specs(cfg, kind), cfg.param_dtype, device)
 
-    def forward(self, h: torch.Tensor, positions) -> torch.Tensor:
+    def _ffn(self, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The MLP half: (h + mlp(ln2(h)), the MoE's aux loss or None)."""
+        cfg = self.cfg
+        hn = rmsnorm(self.ln2, h, cfg.norm_eps)
+        if cfg.num_experts:
+            y, aux = moe(self.mlp, hn, cfg)
+            return h + y, aux
+        return h + mlp(self.mlp, hn, cfg), None
+
+    def forward(self, h: torch.Tensor, positions
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Returns (h, the MoE's aux loss or None)."""
         cfg = self.cfg
         hn = rmsnorm(self.ln1, h, cfg.norm_eps)
-        if self.kind == "local":
+        if self.kind == "rwkv":
+            y, _ = rwkv_time_mix(self.rwkv, hn, cfg)
+            h = h + y
+            hn = rmsnorm(self.ln2, h, cfg.norm_eps)
+            y, _ = rwkv_channel_mix(self.rwkv, hn)
+            return h + y, None
+        if self.kind == "attn":
+            h = h + attend_full(self.attn, hn, cfg, positions=positions)
+        elif self.kind == "local":
             h = h + attend_local(self.attn, hn, cfg, positions=positions)
         else:
             h = h + rglru_block(self.rec, hn, cfg)
-        hn = rmsnorm(self.ln2, h, cfg.norm_eps)
-        return h + mlp(self.mlp, hn, cfg)
+        return self._ffn(h)
 
     def decode(self, h: torch.Tensor, cache, positions):
         cfg = self.cfg
         hn = rmsnorm(self.ln1, h, cfg.norm_eps)
-        if self.kind == "local":
-            y, cache = attn_decode(self.attn, hn, cache, cfg,
-                                   window=cfg.window, positions=positions)
+        if self.kind == "rwkv":
+            y, (tm_shift, s_fin) = rwkv_time_mix(
+                self.rwkv, hn, cfg, shift=cache.shift_tm, s0=cache.s)
+            h = h + y
+            hn = rmsnorm(self.ln2, h, cfg.norm_eps)
+            y, cm_shift = rwkv_channel_mix(self.rwkv, hn,
+                                           shift=cache.shift_cm)
+            return h + y, RWKVState(shift_tm=tm_shift, shift_cm=cm_shift,
+                                    s=s_fin)
+        if self.kind in ("attn", "local"):
+            y, cache = attn_decode(
+                self.attn, hn, cache, cfg,
+                window=cfg.window if self.kind == "local" else 0,
+                positions=positions)
         else:
             y, cache = rglru_decode(self.rec, hn, cache, cfg)
-        h = h + y
-        hn = rmsnorm(self.ln2, h, cfg.norm_eps)
-        return h + mlp(self.mlp, hn, cfg), cache
+        h, _ = self._ffn(h + y)
+        return h, cache
 
 
 class LM(nn.Module):
@@ -94,23 +148,11 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, device="cuda"):
         super().__init__()
-        if cfg.num_experts:
-            raise NotImplementedError("MoE is not ported yet (ROADMAP.md "
-                                      "Queue 1, slice 4)")
-        if cfg.qkv_bias or cfg.qk_norm or cfg.mrope_sections is not None:
-            raise NotImplementedError("qkv bias, qk norm and M-RoPE are not "
-                                      "ported yet (ROADMAP.md Queue 1, slice 4)")
-        for kind in cfg.block_pattern:
-            block_specs(cfg, kind)          # raises on a kind not ported
         self.cfg = cfg
         self.period = len(cfg.block_pattern)
         self.n_full = cfg.num_layers // self.period
         self.n_tail = cfg.num_layers % self.period
-        top = self._top_specs()
-        self.embed = _empty(top["embed"], cfg.param_dtype, device)
-        self.final_norm = _empty(top["final_norm"], cfg.param_dtype, device)
-        if not cfg.tie_embeddings:
-            self.unembed = _empty(top["unembed"], cfg.param_dtype, device)
+        add_params(self, self._top_specs(), cfg.param_dtype, device)
         self.layers = nn.ModuleList(
             Block(cfg, cfg.kind_of_layer(i), device)
             for i in range(cfg.num_layers))
@@ -128,12 +170,7 @@ class LM(nn.Module):
         """Spec of every parameter, under its ``state_dict`` name."""
         out = dict(self._top_specs())
         for i, layer in enumerate(self.layers):
-            for name, spec in block_specs(self.cfg, layer.kind).items():
-                if isinstance(spec, pr.Spec):
-                    out[f"layers.{i}.{name}"] = spec
-                else:
-                    out |= {f"layers.{i}.{name}.{k}": s
-                            for k, s in spec.items()}
+            out |= flat_specs(f"layers.{i}.", block_specs(self.cfg, layer.kind))
         return out
 
     def init(self, generator: torch.Generator) -> "LM":
@@ -145,12 +182,18 @@ class LM(nn.Module):
         return self
 
     # ----- forward (prefill logits) -------------------------------------------
-    def embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed_inputs(self, tokens: torch.Tensor,
+                     patches: torch.Tensor | None = None) -> torch.Tensor:
+        """Token embeddings; ``patches`` (vlm: (B, Tv, D)) replace the first
+        Tv positions."""
         cfg = self.cfg
         h = embed(self.embed, tokens, getattr(torch, cfg.dtype))
         if cfg.family == "hybrid":                      # gemma lineage scales
             # by sqrt(d_model) rounded to the activation type first
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
+        if patches is not None:
+            tv = patches.shape[1]
+            h = torch.cat([patches.to(h.dtype), h[:, tv:, :]], dim=1)
         return h
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -159,30 +202,44 @@ class LM(nn.Module):
         w = self.embed if cfg.tie_embeddings else self.unembed
         return unembed(w, h, tied=cfg.tie_embeddings)
 
-    def forward(self, tokens: torch.Tensor, *, positions=None
+    def forward(self, tokens: torch.Tensor, *, positions=None, patches=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """tokens: (B, S) -> (logits (B,S,V) fp32, aux loss scalar)."""
-        h = self.embed_inputs(tokens)
+        """tokens: (B, S) -> (logits (B,S,V) fp32, aux loss scalar: the sum
+        of the MoE layers')."""
+        h = self.embed_inputs(tokens, patches)
         if positions is None:
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]
-        for layer in self.layers:
-            h = layer(h, positions)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for layer in self.layers:
+            h, a = layer(h, positions)
+            if a is not None:
+                aux = aux + a
         return self._logits(h), aux
 
     # ----- serving ----------------------------------------------------------
-    def init_cache(self, batch: int, cache_len: int) -> list:
-        """One state per layer: a ring-buffer KVCache of
-        ``min(cache_len, window)`` slots for local layers, an RGLRUState for
-        recurrent ones."""
+    def _cache_for(self, kind: str, batch: int, cache_len: int,
+                   dtype: torch.dtype):
         cfg = self.cfg
-        dtype, dev = getattr(torch, cfg.dtype), self.embed.device
-        return [KVCache.init(batch, cfg.num_kv_heads,
-                             min(cache_len, cfg.window),
-                             cfg.resolved_head_dim, dtype, dev)
-                if layer.kind == "local"
-                else rglru_init_state(batch, cfg, dtype, dev)
+        hd, dev = cfg.resolved_head_dim, self.embed.device
+        if kind == "attn":
+            return KVCache.init(batch, cfg.num_kv_heads, cache_len, hd, dtype,
+                                dev)
+        if kind == "local":
+            return KVCache.init(batch, cfg.num_kv_heads,
+                                min(cache_len, cfg.window), hd, dtype, dev)
+        if kind == "rglru":
+            return rglru_init_state(batch, cfg, dtype, dev)
+        if kind == "rwkv":
+            return rwkv_init_state(batch, cfg, dtype, dev)
+        raise ValueError(f"unknown block kind {kind!r}")
+
+    def init_cache(self, batch: int, cache_len: int) -> list:
+        """One state per layer: a KVCache of ``cache_len`` slots for global
+        attention, a ring buffer of ``min(cache_len, window)`` for local
+        attention, an RGLRUState or an RWKVState for recurrent layers."""
+        dtype = getattr(torch, self.cfg.dtype)
+        return [self._cache_for(layer.kind, batch, cache_len, dtype)
                 for layer in self.layers]
 
     def decode(self, cache: list, tokens: torch.Tensor, *, positions=None

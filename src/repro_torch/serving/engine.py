@@ -60,7 +60,8 @@ class BatchEngine:
                 else:
                     toks[i, 0] = (req.out[-1] if req.out else 0)
             nxt, _, self.cache = self._step(
-                self.cache, torch.from_numpy(toks).to(self.device))
+                self.cache, torch.from_numpy(toks).to(self.device),
+                self.step_count)
             self.step_count += 1
             nxt = nxt.cpu().numpy()
             for i, req in enumerate(self.slots):

@@ -7,7 +7,9 @@ Tolerances: ``TOL`` of ``tests/test_kernels.py`` (f32 2e-5, bf16 3e-2;
 conv1d bf16 8e-2, ``tests/test_kernels.py:122``: the kernel path adds the
 bias after its cast to bf16, the plain version before it).
 """
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ try:
 except ImportError:          # hosts where hypothesis can't be installed
     from repro_torch.testing.minihyp import given, settings, strategies as st
 
+from repro_torch.configs import ShapeSpec, get_reduced_config, list_archs
 from repro_torch.kernels import (_build, causal_conv1d,
                                  sliding_window_attention, stencil1d,
                                  stencil2d, stencil3d)
@@ -27,6 +30,8 @@ from repro_torch.kernels.stencil1d.ref import stencil1d_ref
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref
 from repro_torch.kernels.swa.ops import swa_plain
+from repro_torch.models.registry import build_model, input_arrays
+from repro_torch.serving.serve_step import make_prefill
 
 pytestmark = pytest.mark.cuda
 
@@ -547,6 +552,34 @@ def test_kernels_refuse_tensors_that_require_grad(dev):
     with torch.inference_mode():
         causal_conv1d(x.detach(), w)
         sliding_window_attention(q.detach(), kv, kv, window=4)
+
+
+# -- the LM families at reduced depth -----------------------------------------
+MODEL_TOL = 5e-4      # tests/test_models.py's bar for decode against forward
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_family_prefill_and_decode_on_the_card(dev, arch):
+    """Each family's reduced config on the card: ``make_prefill`` against
+    the same weights on the CPU, and decode token by token against the
+    forward (chip_smoke.py's ``decode_error``), both within 5e-4."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    cfg = get_reduced_config(arch)
+    cpu = build_model(cfg, device="cpu")
+    cpu.init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = input_arrays(cfg, ShapeSpec("smoke", 24, 2, "prefill"), seed=0,
+                         device="cpu")
+    want = make_prefill(cpu, cfg)(batch)
+    got = make_prefill(gpu, cfg)({k: v.to(dev) for k, v in batch.items()})
+    _close(got, want, MODEL_TOL, rtol=0)
+    inp = {k: v.to(dev) for k, v in input_arrays(
+        cfg, ShapeSpec("smoke", 8, 2, "prefill"), seed=1,
+        device="cpu").items()}
+    err = chip_smoke.decode_error(gpu, cfg, inp["tokens"], inp.get("frames"))
+    assert err < MODEL_TOL, err
 
 
 # -- K7: the batched cycle engine ---------------------------------------------

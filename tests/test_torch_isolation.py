@@ -1,6 +1,7 @@
 """The port stands alone and never falls back: importing it loads no jax and
 nothing of ``repro``; a kernel that cannot run raises instead of quietly
 running its plain version.  CPU only; no jax needed."""
+import inspect
 import json
 import os
 import subprocess
@@ -10,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import list_archs
 from repro_torch.kernels import (_build, causal_conv1d,
                                  sliding_window_attention, stencil1d,
                                  stencil2d, stencil3d)
@@ -20,6 +22,9 @@ from repro_torch.kernels.stencil2d.kernel import stencil2d_kernel
 from repro_torch.kernels.stencil2d.ops import plan_2d_blocks
 from repro_torch.kernels.stencil3d.kernel import stencil3d_kernel
 from repro_torch.kernels.swa.kernel import swa_kernel
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.registry import build_model, input_arrays
+from repro_torch.models.transformer import LM
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 C1 = (0.25, 0.5, 0.25)
@@ -56,7 +61,10 @@ def test_import_loads_no_jax_and_no_repro():
                 "kernels.simbatch.kernel", "kernels.simbatch.ref",
                 "program.lower", "program.oracle", "explore.search",
                 "explore.space", "telemetry.metrics", "telemetry.report",
-                "telemetry.trace", "analysis.lint", "testing.minihyp"):
+                "telemetry.trace", "analysis.lint", "testing.minihyp",
+                "models.rwkv6", "models.encdec", "models.mlp",
+                "models.registry", "configs.whisper_tiny",
+                "configs.granite_moe_3b_a800m", "configs.qwen2_vl_2b"):
         assert f"repro_torch.{mod}" in loaded
 
 
@@ -154,6 +162,28 @@ def test_serve_cli_needs_a_gpu_unless_asked_for_the_cpu():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_serve_cli_needs_a_gpu_for_every_arch(monkeypatch, arch):
+    """Every family's entry point runs on the card by default and raises
+    without one; nothing falls back to the CPU."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        serve.main(["--reduced", "--arch", arch])
+
+
+def test_model_entry_points_default_to_the_card():
+    for fn in (build_model, input_arrays, LM, EncDecLM):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_serve_cli_refuses_the_audio_family(capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--reduced", "--device", "cpu",
+                       "--arch", "whisper-tiny"]) == 1
+    assert "decoder-only" in capsys.readouterr().out
 
 
 def test_unknown_variant_raises():
@@ -308,6 +338,30 @@ def test_chip_smoke_lm_limits_refuse_a_wrong_kernel():
                for shape in ((2, 300, 64), (4, 64), (64,)))
     assert chip_smoke.lm_error("conv1d", bf, causal_conv1d(x, w, b),
                                conv1d_ref(x, w, b))[0]
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_chip_smoke_decode_error_holds_every_family_on_the_cpu(arch):
+    """chip_smoke.py's ``families`` check at each reduced config: decode
+    token by token against the forward (vlm with M-RoPE positions, audio
+    with the cross K/V primed) within 5e-4; a decode without its cache
+    fails it."""
+    sys.path.insert(0, str(SRC.parent))
+    import chip_smoke
+    from repro_torch.configs import ShapeSpec, get_reduced_config
+    cfg = get_reduced_config(arch)
+    model = build_model(cfg, device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    inp = input_arrays(cfg, ShapeSpec("smoke", 8, 2, "prefill"), seed=1,
+                       device="cpu")
+    err = chip_smoke.decode_error(model, cfg, inp["tokens"], inp.get("frames"))
+    assert err < chip_smoke.DECODE_TOL
+    # a decode that forgets its cache every token fails the check
+    decode = model.decode
+    model.decode = lambda cache, toks, **kw: decode(model.init_cache(2, 8),
+                                                    toks, **kw)
+    assert chip_smoke.decode_error(model, cfg, inp["tokens"],
+                                   inp.get("frames")) > chip_smoke.DECODE_TOL
 
 
 def _heat_items(n=2):
