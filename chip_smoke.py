@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stencil main path, its CGRA model with the
-tuner's batched stage 1, its RecurrentGemma-2B serving path and the other
-LM families on one NVIDIA GPU (H100).
+tuner's batched stage 1, its RecurrentGemma-2B serving and training paths
+and the other LM families on one NVIDIA GPU (H100).
 
     PYTHONPATH=src python3 chip_smoke.py [--device cuda:0] [--seed 0]
 
-1. Builds the seven hand-written CUDA kernels from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, in parallel).
+1. Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (K1-K7
+   and the backward of K5 and K6; one ``nvcc`` per source, in parallel).
 2. Drives the main path through the public ops (``stencil1d_from_spec``,
    ``stencil2d_from_spec``, ``stencil3d``) with every launch count zeroed just
    before and read just after: the paper's §VI shapes in f32 (1D 17-pt
@@ -21,8 +21,9 @@ LM families on one NVIDIA GPU (H100).
    after warm-up) beside its plain version, a cuDNN convolution yardstick
    (``library_ms``; TF32 off) and its bound, prints one JSON line per case,
    the ``kernels`` JSON line (each stencil row also with its bf16 time and
-   bound, the K5/K6 rows with their f32 ones), the registers and spills
-   that ``ptxas`` reported for K1-K6 in the build's own log, the
+   bound, the K5/K6 rows and their backward's with their f32 ones), the
+   registers and spills that ``ptxas`` reported for K1-K6 and the backward
+   kernels in the build's own log, the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
    Before the ``kernels`` line, K4's generic instance (every radius or
    pattern of taps but the star pattern at (1, 1, 1) and (2, 2, 2), which
@@ -124,6 +125,30 @@ LM families on one NVIDIA GPU (H100).
    Last, the WKV recurrence alone at rwkv6-7b's heads, (1, 256) and
    (2, 4096) (``families_wkv`` lines).
 
+8a. The ``train`` phase (``train_phase``, ~35 s), between the LM and the
+   ``families`` phases: K5's and K6's backward at RecurrentGemma-2B's
+   shapes on (1, 4096) tokens in f32 and bf16, through the ops' autograd
+   (dx as K5 on the flipped gradient, dw/db as ``conv1d_bwd_wb``; dq, dk,
+   dv as ``swa_bwd_dq`` and ``swa_bwd_dkdv``) against the vector-Jacobian
+   products of their plain versions (``GRAD_TOL``), each timed beside its
+   plain version, a library call (the backward of ``F.conv1d`` with
+   ``groups=C``; of ``scaled_dot_product_attention`` with a band mask) and
+   its bound; then one period (3 layers) at full width, bf16 activations:
+   the loss's gradients and one ``make_train_step`` through the kernels
+   and again through the plain versions (``train_step_check``); then the
+   whole model (26 layers, d_model 2560, f32 weights) trained for
+   ``TRAIN_STEPS`` steps on ``SyntheticLM`` markov batches of (1, 4096)
+   with remat "dots", the launch counts zeroed just before and read just
+   after (each step must launch K5 54 times, ``conv1d_bwd_wb`` 18, K6 16,
+   ``swa_bwd_dq`` and ``swa_bwd_dkdv`` 8: ``train_launches``), losses,
+   step ms, tokens/s and peak memory printed, and one more step under
+   ``torch.profiler`` (matmuls, the kernels, the optimizer and the loss's
+   forward by their profiler ranges, casts, the rest; idle share); last
+   ``python -m repro_torch.launch.train --arch tinyllama-1.1b --reduced
+   --steps 8 --ckpt-every 3`` in this process, its checkpoints after step
+   3 deleted and the same command with ``--resume``, whose losses for
+   steps 3-7 must equal the first run's bit for bit.
+
 9. The ``observe`` phase (``observe_phase``, ~10 s): the CGRA model's
    observability and its gates; the steps that launch kernels run with the
    launch counts zeroed just before and read just after.  ``lint``: the lint CLI's
@@ -146,6 +171,7 @@ one it exits non-zero before doing anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import importlib.util
@@ -153,6 +179,7 @@ import io
 import json
 import multiprocessing
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -183,13 +210,26 @@ from repro_torch.kernels import (causal_conv1d,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv1d.kernel import (conv1d_kernel,  # noqa: E402
                                               launch_plan)
-from repro_torch.kernels.conv1d.ref import conv1d_ref  # noqa: E402
+from repro_torch.kernels.conv1d.kernel import conv1d_bwd_wb  # noqa: E402
+from repro_torch.kernels.conv1d.ref import conv1d_bwd_ref, conv1d_ref  # noqa: E402
 from repro_torch.kernels.simbatch import kernel as k7  # noqa: E402
 from repro_torch.kernels.simbatch.ref import simbatch_plain  # noqa: E402
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref  # noqa: E402
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref  # noqa: E402
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref  # noqa: E402
+from repro_torch.kernels.swa.kernel import (swa_bwd_dkdv,  # noqa: E402
+                                            swa_bwd_dq)
 from repro_torch.kernels.swa.ops import swa_plain  # noqa: E402
+from repro_torch.kernels.swa.ref import swa_bwd_ref, swa_ref  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import attention as model_attention  # noqa: E402
+from repro_torch.models import rglru as model_rglru  # noqa: E402
+from repro_torch.train.optim import OptConfig, init_opt_state  # noqa: E402
+from repro_torch.train.train_step import (LOSS_RANGE,  # noqa: E402
+                                          OPTIMIZER_RANGE, make_loss_fn,
+                                          make_train_step)
 from repro_torch.analysis.lint import lint_paths  # noqa: E402
 from repro_torch.telemetry import (Telemetry, bottleneck_table,  # noqa: E402
                                    render_report, validate_trace,
@@ -216,6 +256,17 @@ LM_TOL = {"conv1d": {torch.float32: (2e-5, 0.0), torch.bfloat16: (8e-2, 2**-7)},
 # it: ||y - plain|| / ||plain|| <= 1e-2, which a fault that moves the
 # outputs by 10% fails.
 REL_TOL = {("swa", torch.bfloat16): 1e-2}
+# K5's and K6's backward against the vector-Jacobian products of their
+# plain versions, per gradient (dx, dw, db; dq, dk, dv), set before the
+# first run on the card: (norm-relative ||g - want|| / ||want||, largest
+# |g - want| over largest |want|).  f32: 1e-5, and the forward's 2e-5 scaled
+# to the gradient's size; bf16: 1e-2, and the forward's bf16 bars (conv1d
+# 8e-2, swa 3e-2) scaled alike: a gradient sums thousands of products, so
+# its size, not 1, sets the scale of a rounding.
+GRAD_TOL = {("conv1d", torch.float32): (1e-5, 2e-5),
+            ("conv1d", torch.bfloat16): (1e-2, 8e-2),
+            ("swa", torch.float32): (1e-5, 2e-5),
+            ("swa", torch.bfloat16): (1e-2, 3e-2)}
 # decode against forward at full width: the bar of tests/test_models.py
 DECODE_TOL = 5e-4
 # Datasheet peaks (dense, no sparsity): HBM bytes/s, FP32 (non-tensor)
@@ -244,11 +295,21 @@ KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
     # no pallas_call: the jax.jit of the vmapped lax.while_loop(_cycle_step)
     "simbatch": ("cuda", "src/repro_torch/csrc/simbatch.cu",
                  "src/repro/core/engine/jax_engine.py:409"),
+    # the backward of K5 and K6: no TPU counterpart
+    "conv1d_bwd_wb": ("cuda", "src/repro_torch/csrc/conv1d.cu",
+                      "none: the JAX package defines no backward (it takes "
+                      "autodiff of src/repro/kernels/conv1d/kernel.py:55)"),
+    "swa_bwd_dq": ("cuda", "src/repro_torch/csrc/swa_bwd.cu",
+                   "none: the JAX package defines no backward (it takes "
+                   "autodiff of src/repro/kernels/swa/kernel.py:99)"),
+    "swa_bwd_dkdv": ("cuda", "src/repro_torch/csrc/swa_bwd.cu",
+                     "none: the JAX package defines no backward (it takes "
+                     "autodiff of src/repro/kernels/swa/kernel.py:99)"),
 }
 STENCIL_KERNELS = ("stencil1d_vpu", "stencil1d_mxu", "stencil2d", "stencil3d")
 # sources whose register use and spills are printed from the build's log
-PTXAS_SOURCES = ("conv1d", "swa", "stencil1d", "stencil2d", "stencil3d",
-                 "simbatch")
+PTXAS_SOURCES = ("conv1d", "swa", "swa_bwd", "stencil1d", "stencil2d",
+                 "stencil3d", "simbatch")
 # K5 is timed with a cold L2: its bf16 input at the model's shape (42 MB)
 # fits the 50 MB L2, so launches on the same buffers find part of it there,
 # and only a cold time stands against a bound that counts HBM bytes.  A read
@@ -511,6 +572,32 @@ def lm_error(case_kernel: str, dtype: torch.dtype, y: torch.Tensor,
     return good, err, rel
 
 
+def grad_error(kernel: str, dtype: torch.dtype, g: torch.Tensor,
+               want: torch.Tensor, upstream: torch.Tensor
+               ) -> tuple[bool, float, float]:
+    """(within GRAD_TOL, max |g - want|, ||g - want|| / max(||want||,
+    ||upstream|| / 10)) of one gradient, ``upstream`` the output's gradient
+    it came from; also refuses a wrong shape or type and a non-finite value.
+    A gradient smaller than a tenth of the upstream one (one that is 0 by
+    the algebra, as dq and dk at S = 1 or window 1, where dS = P (dP - D)
+    cancels) is held against that tenth: its rounding scales with the
+    products that cancel, not with itself."""
+    if g.shape != want.shape or g.dtype != want.dtype:
+        return False, float("inf"), float("inf")
+    gf, wf, uf = g.float(), want.float(), upstream.float()
+    diff = (gf - wf).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    scale = max(wf.abs().max().item() if wf.numel() else 0.0,
+                uf.abs().max().item() / 10)
+    rel = (torch.linalg.vector_norm(diff).item()
+           / max(torch.linalg.vector_norm(wf).item(),
+                 torch.linalg.vector_norm(uf).item() / 10))
+    rel_tol, max_tol = GRAD_TOL[(kernel, dtype)]
+    good = (bool(torch.isfinite(g).all()) and rel <= rel_tol
+            and err <= max_tol * scale)
+    return good, err, rel
+
+
 @dataclasses.dataclass
 class LMCase:
     """K5 or K6 at the model's shapes."""
@@ -605,6 +692,8 @@ def time_host(fn, reps: int) -> float:
 # kernel-name groups of the profile, first match wins; the MoE's dispatch
 # and combine are told apart by the model's profiler range (MOE_DISPATCH)
 PROFILE_GROUPS = (
+    ("K6 swa backward", ("swa_bwd_dq_kernel", "swa_bwd_dkdv_kernel")),
+    ("K5 conv1d backward (dw, db)", ("conv1d_bwd_",)),
     ("K6 swa", ("swa_wgmma_kernel", "swa_f32_kernel")),
     ("K5 conv1d", ("conv1d_vec_kernel", "conv1d_generic_kernel")),
     ("attention softmax", ("softmax",)),
@@ -613,14 +702,19 @@ PROFILE_GROUPS = (
     ("reduce", ("reduce",)),
 )
 MOE_GROUP = "moe dispatch/combine"
+# profiler ranges whose kernels form a group of their own (the loss's
+# forward: its backward kernels go by their names)
+RANGE_GROUPS = {MOE_DISPATCH: MOE_GROUP, OPTIMIZER_RANGE: "optimizer",
+                LOSS_RANGE: "loss (forward)"}
 
 
 def device_profile(fn) -> dict:
     """One run of ``fn`` under ``torch.profiler``: wall ms, the device's busy
     ms (the kernels' own device time; one stream) and idle share, the busy
-    ms split into the MoE's dispatch and combine (every kernel launched
-    inside the model's ``MOE_DISPATCH`` ranges) and, for every other
-    kernel, its name's group of ``PROFILE_GROUPS`` or elementwise, and the
+    ms split into ``RANGE_GROUPS`` (every kernel launched inside the
+    model's ``MOE_DISPATCH`` ranges, the train step's optimizer and loss
+    ranges) and, for every other kernel, its name's group of
+    ``PROFILE_GROUPS`` or elementwise, and the
     ten kernels that took most.  ``busy_ms_by_device_events`` sums the
     device events themselves: it must agree with the walk."""
     from torch.profiler import ProfilerActivity, profile
@@ -635,10 +729,9 @@ def device_profile(fn) -> dict:
     kernels: dict[tuple[str, str], list] = {}
 
     def walk(ev, label):
-        if ev.name == MOE_DISPATCH:
-            label = MOE_GROUP
+        label = RANGE_GROUPS.get(ev.name, label)
         for k in ev.kernels:
-            if k.name == MOE_DISPATCH:
+            if k.name in RANGE_GROUPS:
                 continue
             n = k.name.lower()
             group = label or next((g for g, words in PROFILE_GROUPS
@@ -658,7 +751,7 @@ def device_profile(fn) -> dict:
     busy_ms = sum(g[0] for g in groups.values())
     by_events = sum(e.self_device_time_total for e in events
                     if e.device_type.name == "CUDA"
-                    and e.name != MOE_DISPATCH) / 1e3
+                    and e.name not in RANGE_GROUPS) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_ms_by_device_events": by_events,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
@@ -876,6 +969,407 @@ def lm_phase(dev: torch.device, seed: int, part: str,
             "library_ms_f32": f32["library_ms"],
             **{f"{k}_f32": f32[k] for k in ("ms_warm", "op_ms") if k in f32},
             "shape": [list(a.shape) for a in case.args], "part": part})
+    return rows
+
+
+# -- training: K5's and K6's backward, a whole step, RecurrentGemma-2B -------
+TRAIN_BATCH, TRAIN_SEQ = 1, 4096          # S twice K6's window
+TRAIN_STEPS = 4                           # timed; one more runs profiled
+TRAIN_REMAT = "dots"
+STEP_LAYERS = 3                           # one period: rglru, rglru, local
+# a whole step through the kernels against the same step through the plain
+# versions, bf16 activations at full width (set before the first run on
+# the card): loss relative 1e-3, each gradient leaf norm-relative 5e-2, and
+# each leaf of the first moment after the step, (1 - b1) x the clipped
+# gradient the step took, at the same bar.  The updated weights hold
+# nothing: a first Adam step from zero moments moves each element by
+# lr * g / |g|, so any two gradients leave the weights within 2 x lr.
+STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-3, 5e-2
+TRAIN_CLI_ARGS = ("--arch", "tinyllama-1.1b", "--reduced", "--steps", "8",
+                  "--ckpt-every", "3", "--log-every", "1")
+TRAIN_CLI_RESUME_STEP = 3
+GRAD_NAMES = {"conv1d": ("dx", "dw", "db"), "swa": ("dq", "dk", "dv")}
+
+
+def train_launches(cfg, remat: str) -> dict[str, int]:
+    """Launches of each LM kernel in one train step: the forward's K5 and
+    K6 once a layer, again where remat reruns the layer's forward in the
+    backward pass (a ctypes launch is no aten op, so selective remat
+    recomputes it too), K5 once more for dx (on the flipped gradient), and
+    each backward kernel once a layer."""
+    kinds = [cfg.kind_of_layer(i) for i in range(cfg.num_layers)]
+    n_rec, n_loc = kinds.count("rglru"), kinds.count("local")
+    fwd = 1 if remat == "none" else 2
+    return {"conv1d": n_rec * (fwd + 1), "conv1d_bwd_wb": n_rec,
+            "swa": n_loc * fwd, "swa_bwd_dq": n_loc, "swa_bwd_dkdv": n_loc}
+
+
+@dataclasses.dataclass
+class BwdCase:
+    """K5's or K6's backward at the model's shapes: args are the forward's
+    inputs and last the output's gradient."""
+    kernel: str
+    dtype: torch.dtype
+    args: tuple
+    window: int = 0
+
+    def forward(self, *leaves):
+        if self.kernel == "conv1d":
+            return causal_conv1d(*leaves, backend="cuda")
+        return sliding_window_attention(*leaves, window=self.window,
+                                        backend="cuda")
+
+    def op_grads(self) -> tuple:
+        """The op's autograd: the kernels' path the model takes."""
+        leaves = [a.detach().requires_grad_() for a in self.args[:-1]]
+        return torch.autograd.grad(self.forward(*leaves), leaves,
+                                   self.args[-1])
+
+    def plain(self) -> tuple:
+        if self.kernel == "conv1d":
+            return conv1d_bwd_ref(*self.args[:3], self.args[3])
+        return swa_bwd_ref(*self.args[:3], self.args[3], window=self.window)
+
+
+def bwd_cases(dev: torch.device, seed: int) -> list[BwdCase]:
+    cfg = get_config(ARCH)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    c, kk = cfg.lru_width, cfg.conv_width
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        cases.append(BwdCase("conv1d", dtype, (rnd(b, s, c), rnd(kk, c),
+                                               rnd(c), rnd(b, s, c))))
+        # (B, S, H, D) viewed as (B, H, S, D), as attend_local passes them
+        cases.append(BwdCase("swa", dtype, tuple(
+            rnd(b, s, h, d).transpose(1, 2) for h in (hq, hkv, hkv, hq)),
+            cfg.window))
+    return cases
+
+
+def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
+    """ms (median of CUDA events), plain ms, library ms and bound of each
+    backward kernel of ``case``, and of K5's dx path (K5 on the flipped
+    gradient)."""
+    bw, fp32, bf16 = PEAKS[part]
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+
+    def bound(nb, flops, peak):
+        t_bytes, t_ops = nb / bw * 1e3, flops / peak * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+
+    def med(fn, reps, cold=None):
+        return statistics.median(event_times(fn, reps, flush=cold))
+
+    out = {}
+    if case.kernel == "conv1d":
+        x, w, bb, dy = case.args
+        k, c = w.shape
+        xt, dyt = x.transpose(1, 2), dy.transpose(1, 2)
+        wt = w.T[:, None, :].detach().requires_grad_()
+        bt = bb.detach().requires_grad_()
+        xg = xt.detach().requires_grad_()
+        lib_wb = F.conv1d(xt, wt, bt, groups=c, padding=k - 1)[..., :x.shape[1]]
+        lib_x = F.conv1d(xg, w.T[:, None, :], groups=c,
+                         padding=k - 1)[..., :x.shape[1]]
+        out["conv1d_bwd_wb"] = dict(
+            ms=med(lambda: conv1d_bwd_wb(x, dy, w, bb), 20, flush),
+            plain_ms=med(lambda: conv1d_bwd_ref(x, w, bb, dy), 5, flush),
+            library_ms=med(lambda: torch.autograd.grad(
+                lib_wb, (wt, bt), dyt, retain_graph=True), 5, flush),
+            bound=bound(nbytes(x, dy, w, bb),
+                        (2 * k + 1) * x.numel(), fp32))
+        out["conv1d_dx"] = dict(
+            ms=med(lambda: conv1d_kernel(dy.flip(1), w).flip(1), 20, flush),
+            library_ms=med(lambda: torch.autograd.grad(
+                lib_x, xg, dyt, retain_graph=True), 5, flush),
+            bound=bound(nbytes(x, dy), 2 * k * x.numel(), fp32))
+        return out
+    q, k, v, do = case.args
+    b, hq, s, d = q.shape
+    peak = fp32 if case.dtype == torch.float32 else bf16
+    pairs = band_pairs(s, case.window) * b * hq * 2 * d    # flops a product
+    o = sliding_window_attention(q, k, v, window=case.window, backend="cuda")
+    _, lse, delta = swa_bwd_dq(q, k, v, o, do, window=case.window)
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    band = (j <= i) & (j > i - case.window)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib = F.scaled_dot_product_attention(*leaves, attn_mask=band,
+                                         enable_gqa=True)
+    plain = swa_ref(*leaves, window=case.window)
+    for name, wrt, fn, nb, products in (
+            ("swa_bwd_dq", leaves[:1],
+             lambda: swa_bwd_dq(q, k, v, o, do, window=case.window),
+             nbytes(q, k, v, o, do, q, lse, delta), 3),
+            ("swa_bwd_dkdv", leaves[1:],
+             lambda: swa_bwd_dkdv(q, k, v, do, lse, delta,
+                                  window=case.window),
+             nbytes(q, k, v, do, lse, delta, k, v), 4)):
+        out[name] = dict(
+            ms=med(fn, 5),
+            plain_ms=med(lambda: torch.autograd.grad(
+                plain, wrt, do, retain_graph=True), 3),
+            library_ms=med(lambda: torch.autograd.grad(
+                lib, wrt, do, retain_graph=True), 5),
+            bound=bound(nb, products * pairs, peak),
+            # the whole backward's own bound: 5 products (QK^T, dO V^T,
+            # dP K, dS^T Q, P^T dO); the split without atomics adds two
+            whole_bound_ms=bound(nbytes(q, k, v, o, do, q, k, v),
+                                 5 * pairs, peak)[0])
+    return out
+
+
+@contextlib.contextmanager
+def plain_lm_ops():
+    """The model's K5 and K6 call sites bound to their plain versions (and
+    autograd through them) for the whole-step comparison; restored after."""
+    saved = model_rglru.causal_conv1d, model_attention.sliding_window_attention
+    model_rglru.causal_conv1d = conv1d_ref
+    model_attention.sliding_window_attention = swa_plain
+    try:
+        yield
+    finally:
+        (model_rglru.causal_conv1d,
+         model_attention.sliding_window_attention) = saved
+
+
+def whole_step_check(dev: torch.device, seed: int,
+                     failures: list[str]) -> None:
+    """One period of RecurrentGemma-2B at full width, bf16 activations, on
+    (1, 4096): the loss's gradients and one make_train_step through the
+    kernels, and again through the plain versions, from the same weights
+    and batch."""
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=STEP_LAYERS)
+    opt_cfg = OptConfig(warmup_steps=1, total_steps=2)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=seed, pattern="markov"))
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+             for k, v in data.next_batch().items()}
+    res = {}
+    for path in ("kernels", "plain"):
+        model = build_model(cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(seed + 2))
+        ctx = plain_lm_ops() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            _build.reset_launches()
+            total, (loss, aux) = make_loss_fn(model, cfg, TRAIN_REMAT)(batch)
+            grads = torch.autograd.grad(total, list(model.parameters()))
+            params = dict(model.named_parameters())
+            opt = init_opt_state(params, opt_cfg)
+            opt, met = make_train_step(model, cfg, opt_cfg,
+                                       remat=TRAIN_REMAT)(opt, batch)
+            torch.cuda.synchronize()
+            launches = {k: _build.LAUNCHES.get(k, 0)
+                        for k in train_launches(cfg, TRAIN_REMAT)}
+        res[path] = dict(loss=float(loss.detach()), aux=float(aux.detach()),
+                         step_loss=float(met["loss"]),
+                         grads=dict(zip(params, grads)), launches=launches,
+                         m=opt.m)
+        del model, opt, params, grads
+    k, p = res["kernels"], res["plain"]
+
+    def norm_rel(got, want):
+        return {n: (torch.linalg.vector_norm(g.float() - want[n].float())
+                    / torch.linalg.vector_norm(want[n].float())).item()
+                for n, g in got.items()}
+    rels, m_rels = norm_rel(k["grads"], p["grads"]), norm_rel(k["m"], p["m"])
+    worst, worst_m = max(rels, key=rels.get), max(m_rels, key=m_rels.get)
+    want = {n: 2 * c for n, c in train_launches(cfg, TRAIN_REMAT).items()}
+    loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    ok = (loss_rel <= STEP_LOSS_RTOL and k["aux"] == p["aux"] == 0.0
+          and k["step_loss"] == k["loss"] and rels[worst] <= STEP_GRAD_RTOL
+          and m_rels[worst_m] <= STEP_GRAD_RTOL and k["launches"] == want
+          and sum(p["launches"].values()) == 0)
+    if not ok:
+        failures.append(f"train_step_check: loss {k['loss']} vs plain "
+                        f"{p['loss']} (rel {loss_rel}), worst gradient "
+                        f"{worst} rel {rels[worst]}, worst first moment "
+                        f"{worst_m} rel {m_rels[worst_m]}, "
+                        f"launches {k['launches']} "
+                        f"(want {want}), plain path {p['launches']}")
+    print(json.dumps({
+        "phase": "train_step_check", "arch": ARCH, "layers": STEP_LAYERS,
+        "d_model": cfg.d_model, "dtype": cfg.dtype,
+        "tokens": [TRAIN_BATCH, TRAIN_SEQ], "remat": TRAIN_REMAT,
+        "loss": k["loss"], "loss_plain": p["loss"], "loss_rel": loss_rel,
+        "loss_rtol": STEP_LOSS_RTOL, "aux": k["aux"],
+        "worst_grad": worst, "worst_grad_rel": rels[worst],
+        "grad_rtol": STEP_GRAD_RTOL,
+        "median_grad_rel": statistics.median(rels.values()),
+        "worst_moment": worst_m, "worst_moment_rel": m_rels[worst_m],
+        "launches": k["launches"], "launches_plain_path": p["launches"],
+        "ok": ok}))
+    del res, k, p
+    torch.cuda.empty_cache()
+
+
+def full_training(dev: torch.device, seed: int,
+                  failures: list[str]) -> dict[str, int]:
+    """RecurrentGemma-2B at its published width and depth trains on
+    SyntheticLM markov batches of (1, 4096) for TRAIN_STEPS counted, timed
+    steps, then one more under torch.profiler; returns the counted steps'
+    launches."""
+    cfg = get_config(ARCH)
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    opt_cfg = OptConfig(warmup_steps=2, total_steps=TRAIN_STEPS + 1)
+    opt = [init_opt_state(params, opt_cfg)]
+    step_fn = make_train_step(model, cfg, opt_cfg, remat=TRAIN_REMAT)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=seed, pattern="markov"))
+    batches = [{k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+                for k, v in data.next_batch().items()}
+               for _ in range(TRAIN_STEPS + 1)]
+    losses, times = [], []
+
+    def step(batch):
+        opt[0], met = step_fn(opt[0], batch)
+        losses.append(float(met["loss"]))        # synchronises
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    for batch in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: _build.LAUNCHES.get(k, 0)
+                for k in train_launches(cfg, TRAIN_REMAT)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {k: TRAIN_STEPS * n for k, n in
+            train_launches(cfg, TRAIN_REMAT).items()}
+    step_ms = statistics.median(times[1:])
+    finite = all(np.isfinite(losses))
+    ok = finite and launches == want
+    if not ok:
+        failures.append(f"train: losses {losses}, launches {launches} "
+                        f"(want {want})")
+    print(json.dumps({
+        "phase": "train", "arch": ARCH, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "params": n_params,
+        "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+        "tokens": [TRAIN_BATCH, TRAIN_SEQ], "data": "SyntheticLM markov",
+        "remat": TRAIN_REMAT, "steps": TRAIN_STEPS, "losses": losses,
+        "step_ms": times, "step_ms_median_after_first": step_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+        "peak_gb": peak / 1e9, "launches": launches,
+        "launches_per_step": train_launches(cfg, TRAIN_REMAT),
+        "reduced": "batch 1 of train_4k's (256, 4096): one card; depth "
+                   "and width as published", "ok": ok}))
+    prof = device_profile(lambda: step(batches[-1]))
+    print(json.dumps({"phase": "train_step_profile", "loss": losses[-1],
+                      **prof}))
+    del model, params, opt, step_fn, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_cli_resume(failures: list[str]) -> None:
+    """launch.train on the card: 8 steps with a checkpoint every 3, the
+    checkpoints after step 3 deleted, the same command with --resume: its
+    losses for steps 3-7 must equal the first run's, bit for bit."""
+    ck = ROOT / "build" / "chip_train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = [*TRAIN_CLI_ARGS, "--ckpt-dir", str(ck)]
+    t0 = time.perf_counter()
+    rc1, first = train_cli.run(argv)
+    steps = CheckpointManager(str(ck)).all_steps()
+    for st in steps:
+        if st > TRAIN_CLI_RESUME_STEP:
+            shutil.rmtree(ck / f"step_{st:08d}")
+    rc2, again = train_cli.run([*argv, "--resume"])
+    same = again == first[TRAIN_CLI_RESUME_STEP:]
+    diff = max((abs(a - b) for a, b in zip(again,
+                                           first[TRAIN_CLI_RESUME_STEP:])),
+               default=float("inf"))
+    ok = rc1 == rc2 == 0 and same and all(np.isfinite(first))
+    if not ok:
+        failures.append(f"train CLI resume: rc {rc1} {rc2}, losses {first} "
+                        f"then {again} (max diff {diff})")
+    print(json.dumps({"phase": "train_cli_resume", "argv": argv,
+                      "checkpoints": steps, "losses": first,
+                      "resumed_from": TRAIN_CLI_RESUME_STEP,
+                      "losses_resumed": again, "bit_equal": same,
+                      "max_diff": diff, "s": time.perf_counter() - t0,
+                      "ok": ok}))
+    shutil.rmtree(ck, ignore_errors=True)
+
+
+def train_phase(dev: torch.device, seed: int, part: str,
+                failures: list[str]) -> list[dict]:
+    """K5's and K6's backward at RecurrentGemma-2B's shapes against their
+    plain versions, timed; a whole step against the plain versions; the
+    full model trained; the CLI resumed.  Returns the backward kernels'
+    rows of the ``kernels`` line, their launches the full training's."""
+    t_phase = time.perf_counter()
+    errs, timed = {}, {}
+    flush = l2_flush(dev)
+    for case in bwd_cases(dev, seed):
+        dt = str(case.dtype).removeprefix("torch.")
+        got, want = case.op_grads(), case.plain()
+        for name, g, w in zip(GRAD_NAMES[case.kernel], got, want):
+            good, err, rel = grad_error(case.kernel, case.dtype, g, w,
+                                        case.args[-1])
+            kernel = {"dx": "conv1d", "dw": "conv1d_bwd_wb",
+                      "db": "conv1d_bwd_wb", "dq": "swa_bwd_dq",
+                      "dk": "swa_bwd_dkdv", "dv": "swa_bwd_dkdv"}[name]
+            errs[(kernel, case.dtype)] = max(errs.get((kernel, case.dtype),
+                                                      0.0), err)
+            rel_tol, max_tol = GRAD_TOL[(case.kernel, case.dtype)]
+            if not good:
+                failures.append(f"{kernel} {name} {dt}: max err {err}, rel "
+                                f"{rel} (tol {rel_tol}, {max_tol} x max)")
+            print(json.dumps({
+                "case": f"train_{case.kernel}_bwd", "kernel": kernel,
+                "grad": name, "shape": list(g.shape), "dtype": dt,
+                "max_abs_err": err, "rel_err": rel, "rel_tol": rel_tol,
+                "max_tol_scaled": max_tol, "ok": good}))
+        del got, want
+        t = bwd_timings(case, part, flush)
+        for kernel, row in t.items():
+            row["bound_ms"], row["bound_by"] = row.pop("bound")
+            print(json.dumps({"case": f"train_{kernel}_{dt}", **row}))
+            timed[(kernel, case.dtype)] = row
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    if failures:
+        return []
+    whole_step_check(dev, seed, failures)
+    launches = full_training(dev, seed, failures)
+    train_cli_resume(failures)
+    rows = []
+    for kernel in ("conv1d_bwd_wb", "swa_bwd_dq", "swa_bwd_dkdv"):
+        t, f32 = timed[(kernel, torch.bfloat16)], timed[(kernel,
+                                                         torch.float32)]
+        route, source, replaces = KERNELS[kernel]
+        rows.append({
+            "name": kernel, "route": route, "source": source,
+            "replaces": replaces, "launches": launches[kernel],
+            "dtype": "bfloat16",
+            "max_abs_err": errs[(kernel, torch.bfloat16)],
+            "tol": GRAD_TOL[(kernel.split("_")[0], torch.bfloat16)],
+            "max_abs_err_f32": errs[(kernel, torch.float32)],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            "ms_f32": f32["ms"], "bound_ms_f32": f32["bound_ms"],
+            "plain_ms_f32": f32["plain_ms"],
+            "library_ms_f32": f32["library_ms"],
+            **({"whole_bound_ms": t["whole_bound_ms"],
+                "whole_bound_ms_f32": f32["whole_bound_ms"]}
+               if "whole_bound_ms" in t else {}),
+            "shape": [TRAIN_BATCH, TRAIN_SEQ], "part": part})
+    print(json.dumps({"phase": "train_wall",
+                      "s": time.perf_counter() - t_phase}))
     return rows
 
 
@@ -1821,7 +2315,7 @@ def main(argv: list[str] | None = None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     sources = sorted({Path(src).stem for _, src, _ in KERNELS.values()})
     _build.build(*sources)
     print(f"built {sources} in {time.perf_counter() - t0:.1f} s")
@@ -1888,6 +2382,12 @@ def main(argv: list[str] | None = None) -> int:
         print("\n".join(failures), file=sys.stderr)
         return 1
 
+    # -- training: K5/K6 backward, a whole step, the full model, the CLI ----
+    train_rows = train_phase(dev, args.seed, part, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+
     # -- the other LM families (no hand-written kernel on their paths) -------
     families_phase(dev, args.seed, failures)
     if failures:
@@ -1942,7 +2442,9 @@ def main(argv: list[str] | None = None) -> int:
             "bound_by": bound_by, "library_ms": library_ms,
             "ms_bf16": bf[0], "bound_ms_bf16": bf[3], "bound_by_bf16": bf[4],
             "shape": list(case.x.shape), "part": part})
-    print(json.dumps({"kernels": rows + lm_rows + [k7_row]}))
+    print(json.dumps({"phase": "script_wall",
+                      "s": time.perf_counter() - t_script}))
+    print(json.dumps({"kernels": rows + lm_rows + [k7_row] + train_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1}}))   # the card it drove

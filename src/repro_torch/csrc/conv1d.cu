@@ -42,6 +42,20 @@
 // __fadd_rn, which the compiler cannot contract into the last FMA), so the
 // fused op has the bits of the kernel followed by
 // (y.float() + b.float()).to(x.dtype).
+//
+// The backward (conv1d_bwd_wb_launch), which training needs, has no TPU
+// kernel to replace: the JAX package differentiates the forward by autodiff.
+// The input gradient is this same kernel on the time-reversed upstream
+// gradient (dx = flip(conv(flip(dy), w)), kernels/conv1d/ops.py), so only
+// the taps' and the bias's gradients are new:
+//   dw[j, c] = sum_{b,t} x[b, t-(K-1)+j, c] * dy[b, t, c],  db[c] = sum dy.
+// Bound by bytes (x and dy read once; 12.5 us at (1, 4096, 2560) bf16).
+// Two kernels, deterministic: conv1d_bwd_partial_kernel gives a thread one
+// channel and a run of positions of one batch row (neighbouring lanes on
+// neighbouring channels), keeps the K-1 previous inputs in registers and
+// writes the run's K + 1 f32 sums to a workspace; conv1d_bwd_reduce_kernel
+// adds the runs in order, a thread a (tap or bias, channel), and casts to
+// w's and b's types.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -220,6 +234,101 @@ conv1d_generic_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// One run of positions of one batch row per blockIdx.y, one channel a
+// thread: part[run][i][c] = the run's sum for tap i (i < taps) or the bias
+// (i = taps).  The window has KW >= taps slots, the taps right-aligned.
+template <typename T, int KW>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+conv1d_bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                          float* __restrict__ part, int64_t seq, int64_t ch,
+                          int64_t runs_per_row, int run, int taps) {
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= ch) return;
+  const int64_t r = blockIdx.y;
+  const int64_t b = r / runs_per_row;
+  const int64_t s0 = (r - b * runs_per_row) * run;
+  const int64_t s1 = min(seq, s0 + run);
+  const T* xb = x + b * seq * ch + c;
+  const T* gb = dy + b * seq * ch + c;
+  const int first = KW - taps;
+
+  float win[KW], acc[KW], db = 0.f;
+#pragma unroll
+  for (int i = 0; i < KW; ++i) {
+    acc[i] = 0.f;
+    const int64_t pos = s0 - (KW - 1) + i;
+    win[i] = (i >= first && i < KW - 1 && pos >= 0) ? to_f32(xb[pos * ch]) : 0.f;
+  }
+  for (int64_t s = s0; s < s1; ++s) {
+    win[KW - 1] = to_f32(xb[s * ch]);
+    const float g = to_f32(gb[s * ch]);
+#pragma unroll
+    for (int i = 0; i < KW; ++i)
+      if (i >= first) acc[i] = fmaf(win[i], g, acc[i]);
+    db += g;
+#pragma unroll
+    for (int i = 0; i < KW - 1; ++i) win[i] = win[i + 1];
+  }
+  float* pr = part + r * (taps + 1) * ch + c;
+#pragma unroll
+  for (int i = 0; i < KW; ++i)
+    if (i >= first) pr[(i - first) * ch] = acc[i];
+  pr[taps * ch] = db;
+}
+
+__device__ __forceinline__ void store_as(void* dst, int code, int64_t i,
+                                         float v) {
+  if (code == 0) static_cast<float*>(dst)[i] = v;
+  else static_cast<__nv_bfloat16*>(dst)[i] = __float2bfloat16(v);
+}
+
+// dw (taps, ch) and db (ch,) from the runs' sums, added in run order
+__global__ void conv1d_bwd_reduce_kernel(const float* __restrict__ part,
+                                         void* dw, void* db, int w_code,
+                                         int b_code, int64_t ch, int taps,
+                                         int64_t runs) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)(taps + 1) * ch) return;
+  const int64_t i = idx / ch, c = idx - i * ch;
+  if (i == taps && b_code < 0) return;
+  float s = 0.f;
+  for (int64_t r = 0; r < runs; ++r) s += part[(r * (taps + 1) + i) * ch + c];
+  if (i < taps) store_as(dw, w_code, i * ch + c, s);
+  else store_as(db, b_code, c, s);
+}
+
+template <typename T, int KW>
+cudaError_t launch_bwd(const void* x, const void* dy, float* part, void* dw,
+                       void* db, int w_code, int b_code, int64_t batch,
+                       int64_t seq, int64_t ch, int taps, int run,
+                       cudaStream_t st) {
+  const int64_t runs_per_row = (seq + run - 1) / run;
+  const int64_t runs = batch * runs_per_row;
+  const int64_t cblocks = (ch + kMaxThreads - 1) / kMaxThreads;
+  if (runs > 65535 || cblocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  conv1d_bwd_partial_kernel<T, KW>
+      <<<dim3((unsigned)cblocks, (unsigned)runs), kMaxThreads, 0, st>>>(
+          (const T*)x, (const T*)dy, part, seq, ch, runs_per_row, run, taps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int64_t n = (int64_t)(taps + 1) * ch;
+  conv1d_bwd_reduce_kernel<<<(unsigned)((n + kMaxThreads - 1) / kMaxThreads),
+                             kMaxThreads, 0, st>>>(part, dw, db, w_code,
+                                                   b_code, ch, taps, runs);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_t(const void* x, const void* dy, float* part, void* dw,
+                         void* db, int w_code, int b_code, int64_t batch,
+                         int64_t seq, int64_t ch, int taps, int run,
+                         cudaStream_t st) {
+  if (taps <= 4) return launch_bwd<T, 4>(x, dy, part, dw, db, w_code, b_code, batch, seq, ch, taps, run, st);
+  if (taps <= 8) return launch_bwd<T, 8>(x, dy, part, dw, db, w_code, b_code, batch, seq, ch, taps, run, st);
+  if (taps <= 16) return launch_bwd<T, 16>(x, dy, part, dw, db, w_code, b_code, batch, seq, ch, taps, run, st);
+  return launch_bwd<T, 32>(x, dy, part, dw, db, w_code, b_code, batch, seq, ch, taps, run, st);
+}
+
 struct Args {
   const void* x;
   const void* w;
@@ -314,6 +423,28 @@ int conv1d_launch(const void* x, const void* w, const void* bias, void* y,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return launch<float>(a, inst, s);
   if (dtype == 1) return launch<__nv_bfloat16>(a, inst, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The taps' and bias's gradients.  dtype: 0 = float32, 1 = bfloat16, of x
+// and dy: (batch, seq, ch), contiguous on the device; 1 <= taps <= 32.
+// part: a float32 workspace of batch * ceil(seq / run) * (taps + 1) * ch
+// (at most 65,535 runs).  dw: (taps, ch) contiguous, of type w_dtype (0
+// float32, 1 bfloat16); db: (ch,) contiguous of type b_dtype, or b_dtype -1
+// and no db.  Launches two kernels on the stream; returns
+// cudaGetLastError().
+int conv1d_bwd_wb_launch(const void* x, const void* dy, float* part, void* dw,
+                         void* db, int dtype, int w_dtype, int b_dtype,
+                         int64_t batch, int64_t seq, int64_t ch, int taps,
+                         int run, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (taps < 1 || taps > kMaxTaps || run < 1 || w_dtype < 0 || w_dtype > 1
+      || b_dtype < -1 || b_dtype > 1 || (b_dtype >= 0 && db == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_bwd_t<float>(x, dy, part, dw, db, w_dtype, b_dtype, batch, seq, ch, taps, run, s);
+  if (dtype == 1)
+    return launch_bwd_t<__nv_bfloat16>(x, dy, part, dw, db, w_dtype, b_dtype, batch, seq, ch, taps, run, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -115,12 +115,14 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(kernel: str, lib_name: str, argtypes: list, *args) -> None:
-    """Call ``<lib_name>_launch`` (which launches one kernel on the stream
-    it is given and returns ``cudaGetLastError()``), raise on a non-zero
-    code, and count the launch under ``kernel``."""
+def launch(kernel: str, lib_name: str, argtypes: list, *args,
+           entry: str | None = None) -> None:
+    """Call ``<entry>_launch`` of ``csrc/<lib_name>.cu`` (``entry`` defaults
+    to ``lib_name``; the function launches its kernel on the stream it is
+    given and returns ``cudaGetLastError()``), raise on a non-zero code, and
+    count the launch under ``kernel``."""
     lib = library(lib_name)
-    fn = getattr(lib, f"{lib_name}_launch")
+    fn = getattr(lib, f"{entry or lib_name}_launch")
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     err = fn(*args)
@@ -165,16 +167,6 @@ def check_grid(x: torch.Tensor, ndim: int, name: str, *,
     if x.device.type == "cuda" and not strided and not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous tensor")
     return DTYPE_CODES[x.dtype]
-
-
-def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Refuse CUDA inputs that autograd tracks: the kernels have no backward
-    (none had one on the TPU either), and nothing falls back to the plain
-    version for them.  Serving runs under ``torch.inference_mode()``."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it "
-                           "on tensors that do not require grad (for example "
-                           "under torch.inference_mode())")
 
 
 def radius(coeffs, name: str) -> int:

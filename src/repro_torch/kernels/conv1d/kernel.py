@@ -12,6 +12,11 @@ The kernel zero-fills before position 0, reads its left halo itself, sums in
 float32 in tap order, casts to ``x.dtype`` and adds the optional bias after
 that cast in float32, rounding again.  On a CPU tensor the wrapper runs the
 plain version, :func:`conv1d_ref`, which adds the bias before its one cast.
+
+:func:`conv1d_bwd_wb` wraps the taps' and bias's gradients of the same
+source (``conv1d_bwd_wb_launch``): per-run f32 partial sums, then one
+reduction in run order, so the result is deterministic.  Its plain version
+is :func:`conv1d_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.conv1d.ref import conv1d_ref
+from repro_torch.kernels.conv1d.ref import conv1d_bwd_ref, conv1d_ref
 
 MAX_TAPS = 32      # the widest register window of the generic instance
 VEC_TAPS = 4       # the vector instances: K = 1 .. VEC_TAPS (kVecTaps)
@@ -32,6 +37,13 @@ AHEADS = (1, 2, 4, 8)   # rows in flight a vector thread is built for
 # grid would leave an SM fewer than MIN_THREADS_PER_SM threads.
 RUN, AHEAD, THREADS, MIN_THREADS_PER_SM = 8, 8, 64, 512
 GENERIC_RUN, GENERIC_THREADS = 64, 128
+# runs of positions a thread of the backward's first kernel sums, doubled
+# while a launch would have more than BWD_MAX_RUNS (its grid's y extent)
+BWD_RUN, BWD_MAX_RUNS = 64, 65_535
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
@@ -100,7 +112,6 @@ def conv1d_kernel(x: torch.Tensor, w: torch.Tensor,
                              f"{x.device}")
     if x.device.type == "cpu":
         return conv1d_ref(x, w, b)
-    _build.check_no_grad("conv1d", x, w, *(() if b is None else (b,)))
     kk = w.shape[0]
     if not 1 <= kk <= MAX_TAPS:
         raise ValueError(f"conv1d kernel takes 1 to {MAX_TAPS} taps, got {kk}")
@@ -135,3 +146,59 @@ def launch_plan(x: torch.Tensor, w: torch.Tensor) -> Plan:
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     bs, s, c = x.shape
     return plan(bs, s, c, w.shape[0], x.element_size(), sms, aligned)
+
+
+def bwd_run(batch: int, seq: int) -> int:
+    """Positions a thread of the backward sums: ``BWD_RUN``, doubled while
+    the launch would have more than ``BWD_MAX_RUNS`` runs."""
+    run = BWD_RUN
+    while batch * -(-seq // run) > BWD_MAX_RUNS:
+        run *= 2
+    return run
+
+
+def conv1d_bwd_wb(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The gradients of the taps ``w`` (K, C) and of the bias ``b`` (C,) or
+    None, for the forward's input x (B, S, C) and its output's gradient dy
+    (B, S, C) of x's type, in ``w``'s and ``b``'s types.  Launches K5's
+    backward on CUDA tensors; runs :func:`conv1d_bwd_ref` on CPU ones."""
+    dtype_code = _build.check_grid(x, 3, "conv1d_bwd_wb")
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"conv1d_bwd_wb: dy {tuple(dy.shape)} {dy.dtype} on "
+                         f"{dy.device} must match x {tuple(x.shape)} "
+                         f"{x.dtype} on {x.device}")
+    if w.dim() != 2 or w.shape[1] != x.shape[2]:
+        raise ValueError(f"conv1d_bwd_wb takes taps (K, {x.shape[2]}), got "
+                         f"{tuple(w.shape)}")
+    if x.device.type == "cpu":
+        _, dw, db = conv1d_bwd_ref(x, w, b, dy)
+        return dw, db
+    kk = w.shape[0]
+    if not 1 <= kk <= MAX_TAPS:
+        raise ValueError(f"conv1d kernel takes 1 to {MAX_TAPS} taps, got {kk}")
+    for t in (w, b):
+        if t is not None and t.dtype not in _build.DTYPE_CODES:
+            raise TypeError(f"conv1d_bwd_wb: taps and bias are float32 or "
+                            f"bfloat16, got {t.dtype}")
+    x, dy = x.contiguous(), dy.contiguous()
+    bs, s, c = x.shape
+    dw = torch.empty(w.shape, dtype=w.dtype, device=x.device)
+    db = (None if b is None
+          else torch.empty(b.shape, dtype=b.dtype, device=x.device))
+    if x.numel() == 0:
+        dw.zero_()
+        return dw, None if db is None else db.zero_()
+    run = bwd_run(bs, s)
+    part = torch.empty((bs * -(-s // run), kk + 1, c), dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        _build.launch("conv1d_bwd_wb", "conv1d", _BWD_ARGTYPES, x.data_ptr(),
+                      dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                      None if db is None else db.data_ptr(), dtype_code,
+                      _build.DTYPE_CODES[w.dtype],
+                      -1 if db is None else _build.DTYPE_CODES[db.dtype],
+                      bs, s, c, kk, run, _build.stream_handle(x.device),
+                      entry="conv1d_bwd_wb")
+    return dw, db

@@ -25,3 +25,18 @@ def conv1d_ref(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         out = out + b[None, None, :].float()
     return out.to(x.dtype)
+
+
+def conv1d_bwd_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                   dy: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """(dx, dw, db): the vector-Jacobian product of :func:`conv1d_ref` at
+    (x, w, b) with ``dy``, taken by ``torch.autograd``, each in its input's
+    type (db None without a bias)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, w)]
+        if b is not None:
+            leaves.append(b.detach().requires_grad_())
+        y = conv1d_ref(*leaves)
+        grads = torch.autograd.grad(y, leaves, dy)
+    return grads[0], grads[1], grads[2] if b is not None else None

@@ -12,6 +12,15 @@ output through (batch, head, position) strides, so a (B, S, H, D) tensor
 viewed as (B, H, S, D) goes in without a copy and the output takes q's
 layout.  Shared memory is :func:`smem_bytes`.  On a CPU tensor the wrapper
 runs the plain version, :func:`swa_ref`.
+
+:func:`swa_bwd_kernel` wraps the backward in ``csrc/swa_bwd.cu``, which
+has no TPU counterpart (the JAX package differentiates the forward by
+autodiff): ``swa_bwd_dq`` (one block per batch, query head and 64-query
+tile: the rows' log-sum-exp and ``D = rowsum(dO * O)``, then dQ) and
+``swa_bwd_dkdv`` (one block per batch, KV head and 32-key tile, over the
+group's query heads: dK and dV, no atomics), CUDA-core f32 FMAs for both
+types; shared memory :func:`bwd_smem_bytes`.  Its plain version is
+:func:`swa_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -20,7 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.swa.ref import swa_ref
+from repro_torch.kernels.swa.ref import swa_bwd_ref, swa_ref
 
 F32_BLOCK_Q, F32_BLOCK_K, F32_WARPS = 64, 32, 8   # kBQ, kBK, kWarps in swa.cu
 WG_BLOCK_Q, WG_BLOCK_K = 128, 64                  # kWQ, kWK in swa.cu
@@ -30,6 +39,24 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_size_t,
              ctypes.c_void_p]
+
+
+# both entry points of swa_bwd.cu: 8 pointers, then the same scalars
+_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_size_t, ctypes.c_void_p]
+
+
+def bwd_smem_bytes(head_dim: int) -> dict[str, int]:
+    """Dynamic shared memory of one block of each backward kernel, as
+    swa_bwd.cu lays it out in f32 for both types (Dp = D rounded up to 4;
+    rows a lane reads padded to Dp + 4): dq holds Q and dO (64 rows) and a
+    32-key K and V tile; dkdv its 32 keys' K and V, a 32-query Q and dO tile
+    and their LSE and D."""
+    dp = (head_dim + 3) // 4 * 4
+    return {"swa_bwd_dq": 4 * (2 * 64 * dp + 2 * 32 * (dp + 4)),
+            "swa_bwd_dkdv": 4 * (2 * 32 * dp + 2 * 32 * (dp + 4) + 2 * 32)}
 
 
 def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
@@ -72,7 +99,6 @@ def swa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"swa: window must be >= 1, got {window}")
     if q.device.type == "cpu":
         return swa_ref(q, k, v, window=window)
-    _build.check_no_grad("swa", q, k, v)
     if d > MAX_HEAD_DIM:
         raise ValueError(f"swa kernel takes head_dim <= {MAX_HEAD_DIM}, got {d}")
     smem = smem_bytes(d, q.dtype)
@@ -93,3 +119,98 @@ def swa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       min(window, s), 1.0 / (d ** 0.5), vec, smem,
                       _build.stream_handle(q.device))
     return out
+
+
+def _check_bwd(q, k, v, **like_q) -> int:
+    """Validate the backward's inputs; returns the dtype code."""
+    dtype_code = _build.check_grid(q, 4, "swa_bwd", strided=True)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1] if k.dim() == 4 else 0
+    shapes = {"k": (b, hkv, s, d), "v": (b, hkv, s, d)}
+    for name, t in (("k", k), ("v", v), *like_q.items()):
+        shape = shapes.get(name, q.shape)
+        if t.dtype != q.dtype or t.device != q.device or t.shape != shape:
+            raise ValueError(f"swa_bwd: {name} must be a {q.dtype} tensor "
+                             f"{tuple(shape)} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"swa_bwd: Hq {hq} must be a multiple of Hkv {hkv}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"swa kernel takes head_dim <= {MAX_HEAD_DIM}, got {d}")
+    return dtype_code
+
+
+def _bwd_launch(entry: str, tensors, lse, delta, dtype_code, q, hkv,
+                window) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{entry} launches a CUDA kernel and takes CUDA "
+                         f"tensors, got {q.device} (swa_bwd_kernel runs the "
+                         "plain version on CPU ones)")
+    b, hq, s, d = q.shape
+    smem = bwd_smem_bytes(d)[entry]
+    _build.require_smem(f"{entry} at head_dim {d}", smem, q.device)
+    c_strides = (ctypes.c_int64 * 24)(*[
+        st for t in tensors
+        for st in (t.stride()[:3] if t is not None else (0, 0, 0))])
+    ptrs = [t.data_ptr() for t in tensors if t is not None]
+    with torch.cuda.device(q.device):
+        _build.launch(entry, "swa_bwd", _BWD_ARGTYPES, *ptrs,
+                      lse.data_ptr(), delta.data_ptr(), dtype_code,
+                      ctypes.addressof(c_strides), b, hq, hkv, s, d,
+                      min(window, s), 1.0 / (d ** 0.5), smem,
+                      _build.stream_handle(q.device), entry=entry)
+
+
+def swa_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, dout: torch.Tensor, *, window: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CUDA tensors only: launches ``swa_bwd_dq`` -> (dq in q's layout, the
+    rows' log-sum-exp and D = rowsum(dout * out), both (B, Hq, S) f32)."""
+    dtype_code = _check_bwd(q, k, v, out=out, dout=dout)
+    q, k, v, out, dout = (_unit_last(t) for t in (q, k, v, out, dout))
+    dq = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    if q.numel():
+        _bwd_launch("swa_bwd_dq", (q, k, v, out, dout, dq, None, None), lse,
+                    delta, dtype_code, q, k.shape[1], window)
+    return dq, lse, delta
+
+
+def swa_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 *, window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA tensors only: launches ``swa_bwd_dkdv`` with :func:`swa_bwd_dq`'s
+    ``lse`` and ``delta`` -> (dk, dv) in k's and v's layouts."""
+    dtype_code = _check_bwd(q, k, v, dout=dout)
+    if lse.shape != q.shape[:3] or delta.shape != lse.shape or any(
+            t.dtype != torch.float32 or not t.is_contiguous()
+            for t in (lse, delta)):
+        raise ValueError("swa_bwd_dkdv takes swa_bwd_dq's lse and delta: "
+                         f"contiguous f32 {tuple(q.shape[:3])}")
+    q, k, v, dout = (_unit_last(t) for t in (q, k, v, dout))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.numel():
+        _bwd_launch("swa_bwd_dkdv", (q, k, v, None, dout, None, dk, dv), lse,
+                    delta, dtype_code, q, k.shape[1], window)
+    else:
+        dk.zero_()
+        dv.zero_()
+    return dk, dv
+
+
+def swa_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, dout: torch.Tensor, *, window: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`swa_kernel`'s output ``out`` for q, k, v, with
+    ``dout`` its gradient (out's shape and type), each in its input's
+    memory layout.  On CUDA tensors launches ``swa_bwd_dq`` then
+    ``swa_bwd_dkdv``; on CPU ones runs :func:`swa_bwd_ref`."""
+    if window < 1:
+        raise ValueError(f"swa_bwd: window must be >= 1, got {window}")
+    if q.device.type == "cpu":
+        _check_bwd(q, k, v, out=out, dout=dout)
+        return swa_bwd_ref(q, k, v, dout, window=window)
+    dq, lse, delta = swa_bwd_dq(q, k, v, out, dout, window=window)
+    dk, dv = swa_bwd_dkdv(q, k, v, dout, lse, delta, window=window)
+    return dq, dk, dv

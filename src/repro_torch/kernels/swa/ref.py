@@ -1,6 +1,7 @@
 """Torch oracles for causal sliding-window (local) attention with GQA (port
 of ``repro.kernels.swa.ref``); :func:`swa_ref` is also the plain version the
-K6 wrapper runs on CPU tensors.
+K6 wrapper runs on CPU tensors, and :func:`swa_bwd_ref`, its
+vector-Jacobian product, the plain version of K6's backward.
 
 ``out[b,h,i] = softmax_j(q_i . k_j / sqrt(D)) @ v`` over keys
 ``j in (i - window, i]`` (causal, the window includes the current token).
@@ -63,3 +64,15 @@ def swa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = (j <= i) & (j > i - window)
     p = torch.softmax(logits.masked_fill(~mask, -math.inf), dim=-1)
     return torch.einsum("bhij,bhjd->bhid", p, v.float()).to(q.dtype)
+
+
+def swa_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                dout: torch.Tensor, *, window: int, forward=swa_ref
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the vector-Jacobian product of ``forward`` (by default
+    :func:`swa_ref`) at (q, k, v) with ``dout``, taken by
+    ``torch.autograd``, each in its input's type and shape."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = forward(*leaves, window=window)
+        return torch.autograd.grad(out, leaves, dout)

@@ -11,6 +11,7 @@ package's ``enc``/``dec`` trees onto them).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -25,7 +26,7 @@ from repro_torch.models.common import (embed, embed_spec, rmsnorm,
                                        rmsnorm_spec, sinusoidal_positions,
                                        unembed)
 from repro_torch.models.mlp import mlp, mlp_specs
-from repro_torch.models.transformer import add_params, flat_specs
+from repro_torch.models.transformer import add_params, flat_specs, remat_call
 
 
 def _enc_block_specs(cfg: ArchConfig) -> dict[str, Any]:
@@ -110,9 +111,32 @@ class EncDecLM(nn.Module):
         return k.unflatten(-1, (kv, hd)), v.unflatten(-1, (kv, hd))
 
     # ----- decoder (teacher-forced / prefill logits) -------------------------
-    def forward(self, tokens: torch.Tensor, frames: torch.Tensor
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-        """tokens: (B, S), frames: (B, T, D) -> (logits (B,S,V) fp32, 0)."""
+    def _dec_block(self, bp: nn.Module, h: torch.Tensor,
+                   enc_out: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        hn = rmsnorm(bp.ln1, h, cfg.norm_eps)
+        h = h + attend_full(bp.self, hn, cfg, positions=None, causal=True)
+        hn = rmsnorm(bp.lnx, h, cfg.norm_eps)
+        h = h + attend_full(bp.cross, hn, cfg, positions=None,
+                            cross_kv=self._cross_kv(bp, enc_out))
+        hn = rmsnorm(bp.ln2, h, cfg.norm_eps)
+        return h + mlp(bp.mlp, hn, cfg)
+
+    def reference_leaf(self, name: str) -> str:
+        """The JAX package's leaf that holds parameter ``name``: the
+        encoder's and decoder's blocks are stacked over layers (``enc.{i}.x``
+        is leaf ``enc.x``); any other parameter is its own leaf."""
+        if name.startswith(("enc.", "dec.")):
+            stack, _, rest = name.split(".", 2)
+            return f"{stack}.{rest}"
+        return name
+
+    def forward(self, tokens: torch.Tensor, frames: torch.Tensor, *,
+                remat: str = "none") -> tuple[torch.Tensor, torch.Tensor]:
+        """tokens: (B, S), frames: (B, T, D) -> (logits (B,S,V) fp32, 0).
+        ``remat`` recomputes each decoder block in the backward pass, as
+        the JAX package checkpoints its decoder scan
+        (``transformer.remat_call``)."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         enc_out = self.encode(frames)
@@ -120,13 +144,8 @@ class EncDecLM(nn.Module):
                                    device=tokens.device)
         h = embed(self.embed, tokens, dtype) + pos.to(dtype)[None]
         for bp in self.dec:
-            hn = rmsnorm(bp.ln1, h, cfg.norm_eps)
-            h = h + attend_full(bp.self, hn, cfg, positions=None, causal=True)
-            hn = rmsnorm(bp.lnx, h, cfg.norm_eps)
-            h = h + attend_full(bp.cross, hn, cfg, positions=None,
-                                cross_kv=self._cross_kv(bp, enc_out))
-            hn = rmsnorm(bp.ln2, h, cfg.norm_eps)
-            h = h + mlp(bp.mlp, hn, cfg)
+            h = remat_call(functools.partial(self._dec_block, bp), remat, h,
+                           enc_out)
         h = rmsnorm(self.final_norm, h, cfg.norm_eps)
         logits = unembed(self.embed, h, tied=True)
         return logits, torch.zeros((), dtype=torch.float32,

@@ -10,14 +10,24 @@ applied in order.  Layer ``i`` is scan period ``i // period``, slot
 (:mod:`repro_torch.models.convert` maps the JAX pytree onto that order).
 The cache is a list with one state per layer: a KVCache (full or ring
 buffer), an RGLRUState or an RWKVState.
+
+``forward(remat=)`` recomputes activations in the backward pass as the JAX
+package's ``jax.checkpoint`` of its scan body does, one layer at a time
+(:func:`remat_call`): ``"full"`` keeps only each layer's input,
+``"dots"`` also keeps the outputs of the matrix products without batch
+dimensions (``dots_with_no_batch_dims_saveable``).  Gradients do not depend
+on it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import params as pr
@@ -32,6 +42,45 @@ from repro_torch.models.rglru import (rglru_block, rglru_decode,
 from repro_torch.models.rwkv6 import (RWKVState, rwkv_channel_mix,
                                       rwkv_init_state, rwkv_specs,
                                       rwkv_time_mix)
+
+
+REMAT = ("none", "full", "dots")
+# the products ``dots`` keeps: a matrix product without batch dimensions
+# reaches the dispatcher as one of these (a 3-d activation times a 2-d
+# weight is folded into one mm); batched products (bmm, the attention
+# einsums) are recomputed, as under dots_with_no_batch_dims_saveable
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(fn, remat: str, *args):
+    """``fn(*args)``, recomputed in the backward pass under ``remat`` "full"
+    or "dots" (``torch.utils.checkpoint``, non-reentrant)."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
+    raise ValueError(f"unknown remat {remat!r} (one of {REMAT})")
+
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
+              z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy (f32 logits) + z-loss regularizer."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss
 
 
 def block_specs(cfg: ArchConfig, kind: str) -> dict[str, Any]:
@@ -202,17 +251,30 @@ class LM(nn.Module):
         w = self.embed if cfg.tie_embeddings else self.unembed
         return unembed(w, h, tied=cfg.tie_embeddings)
 
-    def forward(self, tokens: torch.Tensor, *, positions=None, patches=None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+    def reference_leaf(self, name: str) -> str:
+        """The JAX package's leaf that holds parameter ``name``: layers
+        before the tail are stacked over periods (``scan/p{p}``, one leaf
+        with a leading layer axis per slot and parameter), so layer ``i``'s
+        ``x`` is leaf ``scan.p{i % period}.x``; any other parameter is its
+        own leaf.  The optimizer decays and compresses by the reference's
+        leaves."""
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            if int(i) < self.n_full * self.period:
+                return f"scan.p{int(i) % self.period}.{rest}"
+        return name
+
+    def forward(self, tokens: torch.Tensor, *, positions=None, patches=None,
+                remat: str = "none") -> tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S) -> (logits (B,S,V) fp32, aux loss scalar: the sum
-        of the MoE layers')."""
+        of the MoE layers').  ``remat``: see :func:`remat_call`."""
         h = self.embed_inputs(tokens, patches)
         if positions is None:
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for layer in self.layers:
-            h, a = layer(h, positions)
+            h, a = remat_call(layer, remat, h, positions)
             if a is not None:
                 aux = aux + a
         return self._logits(h), aux

@@ -1,6 +1,7 @@
 """Serve-step builders (port of ``repro.serving.serve_step``): prefill
 (batch -> logits) and decode (one token against the cache).  Both run under
-``torch.inference_mode()``: the CUDA kernels have no backward.
+``torch.inference_mode()``: serving keeps no autograd graph (training takes
+gradients through the kernels' backward, :mod:`repro_torch.train`).
 """
 from __future__ import annotations
 

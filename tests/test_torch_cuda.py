@@ -25,11 +25,12 @@ from repro_torch.kernels import (_build, causal_conv1d,
                                  sliding_window_attention, stencil1d,
                                  stencil2d, stencil3d)
 from repro_torch.kernels.conv1d import kernel as k5
-from repro_torch.kernels.conv1d.ref import conv1d_ref
+from repro_torch.kernels.conv1d.ref import conv1d_bwd_ref, conv1d_ref
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref
 from repro_torch.kernels.swa.ops import swa_plain
+from repro_torch.kernels.swa.ref import swa_bwd_ref
 from repro_torch.models.registry import build_model, input_arrays
 from repro_torch.serving.serve_step import make_prefill
 
@@ -540,18 +541,126 @@ def test_stencil1d_vpu_skips_zero_taps(dev, rng, dtype, r, t, zeros):
            stencil1d_ref(x, c, t), TOL[dtype])
 
 
-def test_kernels_refuse_tensors_that_require_grad(dev):
-    x = torch.randn(1, 8, 4, device=dev, requires_grad=True)
-    w = torch.randn(4, 4, device=dev)
-    with pytest.raises(RuntimeError, match="no backward"):
-        causal_conv1d(x, w)
-    q = torch.randn(1, 2, 8, 16, device=dev, requires_grad=True)
-    kv = torch.randn(1, 1, 8, 16, device=dev)
-    with pytest.raises(RuntimeError, match="no backward"):
-        sliding_window_attention(q, kv, kv, window=4)
-    with torch.inference_mode():
-        causal_conv1d(x.detach(), w)
-        sliding_window_attention(q.detach(), kv, kv, window=4)
+# -- the backward of K5 and K6 -------------------------------------------------
+# (b, s, c, k, dtype, bias, strided): the model's shape, the vector and the
+# generic forward instance for dx (ragged channels), one and many runs of
+# the partial sums, a strided input
+CASES_CONV_BWD = [
+    (1, 4096, 2560, 4, "bfloat16", True, False),
+    (1, 4096, 2560, 4, "float32", True, False),
+    (2, 300, 64, 4, "float32", False, False),
+    (2, 300, 64, 4, "bfloat16", True, True),
+    (3, 77, 258, 3, "float32", True, True),
+    (1, 100, 48, 7, "bfloat16", False, False),
+    (2, 5, 16, 4, "float32", True, False),
+]
+# (b, hq, hkv, s, d, window, dtype, strided): MQA and GQA, S not a multiple
+# of a tile, window >= S and < S, the model's shape and views
+CASES_SWA_BWD = [
+    (1, 10, 1, 4096, 256, 2048, "bfloat16", True),
+    (1, 10, 1, 1000, 256, 2048, "float32", True),
+    (2, 4, 2, 300, 64, 100, "float32", False),
+    (2, 4, 2, 300, 64, 100, "bfloat16", True),
+    (1, 6, 3, 77, 40, 500, "float32", False),
+    (1, 2, 1, 130, 32, 1, "bfloat16", False),
+    (1, 3, 1, 1, 256, 5, "float32", False),
+    (2, 8, 8, 257, 128, 64, "bfloat16", False),
+]
+
+
+def _grad_ok(kernel, dtype, got, want, upstream):
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    torch.cuda.synchronize()
+    good, err, rel = chip_smoke.grad_error(kernel, getattr(torch, dtype),
+                                           got, want, upstream)
+    assert good, (kernel, dtype, err, rel)
+
+
+@pytest.mark.parametrize("b,s,c,k,dtype,bias,strided", CASES_CONV_BWD)
+def test_conv1d_backward_matches_plain_version(dev, rng, b, s, c, k, dtype,
+                                               bias, strided):
+    """dx (K5 on the flipped gradient) and dw/db (K5's backward) through the
+    op's autograd against the vector-Jacobian product of the plain version,
+    within chip_smoke.py's GRAD_TOL."""
+    x = _x(rng, (b, s, 2 * c if strided else c), dtype, dev)
+    x = x[..., ::2] if strided else x
+    w = _x(rng, (k, c), dtype, dev)
+    bb = _x(rng, (c,), dtype, dev) if bias else None
+    dy = _x(rng, (b, s, c), dtype, dev)
+    leaves = [t.clone().requires_grad_() for t in (x, w)]
+    if bias:
+        leaves.append(bb.clone().requires_grad_())
+    before = {n: _build.LAUNCHES.get(n, 0) for n in ("conv1d", "conv1d_bwd_wb")}
+    y = causal_conv1d(*leaves, backend="cuda")
+    got = torch.autograd.grad(y, leaves, dy)
+    assert _build.LAUNCHES["conv1d"] == before["conv1d"] + 2
+    assert _build.LAUNCHES["conv1d_bwd_wb"] == before["conv1d_bwd_wb"] + 1
+    want = conv1d_bwd_ref(x, w, bb, dy)
+    for g, ww in zip(got, want):
+        assert g.dtype == ww.dtype
+        _grad_ok("conv1d", dtype, g, ww, dy)
+    # one input needing grad launches only what it needs
+    xr = x.clone().requires_grad_()
+    before = dict(_build.LAUNCHES)
+    (dx,) = torch.autograd.grad(causal_conv1d(xr, w, bb), [xr], dy)
+    assert _build.LAUNCHES.get("conv1d_bwd_wb", 0) == before.get(
+        "conv1d_bwd_wb", 0)
+    _grad_ok("conv1d", dtype, dx, want[0], dy)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,w,dtype,strided", CASES_SWA_BWD)
+def test_swa_backward_matches_plain_version(dev, rng, b, hq, hkv, s, d, w,
+                                            dtype, strided):
+    """dq, dk, dv (swa_bwd_dq, swa_bwd_dkdv) through the op's autograd
+    against the vector-Jacobian product of swa_ref, within chip_smoke.py's
+    GRAD_TOL; strided: (B, S, H, D) tensors viewed as (B, H, S, D), as the
+    model passes them."""
+    def make(h):
+        if strided:
+            return _x(rng, (b, s, h, d), dtype, dev).transpose(1, 2)
+        return _x(rng, (b, h, s, d), dtype, dev)
+    q, k, v, dout = make(hq), make(hkv), make(hkv), make(hq)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = {n: _build.LAUNCHES.get(n, 0) for n in ("swa_bwd_dq",
+                                                    "swa_bwd_dkdv")}
+    out = sliding_window_attention(*leaves, window=w, backend="cuda")
+    got = torch.autograd.grad(out, leaves, dout)
+    for n in before:
+        assert _build.LAUNCHES[n] == before[n] + 1
+    want = swa_bwd_ref(q, k, v, dout, window=w)
+    for g, ww, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        _grad_ok("swa", dtype, g, ww, dout)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gradient_through_checkpoint(dev, dtype):
+    """RecurrentGemma reduced on the card: the loss's gradients under remat
+    "full" and "dots" (torch.utils.checkpoint, which recomputes the kernels'
+    forward) equal those without, bit for bit, and every backward kernel
+    launches."""
+    from repro_torch.models.transformer import xent_loss
+    import dataclasses
+    cfg = dataclasses.replace(get_reduced_config("recurrentgemma-2b"),
+                              dtype=dtype)
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    toks = input_arrays(cfg, ShapeSpec("t", 64, 2, "train"), seed=1,
+                        device=dev)["tokens"]
+    params = [p for p in model.parameters()]
+    grads = {}
+    for remat in ("none", "full", "dots"):
+        _build.reset_launches()
+        logits, _ = model(toks, remat=remat)
+        loss = xent_loss(logits[:, :-1], toks[:, 1:])
+        grads[remat] = torch.autograd.grad(loss, params)
+        for n in ("conv1d", "conv1d_bwd_wb", "swa", "swa_bwd_dq",
+                  "swa_bwd_dkdv"):
+            assert _build.LAUNCHES.get(n, 0) > 0, (remat, n)
+    for remat in ("full", "dots"):
+        for a, g in zip(grads["none"], grads[remat]):
+            assert torch.equal(a, g), remat
 
 
 # -- the LM families at reduced depth -----------------------------------------

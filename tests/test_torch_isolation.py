@@ -40,7 +40,10 @@ def test_import_loads_no_jax_and_no_repro():
             " repro_torch.fabric, repro_torch.analysis,"
             " repro_torch.telemetry, repro_torch.program,"
             " repro_torch.explore, repro_torch.core.engine.cuda_engine,"
-            " repro_torch.kernels.simbatch.kernel;"
+            " repro_torch.kernels.simbatch.kernel, repro_torch.train.optim,"
+            " repro_torch.train.train_step, repro_torch.data.pipeline,"
+            " repro_torch.checkpoint.manager,"
+            " repro_torch.distributed.collectives, repro_torch.launch.train;"
             "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
             "repro_torch.__path__, 'repro_torch.')];"
             "print(json.dumps(sorted(m for m in sys.modules"
@@ -64,7 +67,10 @@ def test_import_loads_no_jax_and_no_repro():
                 "telemetry.trace", "analysis.lint", "testing.minihyp",
                 "models.rwkv6", "models.encdec", "models.mlp",
                 "models.registry", "configs.whisper_tiny",
-                "configs.granite_moe_3b_a800m", "configs.qwen2_vl_2b"):
+                "configs.granite_moe_3b_a800m", "configs.qwen2_vl_2b",
+                "train.optim", "train.train_step", "data.pipeline",
+                "checkpoint.manager", "distributed.collectives",
+                "launch.train"):
         assert f"repro_torch.{mod}" in loaded
 
 
@@ -76,7 +82,7 @@ def test_sources_import_no_jax_and_no_repro():
               root / "tests" / "test_torch_engine_batch.py",
               root / "tests" / "test_torch_property.py"]
     paths += sorted((root / "examples").glob("*_torch.py"))
-    assert len([p for p in paths if p.parent.name == "examples"]) == 5
+    assert len([p for p in paths if p.parent.name == "examples"]) == 6
     paths += sorted((root / "scripts").glob("*.py"))
     for path in paths:
         for line in path.read_text().splitlines():
@@ -152,6 +158,74 @@ def test_swa_smem_fits_the_h100_at_head_dim_256():
     assert smem_bytes(256) == 2 * (128 + 4 * 64) * 256 + 1024 == 197_632
     assert smem_bytes(256, torch.bfloat16) == 197_632 <= _build.H100_SMEM_PER_BLOCK
     assert smem_bytes(256, torch.float32) == 140_288 <= _build.H100_SMEM_PER_BLOCK
+
+
+def test_train_modules_import_no_jax_and_no_repro():
+    """The training slice's modules on their own, in a fresh interpreter."""
+    code = ("import json, sys, repro_torch.train.optim,"
+            " repro_torch.train.train_step, repro_torch.data.pipeline,"
+            " repro_torch.checkpoint.manager,"
+            " repro_torch.distributed.collectives, repro_torch.launch.train;"
+            "print(json.dumps(sorted(m for m in sys.modules"
+            " if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_train_cli_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
+    """launch.train runs on the card by default and raises without one;
+    nothing falls back to the CPU."""
+    from repro_torch.launch import train
+    assert train.parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1"])
+    code = ("import torch, repro_torch.launch.train as t;"
+            "torch.cuda.is_available = lambda: False;"
+            "t.main(['--reduced', '--steps', '1'])")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_swa_backward_launchers_refuse_cpu_tensors():
+    """swa_bwd_dq and swa_bwd_dkdv launch kernels only; the wrapper with a
+    plain version for CPU tensors is swa_bwd_kernel."""
+    from repro_torch.kernels.swa.kernel import (swa_bwd_dkdv, swa_bwd_dq,
+                                                swa_bwd_kernel)
+    q, kv = torch.zeros(1, 2, 8, 16), torch.zeros(1, 1, 8, 16)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        swa_bwd_dq(q, kv, kv, q, q, window=4)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        swa_bwd_dkdv(q, kv, kv, q, lse, lse, window=4)
+    assert [g.shape for g in swa_bwd_kernel(q, kv, kv, q, q, window=4)] == \
+        [q.shape, kv.shape, kv.shape]
+    assert dict(_build.LAUNCHES) == before
+
+
+def test_lm_ops_differentiate_through_their_autograd_functions():
+    """K5's and K6's ops are autograd Functions whose backward runs the
+    kernels on CUDA tensors; on CPU tensors they take gradients through the
+    plain versions (nothing refuses a tensor that requires grad)."""
+    from repro_torch.kernels.conv1d.ops import CausalConv1d
+    from repro_torch.kernels.swa.ops import SlidingWindowAttention
+    x = torch.randn(1, 8, 4, requires_grad=True)
+    y = causal_conv1d(x, torch.randn(4, 4))
+    assert y.grad_fn.name() == CausalConv1d.__name__ + "Backward"
+    q = torch.randn(1, 2, 8, 16, requires_grad=True)
+    kv = torch.randn(1, 1, 8, 16)
+    out = sliding_window_attention(q, kv, kv, window=4)
+    assert out.grad_fn.name() == SlidingWindowAttention.__name__ + "Backward"
+    before = dict(_build.LAUNCHES)
+    (out.sum() + y.sum()).backward()
+    assert x.grad.shape == x.shape and q.grad.shape == q.shape
+    assert dict(_build.LAUNCHES) == before
+    assert not hasattr(_build, "check_no_grad")
 
 
 def test_serve_cli_needs_a_gpu_unless_asked_for_the_cpu():
@@ -260,9 +334,9 @@ def test_good_build_moves_library_and_log_into_place(monkeypatch, tmp_path):
 def test_library_paths_are_keyed_by_source():
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert names == ["conv1d", "simbatch", "stencil1d", "stencil2d",
-                     "stencil3d", "swa"]
+                     "stencil3d", "swa", "swa_bwd"]
     paths = {_build._lib_path(n) for n in names}
-    assert len(paths) == 6
+    assert len(paths) == 7
     assert all(p.parent == _build.BUILD_DIR for p in paths)
 
 
@@ -338,6 +412,48 @@ def test_chip_smoke_lm_limits_refuse_a_wrong_kernel():
                for shape in ((2, 300, 64), (4, 64), (64,)))
     assert chip_smoke.lm_error("conv1d", bf, causal_conv1d(x, w, b),
                                conv1d_ref(x, w, b))[0]
+
+
+def test_chip_smoke_grad_limits_refuse_a_wrong_gradient():
+    """chip_smoke.py's GRAD_TOL passes the bf16 rounding of K6's and K5's
+    gradients and a gradient that is 0 by the algebra (window 1: dq = 0),
+    and refuses one 5% off, one with a key's gradient lost and a
+    non-finite one."""
+    sys.path.insert(0, str(SRC.parent))
+    import chip_smoke
+    from repro_torch.kernels.conv1d.ref import conv1d_bwd_ref
+    from repro_torch.kernels.swa.ref import swa_bwd_ref
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(shape, generator=g) for shape in
+                   ((1, 4, 300, 32), (1, 1, 300, 32), (1, 1, 300, 32),
+                    (1, 4, 300, 32)))
+    want = swa_bwd_ref(q, k, v, do, window=64)
+    bf = [w.to(torch.bfloat16) for w in swa_bwd_ref(
+        *(t.to(torch.bfloat16) for t in (q, k, v)), do.to(torch.bfloat16),
+        window=64)]
+    for got, w in zip(bf, want):
+        assert chip_smoke.grad_error("swa", torch.bfloat16, got,
+                                     w.to(torch.bfloat16),
+                                     do.to(torch.bfloat16))[0]
+    dq1 = swa_bwd_ref(q, k, v, do, window=1)[0]
+    assert chip_smoke.grad_error("swa", torch.float32, dq1 + 1e-7, dq1,
+                                 do)[0]
+    assert not chip_smoke.grad_error("swa", torch.float32, want[0] * 1.05,
+                                     want[0], do)[0]
+    lost = want[1].clone()
+    lost[:, :, 100] = 0
+    assert not chip_smoke.grad_error("swa", torch.float32, lost, want[1],
+                                     do)[0]
+    nan = want[2].clone()
+    nan[0, 0, 0, 0] = float("nan")
+    assert not chip_smoke.grad_error("swa", torch.float32, nan, want[2],
+                                     do)[0]
+    x, w, b, dy = (torch.randn(shape, generator=g) for shape in
+                   ((2, 300, 64), (4, 64), (64,), (2, 300, 64)))
+    for got in conv1d_bwd_ref(x, w, b, dy):
+        assert chip_smoke.grad_error("conv1d", torch.float32, got, got, dy)[0]
+        assert not chip_smoke.grad_error("conv1d", torch.float32, got * 1.05,
+                                         got, dy)[0]
 
 
 @pytest.mark.parametrize("arch", list_archs())

@@ -43,7 +43,10 @@ from repro_torch.kernels.stencil1d.ops import stencil1d
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref
 
 ROOT = Path(__file__).resolve().parents[1]
-EXAMPLES = sorted(str(p) for p in (ROOT / "examples").glob("*_torch.py"))
+# the port's walkthroughs: the examples with a lint_plans() hook (the
+# training example has none)
+EXAMPLES = sorted(str(p) for p in (ROOT / "examples").glob("*_torch.py")
+                  if "def lint_plans" in p.read_text())
 
 SET = dict(max_examples=25, deadline=None)
 
