@@ -129,18 +129,22 @@ and the other LM families on one NVIDIA GPU (H100).
    ``families`` phases: K5's and K6's backward at RecurrentGemma-2B's
    shapes on (1, 4096) tokens in f32 and bf16, through the ops' autograd
    (dx as K5 on the flipped gradient, dw/db as ``conv1d_bwd_wb``; dq, dk,
-   dv as ``swa_bwd_dq`` and ``swa_bwd_dkdv``) against the vector-Jacobian
-   products of their plain versions (``GRAD_TOL``), each timed beside its
-   plain version, a library call (the backward of ``F.conv1d`` with
-   ``groups=C``; of ``scaled_dot_product_attention`` with a band mask) and
-   its bound; then one period (3 layers) at full width, bf16 activations:
+   dv as ``swa_bwd_dq`` and ``swa_bwd_dkdv``, in bf16 the latter's partial
+   sums added by ``swa_bwd_fold``) against the vector-Jacobian products of
+   their plain versions (``GRAD_TOL``; the fold bit for bit against its
+   own), each timed beside its plain version, a library call (the backward
+   of ``F.conv1d`` with ``groups=C``; of ``scaled_dot_product_attention``
+   with a band mask) and its bound, K6's rows also with ``sum_ms`` (every
+   launch of its backward) beside ``library_bwd_ms`` (the one library
+   backward of q, k and v); then one period (3 layers) at full width, bf16 activations:
    the loss's gradients and one ``make_train_step`` through the kernels
    and again through the plain versions (``train_step_check``); then the
    whole model (26 layers, d_model 2560, f32 weights) trained for
    ``TRAIN_STEPS`` steps on ``SyntheticLM`` markov batches of (1, 4096)
    with remat "dots", the launch counts zeroed just before and read just
    after (each step must launch K5 54 times, ``conv1d_bwd_wb`` 18, K6 16,
-   ``swa_bwd_dq`` and ``swa_bwd_dkdv`` 8: ``train_launches``), losses,
+   ``swa_bwd_dq``, ``swa_bwd_dkdv`` and ``swa_bwd_fold`` 8:
+   ``train_launches``), losses,
    step ms, tokens/s and peak memory printed, and one more step under
    ``torch.profiler`` (matmuls, the kernels, the optimizer and the loss's
    forward by their profiler ranges, casts, the rest; idle share); last
@@ -218,9 +222,11 @@ from repro_torch.kernels.stencil1d.ref import stencil1d_ref  # noqa: E402
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref  # noqa: E402
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref  # noqa: E402
 from repro_torch.kernels.swa.kernel import (swa_bwd_dkdv,  # noqa: E402
-                                            swa_bwd_dq)
+                                            swa_bwd_dkdv_partial, swa_bwd_dq,
+                                            swa_bwd_fold, swa_bwd_kernel)
 from repro_torch.kernels.swa.ops import swa_plain  # noqa: E402
-from repro_torch.kernels.swa.ref import swa_bwd_ref, swa_ref  # noqa: E402
+from repro_torch.kernels.swa.ref import (swa_bwd_fold_ref,  # noqa: E402
+                                         swa_bwd_ref, swa_ref)
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
@@ -303,6 +309,10 @@ KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
                    "none: the JAX package defines no backward (it takes "
                    "autodiff of src/repro/kernels/swa/kernel.py:99)"),
     "swa_bwd_dkdv": ("cuda", "src/repro_torch/csrc/swa_bwd.cu",
+                     "none: the JAX package defines no backward (it takes "
+                     "autodiff of src/repro/kernels/swa/kernel.py:99)"),
+    # bf16: the fixed-order sum of swa_bwd_dkdv's partial dK and dV
+    "swa_bwd_fold": ("cuda", "src/repro_torch/csrc/swa_bwd.cu",
                      "none: the JAX package defines no backward (it takes "
                      "autodiff of src/repro/kernels/swa/kernel.py:99)"),
 }
@@ -428,6 +438,29 @@ def event_times(fn, reps: int, warmup: int = 2,
 
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(event_times(fn, reps, warmup))
+
+
+# cycles of the kernel that holds the device while queued calls are issued
+# (~10 ms: longer than the host takes to issue QUEUED_REPS calls)
+QUEUE_SLEEP_CYCLES = 20_000_000
+QUEUED_REPS = 20
+
+
+def queued_ms(fn, reps: int = QUEUED_REPS, warmup: int = 2) -> float:
+    """Device ms of one call of ``fn`` whose kernel is shorter than its
+    wrapper's host time: ``reps`` calls issued behind a sleeping kernel
+    between one pair of CUDA events, so the events time the device's work
+    and not the host's."""
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def l2_flush(dev: torch.device) -> torch.Tensor:
@@ -692,7 +725,7 @@ def time_host(fn, reps: int) -> float:
 # kernel-name groups of the profile, first match wins; the MoE's dispatch
 # and combine are told apart by the model's profiler range (MOE_DISPATCH)
 PROFILE_GROUPS = (
-    ("K6 swa backward", ("swa_bwd_dq_kernel", "swa_bwd_dkdv_kernel")),
+    ("K6 swa backward", ("swa_bwd_",)),
     ("K5 conv1d backward (dw, db)", ("conv1d_bwd_",)),
     ("K6 swa", ("swa_wgmma_kernel", "swa_f32_kernel")),
     ("K5 conv1d", ("conv1d_vec_kernel", "conv1d_generic_kernel")),
@@ -996,12 +1029,14 @@ def train_launches(cfg, remat: str) -> dict[str, int]:
     K6 once a layer, again where remat reruns the layer's forward in the
     backward pass (a ctypes launch is no aten op, so selective remat
     recomputes it too), K5 once more for dx (on the flipped gradient), and
-    each backward kernel once a layer."""
+    each backward kernel once a layer (the fold of K6's partial dK and dV
+    in bf16 only)."""
     kinds = [cfg.kind_of_layer(i) for i in range(cfg.num_layers)]
     n_rec, n_loc = kinds.count("rglru"), kinds.count("local")
     fwd = 1 if remat == "none" else 2
     return {"conv1d": n_rec * (fwd + 1), "conv1d_bwd_wb": n_rec,
-            "swa": n_loc * fwd, "swa_bwd_dq": n_loc, "swa_bwd_dkdv": n_loc}
+            "swa": n_loc * fwd, "swa_bwd_dq": n_loc, "swa_bwd_dkdv": n_loc,
+            "swa_bwd_fold": n_loc if cfg.dtype == "bfloat16" else 0}
 
 
 @dataclasses.dataclass
@@ -1091,6 +1126,7 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
         return out
     q, k, v, do = case.args
     b, hq, s, d = q.shape
+    bf = case.dtype == torch.bfloat16
     peak = fp32 if case.dtype == torch.float32 else bf16
     pairs = band_pairs(s, case.window) * b * hq * 2 * d    # flops a product
     o = sliding_window_attention(q, k, v, window=case.window, backend="cuda")
@@ -1102,13 +1138,23 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
     lib = F.scaled_dot_product_attention(*leaves, attn_mask=band,
                                          enable_gqa=True)
     plain = swa_ref(*leaves, window=case.window)
+    # the whole backward: every launch (dq, dkdv and in bf16 the fold)
+    # against the one library backward of q, k and v
+    whole = dict(
+        sum_ms=med(lambda: swa_bwd_kernel(q, k, v, o, do,
+                                          window=case.window), 5),
+        library_bwd_ms=med(lambda: torch.autograd.grad(
+            lib, leaves, do, retain_graph=True), 5))
+    # in bf16 swa_bwd_dkdv is timed alone, on partial sums, and its fold
+    # apart; in f32 it writes dk and dv
+    dkdv = (lambda: swa_bwd_dkdv_partial(q, k, v, do, lse, delta,
+                                         window=case.window)) if bf else (
+        lambda: swa_bwd_dkdv(q, k, v, do, lse, delta, window=case.window))
     for name, wrt, fn, nb, products in (
             ("swa_bwd_dq", leaves[:1],
              lambda: swa_bwd_dq(q, k, v, o, do, window=case.window),
              nbytes(q, k, v, o, do, q, lse, delta), 3),
-            ("swa_bwd_dkdv", leaves[1:],
-             lambda: swa_bwd_dkdv(q, k, v, do, lse, delta,
-                                  window=case.window),
+            ("swa_bwd_dkdv", leaves[1:], dkdv,
              nbytes(q, k, v, do, lse, delta, k, v), 4)):
         out[name] = dict(
             ms=med(fn, 5),
@@ -1120,7 +1166,20 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
             # the whole backward's own bound: 5 products (QK^T, dO V^T,
             # dP K, dS^T Q, P^T dO); the split without atomics adds two
             whole_bound_ms=bound(nbytes(q, k, v, o, do, q, k, v),
-                                 5 * pairs, peak)[0])
+                                 5 * pairs, peak)[0], **whole)
+    if bf:
+        part = swa_bwd_dkdv_partial(q, k, v, do, lse, delta,
+                                    window=case.window)
+        got, want = swa_bwd_fold(part, k, v), swa_bwd_fold_ref(part,
+                                                                k.dtype)
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        # a ~13 µs kernel: timed queued, as its wrapper's host time is longer
+        out["swa_bwd_fold"] = dict(
+            ms=queued_ms(lambda: swa_bwd_fold(part, k, v)),
+            plain_ms=queued_ms(lambda: swa_bwd_fold_ref(part, k.dtype)),
+            library_ms=None, max_abs_err=err,
+            bound=bound(nbytes(part, k, v), part.numel(), fp32), **whole)
     return out
 
 
@@ -1339,6 +1398,10 @@ def train_phase(dev: torch.device, seed: int, part: str,
             row["bound_ms"], row["bound_by"] = row.pop("bound")
             print(json.dumps({"case": f"train_{kernel}_{dt}", **row}))
             timed[(kernel, case.dtype)] = row
+            if row.get("max_abs_err", 0.0) != 0.0:     # the fold: exact
+                failures.append(f"{kernel} {dt}: max err "
+                                f"{row['max_abs_err']} against its plain "
+                                "version (want 0)")
         torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
@@ -1348,25 +1411,32 @@ def train_phase(dev: torch.device, seed: int, part: str,
     launches = full_training(dev, seed, failures)
     train_cli_resume(failures)
     rows = []
-    for kernel in ("conv1d_bwd_wb", "swa_bwd_dq", "swa_bwd_dkdv"):
-        t, f32 = timed[(kernel, torch.bfloat16)], timed[(kernel,
-                                                         torch.float32)]
+    for kernel in ("conv1d_bwd_wb", "swa_bwd_dq", "swa_bwd_dkdv",
+                   "swa_bwd_fold"):
+        t = timed[(kernel, torch.bfloat16)]
+        f32 = timed.get((kernel, torch.float32), {})   # the fold: bf16 only
         route, source, replaces = KERNELS[kernel]
         rows.append({
             "name": kernel, "route": route, "source": source,
             "replaces": replaces, "launches": launches[kernel],
             "dtype": "bfloat16",
-            "max_abs_err": errs[(kernel, torch.bfloat16)],
-            "tol": GRAD_TOL[(kernel.split("_")[0], torch.bfloat16)],
-            "max_abs_err_f32": errs[(kernel, torch.float32)],
+            "max_abs_err": t.get("max_abs_err",
+                                 errs.get((kernel, torch.bfloat16))),
+            "tol": (0.0 if kernel == "swa_bwd_fold" else
+                    GRAD_TOL[(kernel.split("_")[0], torch.bfloat16)]),
+            "max_abs_err_f32": errs.get((kernel, torch.float32)),
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
-            "ms_f32": f32["ms"], "bound_ms_f32": f32["bound_ms"],
-            "plain_ms_f32": f32["plain_ms"],
-            "library_ms_f32": f32["library_ms"],
+            "ms_f32": f32.get("ms"), "bound_ms_f32": f32.get("bound_ms"),
+            "plain_ms_f32": f32.get("plain_ms"),
+            "library_ms_f32": f32.get("library_ms"),
             **({"whole_bound_ms": t["whole_bound_ms"],
                 "whole_bound_ms_f32": f32["whole_bound_ms"]}
                if "whole_bound_ms" in t else {}),
+            **({"sum_ms": t["sum_ms"], "library_bwd_ms": t["library_bwd_ms"],
+                "sum_ms_f32": f32.get("sum_ms"),
+                "library_bwd_ms_f32": f32.get("library_bwd_ms")}
+               if "sum_ms" in t else {}),
             "shape": [TRAIN_BATCH, TRAIN_SEQ], "part": part})
     print(json.dumps({"phase": "train_wall",
                       "s": time.perf_counter() - t_phase}))

@@ -17,7 +17,8 @@
 // 1,000 flops per byte moved), far above the card's balance.
 //
 // bfloat16 runs on the tensor cores (swa_wgmma_kernel), FlashAttention-2
-// style with Hopper's warpgroup products.  One block of two warpgroups per
+// style with Hopper's warpgroup products (helpers shared with the backward
+// in wgmma.cuh).  One block of two warpgroups per
 // (b, hq, 128-query tile); warpgroup w owns query rows 64w..64w+63.  Q
 // (128 x Dp) and a two-stage ring of 64-key K and V tiles live in shared
 // memory as bfloat16 in the 128-byte swizzle that wgmma reads without bank
@@ -49,6 +50,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -218,206 +220,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 // ---------------------------------------------------------------------------
 // bfloat16: warpgroup products (wgmma) on the tensor cores
 // ---------------------------------------------------------------------------
-constexpr float kLog2e = 1.4426950408889634f;
-
-typedef __nv_bfloat16 bf16;
-
-// 2^x, x <= 0 here (scores minus their running max)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 constexpr int kWgThreads = 256;       // two warpgroups, 64 query rows each
 constexpr int kWQ = 128;              // query rows per block
 constexpr int kWK = 64;               // keys per tile
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep a register's value where the asynchronous product reads or writes it
-__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-// cp.async writes (generic proxy) before wgmma reads (async proxy)
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Shared-memory descriptor of a wgmma operand in the 128-byte swizzle
-// (layout type 1): start address, lbo and sbo in 16-byte units.  K-major
-// (Q, K): sbo = 1024 B between 8-row groups, lbo unused (16 B).  MN-major
-// (V): lbo = bytes between 64-column atoms, sbo = 1024 B between 8-row
-// groups along K.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16)
-         | ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// D (64 x 64, f32) += A (64 x 16, shared) * B (16 x 64, shared), both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// D (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 256, f32) += A (64 x 16, bf16 registers) * B (16 x 256, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int DP>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[DP / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (DP == 64) wgmma_rs_n64(acc, a, db);
-  else if constexpr (DP == 128) wgmma_rs_n128(acc, a, db);
-  else wgmma_rs_n256(acc, a, db);
-}
-
-// Element offset of (r, c) in a tile of ROWS x DP bf16, as wgmma reads it
-// in the 128-byte swizzle: 64-column atoms, each ROWS rows of 128 bytes,
-// with the 16-byte chunks of row r XOR-ed with r % 8, so the 8 rows of a
-// core matrix fall in distinct bank groups.  Atoms start 1024-byte aligned.
-template <int ROWS>
-__device__ __forceinline__ int tile_off(int r, int c) {
-  return (c >> 6) * ROWS * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
-}
-
-// rows row0..row0+ROWS-1 of a (seq, dim) slice into a tile of DP columns
-// laid out by tile_off, zero past seq and past dim (all DP columns are read).
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_blk(bf16* dst, const bf16* src, int64_t ld_g,
-                                         int row0, int seq, int dim, bool vec,
-                                         int tid) {
-  if (vec) {
-    constexpr int cpr = DP / 8;
-    for (int idx = tid; idx < ROWS * cpr; idx += kWgThreads) {
-      const int r = idx / cpr, d = (idx % cpr) * 8;
-      const int pos = row0 + r;
-      const bool in = pos < seq && d < dim;
-      cp_async16(smem_addr(dst + tile_off<ROWS>(r, d)),
-                 in ? src + pos * ld_g + d : src, in ? 16 : 0);
-    }
-  } else {
-    const bf16 zero = __float2bfloat16(0.f);
-    for (int idx = tid; idx < ROWS * DP; idx += kWgThreads) {
-      const int r = idx / DP, d = idx % DP;
-      const int pos = row0 + r;
-      dst[tile_off<ROWS>(r, d)] = (pos < seq && d < dim) ? src[pos * ld_g + d] : zero;
-    }
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -450,20 +255,10 @@ swa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t0 = kv_lo / kWK * kWK;
   const int n_tiles = (kv_hi - t0 + kWK - 1) / kWK;
 
-  load_blk<DP, kWQ>(qs, qb, st.q[2], q0, seq, dim, vec, tid);
-  load_blk<DP, kWK>(ring, kb, st.k[2], t0, seq, dim, vec, tid);
-  load_blk<DP, kWK>(ring + kWK * DP, vb, st.v[2], t0, seq, dim, vec, tid);
+  load_blk<DP, kWQ, kWgThreads>(qs, qb, st.q[2], q0, seq, dim, vec, tid);
+  load_blk<DP, kWK, kWgThreads>(ring, kb, st.k[2], t0, seq, dim, vec, tid);
+  load_blk<DP, kWK, kWgThreads>(ring + kWK * DP, vb, st.v[2], t0, seq, dim, vec, tid);
   cp_async_commit();
-
-  // core-matrix strides: 128 B along a row, DP * 16 B between 8-row blocks
-  // descriptors: K-major Q and K (16 of d per product: 32 bytes within an
-  // atom), MN-major V (16 keys per product: 16 rows of 128 bytes)
-  auto desc_qk = [](const bf16* base, int rows, int r0, int ki) {
-    return smem_desc(base + (ki >> 2) * rows * 64 + r0 * 64 + (ki & 3) * 16, 16, 1024);
-  };
-  auto desc_v = [](const bf16* base, int kk) {
-    return smem_desc(base + kk * 16 * 64, kWK * 128, 1024);
-  };
 
   const int wr = wg * 64 + (warp & 3) * 16;        // the warp's first row
   const int qrow0 = q0 + wr + (lane >> 2), qrow1 = qrow0 + 8;
@@ -477,8 +272,8 @@ swa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int kv0 = t0 + t * kWK;
     if (t + 1 < n_tiles) {
       bf16* nk = ring + ((t + 1) & 1) * 2 * kWK * DP;
-      load_blk<DP, kWK>(nk, kb, st.k[2], kv0 + kWK, seq, dim, vec, tid);
-      load_blk<DP, kWK>(nk + kWK * DP, vb, st.v[2], kv0 + kWK, seq, dim, vec, tid);
+      load_blk<DP, kWK, kWgThreads>(nk, kb, st.k[2], kv0 + kWK, seq, dim, vec, tid);
+      load_blk<DP, kWK, kWgThreads>(nk + kWK * DP, vb, st.v[2], kv0 + kWK, seq, dim, vec, tid);
       cp_async_commit();
       cp_async_wait_group<1>();
     } else {
@@ -496,7 +291,7 @@ swa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int ki = 0; ki < DP / 16; ++ki)
-      wgmma_ss_n64(s, desc_qk(qs, kWQ, wg * 64, ki), desc_qk(ks, kWK, 0, ki));
+      wgmma_ss_n64(s, desc_kmajor<kWQ>(qs, wg * 64, ki), desc_kmajor<kWK>(ks, 0, ki));
     wgmma_commit();
     wgmma_wait0();
 #pragma unroll
@@ -560,7 +355,7 @@ swa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kWK / 16; ++kk)
-      wgmma_pv<DP>(acc, pa[kk], desc_v(vs, kk));
+      wgmma_pv<DP>(acc, pa[kk], desc_mnmajor<kWK>(vs, kk));
     wgmma_commit();
     wgmma_wait0();
 #pragma unroll

@@ -1,5 +1,5 @@
 // Backward of causal sliding-window attention with GQA, for sm_90a (H100):
-// FlashAttention-2's backward in two launches, on the CUDA cores.
+// FlashAttention-2's backward in two launches, bf16 on the tensor cores.
 //
 // No TPU kernel to replace: the JAX package defines no backward (it takes
 // the gradient of the forward by autodiff).  The forward is K6
@@ -14,43 +14,74 @@
 //   dK_j  = scale sum_i dS_ij q_i,  dV_j = sum_i P_ij dO_i
 // where a KV head's sums run over every query head of its group.
 //
+// What bounds it on the H100: operations.  The whole backward needs five
+// products over the band's (query, key) pairs (S, dP, dQ, dK, dV; 2D flops
+// each): 1.6e11 flops at (1, 10, 4096, 256) with window 2048, 0.163 ms at
+// the bf16 tensor-core peak.  The LSE the forward does not keep costs one
+// more Q.K^T, and splitting dQ from dK/dV without atomics S and dP once
+// more: eight products.
+//
+// bfloat16 runs them on the tensor cores with wgmma (helpers shared with
+// the forward in wgmma.cuh; tiles in the 128-byte swizzle, D zero-filled to
+// Dp = 64, 128 or 256, loaded by cp.async, or element by element where an
+// operand is not 16-byte aligned):
+// - swa_bwd_dq_wgmma_kernel: one block of two warpgroups per (b, hq,
+//   128-query tile), warpgroup w owning rows 64w..64w+63, shaped like the
+//   forward.  Q and dO stay in shared memory; K tiles of 64 keys come
+//   through a two-stage ring, V through one buffer refilled as soon as dP
+//   has read it.  D comes from dO and O in the prologue.  Pass 1: S = Q K^T
+//   (SS m64n64k16) and an online max and sum give each row's LSE.  Pass 2:
+//   S and dP = dO V^T (SS), P and dS in f32 registers, dS rounded to bf16
+//   in registers (the accumulator layout is the A-operand layout) and
+//   dQ += dS K (RS m64nDpk16, K read MN-major).  dQ (64 x Dp f32, 128
+//   registers a thread at Dp = 256) stays in registers; LSE and D go to
+//   device memory in f32.
+// - swa_bwd_dkdv_wgmma_kernel: keys are the rows.  One block of two
+//   warpgroups per (b, hkv, 64-key tile, part of the group's query heads);
+//   its K and V tiles stay in shared memory, a two-stage ring brings 64-query
+//   Q and dO tiles with their LSE and D.  Warpgroup 0 computes S^T = K Q^T,
+//   P^T and dV += P^T dO; warpgroup 1 dP^T = V dO^T, dS^T = P^T (dP^T - D)
+//   and dK += dS^T Q (Q and dO read MN-major), P^T handed across in shared
+//   memory (f32, each thread's own fragment) under named barrier 1: four
+//   products, and one 64 x Dp f32 accumulator a warpgroup, as two would not
+//   fit one's registers at Dp = 256.  The group's query heads are split
+//   into `parts` (a rule on the shapes alone: as many as keep the blocks
+//   within the H100's 132 SMs), because one KV head at S = 4096 has only 64
+//   key tiles; each part writes its f32 partial dK and dV.
+// - swa_bwd_fold_kernel: sums the parts in a fixed order and casts to bf16.
+// Only the tiles that meet the band are visited and only those on its edge
+// or at seq's end are masked.  Every sum runs in a fixed order, with no
+// atomics: the same inputs give the same bits.
+//
+// float32 keeps CUDA-core kernels (its 1e-5 bar rules out bf16 and TF32
+// products; the training step runs bf16):
 // - swa_bwd_dq_kernel: one block of 8 warps per (b, hq, 64-query tile);
 //   warp w owns rows 8w..8w+7, lane l scores key l of a 32-key tile.
-//   Pass 1 walks the band's key tiles for each row's max and sum (the LSE;
-//   the forward keeps none, so it is recomputed with one more Q.K^T) and
-//   computes D from dO and the forward's stored O; both go to device memory
-//   in f32 for the second kernel.  Pass 2 walks the band again: P, dP, dS
-//   a lane per key, and dQ accumulated in registers with lanes across D
-//   (each dS broadcast by a shuffle).
+//   Pass 1 walks the band's key tiles for each row's max and sum (the LSE)
+//   and computes D; pass 2 walks the band again: P, dP, dS a lane per key,
+//   and dQ accumulated in registers with lanes across D (each dS broadcast
+//   by a shuffle).
 // - swa_bwd_dkdv_kernel: one block of 8 warps per (b, hkv, 32-key tile);
 //   warp w owns keys 4w..4w+3 and keeps their dK and dV rows in registers
 //   (lanes across D).  It loops over the group's query heads and over the
-//   32-query tiles whose band reaches the key tile, lane l scoring query l,
-//   and accumulates with no atomics; each block writes its own rows.
+//   32-query tiles whose band reaches the key tile, lane l scoring query l.
+// Inputs are widened to f32 in shared memory, every sum is f32 in a fixed
+// order, and the gradients are cast at the store.
 //
-// Inputs are float32 or bfloat16, read through (batch, head, position)
-// strides with unit stride along D, widened to f32 in shared memory; every
-// sum is f32 in a fixed order, and the gradients are cast to the input
-// type at the store.  Masking by the true sequence length and the window
-// means nothing is padded on the host.
-//
-// What bounds it on the H100: operations.  The whole backward needs five
-// products over the band's (query, key) pairs (S, dP, dQ, dK, dV; 2D flops
-// each), 1.6e11 flops at (1, 10, 4096, 256) with window 2048; these kernels
-// run eight (S twice and dP twice more, for the split) as f32 FMAs on the
-// CUDA cores, where bf16 inputs could use the tensor cores.  That is the
-// simple first design: its time stands beside the bound in PERF.md.
-//
-// Shared memory, Dp = D rounded up to 4, rows read by a lane padded to
-// Dp + 4 floats (a 16-byte load per lane without bank conflicts when Dp is
-// a multiple of 32): dq 4 * (2*64*Dp + 2*32*(Dp+4)) bytes, 197,632 B at
-// D = 256; dkdv 4 * (2*32*Dp + 2*32*(Dp+4) + 64), 132,352 B.  Both past
-// 48 KB, so the launches opt in with cudaFuncSetAttribute.
+// Shared memory (kernels/swa/kernel.py:bwd_smem_bytes, checked here at the
+// launch): bf16 dq 2 * Dp * (2*128 + 3*64) + 4*128 + 1024 bytes (230,912 B
+// at Dp = 256), dkdv 2 * Dp * 6*64 + 4*4*64 + 4*64*64 + 1024 (215,040 B);
+// f32 (Dp = D rounded up to 4, rows a lane reads padded to Dp + 4) dq
+// 4 * (2*64*Dp + 2*32*(Dp+4)), dkdv 4 * (2*32*Dp + 2*32*(Dp+4) + 64).  All
+// past 48 KB, so the launches opt in with cudaFuncSetAttribute.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -363,13 +394,495 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: warpgroup products (wgmma) on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kWgThreads = 256;          // two warpgroups
+constexpr int kDqRows = 128;             // dq: query rows per block, 64 a warpgroup
+constexpr int kTile = 64;                // dq: keys a tile; dkdv: keys a block, queries a tile
+
+template <int DP>
+constexpr size_t dq_smem() {
+  return 2 * DP * (2 * kDqRows + 3 * kTile) + 4 * kDqRows + 1024;
+}
+template <int DP>
+constexpr size_t dkdv_smem() {
+  return 2 * DP * 6 * kTile + 4 * 4 * kTile + 4 * kTile * kTile + 1024;
+}
+
+// 4 bytes global -> shared; src_bytes 0 writes a zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+// a K-major descriptor of a ROWS-row tile advanced by ki steps of 16
+// columns (32 bytes within an atom, ROWS * 128 bytes an atom; the address
+// field is the low 14 bits, in 16-byte units), and an MN-major one by kk
+// steps of 16 rows (2048 bytes): dkdv's descriptors as a base and an
+// immediate offset, which measured faster there than desc_kmajor and
+// desc_mnmajor (and slower in dq, whose registers are fuller)
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint64_t base, int ki) {
+  return base + (uint64_t)(((ki >> 2) * ROWS * 128 + (ki & 3) * 32) >> 4);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint64_t base, int kk) {
+  return base + (uint64_t)(kk * 128);
+}
+
+__device__ __forceinline__ char* align1024(void* p) {
+  const uint32_t pad = (1024u - (smem_addr(p) & 1023u)) & 1023u;
+  return reinterpret_cast<char*>(p) + pad;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+swa_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ o,
+                        const bf16* __restrict__ g, bf16* __restrict__ dq,
+                        float* __restrict__ lse, float* __restrict__ delta,
+                        Strides st, int hkv_n, int group, int seq, int dim,
+                        int window, float scale, int q_tiles, int vec) {
+  extern __shared__ uint4 smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(align1024(smem_raw));   // kDqRows x DP
+  bf16* gs = qs + kDqRows * DP;                              // dO, kDqRows x DP
+  bf16* ring = gs + kDqRows * DP;                            // 2 K stages, kTile x DP
+  bf16* vs = ring + 2 * kTile * DP;                          // V, kTile x DP
+  float* dsm = reinterpret_cast<float*>(vs + kTile * DP);    // kDqRows: D
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;
+  const int gi = (int)(blockIdx.x % group);
+  const int rest = (int)(blockIdx.x / group);
+  const int qt = q_tiles - 1 - rest % q_tiles;     // longest bands first
+  const int bkv = rest / q_tiles;
+  const int hk = bkv % hkv_n, b = bkv / hkv_n;
+  const int hq = hk * group + gi;
+  const int64_t bh = (int64_t)b * hkv_n * group + hq;
+  const bf16* qb = q + b * st.q[0] + hq * st.q[1];
+  const bf16* kb = k + b * st.k[0] + hk * st.k[1];
+  const bf16* vb = v + b * st.v[0] + hk * st.v[1];
+  const bf16* ob = o + b * st.o[0] + hq * st.o[1];
+  const bf16* gb = g + b * st.g[0] + hq * st.g[1];
+  bf16* dqb = dq + b * st.dq[0] + hq * st.dq[1];
+
+  const int q0 = qt * kDqRows;
+  const int kv_lo = max(0, q0 - window + 1);
+  const int kv_hi = min(seq, q0 + kDqRows);        // exclusive
+  const int t0 = kv_lo / kTile * kTile;
+  const int n = (kv_hi - t0 + kTile - 1) / kTile;  // key tiles; a pass each
+
+  load_blk<DP, kDqRows, kWgThreads>(qs, qb, st.q[2], q0, seq, dim, vec, tid);
+  load_blk<DP, kDqRows, kWgThreads>(gs, gb, st.g[2], q0, seq, dim, vec, tid);
+  load_blk<DP, kTile, kWgThreads>(ring, kb, st.k[2], t0, seq, dim, vec, tid);
+  cp_async_commit();
+
+  // D = rowsum(dO * O), a warp a row, from device memory
+  for (int r = warp; r < kDqRows; r += kWgThreads / 32) {
+    const int pos = q0 + r;
+    float s = 0.f;
+    if (pos < seq)
+      for (int d = lane; d < dim; d += 32)
+        s = fmaf(__bfloat162float(gb[pos * st.g[2] + d]),
+                 __bfloat162float(ob[pos * st.o[2] + d]), s);
+    s = warp_sum(s);
+    if (lane == 0) {
+      dsm[r] = s;
+      if (pos < seq) delta[bh * seq + pos] = s;
+    }
+  }
+
+  const int wr = wg * 64 + (warp & 3) * 16;        // the warp's first row
+  const int qrow0 = q0 + wr + (lane >> 2), qrow1 = qrow0 + 8;
+  const int kcol = (lane & 3) * 2;
+  const int r_lo = q0 + wg * 64, r_hi = r_lo + 63; // the warpgroup's rows
+  const float scale_log2 = scale * kLog2e;
+  // pass 1: running max and sum (log2 units); pass 2: LSE and D of the rows
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float lse0 = 0.f, lse1 = 0.f, dl0 = 0.f, dl1 = 0.f;
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  for (int u = 0; u < 2 * n; ++u) {
+    const bool pass2 = u >= n;
+    const int t = pass2 ? u - n : u;
+    const int kv0 = t0 + t * kTile;
+    cp_async_wait_group<0>();
+    fence_async_shared();
+    __syncthreads();                               // K(u) (and V) landed; stage u+1 free
+    if (u + 1 < 2 * n) {
+      const int tn = u + 1 < n ? u + 1 : u + 1 - n;
+      load_blk<DP, kTile, kWgThreads>(ring + ((u + 1) & 1) * kTile * DP, kb, st.k[2],
+                                      t0 + tn * kTile, seq, dim, vec, tid);
+      if (u + 1 == n)
+        load_blk<DP, kTile, kWgThreads>(vs, vb, st.v[2], t0, seq, dim, vec, tid);
+      cp_async_commit();
+    }
+    if (u == n) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      lse0 = l0 > 0.f ? m0 + log2f(l0) : 0.f;
+      lse1 = l1 > 0.f ? m1 + log2f(l1) : 0.f;
+      if ((lane & 3) == 0) {
+        if (qrow0 < seq) lse[bh * seq + qrow0] = lse0 * kLn2;
+        if (qrow1 < seq) lse[bh * seq + qrow1] = lse1 * kLn2;
+      }
+      dl0 = dsm[wr + (lane >> 2)];
+      dl1 = dsm[wr + (lane >> 2) + 8];
+    }
+    const bf16* ks = ring + (u & 1) * kTile * DP;
+    // no key of the tile meets the warpgroup's rows: nothing to add
+    const bool skip = kv0 > r_hi || kv0 + kTile - 1 <= r_lo - window;
+    const bool edge = !(kv0 + kTile - 1 <= r_lo && kv0 > r_hi - window
+                        && kv0 + kTile <= seq);
+    float s[32];
+    if (!pass2) {
+      if (!skip) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) s[j] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int ki = 0; ki < DP / 16; ++ki)
+          wgmma_ss_n64(s, desc_kmajor<kDqRows>(qs, wg * 64, ki), desc_kmajor<kTile>(ks, 0, ki));
+        wgmma_commit();
+        wgmma_wait0();
+#pragma unroll
+        for (int j = 0; j < 32; ++j) reg_fence(s[j]);
+        uint32_t ok = 0xffffffffu;
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[4 * j + e] * scale_log2;
+            if (edge) {
+              const int kpos = kv0 + j * 8 + kcol + (e & 1);
+              const int qpos = e < 2 ? qrow0 : qrow1;
+              if (!(kpos <= qpos && kpos > qpos - window && kpos < seq)) {
+                ok &= ~(1u << (j * 4 + e));
+                x = kNegInf;
+              }
+            }
+            s[4 * j + e] = x;
+            if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+          }
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const float p = (ok >> j) & 1u ? fast_exp2(s[j] - ((j & 2) ? mx1 : mx0)) : 0.f;
+          if (j & 2) sum1 += p; else sum0 += p;
+        }
+        l0 = l0 * alpha0 + sum0;
+        l1 = l1 * alpha1 + sum1;
+      }
+      continue;
+    }
+
+    float dp[32];
+    if (!skip) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ki = 0; ki < DP / 16; ++ki)
+        wgmma_ss_n64(s, desc_kmajor<kDqRows>(qs, wg * 64, ki), desc_kmajor<kTile>(ks, 0, ki));
+#pragma unroll
+      for (int ki = 0; ki < DP / 16; ++ki)
+        wgmma_ss_n64(dp, desc_kmajor<kDqRows>(gs, wg * 64, ki), desc_kmajor<kTile>(vs, 0, ki));
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        reg_fence(s[j]);
+        reg_fence(dp[j]);
+      }
+    }
+    __syncthreads();                               // V(t) is read: refill it
+    if (t + 1 < n) {
+      load_blk<DP, kTile, kWgThreads>(vs, vb, st.v[2], kv0 + kTile, seq, dim, vec, tid);
+      cp_async_commit();
+    }
+    if (skip) continue;
+    // P = 2^(S log2e - LSE) on the band, dS = P (dP - D), in place of dP
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bool ok = true;
+        if (edge) {
+          const int kpos = kv0 + j * 8 + kcol + (e & 1);
+          const int qpos = e < 2 ? qrow0 : qrow1;
+          ok = kpos <= qpos && kpos > qpos - window && kpos < seq;
+        }
+        const float p = ok ? fast_exp2(s[4 * j + e] * scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
+        dp[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+      }
+    }
+    // dQ += dS K, dS rounded to bf16 in registers (16 keys per product)
+    uint32_t pa[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      pa[kk][0] = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_pv<DP>(acc, pa[kk], desc_mnmajor<kTile>(ks, kk));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) reg_fence(pa[kk][e]);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) reg_fence(acc[i]);
+  }
+
+#pragma unroll
+  for (int nn = 0; nn < DP / 8; ++nn) {
+    const int d = nn * 8 + kcol;
+    if (d >= dim) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qpos = half ? qrow1 : qrow0;
+      if (qpos >= seq) continue;
+      const float y0 = acc[4 * nn + 2 * half] * scale, y1 = acc[4 * nn + 2 * half + 1] * scale;
+      bf16* dst = dqb + qpos * st.dq[2] + d;
+      if (vec) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(y0, y1);
+      } else {
+        dst[0] = __float2bfloat16(y0);
+        if (d + 1 < dim) dst[1] = __float2bfloat16(y1);
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+swa_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ g,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ part, Strides st, int hkv_n,
+                          int group, int seq, int dim, int window, float scale,
+                          int k_tiles, int parts, int vec) {
+  extern __shared__ uint4 smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(align1024(smem_raw));   // kTile x DP
+  bf16* vs = ks + kTile * DP;                                // kTile x DP
+  bf16* ring = vs + kTile * DP;                              // 2 x (Q, dO), kTile x DP each
+  float* lsm = reinterpret_cast<float*>(ring + 4 * kTile * DP);  // 2 x kTile: LSE
+  float* dsm = lsm + 2 * kTile;                              // 2 x kTile: D
+  float* psm = dsm + 2 * kTile;                              // 32 x 128: P^T fragments
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wt = tid & 127;
+  const int pi = (int)(blockIdx.x % parts);
+  const int rest = (int)(blockIdx.x / parts);
+  const int kt = rest % k_tiles;                   // longest bands first
+  const int bkv = rest / k_tiles;
+  const int hk = bkv % hkv_n, b = bkv / hkv_n;
+  const int h_lo = pi * group / parts, h_hi = (pi + 1) * group / parts;
+  const int k0 = kt * kTile;
+  // queries whose band reaches keys [k0, k0 + kTile): [k0, k0 + kTile - 1 + window)
+  const int q_hi = min(seq, k0 + kTile - 1 + window);
+  const int nq = (q_hi - k0 + kTile - 1) / kTile;
+  const int n = (h_hi - h_lo) * nq;
+
+  auto load_stage = [&](int u) {
+    const int hq = hk * group + h_lo + u / nq;
+    const int q0 = k0 + (u % nq) * kTile;
+    const int64_t bhq = (int64_t)b * hkv_n * group + hq;
+    bf16* dst = ring + (u & 1) * 2 * kTile * DP;
+    load_blk<DP, kTile, kWgThreads>(dst, q + b * st.q[0] + hq * st.q[1], st.q[2], q0,
+                                    seq, dim, vec, tid);
+    load_blk<DP, kTile, kWgThreads>(dst + kTile * DP, g + b * st.g[0] + hq * st.g[1],
+                                    st.g[2], q0, seq, dim, vec, tid);
+    if (tid < 2 * kTile) {
+      const int i = tid & (kTile - 1);
+      const float* src = tid < kTile ? lse : delta;
+      float* sm = (tid < kTile ? lsm : dsm) + (u & 1) * kTile + i;
+      const bool in = q0 + i < seq;
+      cp_async4(smem_addr(sm), in ? src + bhq * seq + q0 + i : src, in ? 4 : 0);
+    }
+  };
+  load_blk<DP, kTile, kWgThreads>(ks, k + b * st.k[0] + hk * st.k[1], st.k[2], k0, seq,
+                                  dim, vec, tid);
+  load_blk<DP, kTile, kWgThreads>(vs, v + b * st.v[0] + hk * st.v[1], st.v[2], k0, seq,
+                                  dim, vec, tid);
+  load_stage(0);
+  cp_async_commit();
+
+  const int krow0 = k0 + (warp & 3) * 16 + (lane >> 2), krow1 = krow0 + 8;
+  const int qcol = (lane & 3) * 2;
+  const float scale_log2 = scale * kLog2e;
+  float acc[DP / 2];                               // warpgroup 0: dV; 1: dK / scale
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  for (int u = 0; u < n; ++u) {
+    cp_async_wait_group<0>();
+    fence_async_shared();
+    __syncthreads();                               // stage u landed; stage u+1 and psm free
+    if (u + 1 < n) {
+      load_stage(u + 1);
+      cp_async_commit();
+    }
+    const int q0 = k0 + (u % nq) * kTile;
+    const bf16* qs = ring + (u & 1) * 2 * kTile * DP;
+    const bf16* gs = qs + kTile * DP;
+    const float* lsu = lsm + (u & 1) * kTile;
+    const float* dsu = dsm + (u & 1) * kTile;
+    const bool edge = !(k0 + kTile - 1 <= q0 && k0 > q0 + kTile - 1 - window
+                        && q0 + kTile <= seq);
+
+    // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T (64 keys x 64 queries)
+    float s[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = 0.f;
+    const uint64_t dsc_a = desc_kmajor<kTile>(wg == 0 ? ks : vs, 0, 0);
+    const uint64_t dsc_b = desc_kmajor<kTile>(wg == 0 ? qs : gs, 0, 0);
+    wgmma_fence();
+#pragma unroll
+    for (int ki = 0; ki < DP / 16; ++ki)
+      wgmma_ss_n64(s, desc_k<kTile>(dsc_a, ki), desc_k<kTile>(dsc_b, ki));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) reg_fence(s[j]);
+
+    if (wg == 0) {
+      // P^T = 2^(S^T log2e - LSE_col) on the band, handed to warpgroup 1
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + qcol + (e & 1);
+          bool ok = true;
+          if (edge) {
+            const int qpos = q0 + col;
+            const int kpos = e < 2 ? krow0 : krow1;
+            ok = kpos <= qpos && kpos > qpos - window && qpos < seq;
+          }
+          const float p = ok ? fast_exp2(s[4 * j + e] * scale_log2 - lsu[col] * kLog2e) : 0.f;
+          s[4 * j + e] = p;
+          psm[(4 * j + e) * 128 + wt] = p;
+        }
+      }
+      asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+    } else {
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      // dS^T = P^T (dP^T - D_col)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + qcol + (e & 1);
+          s[4 * j + e] = psm[(4 * j + e) * 128 + wt] * (s[4 * j + e] - dsu[col]);
+        }
+      }
+    }
+    // dV += P^T dO (warpgroup 0), dK += dS^T Q (warpgroup 1), the left
+    // operand rounded to bf16 in registers (16 queries per product)
+    uint32_t pa[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    const uint64_t dsc_rhs = desc_mnmajor<kTile>(wg == 0 ? gs : qs, 0);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_pv<DP>(acc, pa[kk], desc_mn(dsc_rhs, kk));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) reg_fence(pa[kk][e]);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) reg_fence(acc[i]);
+  }
+
+  // this part's f32 partial: plane 0 dK, plane 1 dV, each (B, Hkv, S, dim)
+  const int64_t plane = (int64_t)(gridDim.x / (parts * k_tiles)) * seq * dim;
+  const float mul = wg == 0 ? 1.f : scale;
+  float* dst = part + ((int64_t)(wg == 0 ? 1 : 0) * parts + pi) * plane
+               + (int64_t)bkv * seq * dim;
+#pragma unroll
+  for (int nn = 0; nn < DP / 8; ++nn) {
+    const int d = nn * 8 + qcol;
+    if (d >= dim) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kpos = half ? krow1 : krow0;
+      if (kpos >= seq) continue;
+      const float y0 = acc[4 * nn + 2 * half] * mul, y1 = acc[4 * nn + 2 * half + 1] * mul;
+      float* p = dst + (int64_t)kpos * dim + d;
+      if (vec) {
+        *reinterpret_cast<float2*>(p) = make_float2(y0, y1);
+      } else {
+        p[0] = y0;
+        if (d + 1 < dim) p[1] = y1;
+      }
+    }
+  }
+}
+
+// dk, dv = bf16(sum over the parts, in order, of the f32 partials); a
+// block a row of (B, Hkv, S) at a time, threads along D
+__global__ void __launch_bounds__(256)
+swa_bwd_fold_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, Strides st, int parts, int hkv_n,
+                    int seq, int dim, int64_t rows) {
+  const int64_t plane = rows * dim;
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int pos = (int)(row % seq);
+    const int64_t bh = row / seq;
+    const int h = (int)(bh % hkv_n);
+    const int64_t b = bh / hkv_n;
+    const float* src = part + row * dim;
+    bf16* dkr = dk + b * st.dk[0] + h * st.dk[1] + pos * st.dk[2];
+    bf16* dvr = dv + b * st.dv[0] + h * st.dv[1] + pos * st.dv[2];
+    for (int d = threadIdx.x; d < dim; d += blockDim.x) {
+      float a = src[d], c = src[parts * plane + d];
+      for (int p = 1; p < parts; ++p) {
+        a += src[p * plane + d];
+        c += src[(parts + p) * plane + d];
+      }
+      dkr[d] = __float2bfloat16(a);
+      dvr[d] = __float2bfloat16(c);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *o, *g;
   void *dq, *dk, *dv;
-  float *lse, *delta;
+  float *lse, *delta, *part;
   Strides st;
   int64_t batch;
-  int hq, hkv, seq, dim, window;
+  int hq, hkv, seq, dim, window, parts;
   float scale;
   size_t smem;
 };
@@ -406,31 +919,82 @@ cudaError_t launch_dkdv(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Args& a, bool dkdv, cudaStream_t s) {
-  if (a.dim <= 32) return dkdv ? launch_dkdv<T, 1>(a, s) : launch_dq<T, 1>(a, s);
-  if (a.dim <= 64) return dkdv ? launch_dkdv<T, 2>(a, s) : launch_dq<T, 2>(a, s);
-  if (a.dim <= 128) return dkdv ? launch_dkdv<T, 4>(a, s) : launch_dq<T, 4>(a, s);
-  return dkdv ? launch_dkdv<T, 8>(a, s) : launch_dq<T, 8>(a, s);
+cudaError_t dispatch_f32(const Args& a, bool dkdv, cudaStream_t s) {
+  if (a.dim <= 32) return dkdv ? launch_dkdv<float, 1>(a, s) : launch_dq<float, 1>(a, s);
+  if (a.dim <= 64) return dkdv ? launch_dkdv<float, 2>(a, s) : launch_dq<float, 2>(a, s);
+  if (a.dim <= 128) return dkdv ? launch_dkdv<float, 4>(a, s) : launch_dq<float, 4>(a, s);
+  return dkdv ? launch_dkdv<float, 8>(a, s) : launch_dq<float, 8>(a, s);
 }
 
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* g, void* dq, void* dk, void* dv, float* lse,
-           float* delta, int dtype, const int64_t* strides, int64_t batch,
-           int hq, int hkv, int seq, int dim, int window, float scale,
-           size_t smem, bool dkdv, void* stream) {
-  if (hkv < 1 || hq % hkv != 0 || window < 1 || dim < 1 || dim > 256
-      || seq < 1 || batch < 1)
+// 16-byte cp.async and paired stores: D a multiple of 8, every row and
+// pointer 16-byte aligned (dq: q, k, v, dO, o, dq; dkdv: q, k, v, dO and
+// the partial sums, contiguous)
+bool vec_ok(const Args& a, bool dkdv) {
+  if (a.dim % 8) return false;
+  const void* ptrs[6] = {a.q, a.k, a.v, a.g, a.o, a.dq};
+  const int64_t* st[6] = {a.st.q, a.st.k, a.st.v, a.st.g, a.st.o, a.st.dq};
+  if (dkdv) ptrs[4] = a.part;
+  for (int t = 0; t < (dkdv ? 5 : 6); ++t)
+    if ((uintptr_t)ptrs[t] % 16) return false;
+  for (int t = 0; t < (dkdv ? 4 : 6); ++t)
+    for (int i = 0; i < 3; ++i)
+      if (st[t][i] % 8) return false;
+  return true;
+}
+
+template <int DP>
+cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t stream) {
+  if (a.smem != dq_smem<DP>()) return cudaErrorInvalidValue;
+  const int q_tiles = (a.seq + kDqRows - 1) / kDqRows;
+  const int64_t blocks = a.batch * a.hq * (int64_t)q_tiles;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)swa_bwd_dq_wgmma_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
+  if (e != cudaSuccess) return e;
+  swa_bwd_dq_wgmma_kernel<DP><<<(unsigned)blocks, kWgThreads, a.smem, stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.o,
+      (const bf16*)a.g, (bf16*)a.dq, a.lse, a.delta, a.st, a.hkv, a.hq / a.hkv,
+      a.seq, a.dim, a.window, a.scale, q_tiles, (int)vec_ok(a, false));
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dkdv_wgmma(const Args& a, cudaStream_t stream) {
+  const int group = a.hq / a.hkv;
+  if (a.smem != dkdv_smem<DP>() || a.parts < 1 || a.parts > group || !a.part)
+    return cudaErrorInvalidValue;
+  const int k_tiles = (a.seq + kTile - 1) / kTile;
+  const int64_t blocks = a.batch * a.hkv * (int64_t)k_tiles * a.parts;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)swa_bwd_dkdv_wgmma_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
+  if (e != cudaSuccess) return e;
+  swa_bwd_dkdv_wgmma_kernel<DP><<<(unsigned)blocks, kWgThreads, a.smem, stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.g,
+      a.lse, a.delta, a.part, a.st, a.hkv, group, a.seq, a.dim, a.window,
+      a.scale, k_tiles, a.parts, (int)vec_ok(a, true));
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(const Args& a, bool dkdv, cudaStream_t s) {
+  if (a.dim <= 64) return dkdv ? launch_dkdv_wgmma<64>(a, s) : launch_dq_wgmma<64>(a, s);
+  if (a.dim <= 128) return dkdv ? launch_dkdv_wgmma<128>(a, s) : launch_dq_wgmma<128>(a, s);
+  return dkdv ? launch_dkdv_wgmma<256>(a, s) : launch_dq_wgmma<256>(a, s);
+}
+
+int launch(Args a, int dtype, const int64_t* strides, bool dkdv, void* stream) {
+  if (a.hkv < 1 || a.hq % a.hkv != 0 || a.window < 1 || a.dim < 1
+      || a.dim > 256 || a.seq < 1 || a.batch < 1)
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, o, g, dq, dk, dv, lse, delta, {}, batch, hq, hkv, seq,
-         dim, window, scale, smem};
   int64_t* dst[8] = {a.st.q, a.st.k, a.st.v, a.st.o, a.st.g, a.st.dq,
                      a.st.dk, a.st.dv};
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)dispatch<float>(a, dkdv, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, dkdv, s);
+  if (dtype == 0) return (int)dispatch_f32(a, dkdv, s);
+  if (dtype == 1) return (int)dispatch_bf16(a, dkdv, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -438,33 +1002,57 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  q, o, dO (g), dq: (batch, hq, seq,
-// dim); k, v, dk, dv: (batch, hkv, seq, dim); all of that type on the
-// device, unit stride along dim; strides: 24 int64, the (batch, head,
-// position) element strides of q, k, v, o, g, dq, dk, dv in that order.
-// lse, delta: (batch, hq, seq) float32, contiguous: swa_bwd_dq writes them,
-// swa_bwd_dkdv reads them, so dq launches first on the same stream.
-// hq % hkv == 0, 1 <= dim <= 256, window >= 1.  smem: dynamic shared
-// memory, as kernels/swa/kernel.py:bwd_smem_bytes gives it for each.
-// Returns cudaGetLastError().
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  q, o,
+// dO (g), dq: (batch, hq, seq, dim); k, v, dk, dv: (batch, hkv, seq, dim);
+// all of that type on the device, unit stride along dim; strides: 24
+// int64, the (batch, head, position) element strides of q, k, v, o, g, dq,
+// dk, dv in that order.  lse, delta: (batch, hq, seq) float32, contiguous:
+// swa_bwd_dq writes them, swa_bwd_dkdv reads them, so dq launches first on
+// the same stream.  hq % hkv == 0, 1 <= dim <= 256, window >= 1.  smem:
+// dynamic shared memory, as kernels/swa/kernel.py:bwd_smem_bytes gives it
+// for each (bf16: refused unless it is the kernel's layout).  Returns
+// cudaGetLastError().
 int swa_bwd_dq_launch(const void* q, const void* k, const void* v,
                       const void* o, const void* g, void* dq, float* lse,
                       float* delta, int dtype, const int64_t* strides,
                       int64_t batch, int hq, int hkv, int seq, int dim,
                       int window, float scale, size_t smem, void* stream) {
-  return launch(q, k, v, o, g, dq, nullptr, nullptr, lse, delta, dtype,
-                strides, batch, hq, hkv, seq, dim, window, scale, smem, false,
-                stream);
+  Args a{q, k, v, o, g, dq, nullptr, nullptr, lse, delta, nullptr, {}, batch,
+         hq, hkv, seq, dim, window, 1, scale, smem};
+  return launch(a, dtype, strides, false, stream);
 }
 
+// float32 writes dk and dv; bfloat16 writes each part's f32 partial sums
+// into `partial`, (2, parts, batch, hkv, seq, dim) contiguous (dK, then
+// dV), 1 <= parts <= hq / hkv, and leaves dk and dv to swa_bwd_fold.
 int swa_bwd_dkdv_launch(const void* q, const void* k, const void* v,
                         const void* g, void* dk, void* dv, const float* lse,
                         const float* delta, int dtype, const int64_t* strides,
                         int64_t batch, int hq, int hkv, int seq, int dim,
-                        int window, float scale, size_t smem, void* stream) {
-  return launch(q, k, v, nullptr, g, nullptr, dk, dv, (float*)lse,
-                (float*)delta, dtype, strides, batch, hq, hkv, seq, dim,
-                window, scale, smem, true, stream);
+                        int window, float scale, float* partial, int parts,
+                        size_t smem, void* stream) {
+  Args a{q, k, v, nullptr, g, nullptr, dk, dv, (float*)lse, (float*)delta,
+         partial, {}, batch, hq, hkv, seq, dim, window, parts, scale, smem};
+  return launch(a, dtype, strides, true, stream);
+}
+
+// dk, dv (bfloat16, through their (batch, head, position) strides, 6 int64)
+// = the sum over the parts, in order, of swa_bwd_dkdv's partials.
+int swa_bwd_fold_launch(const float* partial, void* dk, void* dv,
+                        const int64_t* strides, int64_t batch, int hkv,
+                        int seq, int dim, int parts, void* stream) {
+  if (batch < 1 || hkv < 1 || seq < 1 || dim < 1 || parts < 1)
+    return (int)cudaErrorInvalidValue;
+  Strides st{};
+  for (int i = 0; i < 3; ++i) {
+    st.dk[i] = strides[i];
+    st.dv[i] = strides[3 + i];
+  }
+  const int64_t rows = batch * hkv * (int64_t)seq;
+  const int64_t blocks = std::min<int64_t>(rows, 132 * 8);
+  swa_bwd_fold_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      partial, (bf16*)dk, (bf16*)dv, st, parts, hkv, seq, dim, rows);
+  return (int)cudaGetLastError();
 }
 
 const char* swa_bwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

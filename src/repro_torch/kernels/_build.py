@@ -3,11 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use with ``nvcc`` for ``sm_90a`` into its own shared library, which is loaded
 with :mod:`ctypes`.  Libraries live under ``build/repro_torch/`` at the root
-of the checkout (git-ignored), keyed by a hash of the source, the shared
-``csrc/common.cuh`` and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Each build's ``nvcc`` output, with the registers
-and spills ``ptxas`` reports (``-Xptxas -v``), is kept beside its library
-(:func:`build_log`).
+of the checkout (git-ignored), keyed by a hash of the source, every shared
+header ``csrc/*.cuh`` and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.  Each build's ``nvcc`` output, with
+the registers and spills ``ptxas`` reports (``-Xptxas -v``), is kept beside
+its library (:func:`build_log`).
 :func:`build` starts one ``nvcc`` per source it is given, all at once;
 :func:`library` builds its one source that way on first use.
 
@@ -57,7 +57,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # any source may include any
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

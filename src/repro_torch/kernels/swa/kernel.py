@@ -15,12 +15,23 @@ runs the plain version, :func:`swa_ref`.
 
 :func:`swa_bwd_kernel` wraps the backward in ``csrc/swa_bwd.cu``, which
 has no TPU counterpart (the JAX package differentiates the forward by
-autodiff): ``swa_bwd_dq`` (one block per batch, query head and 64-query
-tile: the rows' log-sum-exp and ``D = rowsum(dO * O)``, then dQ) and
-``swa_bwd_dkdv`` (one block per batch, KV head and 32-key tile, over the
-group's query heads: dK and dV, no atomics), CUDA-core f32 FMAs for both
-types; shared memory :func:`bwd_smem_bytes`.  Its plain version is
-:func:`swa_bwd_ref`.
+autodiff).  What bounds it is operations: five products over the band
+(S, dP, dQ, dK, dV), 0.163 ms in bf16 at the model's (1, 10/1, 4096, 256)
+with window 2048; recomputing the rows' log-sum-exp (the forward keeps
+none) and splitting dQ from dK/dV without atomics make it eight.  bfloat16
+runs them on the tensor cores with ``wgmma`` out of bf16 tiles in shared
+memory, as the forward does: ``swa_bwd_dq`` (one block of two warpgroups
+per batch, query head and 128-query tile: the rows' LSE in a first pass
+over the band, ``D = rowsum(dO * O)``, then dQ += dS·K with dS rounded to
+bf16 in registers) and ``swa_bwd_dkdv`` (one block per batch, KV head,
+64-key tile and part of the group's query heads, :func:`bwd_parts`:
+warpgroup 0 computes Pᵀ and dV, warpgroup 1 dPᵀ, dSᵀ and dK, Pᵀ handed
+across in shared memory; each part writes f32 partial sums that
+``swa_bwd_fold`` adds in a fixed order and casts).  float32 keeps CUDA-core
+FMA kernels (its 1e-5 bar rules out bf16 and TF32 products; the training
+step runs bf16).  No atomics: the same inputs give the same bits.  Shared
+memory :func:`bwd_smem_bytes`.  Its plain version is :func:`swa_bwd_ref`
+(and :func:`swa_bwd_fold_ref` the fold's).
 """
 from __future__ import annotations
 
@@ -29,7 +40,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.swa.ref import swa_bwd_ref, swa_ref
+from repro_torch.kernels.swa.ref import (swa_bwd_fold_ref, swa_bwd_ref,
+                                        swa_ref)
 
 F32_BLOCK_Q, F32_BLOCK_K, F32_WARPS = 64, 32, 8   # kBQ, kBK, kWarps in swa.cu
 WG_BLOCK_Q, WG_BLOCK_K = 128, 64                  # kWQ, kWK in swa.cu
@@ -41,22 +53,53 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p]
 
 
-# both entry points of swa_bwd.cu: 8 pointers, then the same scalars
+# swa_bwd_dq_launch: 8 pointers, then the scalars; swa_bwd_dkdv_launch
+# adds the partial sums' pointer and their number of parts before smem
 _BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_size_t, ctypes.c_void_p]
+_DKDV_ARGTYPES = _BWD_ARGTYPES[:-2] + [ctypes.c_void_p, ctypes.c_int,
+                                       *_BWD_ARGTYPES[-2:]]
+_FOLD_ARGTYPES = [ctypes.c_void_p] * 4 + [
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
+BWD_BLOCK_Q, BWD_TILE = 128, 64        # kDqRows, kTile in swa_bwd.cu
+# swa_bwd_dkdv in bf16 splits a group's query heads into as many parts as
+# keep its blocks within this many (the H100's SMs; a constant, so the
+# split, and with it the bits, depend on the shapes alone)
+PARTS_BLOCKS = 132
 
 
-def bwd_smem_bytes(head_dim: int) -> dict[str, int]:
+def bwd_smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16
+                   ) -> dict[str, int]:
     """Dynamic shared memory of one block of each backward kernel, as
-    swa_bwd.cu lays it out in f32 for both types (Dp = D rounded up to 4;
-    rows a lane reads padded to Dp + 4): dq holds Q and dO (64 rows) and a
-    32-key K and V tile; dkdv its 32 keys' K and V, a 32-query Q and dO tile
-    and their LSE and D."""
+    swa_bwd.cu lays it out.  bf16 (D zero-filled to Dp = 64, 128 or 256, and
+    1024 bytes to align the swizzled tiles): dq holds Q and dO (128 rows),
+    two 64-key K stages, one V tile and the rows' D; dkdv its 64 keys' K and
+    V, two stages of 64-query Q and dO tiles with their LSE and D, and the
+    64 x 64 f32 Pᵀ handed between its warpgroups.  f32, in f32 (Dp = D
+    rounded up to 4; rows a lane reads padded to Dp + 4): dq holds Q and dO
+    (64 rows) and a 32-key K and V tile; dkdv its 32 keys' K and V, a
+    32-query Q and dO tile and their LSE and D."""
+    if dtype == torch.bfloat16:
+        dp = next(p for p in (64, 128, 256) if head_dim <= p)
+        return {"swa_bwd_dq": 2 * dp * (2 * BWD_BLOCK_Q + 3 * BWD_TILE)
+                + 4 * BWD_BLOCK_Q + 1024,
+                "swa_bwd_dkdv": 2 * dp * 6 * BWD_TILE + 4 * 4 * BWD_TILE
+                + 4 * BWD_TILE * BWD_TILE + 1024}
     dp = (head_dim + 3) // 4 * 4
     return {"swa_bwd_dq": 4 * (2 * 64 * dp + 2 * 32 * (dp + 4)),
             "swa_bwd_dkdv": 4 * (2 * 32 * dp + 2 * 32 * (dp + 4) + 2 * 32)}
+
+
+def bwd_parts(batch: int, hkv: int, seq: int, group: int) -> int:
+    """Parts of a KV head's group of query heads that ``swa_bwd_dkdv`` runs
+    as blocks of their own in bf16: the most that keep batch x hkv x
+    64-key tiles x parts within PARTS_BLOCKS, at least 1, at most the
+    group.  2 at the model's (1, 10/1, 4096)."""
+    blocks = batch * hkv * -(-seq // BWD_TILE)
+    return max(1, min(group, PARTS_BLOCKS // max(blocks, 1)))
 
 
 def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
@@ -141,23 +184,31 @@ def _check_bwd(q, k, v, **like_q) -> int:
 
 
 def _bwd_launch(entry: str, tensors, lse, delta, dtype_code, q, hkv,
-                window) -> None:
+                window, partial: torch.Tensor | None = None,
+                parts: int = 1) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{entry} launches a CUDA kernel and takes CUDA "
                          f"tensors, got {q.device} (swa_bwd_kernel runs the "
                          "plain version on CPU ones)")
     b, hq, s, d = q.shape
-    smem = bwd_smem_bytes(d)[entry]
+    smem = bwd_smem_bytes(d, q.dtype)[entry]
     _build.require_smem(f"{entry} at head_dim {d}", smem, q.device)
     c_strides = (ctypes.c_int64 * 24)(*[
         st for t in tensors
         for st in (t.stride()[:3] if t is not None else (0, 0, 0))])
-    ptrs = [t.data_ptr() for t in tensors if t is not None]
+    # the entry's six tensor slots: q, k, v, o, dO, dq or q, k, v, dO, dk, dv
+    slots = (0, 1, 2, 4, 6, 7) if entry == "swa_bwd_dkdv" else range(6)
+    ptrs = [tensors[i].data_ptr() if tensors[i] is not None else None
+            for i in slots]
+    extra, argtypes = [], _BWD_ARGTYPES
+    if entry == "swa_bwd_dkdv":
+        extra = [partial.data_ptr() if partial is not None else None, parts]
+        argtypes = _DKDV_ARGTYPES
     with torch.cuda.device(q.device):
-        _build.launch(entry, "swa_bwd", _BWD_ARGTYPES, *ptrs,
+        _build.launch(entry, "swa_bwd", argtypes, *ptrs,
                       lse.data_ptr(), delta.data_ptr(), dtype_code,
                       ctypes.addressof(c_strides), b, hq, hkv, s, d,
-                      min(window, s), 1.0 / (d ** 0.5), smem,
+                      min(window, s), 1.0 / (d ** 0.5), *extra, smem,
                       _build.stream_handle(q.device), entry=entry)
 
 
@@ -177,17 +228,86 @@ def swa_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, lse, delta
 
 
-def swa_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                 *, window: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """CUDA tensors only: launches ``swa_bwd_dkdv`` with :func:`swa_bwd_dq`'s
-    ``lse`` and ``delta`` -> (dk, dv) in k's and v's layouts."""
+def _check_dkdv(q, k, v, dout, lse, delta) -> int:
     dtype_code = _check_bwd(q, k, v, dout=dout)
     if lse.shape != q.shape[:3] or delta.shape != lse.shape or any(
             t.dtype != torch.float32 or not t.is_contiguous()
             for t in (lse, delta)):
         raise ValueError("swa_bwd_dkdv takes swa_bwd_dq's lse and delta: "
                          f"contiguous f32 {tuple(q.shape[:3])}")
+    return dtype_code
+
+
+def swa_bwd_dkdv_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         dout: torch.Tensor, lse: torch.Tensor,
+                         delta: torch.Tensor, *, window: int) -> torch.Tensor:
+    """bf16 CUDA tensors only: launches ``swa_bwd_dkdv`` with
+    :func:`swa_bwd_dq`'s ``lse`` and ``delta`` -> each part's f32 partial
+    dK and dV, (2, parts, B, Hkv, S, D) with ``parts`` :func:`bwd_parts`."""
+    dtype_code = _check_dkdv(q, k, v, dout, lse, delta)
+    if q.dtype != torch.bfloat16:
+        raise ValueError("swa_bwd_dkdv writes partial sums in bf16 only, "
+                         f"got {q.dtype}")
+    q, k, v, dout = (_unit_last(t) for t in (q, k, v, dout))
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    parts = bwd_parts(b, hkv, s, hq // hkv)
+    partial = torch.empty((2, parts, b, hkv, s, d), dtype=torch.float32,
+                          device=q.device)
+    if q.numel():
+        _bwd_launch("swa_bwd_dkdv", (q, k, v, None, dout, None, None, None),
+                    lse, delta, dtype_code, q, hkv, window, partial, parts)
+    else:
+        partial.zero_()
+    return partial
+
+
+def swa_bwd_fold(partial: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) in bf16, in k's and v's layouts: the sum over the parts, in
+    order, of :func:`swa_bwd_dkdv_partial`'s ``partial``.  Launches
+    ``swa_bwd_fold`` on a CUDA tensor; runs :func:`swa_bwd_fold_ref` on a
+    CPU one."""
+    if (partial.dim() != 6 or partial.shape[0] != 2
+            or partial.shape[2:] != k.shape or v.shape != k.shape
+            or partial.dtype != torch.float32 or not partial.is_contiguous()
+            or k.dtype != torch.bfloat16 or v.dtype != k.dtype
+            or len({t.device for t in (partial, k, v)}) != 1):
+        raise ValueError("swa_bwd_fold takes contiguous f32 partial sums "
+                         "(2, parts, B, Hkv, S, D) and bf16 k and v "
+                         f"(B, Hkv, S, D) on one device, got "
+                         f"{tuple(partial.shape)} {partial.dtype} and "
+                         f"{tuple(k.shape)} {k.dtype}")
+    if partial.device.type == "cpu":
+        return swa_bwd_fold_ref(partial, k.dtype)
+    dk, dv = torch.empty_like(_unit_last(k)), torch.empty_like(_unit_last(v))
+    if dk.numel():
+        b, hkv, s, d = k.shape
+        c_strides = (ctypes.c_int64 * 6)(*dk.stride()[:3], *dv.stride()[:3])
+        with torch.cuda.device(k.device):
+            _build.launch("swa_bwd_fold", "swa_bwd", _FOLD_ARGTYPES,
+                          partial.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                          ctypes.addressof(c_strides), b, hkv, s, d,
+                          partial.shape[1], _build.stream_handle(k.device),
+                          entry="swa_bwd_fold")
+    return dk, dv
+
+
+def swa_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 *, window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA tensors only: launches ``swa_bwd_dkdv`` with :func:`swa_bwd_dq`'s
+    ``lse`` and ``delta`` -> (dk, dv) in k's and v's layouts; in bf16 the
+    kernel writes partial sums (:func:`swa_bwd_dkdv_partial`) and
+    ``swa_bwd_fold`` adds them (:func:`swa_bwd_fold`)."""
+    dtype_code = _check_dkdv(q, k, v, dout, lse, delta)
+    if q.dtype == torch.bfloat16:
+        if q.device.type != "cuda":
+            raise ValueError("swa_bwd_dkdv launches a CUDA kernel and takes "
+                             f"CUDA tensors, got {q.device} (swa_bwd_kernel "
+                             "runs the plain version on CPU ones)")
+        return swa_bwd_fold(swa_bwd_dkdv_partial(q, k, v, dout, lse, delta,
+                                                 window=window), k, v)
     q, k, v, dout = (_unit_last(t) for t in (q, k, v, dout))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel():
@@ -205,7 +325,8 @@ def swa_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of :func:`swa_kernel`'s output ``out`` for q, k, v, with
     ``dout`` its gradient (out's shape and type), each in its input's
     memory layout.  On CUDA tensors launches ``swa_bwd_dq`` then
-    ``swa_bwd_dkdv``; on CPU ones runs :func:`swa_bwd_ref`."""
+    ``swa_bwd_dkdv`` (and in bf16 ``swa_bwd_fold``); on CPU ones runs
+    :func:`swa_bwd_ref`."""
     if window < 1:
         raise ValueError(f"swa_bwd: window must be >= 1, got {window}")
     if q.device.type == "cpu":

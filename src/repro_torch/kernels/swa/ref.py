@@ -1,7 +1,9 @@
 """Torch oracles for causal sliding-window (local) attention with GQA (port
 of ``repro.kernels.swa.ref``); :func:`swa_ref` is also the plain version the
-K6 wrapper runs on CPU tensors, and :func:`swa_bwd_ref`, its
-vector-Jacobian product, the plain version of K6's backward.
+K6 wrapper runs on CPU tensors, :func:`swa_bwd_ref`, its
+vector-Jacobian product, the plain version of K6's backward, and
+:func:`swa_bwd_fold_ref` the plain version of the backward's fold of
+partial sums.
 
 ``out[b,h,i] = softmax_j(q_i . k_j / sqrt(D)) @ v`` over keys
 ``j in (i - window, i]`` (causal, the window includes the current token).
@@ -76,3 +78,13 @@ def swa_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = forward(*leaves, window=window)
         return torch.autograd.grad(out, leaves, dout)
+
+
+def swa_bwd_fold_ref(partial: torch.Tensor, dtype: torch.dtype
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) from f32 partial sums (2, parts, B, Hkv, S, D): the parts
+    added in order, one f32 addition at a time, then cast to ``dtype``."""
+    acc = partial[:, 0].clone()
+    for p in range(1, partial.shape[1]):
+        acc += partial[:, p]
+    return acc[0].to(dtype), acc[1].to(dtype)

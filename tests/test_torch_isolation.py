@@ -386,6 +386,21 @@ def test_library_paths_cover_the_shared_header(monkeypatch, tmp_path):
     assert _build._lib_path("swa") != before
 
 
+@pytest.mark.parametrize("header", ["common.cuh", "wgmma.cuh"])
+def test_library_paths_cover_every_header(monkeypatch, tmp_path, header):
+    """An edit to any shared header in csrc/ changes the library path of
+    every source, so no stale library is loaded after it."""
+    assert header in {p.name for p in _build.CSRC.glob("*.cuh")}
+    for p in _build.CSRC.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    names = sorted(p.stem for p in tmp_path.glob("*.cu"))
+    before = {n: _build._lib_path(n) for n in names}
+    with open(tmp_path / header, "a") as fh:
+        fh.write("// edited\n")
+    assert all(_build._lib_path(n) != before[n] for n in names)
+
+
 def test_chip_smoke_lm_limits_refuse_a_wrong_kernel():
     """chip_smoke.py's K5/K6 limits pass the bf16 rounding of the op and
     refuse a lost key tile and outputs 5% off, which the 3e-2 absolute

@@ -11,9 +11,11 @@ arithmetic of the K2 and K6 tensor-core paths, on the CPU (no jax, no card).
   3xTF32 split (``cvt.rna`` to TF32, the small products summed apart) held
   to the f32 limit of 2e-5 over fused sweeps, which plain TF32 misses.
 
-- Shared memory of K6 (bf16 tensor-core and f32 layouts) and of K3 (one
-  buffer at T = 1, two with margins for fused sweeps) against the H100's
-  opt-in 232,448 B per block.
+- Shared memory of K6 (bf16 tensor-core and f32 layouts; its backward's
+  bf16 layouts) and of K3 (one buffer at T = 1, two with margins for fused
+  sweeps) against the H100's opt-in 232,448 B per block; the parts K6's
+  backward splits a group's heads into, and its fold of their partial
+  sums.
 - The compacted tap list K3 takes: ascending order kept, zero taps dropped,
   laid out as ``struct Taps`` of ``csrc/stencil2d.cu``.
 - K4's ring of haloed planes against the same limit, its block rule, the
@@ -33,7 +35,9 @@ arithmetic of the K2 and K6 tensor-core paths, on the CPU (no jax, no card).
   f32, the scale on the f32 scores, an online softmax over 64-key tiles, P
   rounded to bf16 before an f32 P·V) held to ``chip_smoke.py``'s limits
   against the plain version, so the design fits the limits before any run
-  on the card.
+  on the card; and one of K6's bf16 backward (bf16 products summed in f32,
+  P and dS rounded to bf16 before dV, dK and dQ) held to its ``GRAD_TOL``
+  against the vector-Jacobian product of the plain version.
 """
 import math
 import re
@@ -57,6 +61,7 @@ from repro_torch.kernels.stencil3d.ops import (DEFAULT_BLOCK, _auto_block,
                                                fit_block)
 from repro_torch.kernels.swa import kernel as k6
 from repro_torch.kernels.swa.ops import swa_plain
+from repro_torch.kernels.swa.ref import swa_bwd_fold_ref, swa_bwd_ref
 
 ROOT = Path(__file__).resolve().parents[1]
 LIMIT = _build.H100_SMEM_PER_BLOCK
@@ -272,6 +277,60 @@ def test_swa_tensor_core_smem(d, want):
 @pytest.mark.parametrize("d", [18, 40, 256])
 def test_swa_f32_smem_fits(d):
     assert k6.smem_bytes(d, torch.float32) <= LIMIT
+
+
+@pytest.mark.parametrize("d,want", [(32, (58_880, 67_584)),
+                                    (40, (58_880, 67_584)),
+                                    (64, (58_880, 67_584)),
+                                    (128, (116_224, 116_736)),
+                                    (256, (230_912, 215_040))])
+def test_swa_bwd_tensor_core_smem_fits(d, want):
+    """K6's bf16 backward (swa_bwd.cu's dq_smem and dkdv_smem; D
+    zero-filled to Dp = 64, 128 or 256): dq 2 B x (128 Q + 128 dO + 2 x 64 K
+    + 64 V rows) x Dp, the rows' f32 D and 1024 B to align the swizzled
+    tiles; dkdv 2 B x (64 K + 64 V + 2 stages x (64 Q + 64 dO) rows) x Dp,
+    two stages of 64 f32 LSE and D, the 64 x 64 f32 Pᵀ and 1024 B."""
+    got = k6.bwd_smem_bytes(d, torch.bfloat16)
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    assert got["swa_bwd_dq"] == 2 * dp * 448 + 4 * 128 + 1024 == want[0]
+    assert got["swa_bwd_dkdv"] == (2 * dp * 384 + 4 * 4 * 64 + 4 * 64 * 64
+                                   + 1024) == want[1]
+    assert max(want) <= LIMIT
+
+
+@pytest.mark.parametrize("b,hkv,s,group,want", [
+    (1, 1, 4096, 10, 2),        # the model's: 64 key tiles, 128 blocks
+    (1, 1, 4097, 10, 2),
+    (2, 1, 4096, 10, 1),        # 128 key tiles already
+    (1, 1, 65, 10, 10),         # two key tiles: every head a part
+    (1, 2, 300, 3, 3),
+    (1, 1, 8192, 3, 1),
+])
+def test_swa_bwd_parts_fill_the_card(b, hkv, s, group, want):
+    """swa_bwd_dkdv splits a group's heads into the most parts that keep
+    its blocks within 132, at least 1 and at most the group, from the
+    shapes alone."""
+    parts = k6.bwd_parts(b, hkv, s, group)
+    assert parts == want
+    blocks = b * hkv * -(-s // 64)
+    assert parts == 1 or blocks * parts <= k6.PARTS_BLOCKS
+
+
+def test_swa_bwd_fold_sums_the_parts_in_order():
+    """On a CPU tensor the fold runs its plain version: the parts added in
+    order, one f32 addition at a time, then one cast to bf16."""
+    g = torch.Generator().manual_seed(3)
+    part = torch.randn(2, 3, 1, 2, 70, 40, generator=g) * 100
+    k = torch.empty(1, 2, 70, 40, dtype=torch.bfloat16)
+    dk, dv = k6.swa_bwd_fold(part, k, k)
+    for got, plane in ((dk, part[0]), (dv, part[1])):
+        assert got.dtype == torch.bfloat16 and got.shape == k.shape
+        assert torch.equal(got, (plane[0] + plane[1] + plane[2]).to(
+            torch.bfloat16))
+    assert all(torch.equal(a, b) for a, b in zip(
+        (dk, dv), swa_bwd_fold_ref(part, torch.bfloat16)))
+    with pytest.raises(ValueError, match="partial sums"):
+        k6.swa_bwd_fold(part[:, :, :, :1], k, k)
 
 
 @pytest.mark.parametrize("ry,rx,t,by,bx,want", [
@@ -559,6 +618,59 @@ def test_k6_bf16_rounding_fits_chip_smoke_limits():
     assert rel <= chip_smoke.REL_TOL[("swa", bf)]
     # the rounding of P is visible: the emulation is not the plain version
     assert err > 0
+
+
+def emulate_k6_bwd_bf16(q, k, v, dout, *, window: int):
+    """K6's bf16 backward arithmetic in torch (a test helper, never on the
+    main path): products of bf16 values summed in f32; the rows' LSE of the
+    f32 scores (scale in f32); P = exp(S - LSE) and dS = P (dP - D) in f32,
+    D = rowsum(dO * O) with O the bf16 forward output
+    (:func:`emulate_k6_bf16`); P and dS rounded to bf16 before dV = Pᵀ dO,
+    dK = scale dSᵀ Q and dQ = scale dS K, each summed in f32 (dK and dV
+    over the group's heads) and cast to bf16 once."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    bf = torch.bfloat16
+    qf, gf = q.float(), dout.float()
+    kf = k.repeat_interleave(group, dim=1).float()
+    vf = v.repeat_interleave(group, dim=1).float()
+    scale = 1.0 / math.sqrt(d)
+    i = torch.arange(s)[:, None]
+    j = torch.arange(s)[None, :]
+    mask = (j <= i) & (j > i - window)
+    sc = ((qf @ kf.transpose(-1, -2)) * scale).masked_fill(~mask, -math.inf)
+    p = torch.exp(sc - torch.logsumexp(sc, -1, keepdim=True))
+    o = emulate_k6_bf16(q, k, v, window=window).float()
+    delta = (gf * o).sum(-1, keepdim=True)
+    ds = p * (gf @ vf.transpose(-1, -2) - delta)
+    pb, dsb = p.to(bf).float(), ds.to(bf).float()
+    dq = (dsb @ kf) * scale
+    dk = ((dsb.transpose(-1, -2) @ qf) * scale).view(b, hkv, group, s, d)
+    dv = (pb.transpose(-1, -2) @ gf).view(b, hkv, group, s, d)
+    return dq.to(bf), dk.sum(2).to(bf), dv.sum(2).to(bf)
+
+
+def test_k6_bwd_bf16_rounding_fits_grad_tol():
+    """D = 256, GQA 4:1, S = 600, window 256: the emulated bf16 backward
+    within chip_smoke.py's GRAD_TOL of the vector-Jacobian product of the
+    plain version (swa_bwd_ref), and the rounding of P and dS visible."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rng = np.random.default_rng(1)
+    bf = torch.bfloat16
+    q, k, v, dout = (
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(bf)
+        for shape in ((1, 4, 600, 256), (1, 1, 600, 256), (1, 1, 600, 256),
+                      (1, 4, 600, 256)))
+    got = emulate_k6_bwd_bf16(q, k, v, dout, window=256)
+    want = swa_bwd_ref(q, k, v, dout, window=256)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == bf
+        good, err, rel = chip_smoke.grad_error("swa", bf, g, w, dout)
+        assert good, (name, err, rel)
+        # the rounding of P and dS is visible: not the plain version
+        assert err > 0, name
 
 
 def test_swa_takes_strided_views_on_cpu():
