@@ -129,14 +129,15 @@ and the other LM families on one NVIDIA GPU (H100).
    ``families`` phases: K5's and K6's backward at RecurrentGemma-2B's
    shapes on (1, 4096) tokens in f32 and bf16, through the ops' autograd
    (dx as K5 on the flipped gradient, dw/db as ``conv1d_bwd_wb``; dq, dk,
-   dv as ``swa_bwd_dq`` and ``swa_bwd_dkdv``, in bf16 the latter's partial
-   sums added by ``swa_bwd_fold``) against the vector-Jacobian products of
+   dv as ``swa_bwd_dq`` and ``swa_bwd_dkdv``, the latter's partial sums
+   added by ``swa_bwd_fold``) against the vector-Jacobian products of
    their plain versions (``GRAD_TOL``; the fold bit for bit against its
    own), each timed beside its plain version, a library call (the backward
    of ``F.conv1d`` with ``groups=C``; of ``scaled_dot_product_attention``
-   with a band mask) and its bound, K6's rows also with ``sum_ms`` (every
-   launch of its backward) beside ``library_bwd_ms`` (the one library
-   backward of q, k and v); then one period (3 layers) at full width, bf16 activations:
+   with a band mask) and its bound (K6's f32 ones with the peak that sets
+   them, ``ops_bound``), K6's rows also with ``sum_ms`` (every launch of
+   its backward) beside ``library_bwd_ms`` (the one library backward of
+   q, k and v); then one period (3 layers) at full width, bf16 activations:
    the loss's gradients and one ``make_train_step`` through the kernels
    and again through the plain versions (``train_step_check``); then the
    whole model (26 layers, d_model 2560, f32 weights) trained for
@@ -221,9 +222,9 @@ from repro_torch.kernels.simbatch.ref import simbatch_plain  # noqa: E402
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref  # noqa: E402
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref  # noqa: E402
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref  # noqa: E402
-from repro_torch.kernels.swa.kernel import (swa_bwd_dkdv,  # noqa: E402
-                                            swa_bwd_dkdv_partial, swa_bwd_dq,
-                                            swa_bwd_fold, swa_bwd_kernel)
+from repro_torch.kernels.swa.kernel import (swa_bwd_dkdv_partial,  # noqa: E402
+                                            swa_bwd_dq, swa_bwd_fold,
+                                            swa_bwd_kernel)
 from repro_torch.kernels.swa.ops import swa_plain  # noqa: E402
 from repro_torch.kernels.swa.ref import (swa_bwd_fold_ref,  # noqa: E402
                                          swa_bwd_ref, swa_ref)
@@ -276,11 +277,26 @@ GRAD_TOL = {("conv1d", torch.float32): (1e-5, 2e-5),
 # decode against forward at full width: the bar of tests/test_models.py
 DECODE_TOL = 5e-4
 # Datasheet peaks (dense, no sparsity): HBM bytes/s, FP32 (non-tensor)
-# flop/s and BF16 tensor-core flop/s of the two H100 parts; the first two
-# from the roofline's machines.
+# flop/s, BF16 and TF32 tensor-core flop/s of the two H100 parts; the first
+# two from the roofline's machines.
 H100 = {"sxm": H100_SXM, "pcie": H100_PCIE}
-PEAKS = {part: (H100[part].bw_gbps * 1e9, H100[part].peak_gflops * 1e9, bf16)
-         for part, bf16 in (("sxm", 989e12), ("pcie", 756e12))}
+PEAKS = {part: (H100[part].bw_gbps * 1e9, H100[part].peak_gflops * 1e9, bf16,
+                tf32)
+         for part, bf16, tf32 in (("sxm", 989e12, 494.5e12),
+                                  ("pcie", 756e12, 378e12))}
+
+
+def ops_bound(flops: float, dtype: torch.dtype, part: str
+              ) -> tuple[float, str]:
+    """Least ms for ``flops`` of matrix products in ``dtype``, and the peak
+    that sets it: bf16 at the BF16 tensor-core peak; f32 the lesser of the
+    FP32 CUDA cores' and of three TF32 products each (3xTF32, the least an
+    f32-accurate product takes on the tensor cores)."""
+    _, fp32, bf16, tf32 = PEAKS[part]
+    if dtype == torch.bfloat16:
+        return flops / bf16 * 1e3, "bf16 tensor cores"
+    return min((flops / fp32 * 1e3, "FP32 cores"),
+               (3 * flops / tf32 * 1e3, "3xTF32 tensor cores"))
 ARCH = "recurrentgemma-2b"
 PREFILL_BATCH, PREFILL_SEQ = 2, 4096      # cut from prefill_32k's (32, 32768)
 DECODE_LAYERS, DECODE_SEQ = 5, 2112       # one period + the 2-layer tail
@@ -311,7 +327,7 @@ KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
     "swa_bwd_dkdv": ("cuda", "src/repro_torch/csrc/swa_bwd.cu",
                      "none: the JAX package defines no backward (it takes "
                      "autodiff of src/repro/kernels/swa/kernel.py:99)"),
-    # bf16: the fixed-order sum of swa_bwd_dkdv's partial dK and dV
+    # the fixed-order sum of swa_bwd_dkdv's partial dK and dV
     "swa_bwd_fold": ("cuda", "src/repro_torch/csrc/swa_bwd.cu",
                      "none: the JAX package defines no backward (it takes "
                      "autodiff of src/repro/kernels/swa/kernel.py:99)"),
@@ -383,7 +399,7 @@ class Case:
         """Least time (ms) the card could take for the function, whatever
         the kernel: one read and one write of the grids at HBM rate, or one
         FMA per non-zero tap per point and sweep at the FP32 datasheet rate."""
-        bw, fp32, _ = PEAKS[part]
+        bw, fp32 = PEAKS[part][:2]
         n = self.x.numel()
         nbytes = 2 * n * self.x.element_size()
         taps = sum(1 for cs in self.spec.coeffs for c in cs if c != 0.0)
@@ -673,21 +689,25 @@ class LMCase:
         return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
                                               enable_gqa=True)
 
-    def bound(self, part: str) -> tuple[float, str]:
-        bw, fp32, bf16 = PEAKS[part]
+    def bound(self, part: str) -> tuple[float, str, str]:
+        """(ms, "bytes" or "operations", the peak the operations' time is
+        taken at)."""
+        bw, fp32 = PEAKS[part][:2]
         nbytes = sum(a.numel() * a.element_size() for a in self.args)
         if self.kernel == "conv1d":
             x, w = self.args
             nbytes += x.numel() * x.element_size()           # y
-            flops, peak = 2 * w.shape[0] * x.numel(), fp32
+            t_ops, peak = 2 * w.shape[0] * x.numel() / fp32 * 1e3, "FP32 cores"
         else:
             q = self.args[0]
             b, hq, s, d = q.shape
             nbytes += q.numel() * q.element_size()           # out
-            flops = band_pairs(s, self.window) * b * hq * 4 * d
-            peak = fp32 if self.dtype == torch.float32 else bf16
-        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            t_ops, peak = ops_bound(band_pairs(s, self.window) * b * hq * 4 * d,
+                                    self.dtype, part)
+        t_bytes = nbytes / bw * 1e3
+        if t_bytes >= t_ops:
+            return t_bytes, "bytes", peak
+        return t_ops, "operations", peak
 
 
 def lm_kernel_cases(dev: torch.device, seed: int) -> list[LMCase]:
@@ -973,7 +993,7 @@ def lm_phase(dev: torch.device, seed: int, part: str,
                                                              flush=flush)),
                          instance=dataclasses.asdict(
                              launch_plan(*case.args)))
-            t["bound_ms"], t["bound_by"] = case.bound(part)
+            t["bound_ms"], t["bound_by"], t["bound_peak"] = case.bound(part)
             dt = str(case.dtype).removeprefix("torch.")
             # the yardstick computes the same function (printed, not gated)
             library_err = (case.library().float()
@@ -999,6 +1019,7 @@ def lm_phase(dev: torch.device, seed: int, part: str,
                                  "library_ms")},
             **{k: t[k] for k in ("ms_warm", "op_ms", "instance") if k in t},
             "ms_f32": f32["ms"], "bound_ms_f32": f32["bound_ms"],
+            "bound_by_f32": f32["bound_by"], "bound_peak_f32": f32["bound_peak"],
             "library_ms_f32": f32["library_ms"],
             **{f"{k}_f32": f32[k] for k in ("ms_warm", "op_ms") if k in f32},
             "shape": [list(a.shape) for a in case.args], "part": part})
@@ -1030,13 +1051,13 @@ def train_launches(cfg, remat: str) -> dict[str, int]:
     backward pass (a ctypes launch is no aten op, so selective remat
     recomputes it too), K5 once more for dx (on the flipped gradient), and
     each backward kernel once a layer (the fold of K6's partial dK and dV
-    in bf16 only)."""
+    too)."""
     kinds = [cfg.kind_of_layer(i) for i in range(cfg.num_layers)]
     n_rec, n_loc = kinds.count("rglru"), kinds.count("local")
     fwd = 1 if remat == "none" else 2
     return {"conv1d": n_rec * (fwd + 1), "conv1d_bwd_wb": n_rec,
             "swa": n_loc * fwd, "swa_bwd_dq": n_loc, "swa_bwd_dkdv": n_loc,
-            "swa_bwd_fold": n_loc if cfg.dtype == "bfloat16" else 0}
+            "swa_bwd_fold": n_loc}
 
 
 @dataclasses.dataclass
@@ -1089,13 +1110,17 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
     """ms (median of CUDA events), plain ms, library ms and bound of each
     backward kernel of ``case``, and of K5's dx path (K5 on the flipped
     gradient)."""
-    bw, fp32, bf16 = PEAKS[part]
+    bw, fp32 = PEAKS[part][:2]
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
 
-    def bound(nb, flops, peak):
-        t_bytes, t_ops = nb / bw * 1e3, flops / peak * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                            "operations")
+    def bound(nb, flops, dtype=None):
+        """(ms, "bytes" or "operations", the operations' peak): ``dtype``
+        for matrix products (``ops_bound``), else FP32 cores."""
+        t_ops, peak = (ops_bound(flops, dtype, part) if dtype is not None
+                       else (flops / fp32 * 1e3, "FP32 cores"))
+        t_bytes = nb / bw * 1e3
+        return ((t_bytes, "bytes", peak) if t_bytes >= t_ops
+                else (t_ops, "operations", peak))
 
     def med(fn, reps, cold=None):
         return statistics.median(event_times(fn, reps, flush=cold))
@@ -1116,18 +1141,15 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
             plain_ms=med(lambda: conv1d_bwd_ref(x, w, bb, dy), 5, flush),
             library_ms=med(lambda: torch.autograd.grad(
                 lib_wb, (wt, bt), dyt, retain_graph=True), 5, flush),
-            bound=bound(nbytes(x, dy, w, bb),
-                        (2 * k + 1) * x.numel(), fp32))
+            bound=bound(nbytes(x, dy, w, bb), (2 * k + 1) * x.numel()))
         out["conv1d_dx"] = dict(
             ms=med(lambda: conv1d_kernel(dy.flip(1), w).flip(1), 20, flush),
             library_ms=med(lambda: torch.autograd.grad(
                 lib_x, xg, dyt, retain_graph=True), 5, flush),
-            bound=bound(nbytes(x, dy), 2 * k * x.numel(), fp32))
+            bound=bound(nbytes(x, dy), 2 * k * x.numel()))
         return out
     q, k, v, do = case.args
     b, hq, s, d = q.shape
-    bf = case.dtype == torch.bfloat16
-    peak = fp32 if case.dtype == torch.float32 else bf16
     pairs = band_pairs(s, case.window) * b * hq * 2 * d    # flops a product
     o = sliding_window_attention(q, k, v, window=case.window, backend="cuda")
     _, lse, delta = swa_bwd_dq(q, k, v, o, do, window=case.window)
@@ -1138,23 +1160,21 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
     lib = F.scaled_dot_product_attention(*leaves, attn_mask=band,
                                          enable_gqa=True)
     plain = swa_ref(*leaves, window=case.window)
-    # the whole backward: every launch (dq, dkdv and in bf16 the fold)
-    # against the one library backward of q, k and v
+    # the whole backward: every launch (dq, dkdv and the fold) against the
+    # one library backward of q, k and v
     whole = dict(
         sum_ms=med(lambda: swa_bwd_kernel(q, k, v, o, do,
                                           window=case.window), 5),
         library_bwd_ms=med(lambda: torch.autograd.grad(
             lib, leaves, do, retain_graph=True), 5))
-    # in bf16 swa_bwd_dkdv is timed alone, on partial sums, and its fold
-    # apart; in f32 it writes dk and dv
-    dkdv = (lambda: swa_bwd_dkdv_partial(q, k, v, do, lse, delta,
-                                         window=case.window)) if bf else (
-        lambda: swa_bwd_dkdv(q, k, v, do, lse, delta, window=case.window))
+    # swa_bwd_dkdv is timed alone, on partial sums, and its fold apart
     for name, wrt, fn, nb, products in (
             ("swa_bwd_dq", leaves[:1],
              lambda: swa_bwd_dq(q, k, v, o, do, window=case.window),
              nbytes(q, k, v, o, do, q, lse, delta), 3),
-            ("swa_bwd_dkdv", leaves[1:], dkdv,
+            ("swa_bwd_dkdv", leaves[1:],
+             lambda: swa_bwd_dkdv_partial(q, k, v, do, lse, delta,
+                                          window=case.window),
              nbytes(q, k, v, do, lse, delta, k, v), 4)):
         out[name] = dict(
             ms=med(fn, 5),
@@ -1162,24 +1182,21 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
                 plain, wrt, do, retain_graph=True), 3),
             library_ms=med(lambda: torch.autograd.grad(
                 lib, wrt, do, retain_graph=True), 5),
-            bound=bound(nb, products * pairs, peak),
+            bound=bound(nb, products * pairs, case.dtype),
             # the whole backward's own bound: 5 products (QK^T, dO V^T,
             # dP K, dS^T Q, P^T dO); the split without atomics adds two
             whole_bound_ms=bound(nbytes(q, k, v, o, do, q, k, v),
-                                 5 * pairs, peak)[0], **whole)
-    if bf:
-        part = swa_bwd_dkdv_partial(q, k, v, do, lse, delta,
-                                    window=case.window)
-        got, want = swa_bwd_fold(part, k, v), swa_bwd_fold_ref(part,
-                                                                k.dtype)
-        err = max((g.float() - w.float()).abs().max().item()
-                  for g, w in zip(got, want))
-        # a ~13 µs kernel: timed queued, as its wrapper's host time is longer
-        out["swa_bwd_fold"] = dict(
-            ms=queued_ms(lambda: swa_bwd_fold(part, k, v)),
-            plain_ms=queued_ms(lambda: swa_bwd_fold_ref(part, k.dtype)),
-            library_ms=None, max_abs_err=err,
-            bound=bound(nbytes(part, k, v), part.numel(), fp32), **whole)
+                                 5 * pairs, case.dtype)[0], **whole)
+    part = swa_bwd_dkdv_partial(q, k, v, do, lse, delta, window=case.window)
+    got, want = swa_bwd_fold(part, k, v), swa_bwd_fold_ref(part, k.dtype)
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    # a ~13 µs kernel: timed queued, as its wrapper's host time is longer
+    out["swa_bwd_fold"] = dict(
+        ms=queued_ms(lambda: swa_bwd_fold(part, k, v)),
+        plain_ms=queued_ms(lambda: swa_bwd_fold_ref(part, k.dtype)),
+        library_ms=None, max_abs_err=err,
+        bound=bound(nbytes(part, k, v), part.numel()), **whole)
     return out
 
 
@@ -1395,7 +1412,7 @@ def train_phase(dev: torch.device, seed: int, part: str,
         del got, want
         t = bwd_timings(case, part, flush)
         for kernel, row in t.items():
-            row["bound_ms"], row["bound_by"] = row.pop("bound")
+            row["bound_ms"], row["bound_by"], row["bound_peak"] = row.pop("bound")
             print(json.dumps({"case": f"train_{kernel}_{dt}", **row}))
             timed[(kernel, case.dtype)] = row
             if row.get("max_abs_err", 0.0) != 0.0:     # the fold: exact
@@ -1414,7 +1431,7 @@ def train_phase(dev: torch.device, seed: int, part: str,
     for kernel in ("conv1d_bwd_wb", "swa_bwd_dq", "swa_bwd_dkdv",
                    "swa_bwd_fold"):
         t = timed[(kernel, torch.bfloat16)]
-        f32 = timed.get((kernel, torch.float32), {})   # the fold: bf16 only
+        f32 = timed[(kernel, torch.float32)]
         route, source, replaces = KERNELS[kernel]
         rows.append({
             "name": kernel, "route": route, "source": source,
@@ -1424,12 +1441,14 @@ def train_phase(dev: torch.device, seed: int, part: str,
                                  errs.get((kernel, torch.bfloat16))),
             "tol": (0.0 if kernel == "swa_bwd_fold" else
                     GRAD_TOL[(kernel.split("_")[0], torch.bfloat16)]),
-            "max_abs_err_f32": errs.get((kernel, torch.float32)),
+            "max_abs_err_f32": f32.get("max_abs_err",
+                                       errs.get((kernel, torch.float32))),
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
-            "ms_f32": f32.get("ms"), "bound_ms_f32": f32.get("bound_ms"),
-            "plain_ms_f32": f32.get("plain_ms"),
-            "library_ms_f32": f32.get("library_ms"),
+            "bound_peak": t["bound_peak"],
+            **{f"{k}_f32": f32[k] for k in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by",
+                                            "bound_peak")},
             **({"whole_bound_ms": t["whole_bound_ms"],
                 "whole_bound_ms_f32": f32["whole_bound_ms"]}
                if "whole_bound_ms" in t else {}),

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Time K6's backward (``csrc/swa_bwd.cu``) at RecurrentGemma-2B's training
 shape on one CUDA card: q (1, 10, 4096, 256) over k and v (1, 1, 4096,
-256), window 2048, bf16, as the model's (B, S, H, D) projections viewed as
-(B, H, S, D).
+256), window 2048, bf16 (the training step's type) or f32, as the model's
+(B, S, H, D) projections viewed as (B, H, S, D).
 
     python3 scripts/k6_bwd.py                 # this checkout's K6 backward
     python3 scripts/k6_bwd.py --src DIR       # that of DIR's repro_torch
+    python3 scripts/k6_bwd.py --dtype float32
 
 One ``bwd`` line: min / median / max ms over ``--reps`` calls (CUDA events,
 warm) of ``swa_bwd_dq``, of ``swa_bwd_dkdv`` as the op calls it, of its
 kernel alone and of the fold of its partial sums where the checkout has
-them (``swa_bwd_dkdv_partial``, ``swa_bwd_fold``), of the whole backward
+them in the type (``swa_bwd_dkdv_partial``, ``swa_bwd_fold``), of the
+whole backward
 (``swa_bwd_kernel``: every launch, ``sum``) and of the backward of
 ``scaled_dot_product_attention`` with the band as its mask (``library``,
 q, k and v at once); the fold's device time alone (``fold_queued_ms``:
@@ -75,7 +77,10 @@ def main() -> int:
                     help="the src/ directory whose repro_torch to time")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     args = ap.parse_args()
+    dtype = getattr(torch, args.dtype)
     if not torch.cuda.is_available():
         raise SystemExit("k6_bwd.py needs a CUDA device")
     print(subprocess.run(
@@ -88,7 +93,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=dev).to(
-        torch.bfloat16).transpose(1, 2) for h in (HQ, HKV, HKV, HQ))
+        dtype).transpose(1, 2) for h in (HQ, HKV, HKV, HQ))
     o = sliding_window_attention(q, k, v, window=WINDOW, backend="cuda")
     _, lse, delta = k6.swa_bwd_dq(q, k, v, o, do, window=WINDOW)
     fns = {
@@ -96,8 +101,11 @@ def main() -> int:
         "dkdv": lambda: k6.swa_bwd_dkdv(q, k, v, do, lse, delta,
                                         window=WINDOW),
         "sum": lambda: k6.swa_bwd_kernel(q, k, v, o, do, window=WINDOW)}
-    if hasattr(k6, "swa_bwd_dkdv_partial"):
+    try:
         part = k6.swa_bwd_dkdv_partial(q, k, v, do, lse, delta, window=WINDOW)
+    except (AttributeError, ValueError):   # no partial sums in this type
+        part = None
+    if part is not None:
         fns["dkdv_kernel"] = lambda: k6.swa_bwd_dkdv_partial(
             q, k, v, do, lse, delta, window=WINDOW)
         fns["fold"] = lambda: k6.swa_bwd_fold(part, k, v)
@@ -116,7 +124,7 @@ def main() -> int:
     equal = all(torch.equal(a, b) for a, b in zip(first, again))
     print(json.dumps({
         "line": "bwd", "src": str(args.src), "shape": [B, HQ, HKV, S, D],
-        "window": WINDOW, "dtype": "bfloat16",
+        "window": WINDOW, "dtype": args.dtype,
         **{name: spread(times_ms(fn, args.reps)) for name, fn in fns.items()},
         **({"fold_queued_ms": queued_ms(fns["fold"], args.reps)}
            if "fold" in fns else {}),

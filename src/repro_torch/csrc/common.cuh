@@ -45,3 +45,15 @@ __device__ __forceinline__ void cp_async_wait_group() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+
+// d += a . b on the tensor cores (16 x 8 x 8, TF32 in, f32 out).  Fragments
+// (g = lane / 4, q = lane % 4): a = rows (g, g+8) x columns (q, q+4) as
+// (g,q), (g+8,q), (g,q+4), (g+8,q+4); b = (k q, n g), (k q+4, n g); d =
+// (g,2q), (g,2q+1), (g+8,2q), (g+8,2q+1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}

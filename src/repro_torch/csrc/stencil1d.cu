@@ -525,15 +525,6 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(v - __uint_as_float(hi));
 }
 
-// d += a . b on the tensor cores (16 x 8 x 8, TF32 in, f32 out)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One k-step's A fragment, split: p points at row g, column q of the k-step;
 // a0..a3 are (g, q), (g + 8, q), (g, q + 4), (g + 8, q + 4).  kExact: the
 // values are exact in TF32 (bf16), lo is not used.

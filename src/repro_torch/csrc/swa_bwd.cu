@@ -1,5 +1,6 @@
 // Backward of causal sliding-window attention with GQA, for sm_90a (H100):
-// FlashAttention-2's backward in two launches, bf16 on the tensor cores.
+// FlashAttention-2's backward in two launches and a fold, on the tensor
+// cores in both types.
 //
 // No TPU kernel to replace: the JAX package defines no backward (it takes
 // the gradient of the forward by autodiff).  The forward is K6
@@ -19,60 +20,85 @@
 // each): 1.6e11 flops at (1, 10, 4096, 256) with window 2048, 0.163 ms at
 // the bf16 tensor-core peak.  The LSE the forward does not keep costs one
 // more Q.K^T, and splitting dQ from dK/dV without atomics S and dP once
-// more: eight products.
+// more: eight products.  In f32 each product is three TF32 ones (3xTF32,
+// below): 0.977 ms for the five at the TF32 peak, against 2.40 for them in
+// f32 FMAs on the CUDA cores.
 //
-// bfloat16 runs them on the tensor cores with wgmma (helpers shared with
-// the forward in wgmma.cuh; tiles in the 128-byte swizzle, D zero-filled to
-// Dp = 64, 128 or 256, loaded by cp.async, or element by element where an
-// operand is not 16-byte aligned):
-// - swa_bwd_dq_wgmma_kernel: one block of two warpgroups per (b, hq,
-//   128-query tile), warpgroup w owning rows 64w..64w+63, shaped like the
-//   forward.  Q and dO stay in shared memory; K tiles of 64 keys come
-//   through a two-stage ring, V through one buffer refilled as soon as dP
-//   has read it.  D comes from dO and O in the prologue.  Pass 1: S = Q K^T
-//   (SS m64n64k16) and an online max and sum give each row's LSE.  Pass 2:
-//   S and dP = dO V^T (SS), P and dS in f32 registers, dS rounded to bf16
-//   in registers (the accumulator layout is the A-operand layout) and
-//   dQ += dS K (RS m64nDpk16, K read MN-major).  dQ (64 x Dp f32, 128
-//   registers a thread at Dp = 256) stays in registers; LSE and D go to
-//   device memory in f32.
-// - swa_bwd_dkdv_wgmma_kernel: keys are the rows.  One block of two
-//   warpgroups per (b, hkv, 64-key tile, part of the group's query heads);
-//   its K and V tiles stay in shared memory, a two-stage ring brings 64-query
-//   Q and dO tiles with their LSE and D.  Warpgroup 0 computes S^T = K Q^T,
-//   P^T and dV += P^T dO; warpgroup 1 dP^T = V dO^T, dS^T = P^T (dP^T - D)
-//   and dK += dS^T Q (Q and dO read MN-major), P^T handed across in shared
-//   memory (f32, each thread's own fragment) under named barrier 1: four
-//   products, and one 64 x Dp f32 accumulator a warpgroup, as two would not
-//   fit one's registers at Dp = 256.  The group's query heads are split
-//   into `parts` (a rule on the shapes alone: as many as keep the blocks
-//   within the H100's 132 SMs), because one KV head at S = 4096 has only 64
-//   key tiles; each part writes its f32 partial dK and dV.
-// - swa_bwd_fold_kernel: sums the parts in a fixed order and casts to bf16.
+// Both types share the shape of the work:
+// - swa_bwd_dq: one block per (b, hq, query tile).  Pass 1 walks the band's
+//   key tiles for each row's max and sum (the LSE), pass 2 walks them again
+//   for S, dP = dO V^T, P, dS = P (dP - D) in f32 registers and dQ += dS K.
+//   Q and dO stay in shared memory; D = rowsum(dO * O) comes from device
+//   memory in the prologue; LSE and D go to device memory in f32.
+// - swa_bwd_dkdv: keys are the rows.  One block per (b, hkv, 64-key tile,
+//   part of the group's query heads); its K and V tiles stay in shared
+//   memory and a two-stage ring brings the query tiles of the heads of its
+//   part with their LSE and D.  Two groups of four warps: group 0 computes
+//   S^T = K Q^T, P^T and dV += P^T dO, group 1 dP^T = V dO^T, dS^T = P^T
+//   (dP^T - D) and dK += dS^T Q, P^T handed across in shared memory (f32,
+//   each thread's own fragment) under named barrier 1: four products, and
+//   one 64 x Dp f32 accumulator a group, as two would not fit a thread's
+//   registers at Dp = 256.  The group's query heads are split into `parts`
+//   (a rule on the shapes alone: as many as keep the blocks within the
+//   H100's 132 SMs), because one KV head at S = 4096 has only 64 key tiles;
+//   each part writes its f32 partial dK and dV.
+// - swa_bwd_fold: sums the parts in a fixed order and casts to the type.
 // Only the tiles that meet the band are visited and only those on its edge
 // or at seq's end are masked.  Every sum runs in a fixed order, with no
 // atomics: the same inputs give the same bits.
 //
-// float32 keeps CUDA-core kernels (its 1e-5 bar rules out bf16 and TF32
-// products; the training step runs bf16):
-// - swa_bwd_dq_kernel: one block of 8 warps per (b, hq, 64-query tile);
-//   warp w owns rows 8w..8w+7, lane l scores key l of a 32-key tile.
-//   Pass 1 walks the band's key tiles for each row's max and sum (the LSE)
-//   and computes D; pass 2 walks the band again: P, dP, dS a lane per key,
-//   and dQ accumulated in registers with lanes across D (each dS broadcast
-//   by a shuffle).
-// - swa_bwd_dkdv_kernel: one block of 8 warps per (b, hkv, 32-key tile);
-//   warp w owns keys 4w..4w+3 and keeps their dK and dV rows in registers
-//   (lanes across D).  It loops over the group's query heads and over the
-//   32-query tiles whose band reaches the key tile, lane l scoring query l.
-// Inputs are widened to f32 in shared memory, every sum is f32 in a fixed
-// order, and the gradients are cast at the store.
+// bfloat16 (wgmma, helpers shared with the forward in wgmma.cuh; tiles in
+// the 128-byte swizzle, D zero-filled to Dp = 64, 128 or 256, loaded by
+// cp.async, or element by element where an operand is not 16-byte aligned):
+// swa_bwd_dq_wgmma_kernel runs two warpgroups on 128 query rows, 64 each:
+// K tiles of 64 keys come through a two-stage ring, V through one buffer
+// refilled as soon as dP has read it; S and dP are SS m64n64k16 products,
+// dS is rounded to bf16 in registers (the accumulator layout is the
+// A-operand layout) and dQ += dS K is RS m64nDpk16, K read MN-major, dQ
+// (128 registers a thread at Dp = 256) in registers.
+// swa_bwd_dkdv_wgmma_kernel's groups are its two warpgroups, on 64-query
+// tiles, P^T and dS^T rounded to bf16 in registers, Q and dO read MN-major.
+//
+// float32 (mma.sync m16n8k8 in 3xTF32, mma_tf32 in common.cuh, as K2's:
+// each f32 operand split as hi + lo, hi TF32, and a product summing lo*hi,
+// hi*lo and hi*hi in f32, which keeps the 1e-5 bar that one TF32 product
+// misses; long sums in chunks, as the tensor cores truncate, mma3_apart).
+// Not wgmma: its TF32 form reads shared-memory operands K-major only, where
+// dQ = dS K, dV = P^T dO and dK = dS^T Q read K, dO and Q down their
+// columns.  mma.sync's fragments are loaded by hand,
+// so one tile serves both orientations:
+// - tiles are f32 in shared memory, D zero-filled to Dp = 64, 128 or 256,
+//   with no padding; within each 32-column chunk row r's columns are XORed
+//   with 8 ((r >> 1) & 3) + 4 (r & 1) (swz), which puts both fragment
+//   reads on 32 banks;
+// - an accumulator is the A operand of the next product without a
+//   shuffle: its columns (2q, 2q + 1) of an n-tile become depth slots
+//   (q, q + 4), and the B operand reads its rows in the same permuted order
+//   (rows k0 + 2q, k0 + 2q + 1), which leaves the sum unchanged;
+// - operands are split into hi and lo as they are read (split), the
+//   A operands and the B operands read along their rows by ldmatrix;
+// - swa_bwd_dkdv splits the group's (head, query tile) steps into more
+//   parts than bf16 (kernel.py:bwd_parts, 6 at the model's shape): its key
+//   tiles' bands differ in length, and more, shorter blocks even out the
+//   SMs' shares.
+// swa_bwd_dq_f32_kernel: one block of 8 warps per (b, hq, 64-query tile) on
+// 32-key tiles.  Warps w and w + 4 share rows 16 (w % 4)..+15: each
+// computes S and dP for its 16 keys of the tile, hands its dS fragments to
+// the other through shared memory (named barrier 1 + w % 4) and adds dS K
+// over the tile's 32 keys into its half of dQ's columns (64 registers a
+// thread at Dp = 256).  The LSE's (max, sum) of the two halves are merged
+// after pass 1.  K and V have a buffer each: pass 2 computes dP first, so V
+// is refilled while S and dQ run and K while the next dP runs; pass 1 uses
+// both buffers as a ring of K tiles.
+// swa_bwd_dkdv_f32_kernel: the groups are warps 0-3 and 4-7, 16 keys a
+// warp, on 16-query tiles (a 32-query stage would not fit twice at
+// Dp = 256).
 //
 // Shared memory (kernels/swa/kernel.py:bwd_smem_bytes, checked here at the
 // launch): bf16 dq 2 * Dp * (2*128 + 3*64) + 4*128 + 1024 bytes (230,912 B
 // at Dp = 256), dkdv 2 * Dp * 6*64 + 4*4*64 + 4*64*64 + 1024 (215,040 B);
-// f32 (Dp = D rounded up to 4, rows a lane reads padded to Dp + 4) dq
-// 4 * (2*64*Dp + 2*32*(Dp+4)), dkdv 4 * (2*32*Dp + 2*32*(Dp+4) + 64).  All
+// f32 dq 4 * Dp * (2*64 + 2*32) + 4 * (8*512 + 64 + 8*16*2) (214,272 B),
+// dkdv 4 * Dp * (2*64 + 2*2*16) + 4 * (2*2*16 + 4*8*32) (200,960 B).  All
 // past 48 KB, so the launches opt in with cudaFuncSetAttribute.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,312 +112,16 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBQ = 64;                  // dq: query rows per block
-constexpr int kRows = kBQ / kWarps;      // dq: rows per warp
-constexpr int kBK = 32;                  // dq: keys per tile, one a lane
-constexpr int kKeys = 32;                // dkdv: keys per block
-constexpr int kKeysPerWarp = kKeys / kWarps;
-constexpr int kQT = 32;                  // dkdv: queries per tile, one a lane
 
 // element strides along (batch, head, position) of q, k, v, o, dO, dq, dk, dv
 struct Strides {
   int64_t q[3], k[3], v[3], o[3], g[3], dq[3], dk[3], dv[3];
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// rows [row0, row0 + rows) of a (position, D) slab into shared memory as
-// f32 times `mul`, `ld` floats a row; zero past seq and past dim
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          int64_t row_stride, int row0,
-                                          int rows, int seq, int dim, int dp,
-                                          float mul) {
-  for (int idx = threadIdx.x; idx < rows * dp; idx += kThreads) {
-    const int r = idx / dp, d = idx - r * dp;
-    const int pos = row0 + r;
-    dst[r * ld + d] = (pos < seq && d < dim)
-        ? to_f32(src[(int64_t)pos * row_stride + d]) * mul : 0.f;
-  }
-}
-
-// s[r] = rows[r] . lane_row over dp (dp a multiple of 4): `rows` are read by
-// the whole warp at once (broadcast), `lane_row` is the lane's own row
-template <int R>
-__device__ __forceinline__ void dots(const float* rows, int row_ld,
-                                     const float* lane_row, int dp,
-                                     float (&s)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) s[r] = 0.f;
-  for (int d = 0; d < dp; d += 4) {
-    const float4 b = *reinterpret_cast<const float4*>(lane_row + d);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(rows + r * row_ld + d);
-      s[r] = fmaf(a.x, b.x, s[r]);
-      s[r] = fmaf(a.y, b.y, s[r]);
-      s[r] = fmaf(a.z, b.z, s[r]);
-      s[r] = fmaf(a.w, b.w, s[r]);
-    }
-  }
-}
-
-__device__ __forceinline__ bool in_band(int qpos, int kpos, int seq,
-                                        int window) {
-  return qpos < seq && kpos <= qpos && kpos > qpos - window;
-}
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads, 1)
-swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ o,
-                  const T* __restrict__ g, T* __restrict__ dq,
-                  float* __restrict__ lse, float* __restrict__ delta,
-                  Strides st, int hq_n, int group, int seq, int dim, int dp,
-                  int window, float scale, int q_tiles) {
-  extern __shared__ float4 smem4[];
-  const int ldk = dp + 4;
-  float* qs = reinterpret_cast<float*>(smem4);   // kBQ x dp, times scale
-  float* gs = qs + kBQ * dp;                      // kBQ x dp, dO
-  float* ks = gs + kBQ * dp;                      // kBK x ldk
-  float* vs = ks + kBK * ldk;                     // kBK x ldk
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qt = (int)(blockIdx.x % q_tiles);
-  const int64_t bh = blockIdx.x / q_tiles;
-  const int hq = (int)(bh % hq_n);
-  const int64_t b = bh / hq_n;
-  const int hk = hq / group;
-  const int q0 = qt * kBQ;
-  const T* qb = q + b * st.q[0] + hq * st.q[1];
-  const T* kb = k + b * st.k[0] + hk * st.k[1];
-  const T* vb = v + b * st.v[0] + hk * st.v[1];
-  const T* ob = o + b * st.o[0] + hq * st.o[1];
-  const T* gb = g + b * st.g[0] + hq * st.g[1];
-  T* dqb = dq + b * st.dq[0] + hq * st.dq[1];
-
-  load_rows(qs, dp, qb, st.q[2], q0, kBQ, seq, dim, dp, scale);
-  load_rows(gs, dp, gb, st.g[2], q0, kBQ, seq, dim, dp, 1.f);
-  __syncthreads();
-
-  const int r0 = warp * kRows;
-  const float* qw = qs + r0 * dp;
-  const float* gw = gs + r0 * dp;
-  float dlt[kRows], lrow[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + r0 + r;
-    float s = 0.f;
-    if (qpos < seq) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = lane + 32 * c;
-        if (d < dim) s = fmaf(gw[r * dp + d], to_f32(ob[qpos * st.o[2] + d]), s);
-      }
-    }
-    dlt[r] = warp_sum(s);
-  }
-
-  const int kv_lo = max(0, q0 - window + 1);
-  const int kv_hi = min(seq, q0 + kBQ);          // exclusive
-  const int kv_first = (kv_lo / kBK) * kBK;
-
-  // pass 1: each row's max and sum over the band
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-  }
-  for (int kv0 = kv_first; kv0 < kv_hi; kv0 += kBK) {
-    __syncthreads();                              // the last tile is consumed
-    load_rows(ks, ldk, kb, st.k[2], kv0, kBK, seq, dim, dp, 1.f);
-    __syncthreads();
-    float s[kRows];
-    dots(qw, dp, ks + lane * ldk, dp, s);
-    const int kpos = kv0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool ok = in_band(q0 + r0 + r, kpos, seq, window);
-      const float sv = ok ? s[r] : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(sv));
-      const float p = ok ? expf(sv - m_new) : 0.f;
-      l[r] = l[r] * expf(m[r] - m_new) + warp_sum(p);
-      m[r] = m_new;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    lrow[r] = l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
-    const int qpos = q0 + r0 + r;
-    if (lane == 0 && qpos < seq) {
-      lse[bh * seq + qpos] = lrow[r];
-      delta[bh * seq + qpos] = dlt[r];
-    }
-  }
-
-  // pass 2: dQ
-  float acc[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  for (int kv0 = kv_first; kv0 < kv_hi; kv0 += kBK) {
-    __syncthreads();
-    load_rows(ks, ldk, kb, st.k[2], kv0, kBK, seq, dim, dp, 1.f);
-    load_rows(vs, ldk, vb, st.v[2], kv0, kBK, seq, dim, dp, 1.f);
-    __syncthreads();
-    float s[kRows], dpv[kRows], ds[kRows];
-    dots(qw, dp, ks + lane * ldk, dp, s);
-    dots(gw, dp, vs + lane * ldk, dp, dpv);
-    const int kpos = kv0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool ok = in_band(q0 + r0 + r, kpos, seq, window);
-      const float p = ok ? expf(s[r] - lrow[r]) : 0.f;
-      ds[r] = p * (dpv[r] - dlt[r]);
-    }
-    for (int j = 0; j < kBK; ++j) {
-      float kv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = lane + 32 * c;
-        kv[c] = d < dp ? ks[j * ldk + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float dsj = __shfl_sync(0xffffffffu, ds[r], j);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[r][c] = fmaf(dsj, kv[c], acc[r][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + r0 + r;
-    if (qpos >= seq) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < dim) dqb[qpos * st.dq[2] + d] = from_f32<T>(acc[r][c] * scale);
-    }
-  }
-}
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads, 1)
-swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ g,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, Strides st, int hq_n, int hkv_n,
-                    int group, int seq, int dim, int dp, int window,
-                    float scale, int k_tiles) {
-  extern __shared__ float4 smem4[];
-  const int ldq = dp + 4;
-  float* ks = reinterpret_cast<float*>(smem4);   // kKeys x dp
-  float* vs = ks + kKeys * dp;                    // kKeys x dp
-  float* qs = vs + kKeys * dp;                    // kQT x ldq, times scale
-  float* gs = qs + kQT * ldq;                     // kQT x ldq, dO
-  float* ls = gs + kQT * ldq;                     // kQT: LSE
-  float* ds_ = ls + kQT;                          // kQT: D
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kt = (int)(blockIdx.x % k_tiles);
-  const int64_t bh = blockIdx.x / k_tiles;
-  const int hk = (int)(bh % hkv_n);
-  const int64_t b = bh / hkv_n;
-  const int k0 = kt * kKeys;
-  const T* kb = k + b * st.k[0] + hk * st.k[1];
-  const T* vb = v + b * st.v[0] + hk * st.v[1];
-
-  load_rows(ks, dp, kb, st.k[2], k0, kKeys, seq, dim, dp, 1.f);
-  load_rows(vs, dp, vb, st.v[2], k0, kKeys, seq, dim, dp, 1.f);
-
-  const int j0 = warp * kKeysPerWarp;
-  const float* kw = ks + j0 * dp;
-  const float* vw = vs + j0 * dp;
-  float dka[kKeysPerWarp][NC], dva[kKeysPerWarp][NC];
-#pragma unroll
-  for (int j = 0; j < kKeysPerWarp; ++j)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dka[j][c] = dva[j][c] = 0.f;
-
-  // queries whose band reaches keys [k0, k0 + kKeys): [k0, k0 + kKeys - 1 + window)
-  const int q_hi = (int)min((int64_t)seq, (int64_t)k0 + kKeys - 1 + window);
-  for (int h = 0; h < group; ++h) {
-    const int64_t bhq = b * hq_n + (int64_t)hk * group + h;
-    const T* qb = q + b * st.q[0] + ((int64_t)hk * group + h) * st.q[1];
-    const T* gb = g + b * st.g[0] + ((int64_t)hk * group + h) * st.g[1];
-    for (int qq0 = k0; qq0 < q_hi; qq0 += kQT) {
-      __syncthreads();                            // the last tile is consumed
-      load_rows(qs, ldq, qb, st.q[2], qq0, kQT, seq, dim, dp, scale);
-      load_rows(gs, ldq, gb, st.g[2], qq0, kQT, seq, dim, dp, 1.f);
-      if (tid < kQT) {
-        const int qpos = qq0 + tid;
-        ls[tid] = qpos < seq ? lse[bhq * seq + qpos] : 0.f;
-        ds_[tid] = qpos < seq ? delta[bhq * seq + qpos] : 0.f;
-      }
-      __syncthreads();
-      float s[kKeysPerWarp], dpv[kKeysPerWarp], p[kKeysPerWarp],
-          dsc[kKeysPerWarp];
-      dots(kw, dp, qs + lane * ldq, dp, s);
-      dots(vw, dp, gs + lane * ldq, dp, dpv);
-      const int qpos = qq0 + lane;
-#pragma unroll
-      for (int j = 0; j < kKeysPerWarp; ++j) {
-        const int kpos = k0 + j0 + j;
-        const bool ok = kpos < seq && in_band(qpos, kpos, seq, window);
-        p[j] = ok ? expf(s[j] - ls[lane]) : 0.f;
-        dsc[j] = p[j] * (dpv[j] - ds_[lane]);
-      }
-      for (int i = 0; i < kQT; ++i) {
-        float gv[NC], qv[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int d = lane + 32 * c;
-          gv[c] = d < dp ? gs[i * ldq + d] : 0.f;
-          qv[c] = d < dp ? qs[i * ldq + d] : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < kKeysPerWarp; ++j) {
-          const float pi = __shfl_sync(0xffffffffu, p[j], i);
-          const float dsi = __shfl_sync(0xffffffffu, dsc[j], i);
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dva[j][c] = fmaf(pi, gv[c], dva[j][c]);
-            dka[j][c] = fmaf(dsi, qv[c], dka[j][c]);
-          }
-        }
-      }
-    }
-  }
-  T* dkb = dk + b * st.dk[0] + hk * st.dk[1];
-  T* dvb = dv + b * st.dv[0] + hk * st.dv[1];
-#pragma unroll
-  for (int j = 0; j < kKeysPerWarp; ++j) {
-    const int kpos = k0 + j0 + j;
-    if (kpos >= seq) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < dim) {
-        dkb[kpos * st.dk[2] + d] = from_f32<T>(dka[j][c]);
-        dvb[kpos * st.dv[2] + d] = from_f32<T>(dva[j][c]);
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -849,11 +579,653 @@ swa_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
-// dk, dv = bf16(sum over the parts, in order, of the f32 partials); a
-// block a row of (B, Hkv, S) at a time, threads along D
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 products (mma.sync m16n8k8) on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kFThreads = 256;           // 8 warps
+constexpr int kFRows = 64;               // dq: query rows a block, 16 a warp pair
+constexpr int kFKeys = 32;               // dq: keys a tile, 16 a warp
+constexpr int kFQT = 16;                 // dkdv: queries a tile (keys a block: kTile)
+constexpr int kXch = 2 * 8 * 32;         // dq: u32s of a warp's dS fragments (2 k-steps, hi, lo)
+
+template <int DP>
+constexpr size_t f32_dq_smem() {
+  return 4 * (size_t)DP * (2 * kFRows + 2 * kFKeys) + 4 * (8 * kXch + kFRows + 8 * 16 * 2);
+}
+template <int DP>
+constexpr size_t f32_dkdv_smem() {
+  return 4 * (size_t)DP * (2 * kTile + 4 * kFQT) + 4 * (4 * kFQT + 4 * 8 * 32);
+}
+
+// Column c of row r of a swizzled f32 tile: XORed with 8 ((r >> 1) & 3) +
+// 4 (r & 1) within its 32-column chunk, so lanes (g, q) = (lane / 4, lane %
+// 4) reading rows g, columns q (+ 4), or rows 2q (+ 1), column g, hit 32
+// banks; cp.async's 16-byte chunks stay whole.
+__device__ __forceinline__ int swz(int r, int c) {
+  return c ^ ((((r >> 1) & 3) << 3) | ((r & 1) << 2));
+}
+
+// The lane's rows and swizzled columns, within a 32-column chunk, of the
+// fragment reads: ldmatrix of an A operand (16 rows x 8 columns: four 8 x
+// 4 blocks, rows then columns) or of two n-tiles of a B operand read along
+// its rows (16 rows x 8: blocks columns first); rows 2q + i, column 8j + g
+// of a B operand read down its columns.
+struct FragCols {
+  int a_row, a_col[4];   // A: row a_row, columns a_col[j] = 8j + 4 (lane / 16)
+  int b_row, b_col[4];   // B along rows: columns 8j + 4 (lane / 8 % 2)
+  int col[4][2];         // B down columns
+  __device__ __forceinline__ explicit FragCols(int lane) {
+    const int g = lane >> 2, q = lane & 3;
+    a_row = (lane & 7) + 8 * ((lane >> 3) & 1);
+    b_row = (lane & 7) + 8 * (lane >> 4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a_col[j] = swz(lane, 8 * j + 4 * (lane >> 4));
+      b_col[j] = swz(lane, 8 * j + 4 * ((lane >> 3) & 1));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) col[j][i] = swz(2 * q + i, 8 * j + g);
+    }
+  }
+};
+
+// ldmatrix of f32 tiles: four blocks of 8 rows x 4 f32 (8 x 8 16-bit
+// values); lane t gives the address of row t % 8 of block t / 8 and gets
+// from block i the f32 at row t / 4, column t % 4 in r[i], which is the
+// layout of mma.sync's TF32 fragments
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+struct Frag {
+  uint32_t hi[4], lo[4];
+};
+
+// v = hi + lo, the TF32 parts of an f32 operand: hi is v rounded to TF32
+// (to nearest, ties away from zero, as cvt.rna, in two integer operations,
+// which run faster here than cvt.rna.tf32.f32), lo = v - hi exactly,
+// passed as f32: the tensor cores read a TF32 operand's top 19 bits, and
+// lo's lower bits weigh under 2^-22 of v.
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// The fragment reads below take a column as c32 + 8j: c32 a multiple of 32,
+// j = 0..3 known at compile time; r0, n0 and k0 are multiples of 8.
+// A operand: rows r0 + g, r0 + g + 8, columns c32 + 8j + q, c32 + 8j + q + 4
+// of a DP-wide tile, split
+template <int DP>
+__device__ __forceinline__ void load_a(const float* t, int r0, int c32, int j,
+                                       const FragCols& fc, Frag& f) {
+  uint32_t v[4];
+  ldsm_x4(v, t + (r0 + fc.a_row) * DP + c32 + fc.a_col[j]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(__uint_as_float(v[i]), f.hi[i], f.lo[i]);
+}
+
+// B operands of two n-tiles read along a tile's rows: n = rows n0 + g and
+// n0 + 8 + g, depth = columns c32 + 8j + q, c32 + 8j + q + 4; split
+template <int DP>
+__device__ __forceinline__ void load_b_rows(const float* t, int n0, int c32, int j,
+                                            const FragCols& fc, uint32_t (&hi)[2][2],
+                                            uint32_t (&lo)[2][2]) {
+  uint32_t v[4];
+  ldsm_x4(v, t + (n0 + fc.b_row) * DP + c32 + fc.b_col[j]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(__uint_as_float(v[i]), hi[i >> 1][i & 1], lo[i >> 1][i & 1]);
+}
+
+// B operand read down a tile's columns, depth permuted as acc_to_a leaves
+// it: depth slots q, q + 4 = rows k0 + 2q, k0 + 2q + 1 (k0 % 8 == 0); n =
+// column c32 + 8j + g
+template <int DP>
+__device__ __forceinline__ void load_b_cols(const float* t, int k0, int c32, int j,
+                                            const FragCols& fc, int q, uint32_t (&hi)[2],
+                                            uint32_t (&lo)[2]) {
+  const float* p = t + (k0 + 2 * q) * DP + c32;
+  split(p[fc.col[j][0]], hi[0], lo[0]);
+  split(p[DP + fc.col[j][1]], hi[1], lo[1]);
+}
+
+// An 8-column n-tile of an accumulator (rows g, g + 8; columns 2q, 2q + 1)
+// as the A operand of a product over those columns: depth slot q holds
+// column 2q and slot q + 4 column 2q + 1
+__device__ __forceinline__ void acc_to_a(const float (&x)[4], Frag& f) {
+  split(x[0], f.hi[0], f.lo[0]);
+  split(x[2], f.hi[1], f.lo[1]);
+  split(x[1], f.hi[2], f.lo[2]);
+  split(x[3], f.hi[3], f.lo[3]);
+}
+
+// c += a . b in 3xTF32, the small products first
+__device__ __forceinline__ void mma3(float (&c)[4], const Frag& a, const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma_tf32(c, a.lo, bh[0], bh[1]);
+  mma_tf32(c, a.hi, bl[0], bl[1]);
+  mma_tf32(c, a.hi, bh[0], bh[1]);
+}
+
+// The tensor cores round their sum toward zero at every product, so one
+// accumulator carried through thousands of products drifts past the f32
+// bar.  Long sums therefore run in short chunks, each product of a chunk
+// into accumulators zeroed for it, added to the f32 total by FADD (round to
+// nearest); over D, the hi*hi products and the small ones take accumulators
+// of their own, which also gives the tensor cores independent chains.
+__device__ __forceinline__ void mma3_apart(float (&big)[4], float (&small)[4], const Frag& a,
+                                           const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma_tf32(small, a.lo, bh[0], bh[1]);
+  mma_tf32(small, a.hi, bl[0], bl[1]);
+  mma_tf32(big, a.hi, bh[0], bh[1]);
+}
+
+// rows [row0, row0 + ROWS) of a (position, D) f32 slab into a DP-wide
+// swizzled tile by cp.async, zero past seq and past dim: 16-byte chunks
+// where vec (D % 4 == 0, rows 16-byte aligned), else 4 bytes each
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t ld, int row0,
+                                          int seq, int dim, bool vec, int tid) {
+  if (vec) {
+    constexpr int cpr = DP / 4;
+    for (int idx = tid; idx < ROWS * cpr; idx += kFThreads) {
+      const int r = idx / cpr, c = (idx % cpr) * 4;
+      const int pos = row0 + r;
+      const bool in = pos < seq && c < dim;
+      cp_async16(smem_addr(dst + r * DP + swz(r, c)), in ? src + pos * ld + c : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int idx = tid; idx < ROWS * DP; idx += kFThreads) {
+      const int r = idx / DP, c = idx % DP;
+      const int pos = row0 + r;
+      const bool in = pos < seq && c < dim;
+      cp_async4(smem_addr(dst + r * DP + swz(r, c)), in ? src + pos * ld + c : src, in ? 4 : 0);
+    }
+  }
+}
+
+// named barrier `id` over `n` threads: arrive and wait, or arrive only
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ bool in_band(int qpos, int kpos, int seq, int window) {
+  return kpos <= qpos && kpos > qpos - window && qpos < seq && kpos < seq;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kFThreads, 1)
+swa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ o,
+                      const float* __restrict__ g, float* __restrict__ dq,
+                      float* __restrict__ lse, float* __restrict__ delta,
+                      Strides st, int hkv_n, int group, int seq, int dim,
+                      int window, float scale, int q_tiles, int vec) {
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);                // kFRows x DP
+  float* gs = qs + kFRows * DP;                               // dO, kFRows x DP
+  float* kv = gs + kFRows * DP;                               // 2 key tiles, kFKeys x DP
+  uint32_t* xch = reinterpret_cast<uint32_t*>(kv + 2 * kFKeys * DP);   // 8 x kXch
+  float* dsm = reinterpret_cast<float*>(xch + 8 * kXch);     // kFRows: D
+  float* mls = dsm + kFRows;                                  // 8 warps x 16 rows x (max, sum)
+  auto buf = [&](int i) { return kv + i * kFKeys * DP; };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gl = lane >> 2, ql = lane & 3;
+  const int wr = warp & 3, wh = warp >> 2;   // rows 16 wr..; keys 16 wh.. of a tile
+  const int gi = (int)(blockIdx.x % group);
+  const int rest = (int)(blockIdx.x / group);
+  const int qt = q_tiles - 1 - rest % q_tiles;     // longest bands first
+  const int bkv = rest / q_tiles;
+  const int hk = bkv % hkv_n, b = bkv / hkv_n;
+  const int hq = hk * group + gi;
+  const int64_t bh = (int64_t)b * hkv_n * group + hq;
+  const float* qb = q + b * st.q[0] + hq * st.q[1];
+  const float* kb = k + b * st.k[0] + hk * st.k[1];
+  const float* vb = v + b * st.v[0] + hk * st.v[1];
+  const float* ob = o + b * st.o[0] + hq * st.o[1];
+  const float* gb = g + b * st.g[0] + hq * st.g[1];
+  float* dqb = dq + b * st.dq[0] + hq * st.dq[1];
+
+  const int q0 = qt * kFRows;
+  const int kv_lo = max(0, q0 - window + 1);
+  const int kv_hi = min(seq, q0 + kFRows);         // exclusive
+  const int t0 = kv_lo / kFKeys * kFKeys;
+  const int n = (kv_hi - t0 + kFKeys - 1) / kFKeys;   // key tiles; a pass each
+
+  load_tile<DP, kFRows>(qs, qb, st.q[2], q0, seq, dim, vec, tid);
+  load_tile<DP, kFRows>(gs, gb, st.g[2], q0, seq, dim, vec, tid);
+  load_tile<DP, kFKeys>(buf(0), kb, st.k[2], t0, seq, dim, vec, tid);
+  cp_async_commit();
+
+  // D = rowsum(dO * O), a warp a row, from device memory
+  for (int r = warp; r < kFRows; r += kFThreads / 32) {
+    const int pos = q0 + r;
+    float s = 0.f;
+    if (pos < seq)
+      for (int d = lane; d < dim; d += 32) s = fmaf(gb[pos * st.g[2] + d], ob[pos * st.o[2] + d], s);
+    s = warp_sum(s);
+    if (lane == 0) {
+      dsm[r] = s;
+      if (pos < seq) delta[bh * seq + pos] = s;
+    }
+  }
+
+  const FragCols fc(lane);
+  const int r0 = 16 * wr;                          // the warp's first row in the block
+  const int qrow0 = q0 + r0 + gl, qrow1 = qrow0 + 8;
+  const int row_lo = q0 + r0, row_hi = row_lo + 15;
+  const float scale_log2 = scale * kLog2e;
+  // key half h (16 keys) of the tile at kv0: no key meets the warp's rows'
+  // band (skip), or some pair is outside it (edge)
+  auto skip_half = [&](int kv0, int h) {
+    const int lo = kv0 + 16 * h;
+    return lo > row_hi || lo + 15 <= row_lo - window || lo >= seq;
+  };
+  auto edge_half = [&](int kv0, int h) {
+    const int lo = kv0 + 16 * h;
+    return !(lo + 15 <= row_lo && lo > row_hi - window && lo + 16 <= seq);
+  };
+  // s = the warp's 16 rows of `a` times its 16 key rows of `bt`, over D
+  // in 32-column chunks (mma3_apart)
+  auto product = [&](float (&s)[2][4], const float* a, const float* bt) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll 2
+    for (int c32 = 0; c32 < DP; c32 += 32) {
+      float big[2][4] = {}, small[2][4] = {};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        Frag fa;
+        uint32_t bh[2][2], bl[2][2];
+        load_a<DP>(a, r0, c32, j, fc, fa);
+        load_b_rows<DP>(bt, 16 * wh, c32, j, fc, bh, bl);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) mma3_apart(big[nt], small[nt], fa, bh[nt], bl[nt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] += big[nt][e] + small[nt][e];
+    }
+  };
+
+  // pass 1: running max and sum (log2 units) of each row over the warp's
+  // keys; both buffers are a ring of K tiles, and the last step brings V(0)
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  for (int u = 0; u < n; ++u) {
+    cp_async_wait_group<0>();
+    __syncthreads();                               // K(u) landed; the other buffer is free
+    const bool more = u + 1 < n;
+    load_tile<DP, kFKeys>(buf((u + 1) & 1), more ? kb : vb, more ? st.k[2] : st.v[2],
+                          more ? t0 + (u + 1) * kFKeys : t0, seq, dim, vec, tid);
+    cp_async_commit();
+    const int kv0 = t0 + u * kFKeys;
+    if (skip_half(kv0, wh)) continue;
+    float s[2][4];
+    product(s, qs, buf(u & 1));
+    const bool edge = edge_half(kv0, wh);
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * scale_log2;
+        if (edge && !in_band(e < 2 ? qrow0 : qrow1, kv0 + 16 * wh + 8 * nt + 2 * ql + (e & 1),
+                             seq, window))
+          x = kNegInf;
+        s[nt][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[nt][e];
+        const float p = x == kNegInf ? 0.f : fast_exp2(x - (e < 2 ? mx0 : mx1));
+        if (e < 2) sum0 += p; else sum1 += p;
+      }
+    l0 = l0 * fast_exp2(m0 - mx0) + sum0;
+    l1 = l1 * fast_exp2(m1 - mx1) + sum1;
+    m0 = mx0;
+    m1 = mx1;
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if (ql == 0) {
+    float* ml = mls + (warp * 16 + gl) * 2;
+    ml[0] = m0;
+    ml[1] = l0;
+    ml[16] = m1;
+    ml[17] = l1;
+  }
+  __syncthreads();                                 // the last K tile is read; (max, sum) written
+  float* const kbuf = buf((n - 1) & 1);
+  float* const vbuf = buf(n & 1);                  // V(0) is on its way there
+  load_tile<DP, kFKeys>(kbuf, kb, st.k[2], t0, seq, dim, vec, tid);
+  cp_async_commit();
+  // each row's LSE over both halves of the keys (log2 units), and its D
+  float lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float* a = mls + (warp * 16 + gl + 8 * i) * 2;
+    const float* c = mls + ((warp ^ 4) * 16 + gl + 8 * i) * 2;
+    const float m = fmaxf(a[0], c[0]);
+    const float l = a[1] * fast_exp2(a[0] - m) + c[1] * fast_exp2(c[0] - m);
+    lse2[i] = l > 0.f ? m + log2f(l) : 0.f;
+  }
+  if (wh == 0 && ql == 0) {
+    if (qrow0 < seq) lse[bh * seq + qrow0] = lse2[0] * kLn2;
+    if (qrow1 < seq) lse[bh * seq + qrow1] = lse2[1] * kLn2;
+  }
+  const float dl[2] = {dsm[r0 + gl], dsm[r0 + gl + 8]};
+
+  // pass 2: dP = dO V^T first, so V refills while S and dQ run, and K
+  // while the next dP runs
+  float acc[DP / 16][4];                           // dQ / scale, columns wh DP/2 ..
+#pragma unroll
+  for (int i = 0; i < DP / 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  cp_async_wait_group<1>();
+  __syncthreads();                                 // V(0) landed
+  for (int t = 0; t < n; ++t) {
+    const int kv0 = t0 + t * kFKeys;
+    const bool skip0 = skip_half(kv0, 0), skip1 = skip_half(kv0, 1);
+    const bool skip = wh ? skip1 : skip0;
+    float dp[2][4], s[2][4];
+    if (!skip) product(dp, gs, vbuf);
+    cp_async_wait_group<0>();
+    __syncthreads();                               // K(t) landed; V(t) is read
+    if (t + 1 < n) {
+      load_tile<DP, kFKeys>(vbuf, vb, st.v[2], kv0 + kFKeys, seq, dim, vec, tid);
+      cp_async_commit();
+    }
+    if (!skip) product(s, qs, kbuf);
+    // dS = P (dP - D), P = 2^(S scale log2e - LSE) on the band: the A
+    // fragments of dQ's k-steps 2 wh and 2 wh + 1, handed to warp ^ 4 too
+    const bool edge = edge_half(kv0, wh);
+    Frag own[2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const bool ok = !skip && (!edge || in_band(h ? qrow1 : qrow0,
+                                                   kv0 + 16 * wh + 8 * nt + 2 * ql + (e & 1),
+                                                   seq, window));
+        x[e] = ok ? fast_exp2(s[nt][e] * scale_log2 - lse2[h]) * (dp[nt][e] - dl[h]) : 0.f;
+      }
+      acc_to_a(x, own[nt]);
+      uint32_t* xw = xch + warp * kXch + nt * 256 + lane;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        xw[e * 32] = own[nt].hi[e];
+        xw[(4 + e) * 32] = own[nt].lo[e];
+      }
+    }
+    bar_sync(1 + wr, 64);
+    // dQ += dS K, the warp's half of D, over each half of the tile's keys
+    // (16, two k-steps of 8) in a chunk of its own
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h ? skip1 : skip0) continue;
+      Frag fa[2];
+      if (h == wh) {
+        fa[0] = own[0];
+        fa[1] = own[1];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t* xr = xch + (warp ^ 4) * kXch + i * 256 + lane;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            fa[i].hi[e] = xr[e * 32];
+            fa[i].lo[e] = xr[(4 + e) * 32];
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < DP / 16; ++nt) {
+        float c[4] = {};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          uint32_t bh[2], bl[2];
+          load_b_cols<DP>(kbuf, 8 * (2 * h + i), wh * (DP / 2) + 32 * (nt >> 2), nt & 3, fc,
+                          ql, bh, bl);
+          mma3(c, fa[i], bh, bl);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] += c[e];
+      }
+    }
+    if (t + 1 < n) cp_async_wait_group<0>();
+    __syncthreads();                               // K(t) and the fragments are read; V(t+1) landed
+    if (t + 1 < n) {
+      load_tile<DP, kFKeys>(kbuf, kb, st.k[2], kv0 + kFKeys, seq, dim, vec, tid);
+      cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int nt = 0; nt < DP / 16; ++nt) {
+    const int d = wh * (DP / 2) + nt * 8 + 2 * ql;
+    if (d >= dim) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qpos = h ? qrow1 : qrow0;
+      if (qpos >= seq) continue;
+      const float y0 = acc[nt][2 * h] * scale, y1 = acc[nt][2 * h + 1] * scale;
+      float* dst = dqb + qpos * st.dq[2] + d;
+      if (vec) {
+        *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
+      } else {
+        dst[0] = y0;
+        if (d + 1 < dim) dst[1] = y1;
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kFThreads, 1)
+swa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ g,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ part, Strides st, int hkv_n, int group,
+                        int seq, int dim, int window, float scale, int k_tiles,
+                        int parts, int vec) {
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);   // kTile x DP
+  float* vs = ks + kTile * DP;                    // kTile x DP
+  float* ring = vs + kTile * DP;                  // 2 x (Q, dO), kFQT x DP each
+  float* lsm = ring + 4 * kFQT * DP;              // 2 x kFQT: LSE
+  float* dsm = lsm + 2 * kFQT;                    // 2 x kFQT: D
+  float* psm = dsm + 2 * kFQT;                    // 4 warps x 8 x 32: P^T fragments
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gl = lane >> 2, ql = lane & 3;
+  const int grp = warp >> 2;                      // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int pi = (int)(blockIdx.x % parts);
+  const int rest = (int)(blockIdx.x / parts);
+  const int kt = rest % k_tiles;                  // longest bands first
+  const int bkv = rest / k_tiles;
+  const int hk = bkv % hkv_n, b = bkv / hkv_n;
+  const int k0 = kt * kTile;
+  // queries whose band reaches keys [k0, k0 + kTile): [k0, k0 + kTile - 1 + window)
+  const int q_hi = min(seq, k0 + kTile - 1 + window);
+  const int nq = (q_hi - k0 + kFQT - 1) / kFQT;
+  // the part's share of the group's (head, query tile) steps, in order
+  const int u_lo = (int)((int64_t)pi * group * nq / parts);
+  const int n = (int)((int64_t)(pi + 1) * group * nq / parts) - u_lo;
+
+  auto load_stage = [&](int u) {
+    const int hq = hk * group + (u_lo + u) / nq;
+    const int q0 = k0 + (u_lo + u) % nq * kFQT;
+    const int64_t bhq = (int64_t)b * hkv_n * group + hq;
+    float* dst = ring + (u & 1) * 2 * kFQT * DP;
+    load_tile<DP, kFQT>(dst, q + b * st.q[0] + hq * st.q[1], st.q[2], q0, seq, dim, vec, tid);
+    load_tile<DP, kFQT>(dst + kFQT * DP, g + b * st.g[0] + hq * st.g[1], st.g[2], q0, seq,
+                        dim, vec, tid);
+    if (tid < 2 * kFQT) {
+      const int i = tid & (kFQT - 1);
+      const float* src = tid < kFQT ? lse : delta;
+      float* sm = (tid < kFQT ? lsm : dsm) + (u & 1) * kFQT + i;
+      const bool in = q0 + i < seq;
+      cp_async4(smem_addr(sm), in ? src + bhq * seq + q0 + i : src, in ? 4 : 0);
+    }
+  };
+  load_tile<DP, kTile>(ks, k + b * st.k[0] + hk * st.k[1], st.k[2], k0, seq, dim, vec, tid);
+  load_tile<DP, kTile>(vs, v + b * st.v[0] + hk * st.v[1], st.v[2], k0, seq, dim, vec, tid);
+  load_stage(0);
+  cp_async_commit();
+
+  const FragCols fc(lane);
+  const int r0 = 16 * (warp & 3);                 // the warp's first key in the block
+  const int krow0 = k0 + r0 + gl, krow1 = krow0 + 8;
+  const int key_lo = k0 + r0;
+  const float scale_log2 = scale * kLog2e;
+  const float* at = grp == 0 ? ks : vs;           // S^T's or dP^T's left operand
+  float* pw = psm + (warp & 3) * 256 + lane;      // P^T of the warp's keys
+  float acc[DP / 8][4];                           // group 0: dV; 1: dK / scale
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int u = 0; u < n; ++u) {
+    cp_async_wait_group<0>();
+    __syncthreads();                              // stage u landed; stage u+1 and psm free
+    if (u + 1 < n) {
+      load_stage(u + 1);
+      cp_async_commit();
+    }
+    const int q0 = k0 + (u_lo + u) % nq * kFQT;
+    const float* qs = ring + (u & 1) * 2 * kFQT * DP;
+    const float* gs = qs + kFQT * DP;
+    const float* lsu = lsm + (u & 1) * kFQT;
+    const float* dsu = dsm + (u & 1) * kFQT;
+    // the warp's 16 keys against the tile's 16 queries: none in the band
+    // (skip), or some pair outside it (edge)
+    const bool skip = key_lo > q0 + kFQT - 1 || key_lo + 15 <= q0 - window || q0 >= seq;
+    const bool edge = !(key_lo + 15 <= q0 && key_lo > q0 + kFQT - 1 - window
+                        && q0 + kFQT <= seq);
+
+    // S^T = K Q^T (group 0) or dP^T = V dO^T (group 1), over D in
+    // 32-column chunks (mma3_apart)
+    float s[2][4] = {};
+    if (!skip) {
+      const float* bt = grp == 0 ? qs : gs;
+#pragma unroll 2
+      for (int c32 = 0; c32 < DP; c32 += 32) {
+        float big[2][4] = {}, small[2][4] = {};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          Frag fa;
+          uint32_t bh[2][2], bl[2][2];
+          load_a<DP>(at, r0, c32, j, fc, fa);
+          load_b_rows<DP>(bt, 0, c32, j, fc, bh, bl);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) mma3_apart(big[nt], small[nt], fa, bh[nt], bl[nt]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] += big[nt][e] + small[nt][e];
+      }
+    }
+    if (grp == 0) {
+      // P^T = 2^(S^T scale log2e - LSE_col) on the band, handed to group 1
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * nt + 2 * ql + (e & 1);
+          const bool ok = !skip && (!edge || in_band(q0 + col, e < 2 ? krow0 : krow1, seq,
+                                                     window));
+          const float p = ok ? fast_exp2(s[nt][e] * scale_log2 - lsu[col] * kLog2e) : 0.f;
+          s[nt][e] = p;
+          pw[(4 * nt + e) * 32] = p;
+        }
+      bar_arrive(1, 256);
+    } else {
+      bar_sync(1, 256);
+      // dS^T = P^T (dP^T - D_col)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * nt + 2 * ql + (e & 1);
+          s[nt][e] = pw[(4 * nt + e) * 32] * (s[nt][e] - dsu[col]);
+        }
+    }
+    if (skip) continue;
+    // dV += P^T dO (group 0), dK += dS^T Q (group 1), over the tile's 16
+    // queries in a chunk of their own
+    const float* bt = grp == 0 ? gs : qs;
+    Frag fa[2];
+    acc_to_a(s[0], fa[0]);
+    acc_to_a(s[1], fa[1]);
+#pragma unroll
+    for (int nt = 0; nt < DP / 8; ++nt) {
+      float c[4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t bh[2], bl[2];
+        load_b_cols<DP>(bt, 8 * kk, 32 * (nt >> 2), nt & 3, fc, ql, bh, bl);
+        mma3(c, fa[kk], bh, bl);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += c[e];
+    }
+  }
+
+  // this part's f32 partial: plane 0 dK, plane 1 dV, each (B, Hkv, S, dim)
+  const int64_t plane = (int64_t)(gridDim.x / (parts * k_tiles)) * seq * dim;
+  const float mul = grp == 0 ? 1.f : scale;
+  float* dst = part + ((int64_t)(grp == 0 ? 1 : 0) * parts + pi) * plane
+               + (int64_t)bkv * seq * dim;
+#pragma unroll
+  for (int nt = 0; nt < DP / 8; ++nt) {
+    const int d = nt * 8 + 2 * ql;
+    if (d >= dim) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kpos = h ? krow1 : krow0;
+      if (kpos >= seq) continue;
+      const float y0 = acc[nt][2 * h] * mul, y1 = acc[nt][2 * h + 1] * mul;
+      float* p = dst + (int64_t)kpos * dim + d;
+      if (vec) {
+        *reinterpret_cast<float2*>(p) = make_float2(y0, y1);
+      } else {
+        p[0] = y0;
+        if (d + 1 < dim) p[1] = y1;
+      }
+    }
+  }
+}
+
+// dk, dv = T(sum over the parts, in order, of the f32 partials); a block a
+// row of (B, Hkv, S) at a time, threads along D
+template <typename T>
 __global__ void __launch_bounds__(256)
-swa_bwd_fold_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, Strides st, int parts, int hkv_n,
+swa_bwd_fold_kernel(const float* __restrict__ part, T* __restrict__ dk,
+                    T* __restrict__ dv, Strides st, int parts, int hkv_n,
                     int seq, int dim, int64_t rows) {
   const int64_t plane = rows * dim;
   for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
@@ -862,23 +1234,23 @@ swa_bwd_fold_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
     const int h = (int)(bh % hkv_n);
     const int64_t b = bh / hkv_n;
     const float* src = part + row * dim;
-    bf16* dkr = dk + b * st.dk[0] + h * st.dk[1] + pos * st.dk[2];
-    bf16* dvr = dv + b * st.dv[0] + h * st.dv[1] + pos * st.dv[2];
+    T* dkr = dk + b * st.dk[0] + h * st.dk[1] + pos * st.dk[2];
+    T* dvr = dv + b * st.dv[0] + h * st.dv[1] + pos * st.dv[2];
     for (int d = threadIdx.x; d < dim; d += blockDim.x) {
       float a = src[d], c = src[parts * plane + d];
       for (int p = 1; p < parts; ++p) {
         a += src[p * plane + d];
         c += src[(parts + p) * plane + d];
       }
-      dkr[d] = __float2bfloat16(a);
-      dvr[d] = __float2bfloat16(c);
+      dkr[d] = from_f32<T>(a);
+      dvr[d] = from_f32<T>(c);
     }
   }
 }
 
 struct Args {
   const void *q, *k, *v, *o, *g;
-  void *dq, *dk, *dv;
+  void* dq;
   float *lse, *delta, *part;
   Strides st;
   int64_t batch;
@@ -887,50 +1259,12 @@ struct Args {
   size_t smem;
 };
 
-template <typename T, int NC>
-cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  const int q_tiles = (a.seq + kBQ - 1) / kBQ;
-  const int64_t blocks = a.batch * a.hq * (int64_t)q_tiles;
-  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  cudaError_t e = cudaFuncSetAttribute(
-      (const void*)swa_bwd_dq_kernel<T, NC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
-  if (e != cudaSuccess) return e;
-  swa_bwd_dq_kernel<T, NC><<<(unsigned)blocks, kThreads, a.smem, stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o,
-      (const T*)a.g, (T*)a.dq, a.lse, a.delta, a.st, a.hq, a.hq / a.hkv,
-      a.seq, a.dim, (a.dim + 3) & ~3, a.window, a.scale, q_tiles);
-  return cudaGetLastError();
-}
-
-template <typename T, int NC>
-cudaError_t launch_dkdv(const Args& a, cudaStream_t stream) {
-  const int k_tiles = (a.seq + kKeys - 1) / kKeys;
-  const int64_t blocks = a.batch * a.hkv * (int64_t)k_tiles;
-  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  cudaError_t e = cudaFuncSetAttribute(
-      (const void*)swa_bwd_dkdv_kernel<T, NC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
-  if (e != cudaSuccess) return e;
-  swa_bwd_dkdv_kernel<T, NC><<<(unsigned)blocks, kThreads, a.smem, stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.g, a.lse,
-      a.delta, (T*)a.dk, (T*)a.dv, a.st, a.hq, a.hkv, a.hq / a.hkv, a.seq,
-      a.dim, (a.dim + 3) & ~3, a.window, a.scale, k_tiles);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch_f32(const Args& a, bool dkdv, cudaStream_t s) {
-  if (a.dim <= 32) return dkdv ? launch_dkdv<float, 1>(a, s) : launch_dq<float, 1>(a, s);
-  if (a.dim <= 64) return dkdv ? launch_dkdv<float, 2>(a, s) : launch_dq<float, 2>(a, s);
-  if (a.dim <= 128) return dkdv ? launch_dkdv<float, 4>(a, s) : launch_dq<float, 4>(a, s);
-  return dkdv ? launch_dkdv<float, 8>(a, s) : launch_dq<float, 8>(a, s);
-}
-
-// 16-byte cp.async and paired stores: D a multiple of 8, every row and
-// pointer 16-byte aligned (dq: q, k, v, dO, o, dq; dkdv: q, k, v, dO and
-// the partial sums, contiguous)
-bool vec_ok(const Args& a, bool dkdv) {
-  if (a.dim % 8) return false;
+// 16-byte cp.async and paired stores: D a multiple of 16 bytes, every row
+// and pointer 16-byte aligned (dq: q, k, v, dO, o, dq; dkdv: q, k, v, dO
+// and the partial sums, contiguous)
+bool vec_ok(const Args& a, bool dkdv, int itemsize) {
+  const int per16 = 16 / itemsize;
+  if (a.dim % per16) return false;
   const void* ptrs[6] = {a.q, a.k, a.v, a.g, a.o, a.dq};
   const int64_t* st[6] = {a.st.q, a.st.k, a.st.v, a.st.g, a.st.o, a.st.dq};
   if (dkdv) ptrs[4] = a.part;
@@ -938,8 +1272,14 @@ bool vec_ok(const Args& a, bool dkdv) {
     if ((uintptr_t)ptrs[t] % 16) return false;
   for (int t = 0; t < (dkdv ? 4 : 6); ++t)
     for (int i = 0; i < 3; ++i)
-      if (st[t][i] % 8) return false;
+      if (st[t][i] % per16) return false;
   return true;
+}
+
+template <typename K>
+cudaError_t opt_in(K kernel, size_t smem) {
+  return cudaFuncSetAttribute((const void*)kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <int DP>
@@ -948,100 +1288,134 @@ cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t stream) {
   const int q_tiles = (a.seq + kDqRows - 1) / kDqRows;
   const int64_t blocks = a.batch * a.hq * (int64_t)q_tiles;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  cudaError_t e = cudaFuncSetAttribute(
-      (const void*)swa_bwd_dq_wgmma_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
+  cudaError_t e = opt_in(swa_bwd_dq_wgmma_kernel<DP>, a.smem);
   if (e != cudaSuccess) return e;
   swa_bwd_dq_wgmma_kernel<DP><<<(unsigned)blocks, kWgThreads, a.smem, stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.o,
       (const bf16*)a.g, (bf16*)a.dq, a.lse, a.delta, a.st, a.hkv, a.hq / a.hkv,
-      a.seq, a.dim, a.window, a.scale, q_tiles, (int)vec_ok(a, false));
+      a.seq, a.dim, a.window, a.scale, q_tiles, (int)vec_ok(a, false, 2));
   return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t launch_dkdv_wgmma(const Args& a, cudaStream_t stream) {
-  const int group = a.hq / a.hkv;
-  if (a.smem != dkdv_smem<DP>() || a.parts < 1 || a.parts > group || !a.part)
-    return cudaErrorInvalidValue;
-  const int k_tiles = (a.seq + kTile - 1) / kTile;
-  const int64_t blocks = a.batch * a.hkv * (int64_t)k_tiles * a.parts;
+cudaError_t launch_dq_f32(const Args& a, cudaStream_t stream) {
+  if (a.smem != f32_dq_smem<DP>()) return cudaErrorInvalidValue;
+  const int q_tiles = (a.seq + kFRows - 1) / kFRows;
+  const int64_t blocks = a.batch * a.hq * (int64_t)q_tiles;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  cudaError_t e = cudaFuncSetAttribute(
-      (const void*)swa_bwd_dkdv_wgmma_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
+  cudaError_t e = opt_in(swa_bwd_dq_f32_kernel<DP>, a.smem);
   if (e != cudaSuccess) return e;
-  swa_bwd_dkdv_wgmma_kernel<DP><<<(unsigned)blocks, kWgThreads, a.smem, stream>>>(
-      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.g,
-      a.lse, a.delta, a.part, a.st, a.hkv, group, a.seq, a.dim, a.window,
-      a.scale, k_tiles, a.parts, (int)vec_ok(a, true));
+  swa_bwd_dq_f32_kernel<DP><<<(unsigned)blocks, kFThreads, a.smem, stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.o,
+      (const float*)a.g, (float*)a.dq, a.lse, a.delta, a.st, a.hkv, a.hq / a.hkv,
+      a.seq, a.dim, a.window, a.scale, q_tiles, (int)vec_ok(a, false, 4));
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_bf16(const Args& a, bool dkdv, cudaStream_t s) {
-  if (a.dim <= 64) return dkdv ? launch_dkdv_wgmma<64>(a, s) : launch_dq_wgmma<64>(a, s);
-  if (a.dim <= 128) return dkdv ? launch_dkdv_wgmma<128>(a, s) : launch_dq_wgmma<128>(a, s);
-  return dkdv ? launch_dkdv_wgmma<256>(a, s) : launch_dq_wgmma<256>(a, s);
+// blocks of both dkdv kernels: (b, hkv, 64-key tile, part), parts fastest
+bool dkdv_grid(const Args& a, int& k_tiles, int64_t& blocks) {
+  const int group = a.hq / a.hkv;
+  if (a.parts < 1 || a.parts > group || !a.part) return false;
+  k_tiles = (a.seq + kTile - 1) / kTile;
+  blocks = a.batch * a.hkv * (int64_t)k_tiles * a.parts;
+  return blocks <= INT32_MAX;
+}
+
+template <int DP>
+cudaError_t launch_dkdv_wgmma(const Args& a, cudaStream_t stream) {
+  int k_tiles;
+  int64_t blocks;
+  if (a.smem != dkdv_smem<DP>() || !dkdv_grid(a, k_tiles, blocks)) return cudaErrorInvalidValue;
+  cudaError_t e = opt_in(swa_bwd_dkdv_wgmma_kernel<DP>, a.smem);
+  if (e != cudaSuccess) return e;
+  swa_bwd_dkdv_wgmma_kernel<DP><<<(unsigned)blocks, kWgThreads, a.smem, stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.g,
+      a.lse, a.delta, a.part, a.st, a.hkv, a.hq / a.hkv, a.seq, a.dim, a.window,
+      a.scale, k_tiles, a.parts, (int)vec_ok(a, true, 2));
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dkdv_f32(const Args& a, cudaStream_t stream) {
+  int k_tiles;
+  int64_t blocks;
+  if (a.smem != f32_dkdv_smem<DP>() || !dkdv_grid(a, k_tiles, blocks))
+    return cudaErrorInvalidValue;
+  cudaError_t e = opt_in(swa_bwd_dkdv_f32_kernel<DP>, a.smem);
+  if (e != cudaSuccess) return e;
+  swa_bwd_dkdv_f32_kernel<DP><<<(unsigned)blocks, kFThreads, a.smem, stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.g,
+      a.lse, a.delta, a.part, a.st, a.hkv, a.hq / a.hkv, a.seq, a.dim, a.window,
+      a.scale, k_tiles, a.parts, (int)vec_ok(a, true, 4));
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t dispatch_dp(const Args& a, int dtype, bool dkdv, cudaStream_t s) {
+  if (dtype == 0) return dkdv ? launch_dkdv_f32<DP>(a, s) : launch_dq_f32<DP>(a, s);
+  return dkdv ? launch_dkdv_wgmma<DP>(a, s) : launch_dq_wgmma<DP>(a, s);
 }
 
 int launch(Args a, int dtype, const int64_t* strides, bool dkdv, void* stream) {
   if (a.hkv < 1 || a.hq % a.hkv != 0 || a.window < 1 || a.dim < 1
-      || a.dim > 256 || a.seq < 1 || a.batch < 1)
+      || a.dim > 256 || a.seq < 1 || a.batch < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   int64_t* dst[8] = {a.st.q, a.st.k, a.st.v, a.st.o, a.st.g, a.st.dq,
                      a.st.dk, a.st.dv};
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)dispatch_f32(a, dkdv, s);
-  if (dtype == 1) return (int)dispatch_bf16(a, dkdv, s);
-  return (int)cudaErrorInvalidValue;
+  // D zero-filled to Dp = 64, 128 or 256
+  if (a.dim <= 64) return (int)dispatch_dp<64>(a, dtype, dkdv, s);
+  if (a.dim <= 128) return (int)dispatch_dp<128>(a, dtype, dkdv, s);
+  return (int)dispatch_dp<256>(a, dtype, dkdv, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  q, o,
-// dO (g), dq: (batch, hq, seq, dim); k, v, dk, dv: (batch, hkv, seq, dim);
-// all of that type on the device, unit stride along dim; strides: 24
-// int64, the (batch, head, position) element strides of q, k, v, o, g, dq,
-// dk, dv in that order.  lse, delta: (batch, hq, seq) float32, contiguous:
-// swa_bwd_dq writes them, swa_bwd_dkdv reads them, so dq launches first on
-// the same stream.  hq % hkv == 0, 1 <= dim <= 256, window >= 1.  smem:
-// dynamic shared memory, as kernels/swa/kernel.py:bwd_smem_bytes gives it
-// for each (bf16: refused unless it is the kernel's layout).  Returns
-// cudaGetLastError().
+// dtype: 0 = float32 (mma.sync in 3xTF32), 1 = bfloat16 (wgmma).  q, o,
+// dO (g), dq: (batch, hq, seq, dim); k, v: (batch, hkv, seq, dim); all of
+// that type on the device, unit stride along dim; strides: 24 int64, the
+// (batch, head, position) element strides of q, k, v, o, g, dq, dk, dv in
+// that order (dk's and dv's are not read here).  lse, delta: (batch, hq,
+// seq) float32, contiguous: swa_bwd_dq writes them, swa_bwd_dkdv reads
+// them, so dq launches first on the same stream.  hq % hkv == 0, 1 <= dim
+// <= 256, window >= 1.  smem: dynamic shared memory, as
+// kernels/swa/kernel.py:bwd_smem_bytes gives it for each (refused unless
+// it is the kernel's layout).  Returns cudaGetLastError().
 int swa_bwd_dq_launch(const void* q, const void* k, const void* v,
                       const void* o, const void* g, void* dq, float* lse,
                       float* delta, int dtype, const int64_t* strides,
                       int64_t batch, int hq, int hkv, int seq, int dim,
                       int window, float scale, size_t smem, void* stream) {
-  Args a{q, k, v, o, g, dq, nullptr, nullptr, lse, delta, nullptr, {}, batch,
+  Args a{q, k, v, o, g, dq, lse, delta, nullptr, {}, batch,
          hq, hkv, seq, dim, window, 1, scale, smem};
   return launch(a, dtype, strides, false, stream);
 }
 
-// float32 writes dk and dv; bfloat16 writes each part's f32 partial sums
-// into `partial`, (2, parts, batch, hkv, seq, dim) contiguous (dK, then
-// dV), 1 <= parts <= hq / hkv, and leaves dk and dv to swa_bwd_fold.
+// Writes each part's f32 partial sums into `partial`, (2, parts, batch,
+// hkv, seq, dim) contiguous (dK, then dV), 1 <= parts <= hq / hkv, and
+// leaves dk and dv to swa_bwd_fold.
 int swa_bwd_dkdv_launch(const void* q, const void* k, const void* v,
-                        const void* g, void* dk, void* dv, const float* lse,
-                        const float* delta, int dtype, const int64_t* strides,
-                        int64_t batch, int hq, int hkv, int seq, int dim,
-                        int window, float scale, float* partial, int parts,
-                        size_t smem, void* stream) {
-  Args a{q, k, v, nullptr, g, nullptr, dk, dv, (float*)lse, (float*)delta,
-         partial, {}, batch, hq, hkv, seq, dim, window, parts, scale, smem};
+                        const void* g, const float* lse, const float* delta,
+                        int dtype, const int64_t* strides, int64_t batch,
+                        int hq, int hkv, int seq, int dim, int window,
+                        float scale, float* partial, int parts, size_t smem,
+                        void* stream) {
+  Args a{q, k, v, nullptr, g, nullptr, (float*)lse, (float*)delta, partial, {},
+         batch, hq, hkv, seq, dim, window, parts, scale, smem};
   return launch(a, dtype, strides, true, stream);
 }
 
-// dk, dv (bfloat16, through their (batch, head, position) strides, 6 int64)
-// = the sum over the parts, in order, of swa_bwd_dkdv's partials.
-int swa_bwd_fold_launch(const float* partial, void* dk, void* dv,
+// dk, dv (dtype as above, through their (batch, head, position) strides, 6
+// int64) = the sum over the parts, in order, of swa_bwd_dkdv's partials.
+int swa_bwd_fold_launch(const float* partial, void* dk, void* dv, int dtype,
                         const int64_t* strides, int64_t batch, int hkv,
                         int seq, int dim, int parts, void* stream) {
-  if (batch < 1 || hkv < 1 || seq < 1 || dim < 1 || parts < 1)
+  if (batch < 1 || hkv < 1 || seq < 1 || dim < 1 || parts < 1
+      || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Strides st{};
   for (int i = 0; i < 3; ++i) {
@@ -1049,9 +1423,14 @@ int swa_bwd_fold_launch(const float* partial, void* dk, void* dv,
     st.dv[i] = strides[3 + i];
   }
   const int64_t rows = batch * hkv * (int64_t)seq;
-  const int64_t blocks = std::min<int64_t>(rows, 132 * 8);
-  swa_bwd_fold_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-      partial, (bf16*)dk, (bf16*)dv, st, parts, hkv, seq, dim, rows);
+  const unsigned blocks = (unsigned)std::min<int64_t>(rows, 132 * 8);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    swa_bwd_fold_kernel<float><<<blocks, 256, 0, s>>>(
+        partial, (float*)dk, (float*)dv, st, parts, hkv, seq, dim, rows);
+  else
+    swa_bwd_fold_kernel<bf16><<<blocks, 256, 0, s>>>(
+        partial, (bf16*)dk, (bf16*)dv, st, parts, hkv, seq, dim, rows);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,9 @@ bfloat16 runs on the tensor cores: one block of two warpgroups per (batch,
 query head, 128-query tile) computes QKᵀ and P·V with ``wgmma`` out of bf16
 tiles in shared memory (Q, and a two-stage ring of 64-key K/V tiles filled
 by ``cp.async``, all in the 128-byte swizzle).  float32 runs on the CUDA
-cores, one block of 8 warps per 64 queries walking 32-key tiles, because
-its 2e-5 limit rules out bf16 and TF32 products.  Both mask by the true
+cores, one block of 8 warps per 64 queries walking 32-key tiles, as its
+2e-5 limit rules out bf16 and single TF32 products (3xTF32, as in the
+backward, would keep it).  Both mask by the true
 sequence length, so nothing is padded, and both read q, k, v and write the
 output through (batch, head, position) strides, so a (B, S, H, D) tensor
 viewed as (B, H, S, D) goes in without a copy and the output takes q's
@@ -18,20 +19,21 @@ has no TPU counterpart (the JAX package differentiates the forward by
 autodiff).  What bounds it is operations: five products over the band
 (S, dP, dQ, dK, dV), 0.163 ms in bf16 at the model's (1, 10/1, 4096, 256)
 with window 2048; recomputing the rows' log-sum-exp (the forward keeps
-none) and splitting dQ from dK/dV without atomics make it eight.  bfloat16
-runs them on the tensor cores with ``wgmma`` out of bf16 tiles in shared
-memory, as the forward does: ``swa_bwd_dq`` (one block of two warpgroups
-per batch, query head and 128-query tile: the rows' LSE in a first pass
-over the band, ``D = rowsum(dO * O)``, then dQ += dS·K with dS rounded to
-bf16 in registers) and ``swa_bwd_dkdv`` (one block per batch, KV head,
-64-key tile and part of the group's query heads, :func:`bwd_parts`:
-warpgroup 0 computes Pᵀ and dV, warpgroup 1 dPᵀ, dSᵀ and dK, Pᵀ handed
-across in shared memory; each part writes f32 partial sums that
-``swa_bwd_fold`` adds in a fixed order and casts).  float32 keeps CUDA-core
-FMA kernels (its 1e-5 bar rules out bf16 and TF32 products; the training
-step runs bf16).  No atomics: the same inputs give the same bits.  Shared
-memory :func:`bwd_smem_bytes`.  Its plain version is :func:`swa_bwd_ref`
-(and :func:`swa_bwd_fold_ref` the fold's).
+none) and splitting dQ from dK/dV without atomics make it eight.  Both
+types run them on the tensor cores: ``swa_bwd_dq`` (one block per batch,
+query head and query tile: the rows' LSE in a first pass over the band,
+``D = rowsum(dO * O)``, then dQ += dS·K) and ``swa_bwd_dkdv`` (one block
+per batch, KV head, 64-key tile and part of the group's query heads,
+:func:`bwd_parts`: one group of warps computes Pᵀ and dV, the other dPᵀ,
+dSᵀ and dK, Pᵀ handed across in shared memory; each part writes f32
+partial sums that ``swa_bwd_fold`` adds in a fixed order and casts).
+bfloat16 uses ``wgmma`` out of bf16 tiles in shared memory, as the forward
+does, with P and dS rounded to bf16 in registers; float32 uses
+``mma.sync`` in 3xTF32 (each operand split into two TF32 parts, three
+products summed in f32), which keeps its 1e-5 bar where one TF32 product
+would not.  No atomics: the same inputs give the same bits.  Shared memory
+:func:`bwd_smem_bytes`.  Its plain version is :func:`swa_bwd_ref` (and
+:func:`swa_bwd_fold_ref` the fold's).
 """
 from __future__ import annotations
 
@@ -53,53 +55,68 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p]
 
 
-# swa_bwd_dq_launch: 8 pointers, then the scalars; swa_bwd_dkdv_launch
-# adds the partial sums' pointer and their number of parts before smem
-_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_size_t, ctypes.c_void_p]
-_DKDV_ARGTYPES = _BWD_ARGTYPES[:-2] + [ctypes.c_void_p, ctypes.c_int,
-                                       *_BWD_ARGTYPES[-2:]]
-_FOLD_ARGTYPES = [ctypes.c_void_p] * 4 + [
-    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]
+# swa_bwd_dq_launch: 8 pointers (q, k, v, o, dO, dq, lse, delta), then
+# the scalars; swa_bwd_dkdv_launch: 6 (q, k, v, dO, lse, delta), the
+# scalars, and the partial sums' pointer and their number of parts before
+# smem
+_SCALARS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + _SCALARS + [ctypes.c_size_t,
+                                                     ctypes.c_void_p]
+_DKDV_ARGTYPES = [ctypes.c_void_p] * 6 + _SCALARS + [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t, ctypes.c_void_p]
+_FOLD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_int64, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p]
 BWD_BLOCK_Q, BWD_TILE = 128, 64        # kDqRows, kTile in swa_bwd.cu
-# swa_bwd_dkdv in bf16 splits a group's query heads into as many parts as
-# keep its blocks within this many (the H100's SMs; a constant, so the
-# split, and with it the bits, depend on the shapes alone)
+F32_BWD_ROWS, F32_BWD_KEYS, F32_BWD_QT = 64, 32, 16   # kFRows, kFKeys, kFQT
+# swa_bwd_dkdv splits a group's query heads into as many parts as keep its
+# blocks within this many (the H100's SMs; a constant, so the split, and
+# with it the bits, depend on the shapes alone), and in f32 within
+# F32_PARTS_WAVES times as many: its blocks' bands differ in length, and
+# more, shorter blocks even out what each SM is given
 PARTS_BLOCKS = 132
+F32_PARTS_WAVES = 3
 
 
 def bwd_smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16
                    ) -> dict[str, int]:
     """Dynamic shared memory of one block of each backward kernel, as
-    swa_bwd.cu lays it out.  bf16 (D zero-filled to Dp = 64, 128 or 256, and
-    1024 bytes to align the swizzled tiles): dq holds Q and dO (128 rows),
-    two 64-key K stages, one V tile and the rows' D; dkdv its 64 keys' K and
-    V, two stages of 64-query Q and dO tiles with their LSE and D, and the
-    64 x 64 f32 Pᵀ handed between its warpgroups.  f32, in f32 (Dp = D
-    rounded up to 4; rows a lane reads padded to Dp + 4): dq holds Q and dO
-    (64 rows) and a 32-key K and V tile; dkdv its 32 keys' K and V, a
-    32-query Q and dO tile and their LSE and D."""
+    swa_bwd.cu lays it out, D zero-filled to Dp = 64, 128 or 256.  bf16
+    (and 1024 bytes to align the swizzled tiles): dq holds Q and dO (128
+    rows), two 64-key K stages, one V tile and the rows' D; dkdv its 64
+    keys' K and V, two stages of 64-query Q and dO tiles with their LSE and
+    D, and the 64 x 64 f32 Pᵀ handed between its warpgroups.  f32 (tiles
+    in f32, unpadded): dq holds Q and dO (64 rows), two 32-key tiles (K and
+    V), the 8 warps' dS fragments (2 k-steps x 8 u32 x 32 lanes), the rows'
+    D and each warp's (max, sum) of its 16 rows; dkdv its 64 keys' K and V,
+    two stages of 16-query Q and dO tiles with their LSE and D, and the
+    4 warps' Pᵀ fragments (8 x 32 f32)."""
+    dp = next(p for p in (64, 128, 256) if head_dim <= p)
     if dtype == torch.bfloat16:
-        dp = next(p for p in (64, 128, 256) if head_dim <= p)
         return {"swa_bwd_dq": 2 * dp * (2 * BWD_BLOCK_Q + 3 * BWD_TILE)
                 + 4 * BWD_BLOCK_Q + 1024,
                 "swa_bwd_dkdv": 2 * dp * 6 * BWD_TILE + 4 * 4 * BWD_TILE
                 + 4 * BWD_TILE * BWD_TILE + 1024}
-    dp = (head_dim + 3) // 4 * 4
-    return {"swa_bwd_dq": 4 * (2 * 64 * dp + 2 * 32 * (dp + 4)),
-            "swa_bwd_dkdv": 4 * (2 * 32 * dp + 2 * 32 * (dp + 4) + 2 * 32)}
+    return {"swa_bwd_dq": 4 * dp * (2 * F32_BWD_ROWS + 2 * F32_BWD_KEYS)
+            + 4 * (8 * 512 + F32_BWD_ROWS + 8 * 16 * 2),
+            "swa_bwd_dkdv": 4 * dp * (2 * BWD_TILE + 4 * F32_BWD_QT)
+            + 4 * (4 * F32_BWD_QT + 4 * 8 * 32)}
 
 
-def bwd_parts(batch: int, hkv: int, seq: int, group: int) -> int:
+def bwd_parts(batch: int, hkv: int, seq: int, group: int,
+              dtype: torch.dtype = torch.bfloat16) -> int:
     """Parts of a KV head's group of query heads that ``swa_bwd_dkdv`` runs
-    as blocks of their own in bf16: the most that keep batch x hkv x
-    64-key tiles x parts within PARTS_BLOCKS, at least 1, at most the
-    group.  2 at the model's (1, 10/1, 4096)."""
+    as blocks of their own: the most that keep batch x hkv x 64-key tiles x
+    parts within PARTS_BLOCKS (f32: F32_PARTS_WAVES x PARTS_BLOCKS), at
+    least 1, at most the group.  bf16 splits the group's heads, f32 its
+    (head, 16-query tile) steps.  At the model's (1, 10/1, 4096): 2 in
+    bf16, 6 in f32."""
     blocks = batch * hkv * -(-seq // BWD_TILE)
-    return max(1, min(group, PARTS_BLOCKS // max(blocks, 1)))
+    waves = F32_PARTS_WAVES if dtype == torch.float32 else 1
+    return max(1, min(group, waves * PARTS_BLOCKS // max(blocks, 1)))
 
 
 def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
@@ -196,13 +213,12 @@ def _bwd_launch(entry: str, tensors, lse, delta, dtype_code, q, hkv,
     c_strides = (ctypes.c_int64 * 24)(*[
         st for t in tensors
         for st in (t.stride()[:3] if t is not None else (0, 0, 0))])
-    # the entry's six tensor slots: q, k, v, o, dO, dq or q, k, v, dO, dk, dv
-    slots = (0, 1, 2, 4, 6, 7) if entry == "swa_bwd_dkdv" else range(6)
-    ptrs = [tensors[i].data_ptr() if tensors[i] is not None else None
-            for i in slots]
+    # the entry's tensors: q, k, v, o, dO, dq or q, k, v, dO
+    slots = (0, 1, 2, 4) if entry == "swa_bwd_dkdv" else range(6)
+    ptrs = [tensors[i].data_ptr() for i in slots]
     extra, argtypes = [], _BWD_ARGTYPES
     if entry == "swa_bwd_dkdv":
-        extra = [partial.data_ptr() if partial is not None else None, parts]
+        extra = [partial.data_ptr(), parts]
         argtypes = _DKDV_ARGTYPES
     with torch.cuda.device(q.device):
         _build.launch(entry, "swa_bwd", argtypes, *ptrs,
@@ -241,17 +257,14 @@ def _check_dkdv(q, k, v, dout, lse, delta) -> int:
 def swa_bwd_dkdv_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          dout: torch.Tensor, lse: torch.Tensor,
                          delta: torch.Tensor, *, window: int) -> torch.Tensor:
-    """bf16 CUDA tensors only: launches ``swa_bwd_dkdv`` with
+    """CUDA tensors only: launches ``swa_bwd_dkdv`` with
     :func:`swa_bwd_dq`'s ``lse`` and ``delta`` -> each part's f32 partial
     dK and dV, (2, parts, B, Hkv, S, D) with ``parts`` :func:`bwd_parts`."""
     dtype_code = _check_dkdv(q, k, v, dout, lse, delta)
-    if q.dtype != torch.bfloat16:
-        raise ValueError("swa_bwd_dkdv writes partial sums in bf16 only, "
-                         f"got {q.dtype}")
     q, k, v, dout = (_unit_last(t) for t in (q, k, v, dout))
     b, hq, s, d = q.shape
     hkv = k.shape[1]
-    parts = bwd_parts(b, hkv, s, hq // hkv)
+    parts = bwd_parts(b, hkv, s, hq // hkv, q.dtype)
     partial = torch.empty((2, parts, b, hkv, s, d), dtype=torch.float32,
                           device=q.device)
     if q.numel():
@@ -264,17 +277,17 @@ def swa_bwd_dkdv_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def swa_bwd_fold(partial: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) in bf16, in k's and v's layouts: the sum over the parts, in
-    order, of :func:`swa_bwd_dkdv_partial`'s ``partial``.  Launches
-    ``swa_bwd_fold`` on a CUDA tensor; runs :func:`swa_bwd_fold_ref` on a
-    CPU one."""
+    """(dk, dv) in k's type and k's and v's layouts: the sum over the
+    parts, in order, of :func:`swa_bwd_dkdv_partial`'s ``partial``.
+    Launches ``swa_bwd_fold`` on a CUDA tensor; runs
+    :func:`swa_bwd_fold_ref` on a CPU one."""
     if (partial.dim() != 6 or partial.shape[0] != 2
             or partial.shape[2:] != k.shape or v.shape != k.shape
             or partial.dtype != torch.float32 or not partial.is_contiguous()
-            or k.dtype != torch.bfloat16 or v.dtype != k.dtype
+            or k.dtype not in _build.DTYPE_CODES or v.dtype != k.dtype
             or len({t.device for t in (partial, k, v)}) != 1):
         raise ValueError("swa_bwd_fold takes contiguous f32 partial sums "
-                         "(2, parts, B, Hkv, S, D) and bf16 k and v "
+                         "(2, parts, B, Hkv, S, D) and f32 or bf16 k and v "
                          f"(B, Hkv, S, D) on one device, got "
                          f"{tuple(partial.shape)} {partial.dtype} and "
                          f"{tuple(k.shape)} {k.dtype}")
@@ -287,6 +300,7 @@ def swa_bwd_fold(partial: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         with torch.cuda.device(k.device):
             _build.launch("swa_bwd_fold", "swa_bwd", _FOLD_ARGTYPES,
                           partial.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                          _build.DTYPE_CODES[k.dtype],
                           ctypes.addressof(c_strides), b, hkv, s, d,
                           partial.shape[1], _build.stream_handle(k.device),
                           entry="swa_bwd_fold")
@@ -297,26 +311,11 @@ def swa_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  *, window: int) -> tuple[torch.Tensor, torch.Tensor]:
     """CUDA tensors only: launches ``swa_bwd_dkdv`` with :func:`swa_bwd_dq`'s
-    ``lse`` and ``delta`` -> (dk, dv) in k's and v's layouts; in bf16 the
-    kernel writes partial sums (:func:`swa_bwd_dkdv_partial`) and
-    ``swa_bwd_fold`` adds them (:func:`swa_bwd_fold`)."""
-    dtype_code = _check_dkdv(q, k, v, dout, lse, delta)
-    if q.dtype == torch.bfloat16:
-        if q.device.type != "cuda":
-            raise ValueError("swa_bwd_dkdv launches a CUDA kernel and takes "
-                             f"CUDA tensors, got {q.device} (swa_bwd_kernel "
-                             "runs the plain version on CPU ones)")
-        return swa_bwd_fold(swa_bwd_dkdv_partial(q, k, v, dout, lse, delta,
-                                                 window=window), k, v)
-    q, k, v, dout = (_unit_last(t) for t in (q, k, v, dout))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if q.numel():
-        _bwd_launch("swa_bwd_dkdv", (q, k, v, None, dout, None, dk, dv), lse,
-                    delta, dtype_code, q, k.shape[1], window)
-    else:
-        dk.zero_()
-        dv.zero_()
-    return dk, dv
+    ``lse`` and ``delta`` -> (dk, dv) in k's and v's layouts: the kernel
+    writes partial sums (:func:`swa_bwd_dkdv_partial`) and ``swa_bwd_fold``
+    adds them (:func:`swa_bwd_fold`)."""
+    return swa_bwd_fold(swa_bwd_dkdv_partial(q, k, v, dout, lse, delta,
+                                             window=window), k, v)
 
 
 def swa_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -324,8 +323,8 @@ def swa_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`swa_kernel`'s output ``out`` for q, k, v, with
     ``dout`` its gradient (out's shape and type), each in its input's
-    memory layout.  On CUDA tensors launches ``swa_bwd_dq`` then
-    ``swa_bwd_dkdv`` (and in bf16 ``swa_bwd_fold``); on CPU ones runs
+    memory layout.  On CUDA tensors launches ``swa_bwd_dq``, then
+    ``swa_bwd_dkdv`` and ``swa_bwd_fold``; on CPU ones runs
     :func:`swa_bwd_ref`."""
     if window < 1:
         raise ValueError(f"swa_bwd: window must be >= 1, got {window}")

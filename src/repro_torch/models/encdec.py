@@ -50,9 +50,11 @@ class _Params(nn.Module):
 
 class EncDecLM(nn.Module):
     """Whisper-tiny-style backbone.  Holds its parameters (uninitialised
-    until :meth:`init` or ``load_state_dict``) on ``device``."""
+    until :meth:`init` or ``load_state_dict``) on ``device``.
+    ``force_unroll`` is accepted and ignored, as by ``transformer.LM``."""
 
-    def __init__(self, cfg: ArchConfig, *, device="cuda"):
+    def __init__(self, cfg: ArchConfig, force_unroll: bool = False, *,
+                 device="cuda"):
         super().__init__()
         self.cfg = cfg
         add_params(self, self._top_specs(), cfg.param_dtype, device)
@@ -131,7 +133,7 @@ class EncDecLM(nn.Module):
             return f"{stack}.{rest}"
         return name
 
-    def forward(self, tokens: torch.Tensor, frames: torch.Tensor, *,
+    def forward(self, tokens: torch.Tensor, frames: torch.Tensor,
                 remat: str = "none") -> tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S), frames: (B, T, D) -> (logits (B,S,V) fp32, 0).
         ``remat`` recomputes each decoder block in the backward pass, as

@@ -67,13 +67,13 @@ def _leaves(tree: dict):
             yield from _leaves(v)
 
 
-def param_count(specs: dict) -> int:
+def param_count(spec_tree: dict) -> int:
     """Elements of every Spec in a (nested) dict of specs."""
-    return sum(math.prod(s.shape) for s in _leaves(specs))
+    return sum(math.prod(s.shape) for s in _leaves(spec_tree))
 
 
-def param_bytes(specs: dict, default_dtype: str = "float32") -> int:
+def param_bytes(spec_tree: dict, default_dtype: str = "float32") -> int:
     """Bytes of every Spec in a (nested) dict of specs, each at its own type
     or ``default_dtype``."""
     return sum(math.prod(s.shape) * spec_dtype(s, default_dtype).itemsize
-               for s in _leaves(specs))
+               for s in _leaves(spec_tree))

@@ -193,9 +193,12 @@ class Block(nn.Module):
 class LM(nn.Module):
     """Decoder-only language model built from an ArchConfig.  Holds its
     parameters (uninitialised until :meth:`init` or ``load_state_dict``) on
-    ``device``."""
+    ``device``.  ``force_unroll`` is accepted and ignored: in the reference
+    it unrolls the layer scan for the dry run's cost estimate, and the port
+    has no scan (one block per layer)."""
 
-    def __init__(self, cfg: ArchConfig, *, device="cuda"):
+    def __init__(self, cfg: ArchConfig, force_unroll: bool = False, *,
+                 device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.period = len(cfg.block_pattern)

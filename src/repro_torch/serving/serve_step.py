@@ -10,9 +10,10 @@ import torch
 from repro_torch.configs import ArchConfig
 
 
-def make_decode_step(model, cfg: ArchConfig):
+def make_decode_step(model, cfg: ArchConfig, *, greedy: bool = True):
     """(cache, tokens (B,1), step) -> (next_token (B,1), logits, cache),
-    greedy.  M-RoPE configs rotate by ``step`` on all three components."""
+    greedy whatever ``greedy`` says (the reference takes it and ignores it
+    too).  M-RoPE configs rotate by ``step`` on all three components."""
 
     @torch.inference_mode()
     def decode_step(cache, tokens: torch.Tensor, step: int):

@@ -242,7 +242,7 @@ def test_h100_machines_match_chip_smoke_peaks():
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     for part, m in (("sxm", H100_SXM), ("pcie", H100_PCIE)):
-        bw, fp32, _bf16 = chip_smoke.PEAKS[part]
+        bw, fp32, _bf16, _tf32 = chip_smoke.PEAKS[part]
         assert (bw, fp32) == (m.bw_gbps * 1e9, m.peak_gflops * 1e9)
         assert m.num_macs == 0 and m.link_gbps == 0.0
     assert (H100_SXM.bw_gbps, H100_SXM.peak_gflops, H100_SXM.clock_ghz) == (

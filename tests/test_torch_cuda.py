@@ -560,7 +560,9 @@ CASES_CONV_BWD = [
 # the edges of its tiling (128-query dq blocks, 64-key tiles, the group
 # split into parts): S = 65 and 4097, windows 63, 64 and 65, groups 10:1
 # and 3:1, D = 40 zero-filled to 64, and D = 20, whose rows are not 16-byte
-# aligned (the scalar load path)
+# aligned (the scalar load path); then f32 at D = 256 with S not a multiple
+# of 64 (the model's views, parts of the group), and D = 18, whose rows are
+# not 16-byte aligned
 CASES_SWA_BWD = [
     (1, 10, 1, 4096, 256, 2048, "bfloat16", True),
     (1, 10, 1, 1000, 256, 2048, "float32", True),
@@ -575,6 +577,8 @@ CASES_SWA_BWD = [
     (1, 3, 1, 4097, 64, 65, "bfloat16", False),
     (2, 6, 2, 300, 40, 64, "bfloat16", True),
     (1, 3, 1, 200, 20, 65, "bfloat16", False),
+    (1, 10, 1, 1000, 256, 300, "float32", True),
+    (1, 3, 1, 70, 18, 65, "float32", True),
 ]
 
 
@@ -622,10 +626,10 @@ def test_conv1d_backward_matches_plain_version(dev, rng, b, s, c, k, dtype,
 @pytest.mark.parametrize("b,hq,hkv,s,d,w,dtype,strided", CASES_SWA_BWD)
 def test_swa_backward_matches_plain_version(dev, rng, b, hq, hkv, s, d, w,
                                             dtype, strided):
-    """dq, dk, dv (swa_bwd_dq, swa_bwd_dkdv) through the op's autograd
-    against the vector-Jacobian product of swa_ref, within chip_smoke.py's
-    GRAD_TOL; strided: (B, S, H, D) tensors viewed as (B, H, S, D), as the
-    model passes them."""
+    """dq, dk, dv (swa_bwd_dq, swa_bwd_dkdv, swa_bwd_fold, one launch each)
+    through the op's autograd against the vector-Jacobian product of
+    swa_ref, within chip_smoke.py's GRAD_TOL; strided: (B, S, H, D) tensors
+    viewed as (B, H, S, D), as the model passes them."""
     def make(h):
         if strided:
             return _x(rng, (b, s, h, d), dtype, dev).transpose(1, 2)
@@ -633,7 +637,8 @@ def test_swa_backward_matches_plain_version(dev, rng, b, hq, hkv, s, d, w,
     q, k, v, dout = make(hq), make(hkv), make(hkv), make(hq)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     before = {n: _build.LAUNCHES.get(n, 0) for n in ("swa_bwd_dq",
-                                                    "swa_bwd_dkdv")}
+                                                    "swa_bwd_dkdv",
+                                                    "swa_bwd_fold")}
     out = sliding_window_attention(*leaves, window=w, backend="cuda")
     got = torch.autograd.grad(out, leaves, dout)
     for n in before:
@@ -645,19 +650,20 @@ def test_swa_backward_matches_plain_version(dev, rng, b, hq, hkv, s, d, w,
 
 
 def test_swa_backward_is_deterministic_at_the_model_shape(dev, rng):
-    """Two backward calls at RecurrentGemma-2B's shape in bf16 ((1, 4096)
-    tokens, 10 query heads over 1 KV head, D = 256, window 2048, the
-    (B, S, H, D) views the model passes) give equal bits: every sum runs in
-    a fixed order, with no atomics, and the split of the group's heads into
-    parts depends on the shapes alone."""
-    q, k, v, dout = (_x(rng, (1, 4096, h, 256), "bfloat16", dev).transpose(
-        1, 2) for h in (10, 1, 1, 10))
-    out = sliding_window_attention(q, k, v, window=2048, backend="cuda")
-    first = swa_bwd_kernel(q, k, v, out, dout, window=2048)
-    again = swa_bwd_kernel(q, k, v, out, dout, window=2048)
-    torch.cuda.synchronize()
-    for a, b in zip(first, again):
-        assert torch.equal(a, b)
+    """Two backward calls at RecurrentGemma-2B's shape in bf16 and in f32
+    ((1, 4096) tokens, 10 query heads over 1 KV head, D = 256, window 2048,
+    the (B, S, H, D) views the model passes) give equal bits: every sum
+    runs in a fixed order, with no atomics, and the split of the group's
+    heads into parts depends on the shapes alone."""
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, dout = (_x(rng, (1, 4096, h, 256), dtype, dev).transpose(
+            1, 2) for h in (10, 1, 1, 10))
+        out = sliding_window_attention(q, k, v, window=2048, backend="cuda")
+        first = swa_bwd_kernel(q, k, v, out, dout, window=2048)
+        again = swa_bwd_kernel(q, k, v, out, dout, window=2048)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b), dtype
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -682,8 +688,7 @@ def test_gradient_through_checkpoint(dev, dtype):
         loss = xent_loss(logits[:, :-1], toks[:, 1:])
         grads[remat] = torch.autograd.grad(loss, params)
         for n in ("conv1d", "conv1d_bwd_wb", "swa", "swa_bwd_dq",
-                  "swa_bwd_dkdv") + (("swa_bwd_fold",)
-                                     if dtype == "bfloat16" else ()):
+                  "swa_bwd_dkdv", "swa_bwd_fold"):
             assert _build.LAUNCHES.get(n, 0) > 0, (remat, n)
     for remat in ("full", "dots"):
         for a, g in zip(grads["none"], grads[remat]):

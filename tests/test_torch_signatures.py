@@ -1,0 +1,212 @@
+"""The port's public signatures against the reference's, module by module.
+
+For every module that ``src/repro/`` and ``src/repro_torch/`` both have
+(same path under the package), each public function, class method and
+``__init__`` defined there is compared with ``inspect.signature`` of the
+reference's: the parameters' names, kinds and order, and their defaults.
+Annotations are not compared (``jax.Array`` against ``torch.Tensor``).
+What differs by design is recorded in ``DIFFERENCES`` and ``MISSING``; a
+new difference fails here until it is recorded or repaired, and a recorded
+one that no longer holds fails too.
+"""
+import dataclasses
+import importlib
+import inspect
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("jax")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+@dataclasses.dataclass(frozen=True)
+class Diff:
+    """How a port signature departs from the reference's: reference
+    parameters it drops, parameters of its own, and defaults it changes
+    (name -> the port's default)."""
+    why: str
+    dropped: tuple = ()
+    added: tuple = ()
+    defaults: tuple = ()       # ((name, port default), ...)
+
+
+PARAMS = "the nn.Module holds its parameters: no params argument"
+INIT = "init fills the parameters from a torch.Generator, not a jax key"
+DEVICE = "the port's tensors are made on device= (None or 'cuda': the card)"
+TILES = ("Pallas tile and VMEM keywords dropped: the CUDA kernels pick their "
+         "own tiles from the card's shared memory")
+PLANNER = "the planner is re-derived for the card's shared memory"
+
+DIFFERENCES = {
+    "checkpoint.manager.CheckpointManager.restore": Diff(
+        "no shardings until distributed/ is ported", dropped=("shardings",)),
+    "core.simulator.simulate": Diff(DEVICE, added=("device",)),
+    "core.simulator.simulate_batch": Diff(
+        "the batched engine is K7 ('cuda'), run on device=",
+        added=("device",), defaults=(("engine", "cuda"),)),
+    "explore.search.explore": Diff(DEVICE, added=("device",)),
+    "distributed.collectives.compress_decompress": Diff(
+        "groups: the reference's stacked leaves", added=("groups",)),
+    "train.optim.apply_updates": Diff(
+        "decay and groups: the reference's stacked leaves",
+        added=("decay", "groups")),
+    "kernels.conv1d.ops.causal_conv1d": Diff(
+        TILES, dropped=("block_s", "block_c")),
+    "kernels.swa.ops.sliding_window_attention": Diff(TILES,
+                                                     dropped=("block",)),
+    "kernels.stencil3d.ops.stencil3d": Diff(
+        TILES + "; block=None runs DEFAULT_BLOCK through fit_block",
+        dropped=("vmem_budget_bytes",), defaults=(("block", None),)),
+    "kernels.stencil1d.ops.plan_1d_blocks": Diff(
+        PLANNER, dropped=("bytes_per_elem", "vmem_budget"),
+        added=("variant", "smem_budget", "itemsize")),
+    "kernels.stencil2d.ops.plan_2d_blocks": Diff(
+        PLANNER, dropped=("bytes_per_elem", "vmem_budget"),
+        added=("smem_budget",)),
+    "models.attention.KVCache.init": Diff(DEVICE, added=("device",)),
+    "models.common.sinusoidal_positions": Diff(DEVICE, added=("device",)),
+    "models.rglru.rglru_init_state": Diff(DEVICE, added=("device",)),
+    "models.rwkv6.rwkv_init_state": Diff(DEVICE, added=("device",)),
+    "models.registry.build_model": Diff(DEVICE, added=("device",)),
+    "models.registry.input_arrays": Diff(DEVICE, added=("device",)),
+    "models.transformer.LM.__init__": Diff(DEVICE, added=("device",)),
+    "models.transformer.LM.init": Diff(INIT, dropped=("key",),
+                                       added=("generator",)),
+    "models.transformer.LM.forward": Diff(PARAMS, dropped=("params",)),
+    "models.transformer.LM.decode": Diff(PARAMS, dropped=("params",)),
+    "models.transformer.LM.embed_inputs": Diff(PARAMS, dropped=("params",)),
+    "models.encdec.EncDecLM.__init__": Diff(DEVICE, added=("device",)),
+    "models.encdec.EncDecLM.init": Diff(INIT, dropped=("key",),
+                                        added=("generator",)),
+    "models.encdec.EncDecLM.forward": Diff(PARAMS, dropped=("params",)),
+    "models.encdec.EncDecLM.decode": Diff(PARAMS, dropped=("params",)),
+    "models.encdec.EncDecLM.encode": Diff(PARAMS, dropped=("params",)),
+    "serving.engine.BatchEngine.__init__": Diff(PARAMS, dropped=("params",)),
+}
+
+# reference public names with no counterpart in the port's module
+MISSING = {
+    "core.roofline": {"TpuRooflineTerms", "TpuRooflineTerms.__init__",
+                      "TpuRooflineTerms.as_dict"},     # with analysis/rooflines
+    "distributed.collectives": {"compressed_psum_tree", "int8_psum"},
+    "kernels.stencil1d.kernel": {"make_band"},         # K2 builds it on the card
+    "models.params": {"init_leaf", "init_params",      # nn.Module init
+                      "logical_tree", "shape_tree"},   # sharding rules' input
+    "models.transformer": {"maybe_scan", "stack_specs"},   # one block a layer
+}
+
+
+def _modules(pkg: str) -> set[str]:
+    root = SRC / pkg
+    out = set()
+    for f in root.rglob("*.py"):
+        parts = f.relative_to(root).with_suffix("").parts
+        parts = parts[:-1] if parts[-1] == "__init__" else parts
+        if parts:
+            out.add(".".join(parts))
+    return out
+
+
+SHARED = sorted(_modules("repro") & _modules("repro_torch"))
+
+
+def _public(mod) -> dict:
+    """Public functions, and the public methods and ``__init__`` of public
+    classes, defined in ``mod``, by qualified name."""
+    out = {}
+    for name, obj in vars(mod).items():
+        if name.startswith("_") or getattr(obj, "__module__", None) != mod.__name__:
+            continue
+        if inspect.isfunction(obj):
+            out[name] = obj
+        elif inspect.isclass(obj):
+            out[name] = None
+            for mname, m in vars(obj).items():
+                if mname.startswith("_") and mname != "__init__":
+                    continue
+                f = m.__func__ if isinstance(m, (staticmethod, classmethod)) else m
+                if inspect.isfunction(f):
+                    out[f"{name}.{mname}"] = f
+    return out
+
+
+def _default(d):
+    """A default as compared: its repr, any callable as one token (a lambda
+    of each package is a different object)."""
+    return "<callable>" if callable(d) else repr(d)
+
+
+def _params(f, skip=()) -> list[tuple]:
+    return [(p.name, p.kind, _default(p.default))
+            for p in inspect.signature(f).parameters.values()
+            if p.name not in skip]
+
+
+def test_shared_modules_are_found():
+    assert len(SHARED) >= 80
+    assert {"models.transformer", "serving.serve_step", "models.params",
+            "kernels.swa.ops", "core.simulator"} <= set(SHARED)
+
+
+@pytest.mark.parametrize("module", SHARED)
+def test_signatures_match_the_reference(module):
+    ref = importlib.import_module(f"repro.{module}")
+    port = importlib.import_module(f"repro_torch.{module}")
+    want, got = _public(ref), _public(port)
+    assert set(want) - set(got) == MISSING.get(module, set())
+    for name in sorted(set(want) & set(got)):
+        if want[name] is None:              # a class: its methods follow
+            continue
+        key = f"{module}.{name}"
+        diff = DIFFERENCES.get(key, Diff(""))
+        ref_names = set(inspect.signature(want[name]).parameters)
+        port_names = set(inspect.signature(got[name]).parameters)
+        assert set(diff.dropped) <= ref_names - port_names, key
+        assert set(diff.added) <= port_names - ref_names, key
+        defaults = {n: _default(d) for n, d in diff.defaults}
+        ref_params = [(n, k, defaults.get(n, d))
+                      for n, k, d in _params(want[name], diff.dropped)]
+        assert _params(got[name], diff.added) == ref_params, key
+
+
+def test_every_recorded_difference_is_of_a_shared_function():
+    """A record left behind by a repair fails here."""
+    names = set()
+    for module in SHARED:
+        names |= {f"{module}.{n}" for n in _public(
+            importlib.import_module(f"repro.{module}"))}
+    assert set(DIFFERENCES) <= names
+    for key, diff in DIFFERENCES.items():
+        assert diff.why and (diff.dropped or diff.added or diff.defaults), key
+
+
+def test_the_repaired_signatures_behave_as_the_reference():
+    """make_decode_step takes greedy=, param_count/param_bytes take
+    spec_tree=, LM/EncDecLM take force_unroll by position, and
+    EncDecLM.forward takes remat by position."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import params as pr
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving.serve_step import make_decode_step
+    import torch
+    cfg = get_reduced_config("tinyllama-1.1b")
+    model = LM(cfg, False, device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    specs = model.specs()
+    assert pr.param_count(spec_tree=specs) == pr.param_count(specs)
+    assert pr.param_bytes(spec_tree=specs, default_dtype="float32") > 0
+    step = make_decode_step(model, cfg, greedy=True)
+    cache = model.init_cache(1, 8)
+    nxt, logits, _ = step(cache, torch.zeros((1, 1), dtype=torch.int64), 0)
+    assert nxt.shape == (1, 1) and logits.shape[-1] == cfg.vocab_size
+    wcfg = get_reduced_config("whisper-tiny")
+    enc = EncDecLM(wcfg, True, device="cpu")
+    enc.init(torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    frames = torch.zeros((1, 8, wcfg.d_model))
+    a, _ = enc(toks, frames, "none")
+    b, _ = enc(toks, frames, remat="none")
+    assert torch.equal(a, b)

@@ -12,7 +12,7 @@ arithmetic of the K2 and K6 tensor-core paths, on the CPU (no jax, no card).
   to the f32 limit of 2e-5 over fused sweeps, which plain TF32 misses.
 
 - Shared memory of K6 (bf16 tensor-core and f32 layouts; its backward's
-  bf16 layouts) and of K3 (one buffer at T = 1, two with margins for fused
+  bf16 and f32 layouts) and of K3 (one buffer at T = 1, two with margins for fused
   sweeps) against the H100's opt-in 232,448 B per block; the parts K6's
   backward splits a group's heads into, and its fold of their partial
   sums.
@@ -37,7 +37,9 @@ arithmetic of the K2 and K6 tensor-core paths, on the CPU (no jax, no card).
   against the plain version, so the design fits the limits before any run
   on the card; and one of K6's bf16 backward (bf16 products summed in f32,
   P and dS rounded to bf16 before dV, dK and dQ) held to its ``GRAD_TOL``
-  against the vector-Jacobian product of the plain version.
+  against the vector-Jacobian product of the plain version; and one of
+  K6's f32 backward (every product in 3xTF32) held to the f32
+  ``GRAD_TOL``, which one TF32 product a product misses.
 """
 import math
 import re
@@ -298,6 +300,26 @@ def test_swa_bwd_tensor_core_smem_fits(d, want):
     assert max(want) <= LIMIT
 
 
+@pytest.mark.parametrize("d,want", [(18, (66_816, 53_504)),
+                                    (40, (66_816, 53_504)),
+                                    (64, (66_816, 53_504)),
+                                    (128, (115_968, 102_656)),
+                                    (256, (214_272, 200_960))])
+def test_swa_bwd_f32_smem_fits(d, want):
+    """K6's f32 backward (swa_bwd.cu's f32_dq_smem and f32_dkdv_smem; f32
+    tiles, D zero-filled to Dp = 64, 128 or 256): dq 4 B x (64 Q + 64 dO +
+    2 x 32 key rows) x Dp, the 8 warps' dS fragments (512 u32 each), the
+    64 rows' D and the 8 warps' (max, sum) of 16 rows; dkdv 4 B x (64 K +
+    64 V + 2 stages x (16 Q + 16 dO) rows) x Dp, two stages of 16 LSE and
+    D, and the 4 warps' Pᵀ fragments (256 f32 each)."""
+    got = k6.bwd_smem_bytes(d, torch.float32)
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    assert got["swa_bwd_dq"] == 4 * dp * 192 + 4 * (8 * 512 + 64 + 256) \
+        == want[0]
+    assert got["swa_bwd_dkdv"] == 4 * dp * 192 + 4 * (64 + 1024) == want[1]
+    assert max(want) <= LIMIT
+
+
 @pytest.mark.parametrize("b,hkv,s,group,want", [
     (1, 1, 4096, 10, 2),        # the model's: 64 key tiles, 128 blocks
     (1, 1, 4097, 10, 2),
@@ -314,6 +336,38 @@ def test_swa_bwd_parts_fill_the_card(b, hkv, s, group, want):
     assert parts == want
     blocks = b * hkv * -(-s // 64)
     assert parts == 1 or blocks * parts <= k6.PARTS_BLOCKS
+
+
+def test_swa_bwd_f32_fold_sums_the_parts_in_order():
+    """f32 partial sums fold to f32 (swa_bwd_dkdv writes bwd_parts partial
+    sums in both types): the parts added in order, no cast."""
+    g = torch.Generator().manual_seed(4)
+    part = torch.randn(2, 2, 1, 1, 70, 256, generator=g)
+    k = torch.empty(1, 1, 70, 256)
+    dk, dv = k6.swa_bwd_fold(part, k, k)
+    assert dk.dtype == dv.dtype == torch.float32
+    assert torch.equal(dk, part[0, 0] + part[0, 1])
+    assert torch.equal(dv, part[1, 0] + part[1, 1])
+    assert k6.bwd_parts(1, 1, 4096, 10) == 2       # the model's, bf16
+
+
+@pytest.mark.parametrize("b,hkv,s,group,want", [
+    (1, 1, 4096, 10, 6),        # the model's: 64 key tiles, 384 blocks
+    (2, 1, 4096, 10, 3),
+    (1, 1, 65, 10, 10),         # every head a part, at most the group
+    (1, 2, 300, 3, 3),
+    (1, 1, 8192, 3, 3),
+    (4, 8, 4096, 1, 1),
+])
+def test_swa_bwd_f32_parts_even_out_the_bands(b, hkv, s, group, want):
+    """In f32 swa_bwd_dkdv splits a group's (head, query tile) steps into
+    the most parts that keep its blocks within 3 x 132 (F32_PARTS_WAVES
+    waves of the H100's SMs), from the shapes alone: the key tiles' bands
+    differ in length, and more, shorter blocks even out the SMs' shares."""
+    parts = k6.bwd_parts(b, hkv, s, group, torch.float32)
+    assert parts == want
+    blocks = b * hkv * -(-s // 64)
+    assert parts == 1 or blocks * parts <= k6.F32_PARTS_WAVES * k6.PARTS_BLOCKS
 
 
 def test_swa_bwd_fold_sums_the_parts_in_order():
@@ -671,6 +725,79 @@ def test_k6_bwd_bf16_rounding_fits_grad_tol():
         assert good, (name, err, rel)
         # the rounding of P and dS is visible: not the plain version
         assert err > 0, name
+
+
+def _tf32_rz(v: torch.Tensor) -> torch.Tensor:
+    """An f32 value as the tensor cores read a TF32 operand: its top 19
+    bits (10 mantissa bits, truncated)."""
+    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor, split: bool = True
+         ) -> torch.Tensor:
+    """a @ b as swa_bwd.cu's mma.sync computes it in 3xTF32: both operands
+    split (``split``: hi = rna(x), ``_tf32``; lo = x - hi, exact, read by
+    the tensor cores as ``_tf32_rz``), then a_lo·b_hi + a_hi·b_lo +
+    a_hi·b_hi, the products exact, summed in f32; ``split=False``: one TF32
+    product, a_hi·b_hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if split:
+        out = (_tf32_rz(a - ah) @ bh + ah @ _tf32_rz(b - bh)) + out
+    return out
+
+
+def emulate_k6_bwd_f32(q, k, v, dout, *, window: int, split: bool = True):
+    """K6's f32 backward arithmetic in torch (a test helper, never on the
+    main path): S = Q Kᵀ and dP = dO Vᵀ in 3xTF32 (``_mm3``), the rows'
+    LSE of S times the scale, P = exp(S scale - LSE) and dS = P (dP - D) in
+    f32 with D = rowsum(dO * O), O the plain f32 forward; dQ = scale dS K,
+    dK = scale dSᵀ Q and dV = Pᵀ dO in 3xTF32, dK and dV summed over the
+    group's heads.  ``split=False``: every product one TF32 product."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    kf = k.repeat_interleave(group, dim=1)
+    vf = v.repeat_interleave(group, dim=1)
+    scale = 1.0 / math.sqrt(d)
+    i = torch.arange(s)[:, None]
+    j = torch.arange(s)[None, :]
+    mask = (j <= i) & (j > i - window)
+    sc = (_mm3(q, kf.transpose(-1, -2), split) * scale).masked_fill(
+        ~mask, -math.inf)
+    p = torch.exp(sc - torch.logsumexp(sc, -1, keepdim=True))
+    delta = (dout * swa_plain(q, k, v, window=window)).sum(-1, keepdim=True)
+    ds = p * (_mm3(dout, vf.transpose(-1, -2), split) - delta)
+    dq = _mm3(ds, kf, split) * scale
+    dk = (_mm3(ds.transpose(-1, -2), q, split) * scale).view(b, hkv, group,
+                                                             s, d)
+    dv = _mm3(p.transpose(-1, -2), dout, split).view(b, hkv, group, s, d)
+    return dq, dk.sum(2), dv.sum(2)
+
+
+def test_k6_bwd_f32_split_fits_grad_tol():
+    """D = 256, GQA 4:1, S = 600, window 256: the emulated 3xTF32 backward
+    within chip_smoke.py's f32 GRAD_TOL of the vector-Jacobian product of
+    the plain version (swa_bwd_ref), and one TF32 product a product would
+    miss it, which is why every operand is split."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rng = np.random.default_rng(2)
+    q, k, v, dout = (
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        for shape in ((1, 4, 600, 256), (1, 1, 600, 256), (1, 1, 600, 256),
+                      (1, 4, 600, 256)))
+    want = swa_bwd_ref(q, k, v, dout, window=256)
+    got = emulate_k6_bwd_f32(q, k, v, dout, window=256)
+    one = emulate_k6_bwd_f32(q, k, v, dout, window=256, split=False)
+    for name, g, w, g1 in zip(("dq", "dk", "dv"), got, want, one):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        good, err, rel = chip_smoke.grad_error("swa", torch.float32, g, w,
+                                               dout)
+        assert good, (name, err, rel)
+        good1, err1, rel1 = chip_smoke.grad_error("swa", torch.float32, g1, w,
+                                                  dout)
+        assert not good1 and rel1 > 10 * rel, (name, rel1, rel)
 
 
 def test_swa_takes_strided_views_on_cpu():
