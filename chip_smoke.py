@@ -92,7 +92,8 @@ and the other LM families on one NVIDIA GPU (H100).
    beside the plain version, one library call (``F.conv1d`` with
    ``groups=C``; ``scaled_dot_product_attention`` with a band mask) and the
    bound.  K5 is timed with a cold L2 (a read of ``FLUSH_L2`` times the L2
-   before each call, outside the events): its kernel cold and warm (min /
+   before each call, then a sleeping kernel while the call is issued, both
+   outside the events): its kernel cold and warm (min /
    median / max), the op with its bias, the plain version and the library
    call; its row carries the launch ``plan`` chose (``instance``).  Then
    ``make_prefill`` of the full 26-layer model (d_model 2560, f32 weights,
@@ -128,14 +129,15 @@ and the other LM families on one NVIDIA GPU (H100).
 8a. The ``train`` phase (``train_phase``, ~35 s), between the LM and the
    ``families`` phases: K5's and K6's backward at RecurrentGemma-2B's
    shapes on (1, 4096) tokens in f32 and bf16, through the ops' autograd
-   (dx as K5 on the flipped gradient, dw/db as ``conv1d_bwd_wb``; dq, dk,
-   dv as ``swa_bwd_dq`` and ``swa_bwd_dkdv``, the latter's partial sums
-   added by ``swa_bwd_fold``) against the vector-Jacobian products of
-   their plain versions (``GRAD_TOL``; the fold bit for bit against its
-   own), each timed beside its plain version, a library call (the backward
-   of ``F.conv1d`` with ``groups=C``; of ``scaled_dot_product_attention``
-   with a band mask) and its bound (K6's f32 ones with the peak that sets
-   them, ``ops_bound``), K6's rows also with ``sum_ms`` (every launch of
+   (dx, dw and db in one launch of ``conv1d_bwd``, dx bit for bit K5 on
+   the flipped gradient, two calls bit-equal; dq, dk, dv as
+   ``swa_bwd_dq`` and ``swa_bwd_dkdv``, the latter's partial sums added
+   by ``swa_bwd_fold``) against the vector-Jacobian products of their
+   plain versions (``GRAD_TOL``; the fold bit for bit against its own),
+   each timed beside its plain version, a library call (the one backward
+   of ``F.conv1d`` with ``groups=C`` for x, w and b; of
+   ``scaled_dot_product_attention`` with a band mask) and its bound (K6's
+   f32 ones with the peak that sets them, ``ops_bound``), K6's rows also with ``sum_ms`` (every launch of
    its backward) beside ``library_bwd_ms`` (the one library backward of
    q, k and v); then one period (3 layers) at full width, bf16 activations:
    the loss's gradients and one ``make_train_step`` through the kernels
@@ -143,7 +145,7 @@ and the other LM families on one NVIDIA GPU (H100).
    whole model (26 layers, d_model 2560, f32 weights) trained for
    ``TRAIN_STEPS`` steps on ``SyntheticLM`` markov batches of (1, 4096)
    with remat "dots", the launch counts zeroed just before and read just
-   after (each step must launch K5 54 times, ``conv1d_bwd_wb`` 18, K6 16,
+   after (each step must launch K5 36 times, ``conv1d_bwd`` 18, K6 16,
    ``swa_bwd_dq``, ``swa_bwd_dkdv`` and ``swa_bwd_fold`` 8:
    ``train_launches``), losses,
    step ms, tokens/s and peak memory printed, and one more step under
@@ -215,7 +217,7 @@ from repro_torch.kernels import (causal_conv1d,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv1d.kernel import (conv1d_kernel,  # noqa: E402
                                               launch_plan)
-from repro_torch.kernels.conv1d.kernel import conv1d_bwd_wb  # noqa: E402
+from repro_torch.kernels.conv1d.kernel import conv1d_bwd  # noqa: E402
 from repro_torch.kernels.conv1d.ref import conv1d_bwd_ref, conv1d_ref  # noqa: E402
 from repro_torch.kernels.simbatch import kernel as k7  # noqa: E402
 from repro_torch.kernels.simbatch.ref import simbatch_plain  # noqa: E402
@@ -318,9 +320,9 @@ KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
     "simbatch": ("cuda", "src/repro_torch/csrc/simbatch.cu",
                  "src/repro/core/engine/jax_engine.py:409"),
     # the backward of K5 and K6: no TPU counterpart
-    "conv1d_bwd_wb": ("cuda", "src/repro_torch/csrc/conv1d.cu",
-                      "none: the JAX package defines no backward (it takes "
-                      "autodiff of src/repro/kernels/conv1d/kernel.py:55)"),
+    "conv1d_bwd": ("cuda", "src/repro_torch/csrc/conv1d.cu",
+                   "none: the JAX package defines no backward (it takes "
+                   "autodiff of src/repro/kernels/conv1d/kernel.py:55)"),
     "swa_bwd_dq": ("cuda", "src/repro_torch/csrc/swa_bwd.cu",
                    "none: the JAX package defines no backward (it takes "
                    "autodiff of src/repro/kernels/swa/kernel.py:99)"),
@@ -341,6 +343,9 @@ PTXAS_SOURCES = ("conv1d", "swa", "swa_bwd", "stencil1d", "stencil2d",
 # and only a cold time stands against a bound that counts HBM bytes.  A read
 # of FLUSH_L2 times the L2 between launches evicts it.
 FLUSH_L2 = 4
+# cycles of the kernel that holds the card after the flush while a cold
+# call is issued (~0.5 ms)
+COLD_SLEEP_CYCLES = 1_000_000
 # the generic instances of K4 and of K1 and K2, timed at a radius that is
 # not a compile-time one
 GENERIC_3D_RADIUS = 3
@@ -437,7 +442,10 @@ def event_times(fn, reps: int, warmup: int = 2,
     """CUDA-event times (ms) of ``reps`` calls of ``fn`` after ``warmup``.
     With ``flush`` (:func:`l2_flush`), the whole buffer is read before each
     call, outside the events: the call finds none of its inputs in the L2,
-    and no dirty lines there whose write-back it would pay for."""
+    and no dirty lines there whose write-back it would pay for.  A sleeping
+    kernel then holds the card while the call is issued, so the events
+    hold the call's device time, not its wrapper's host time (a K5 launch
+    takes longer to issue than the read of the buffer takes)."""
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
@@ -445,6 +453,7 @@ def event_times(fn, reps: int, warmup: int = 2,
     for s, e in zip(starts, ends):
         if flush is not None:
             flush.sum()
+            torch.cuda._sleep(COLD_SLEEP_CYCLES)
         s.record()
         fn()
         e.record()
@@ -746,7 +755,7 @@ def time_host(fn, reps: int) -> float:
 # and combine are told apart by the model's profiler range (MOE_DISPATCH)
 PROFILE_GROUPS = (
     ("K6 swa backward", ("swa_bwd_",)),
-    ("K5 conv1d backward (dw, db)", ("conv1d_bwd_",)),
+    ("K5 conv1d backward (dx, dw, db)", ("conv1d_bwd_",)),
     ("K6 swa", ("swa_wgmma_kernel", "swa_f32_kernel")),
     ("K5 conv1d", ("conv1d_vec_kernel", "conv1d_generic_kernel")),
     ("attention softmax", ("softmax",)),
@@ -1049,13 +1058,12 @@ def train_launches(cfg, remat: str) -> dict[str, int]:
     """Launches of each LM kernel in one train step: the forward's K5 and
     K6 once a layer, again where remat reruns the layer's forward in the
     backward pass (a ctypes launch is no aten op, so selective remat
-    recomputes it too), K5 once more for dx (on the flipped gradient), and
-    each backward kernel once a layer (the fold of K6's partial dK and dV
-    too)."""
+    recomputes it too), and each backward once a layer (K5's one launch
+    for dx, dw and db; K6's fold of its partial dK and dV too)."""
     kinds = [cfg.kind_of_layer(i) for i in range(cfg.num_layers)]
     n_rec, n_loc = kinds.count("rglru"), kinds.count("local")
     fwd = 1 if remat == "none" else 2
-    return {"conv1d": n_rec * (fwd + 1), "conv1d_bwd_wb": n_rec,
+    return {"conv1d": n_rec * fwd, "conv1d_bwd": n_rec,
             "swa": n_loc * fwd, "swa_bwd_dq": n_loc, "swa_bwd_dkdv": n_loc,
             "swa_bwd_fold": n_loc}
 
@@ -1108,8 +1116,8 @@ def bwd_cases(dev: torch.device, seed: int) -> list[BwdCase]:
 
 def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
     """ms (median of CUDA events), plain ms, library ms and bound of each
-    backward kernel of ``case``, and of K5's dx path (K5 on the flipped
-    gradient)."""
+    backward kernel of ``case``; K5's whole backward also with whether two
+    calls gave equal bits."""
     bw, fp32 = PEAKS[part][:2]
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
 
@@ -1129,24 +1137,27 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
     if case.kernel == "conv1d":
         x, w, bb, dy = case.args
         k, c = w.shape
-        xt, dyt = x.transpose(1, 2), dy.transpose(1, 2)
-        wt = w.T[:, None, :].detach().requires_grad_()
-        bt = bb.detach().requires_grad_()
-        xg = xt.detach().requires_grad_()
-        lib_wb = F.conv1d(xt, wt, bt, groups=c, padding=k - 1)[..., :x.shape[1]]
-        lib_x = F.conv1d(xg, w.T[:, None, :], groups=c,
-                         padding=k - 1)[..., :x.shape[1]]
-        out["conv1d_bwd_wb"] = dict(
-            ms=med(lambda: conv1d_bwd_wb(x, dy, w, bb), 20, flush),
+        # the library's whole backward: one autograd.grad of the grouped
+        # conv for x, w and b together
+        leaves = [x.transpose(1, 2).detach().requires_grad_(),
+                  w.T[:, None, :].detach().requires_grad_(),
+                  bb.detach().requires_grad_()]
+        lib = F.conv1d(*leaves, groups=c, padding=k - 1)[..., :x.shape[1]]
+        dyt = dy.transpose(1, 2)
+        first = conv1d_bwd(x, dy, w, bb)
+        again = conv1d_bwd(x, dy, w, bb)
+        out["conv1d_bwd"] = dict(
+            ms=med(lambda: conv1d_bwd(x, dy, w, bb), 20, flush),
             plain_ms=med(lambda: conv1d_bwd_ref(x, w, bb, dy), 5, flush),
             library_ms=med(lambda: torch.autograd.grad(
-                lib_wb, (wt, bt), dyt, retain_graph=True), 5, flush),
-            bound=bound(nbytes(x, dy, w, bb), (2 * k + 1) * x.numel()))
-        out["conv1d_dx"] = dict(
-            ms=med(lambda: conv1d_kernel(dy.flip(1), w).flip(1), 20, flush),
-            library_ms=med(lambda: torch.autograd.grad(
-                lib_x, xg, dyt, retain_graph=True), 5, flush),
-            bound=bound(nbytes(x, dy), 2 * k * x.numel()))
+                lib, leaves, dyt, retain_graph=True), 5, flush),
+            bound=bound(nbytes(x, dy, x, w, w, bb, bb),
+                        (4 * k + 1) * x.numel()),
+            bit_equal_twice=all(torch.equal(a, b)
+                                for a, b in zip(first, again)),
+            # dx keeps the bits of K5 on the time-reversed gradient
+            dx_equals_k5_flipped=torch.equal(first[0], conv1d_kernel(
+                dy.flip(1).contiguous(), w).flip(1)))
         return out
     q, k, v, do = case.args
     b, hq, s, d = q.shape
@@ -1395,8 +1406,8 @@ def train_phase(dev: torch.device, seed: int, part: str,
         for name, g, w in zip(GRAD_NAMES[case.kernel], got, want):
             good, err, rel = grad_error(case.kernel, case.dtype, g, w,
                                         case.args[-1])
-            kernel = {"dx": "conv1d", "dw": "conv1d_bwd_wb",
-                      "db": "conv1d_bwd_wb", "dq": "swa_bwd_dq",
+            kernel = {"dx": "conv1d_bwd", "dw": "conv1d_bwd",
+                      "db": "conv1d_bwd", "dq": "swa_bwd_dq",
                       "dk": "swa_bwd_dkdv", "dv": "swa_bwd_dkdv"}[name]
             errs[(kernel, case.dtype)] = max(errs.get((kernel, case.dtype),
                                                       0.0), err)
@@ -1419,6 +1430,9 @@ def train_phase(dev: torch.device, seed: int, part: str,
                 failures.append(f"{kernel} {dt}: max err "
                                 f"{row['max_abs_err']} against its plain "
                                 "version (want 0)")
+            for check in ("bit_equal_twice", "dx_equals_k5_flipped"):
+                if not row.get(check, True):
+                    failures.append(f"{kernel} {dt}: {check} is false")
         torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
@@ -1428,7 +1442,7 @@ def train_phase(dev: torch.device, seed: int, part: str,
     launches = full_training(dev, seed, failures)
     train_cli_resume(failures)
     rows = []
-    for kernel in ("conv1d_bwd_wb", "swa_bwd_dq", "swa_bwd_dkdv",
+    for kernel in ("conv1d_bwd", "swa_bwd_dq", "swa_bwd_dkdv",
                    "swa_bwd_fold"):
         t = timed[(kernel, torch.bfloat16)]
         f32 = timed[(kernel, torch.float32)]

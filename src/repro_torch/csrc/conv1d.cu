@@ -43,19 +43,38 @@
 // fused op has the bits of the kernel followed by
 // (y.float() + b.float()).to(x.dtype).
 //
-// The backward (conv1d_bwd_wb_launch), which training needs, has no TPU
-// kernel to replace: the JAX package differentiates the forward by autodiff.
-// The input gradient is this same kernel on the time-reversed upstream
-// gradient (dx = flip(conv(flip(dy), w)), kernels/conv1d/ops.py), so only
-// the taps' and the bias's gradients are new:
-//   dw[j, c] = sum_{b,t} x[b, t-(K-1)+j, c] * dy[b, t, c],  db[c] = sum dy.
-// Bound by bytes (x and dy read once; 12.5 us at (1, 4096, 2560) bf16).
-// Two kernels, deterministic: conv1d_bwd_partial_kernel gives a thread one
-// channel and a run of positions of one batch row (neighbouring lanes on
-// neighbouring channels), keeps the K-1 previous inputs in registers and
-// writes the run's K + 1 f32 sums to a workspace; conv1d_bwd_reduce_kernel
-// adds the runs in order, a thread a (tap or bias, channel), and casts to
-// w's and b's types.
+// The backward (conv1d_bwd_launch), which training needs, has no TPU kernel
+// to replace: the JAX package differentiates the forward by autodiff.  One
+// pass over x and dy gives all three gradients:
+//   dx[b,t,c] = sum_k w[k,c] * dy[b, t+K-1-k, c]   (dy zero past S-1),
+//   dw[k,c]   = sum_{b,t} x[b, t-(K-1)+k, c] * dy[b,t,c]   (x zero before 0),
+//   db[c]     = sum_{b,t} dy[b,t,c].
+// Bound by bytes: x and dy read once, dx written once (18.8 us at (1, 4096,
+// 2560) bf16).  A thread owns one unit of channels over one run of
+// positions, as in the forward, and walks it once: at position u it reads
+// x[u] and dy[u+K-1] and keeps the K newest dy rows, dy[u .. u+K-1], in a
+// register window.  dx[u] is the window against the taps, summed with fmaf
+// in tap order from k = 0 (w[0] * dy[u+K-1] first) and cast once: the
+// forward's order on the time-reversed gradient, so dx has the bits of
+// flip(conv(flip(dy), w)).  dw pairs x[u] with each dy[u+j] in the window
+// (j = K-1-k; pairs past S-1 are skipped, not multiplied by a zero), db adds
+// dy[u]: every (x, dy) pair of the sum lies in the run of its x, so the
+// only halo is the K-1 rows of dy after the run, read by the thread itself
+// and never across a batch row.  dw and db are deterministic, with no
+// atomics on values: a block of 32 x R threads (32 neighbouring units of
+// R consecutive runs) adds its R threads' f32 sums of each channel in slot
+// order through shared memory and writes one row of a workspace (G, K + 1,
+// C); conv1d_bwd_sum_kernel then adds the G rows of each column, 8 strided
+// chains of rows and a fixed tree over the 8, and casts to w's and b's
+// types.  The partition (runs, R, the tree) depends on the shapes alone.
+// The vector and generic instances follow the forward's rules (16-byte
+// chunks; one channel a thread, window slots before the first tap
+// skipped).  A vector thread holds 5 x V f32 sums, K x V taps and K x V
+// window values (bf16: 150-190 registers, so 8-12 warps an SM), too few
+// warps to hide HBM's latency by turns alone, so it issues the loads of
+// its next AHEAD rows before the FMAs of these (scripts/k5_bwd.py --sweep
+// on an H100 80GB HBM3 at 700 W, bf16, (1, 4096, 2560): 0.0316 ms, against
+// 0.0343 without).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -234,46 +253,227 @@ conv1d_generic_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// One run of positions of one batch row per blockIdx.y, one channel a
-// thread: part[run][i][c] = the run's sum for tap i (i < taps) or the bias
-// (i = taps).  The window has KW >= taps slots, the taps right-aligned.
+// Shared by the backward's instances: each thread of a block (32 units x
+// blockDim.y runs) has put its n sums of the block's `width` channels (its
+// K taps' in tap order, then the bias's) at red[(slot * n + i) * width +
+// unit channel]; adds the slots of each (i, channel) in order and writes
+// them as row `g` of part (G, n, ch), channels from c0.
+__device__ __forceinline__ void write_part_row(const float* red, int n,
+                                               int width, int64_t c0,
+                                               int64_t ch, float* part,
+                                               int64_t g) {
+  __syncthreads();
+  const int items = n * width;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int q = tid; q < items; q += blockDim.x * blockDim.y) {
+    float s = 0.f;
+    for (int t = 0; t < (int)blockDim.y; ++t) s += red[t * items + q];
+    const int i = q / width;
+    const int64_t c = c0 + (q - i * width);
+    if (c < ch) part[(g * n + i) * ch + c] = s;
+  }
+}
+
+// Where a thread's run lies: run r = blockIdx's run group * blockDim.y +
+// threadIdx.y of `runs` (batch * runs_per_row); false past the last.
+struct RunPos {
+  int64_t b, s0;
+  int n;
+};
+__device__ __forceinline__ bool run_pos(int64_t r, int64_t runs,
+                                        int64_t runs_per_row, int run,
+                                        int64_t seq, RunPos& p) {
+  if (r >= runs) return false;
+  p.b = r / runs_per_row;
+  p.s0 = (r - p.b * runs_per_row) * run;
+  p.n = (int)(min(seq, p.s0 + run) - p.s0);
+  return true;
+}
+
+// The vector instance: a thread one 16-byte chunk (V channels) of one run.
+// g[j] holds dy[u + j] (j < K) as the thread stands at position u; the
+// block's grid index is (run group, block of 32 chunks), flattened on x.
+template <typename T, int K, int AHEAD>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+conv1d_bwd_vec_kernel(const uint4* __restrict__ x, const uint4* __restrict__ dy,
+                      const uint4* __restrict__ w, uint4* __restrict__ dx,
+                      float* __restrict__ part, int64_t seq, int chunks,
+                      unsigned cblocks, int64_t runs, int64_t runs_per_row,
+                      int run) {
+  constexpr int V = Chunk<T>::V;
+  extern __shared__ float red[];        // [blockDim.y][K + 1][32 * V]
+  const unsigned grp = blockIdx.x / cblocks;
+  const int cb = (int)(blockIdx.x - grp * cblocks);
+  const int chunk = cb * 32 + threadIdx.x;
+  const bool want_wb = part != nullptr;
+  float acc[K][V], db[V];               // acc[j]: x[u] * dy[u + j], tap K-1-j
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    db[v] = 0.f;
+#pragma unroll
+    for (int j = 0; j < K; ++j) acc[j][v] = 0.f;
+  }
+  RunPos p;
+  if (chunk < chunks && run_pos((int64_t)grp * blockDim.y + threadIdx.y, runs,
+                                runs_per_row, run, seq, p)) {
+    const int64_t first = (p.b * seq + p.s0) * chunks + chunk;
+    const uint4* xr = x + first;
+    const uint4* gr = dy + first + (int64_t)(K - 1) * chunks;  // dy[u + K-1]
+    uint4* dxr = dx == nullptr ? nullptr : dx + first;
+    float wr[K][V], g[K][V];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      Chunk<T>::widen(__ldg(w + k * chunks + chunk), wr[k]);
+#pragma unroll
+    for (int j = 0; j < K - 1; ++j) {     // dy[s0 + j]: zero past S-1
+      if (p.s0 + j < seq) {
+        Chunk<T>::widen(__ldg(dy + first + (int64_t)j * chunks), g[j + 1]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) g[j + 1][v] = 0.f;
+      }
+    }
+    // blocks of AHEAD rows, the next block's loads issued before this one's
+    // FMAs, so a thread always has rows in flight
+    uint4 rx[AHEAD], rg[AHEAD];
+    auto load = [&](int i, uint4 (&lx)[AHEAD], uint4 (&lg)[AHEAD]) {
+      const int64_t left = seq - (p.s0 + i);
+#pragma unroll
+      for (int a = 0; a < AHEAD; ++a) {
+        const bool in_run = i + a < p.n;
+        lx[a] = in_run && want_wb ? __ldg(xr + (int64_t)(i + a) * chunks)
+                                  : make_uint4(0, 0, 0, 0);
+        lg[a] = in_run && a + K - 1 < left
+                    ? __ldg(gr + (int64_t)(i + a) * chunks)
+                    : make_uint4(0, 0, 0, 0);
+      }
+    };
+    load(0, rx, rg);
+#pragma unroll 1
+    for (int i = 0; i < p.n; i += AHEAD) {
+      uint4 nx[AHEAD], ng[AHEAD];
+      load(i + AHEAD, nx, ng);
+      const int64_t left = seq - (p.s0 + i);     // rows from u = s0 + i on
+#pragma unroll
+      for (int a = 0; a < AHEAD; ++a) {
+        if (i + a >= p.n) continue;
+#pragma unroll
+        for (int j = 0; j + 1 < K; ++j)
+#pragma unroll
+          for (int v = 0; v < V; ++v) g[j][v] = g[j + 1][v];
+        Chunk<T>::widen(rg[a], g[K - 1]);
+        if (dxr != nullptr) {
+          float out[V];
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            float s = 0.f;
+#pragma unroll
+            for (int k = 0; k < K; ++k) s = fmaf(g[K - 1 - k][v], wr[k][v], s);
+            out[v] = to_f32(from_f32<T>(s));
+          }
+          dxr[(int64_t)(i + a) * chunks] = Chunk<T>::pack(out);
+        }
+        if (want_wb) {
+          float xv[V];
+          Chunk<T>::widen(rx[a], xv);
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            if (a + j < left) {
+#pragma unroll
+              for (int v = 0; v < V; ++v) acc[j][v] = fmaf(xv[v], g[j][v], acc[j][v]);
+            }
+          }
+#pragma unroll
+          for (int v = 0; v < V; ++v) db[v] += g[0][v];
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < AHEAD; ++a) {
+        rx[a] = nx[a];
+        rg[a] = ng[a];
+      }
+    }
+  }
+  if (!want_wb) return;
+  constexpr int width = 32 * V;
+  float* mine = red + threadIdx.y * (K + 1) * width + threadIdx.x * V;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) mine[k * width + v] = acc[K - 1 - k][v];
+    mine[K * width + v] = db[v];
+  }
+  write_part_row(red, K + 1, width, (int64_t)cb * width,
+                 (int64_t)chunks * V, part, grp);
+}
+
+// The generic instance: a thread one channel of one run.  The window has
+// KW >= taps slots with the newest on the right: slot i holds dy[u + i -
+// first] (first = KW - taps); slots before `first` hold no tap and are
+// skipped.  Tap k is slot KW-1-k for dx, and dw[k] is acc[KW-1-k].
 template <typename T, int KW>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-conv1d_bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+conv1d_bwd_generic_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                          const T* __restrict__ w, T* __restrict__ dx,
                           float* __restrict__ part, int64_t seq, int64_t ch,
+                          unsigned cblocks, int64_t runs,
                           int64_t runs_per_row, int run, int taps) {
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= ch) return;
-  const int64_t r = blockIdx.y;
-  const int64_t b = r / runs_per_row;
-  const int64_t s0 = (r - b * runs_per_row) * run;
-  const int64_t s1 = min(seq, s0 + run);
-  const T* xb = x + b * seq * ch + c;
-  const T* gb = dy + b * seq * ch + c;
+  extern __shared__ float red[];        // [blockDim.y][taps + 1][32]
+  const unsigned grp = blockIdx.x / cblocks;
+  const int64_t cb = blockIdx.x - grp * cblocks;
+  const int64_t c = cb * 32 + threadIdx.x;
   const int first = KW - taps;
-
-  float win[KW], acc[KW], db = 0.f;
+  const bool want_wb = part != nullptr;
+  float acc[KW], db = 0.f;
 #pragma unroll
-  for (int i = 0; i < KW; ++i) {
-    acc[i] = 0.f;
-    const int64_t pos = s0 - (KW - 1) + i;
-    win[i] = (i >= first && i < KW - 1 && pos >= 0) ? to_f32(xb[pos * ch]) : 0.f;
+  for (int i = 0; i < KW; ++i) acc[i] = 0.f;
+  RunPos p;
+  if (c < ch && run_pos((int64_t)grp * blockDim.y + threadIdx.y, runs,
+                        runs_per_row, run, seq, p)) {
+    const T* xb = x + p.b * seq * ch + c;
+    const T* gb = dy + p.b * seq * ch + c;
+    T* dxb = dx == nullptr ? nullptr : dx + p.b * seq * ch + c;
+    float wr[KW], g[KW];
+#pragma unroll
+    for (int i = 0; i < KW; ++i) {
+      wr[i] = i >= first ? to_f32(w[(int64_t)(KW - 1 - i) * ch + c]) : 0.f;
+      // as if at u = s0 - 1: slot i holds dy[s0 - 1 + i - first], the
+      // slots after `first` (dy[s0 .. s0 + taps - 2]) the ones kept
+      const int64_t pos = p.s0 - 1 + (i - first);
+      g[i] = (i > first && pos < seq) ? to_f32(gb[pos * ch]) : 0.f;
+    }
+    for (int64_t u = p.s0; u < p.s0 + p.n; ++u) {
+#pragma unroll
+      for (int i = 0; i < KW - 1; ++i) g[i] = g[i + 1];
+      const int64_t next = u + taps - 1;
+      g[KW - 1] = next < seq ? to_f32(gb[next * ch]) : 0.f;
+      if (dxb != nullptr) {
+        float s = 0.f;
+#pragma unroll
+        for (int i = KW - 1; i >= 0; --i)
+          if (i >= first) s = fmaf(g[i], wr[i], s);
+        dxb[u * ch] = from_f32<T>(s);
+      }
+      if (want_wb) {
+        const float xv = to_f32(xb[u * ch]);
+        const int64_t left = seq - u;
+        float g0 = 0.f;
+#pragma unroll
+        for (int i = 0; i < KW; ++i) {
+          if (i >= first && i - first < left) acc[i] = fmaf(xv, g[i], acc[i]);
+          if (i == first) g0 = g[i];
+        }
+        db += g0;
+      }
+    }
   }
-  for (int64_t s = s0; s < s1; ++s) {
-    win[KW - 1] = to_f32(xb[s * ch]);
-    const float g = to_f32(gb[s * ch]);
-#pragma unroll
-    for (int i = 0; i < KW; ++i)
-      if (i >= first) acc[i] = fmaf(win[i], g, acc[i]);
-    db += g;
-#pragma unroll
-    for (int i = 0; i < KW - 1; ++i) win[i] = win[i + 1];
-  }
-  float* pr = part + r * (taps + 1) * ch + c;
+  if (!want_wb) return;
+  float* mine = red + threadIdx.y * (taps + 1) * 32 + threadIdx.x;
 #pragma unroll
   for (int i = 0; i < KW; ++i)
-    if (i >= first) pr[(i - first) * ch] = acc[i];
-  pr[taps * ch] = db;
+    if (i >= first) mine[(KW - 1 - i) * 32] = acc[i];
+  mine[taps * 32] = db;
+  write_part_row(red, taps + 1, 32, cb * 32, ch, part, grp);
 }
 
 __device__ __forceinline__ void store_as(void* dst, int code, int64_t i,
@@ -282,51 +482,42 @@ __device__ __forceinline__ void store_as(void* dst, int code, int64_t i,
   else static_cast<__nv_bfloat16*>(dst)[i] = __float2bfloat16(v);
 }
 
-// dw (taps, ch) and db (ch,) from the runs' sums, added in run order
-__global__ void conv1d_bwd_reduce_kernel(const float* __restrict__ part,
-                                         void* dw, void* db, int w_code,
-                                         int b_code, int64_t ch, int taps,
-                                         int64_t runs) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)(taps + 1) * ch) return;
-  const int64_t i = idx / ch, c = idx - i * ch;
-  if (i == taps && b_code < 0) return;
+// dw (taps, ch) and db (ch,) from the workspace (groups, taps + 1, ch): a
+// block 32 columns x 8 threads; thread (t, col) adds rows t, t + 8, t + 16,
+// ... in order, four loads in flight, and the 8 chains meet in a fixed
+// tree ((0+4)+(2+6))+((1+5)+(3+7)).
+constexpr int kSumChains = 8;     // SUM_CHAINS in kernels/conv1d/kernel.py
+__global__ void __launch_bounds__(32 * kSumChains)
+conv1d_bwd_sum_kernel(const float* __restrict__ part, void* dw, void* db,
+                      int w_code, int b_code, int64_t groups, int64_t ch,
+                      int taps) {
+  __shared__ float chain[kSumChains][32];
+  const int64_t col = (int64_t)blockIdx.x * 32 + threadIdx.x;
+  const int64_t cols = (int64_t)(taps + 1) * ch;
+  const int t = threadIdx.y;
   float s = 0.f;
-  for (int64_t r = 0; r < runs; ++r) s += part[(r * (taps + 1) + i) * ch + c];
-  if (i < taps) store_as(dw, w_code, i * ch + c, s);
-  else store_as(db, b_code, c, s);
-}
-
-template <typename T, int KW>
-cudaError_t launch_bwd(const void* x, const void* dy, float* part, void* dw,
-                       void* db, int w_code, int b_code, int64_t batch,
-                       int64_t seq, int64_t ch, int taps, int run,
-                       cudaStream_t st) {
-  const int64_t runs_per_row = (seq + run - 1) / run;
-  const int64_t runs = batch * runs_per_row;
-  const int64_t cblocks = (ch + kMaxThreads - 1) / kMaxThreads;
-  if (runs > 65535 || cblocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  conv1d_bwd_partial_kernel<T, KW>
-      <<<dim3((unsigned)cblocks, (unsigned)runs), kMaxThreads, 0, st>>>(
-          (const T*)x, (const T*)dy, part, seq, ch, runs_per_row, run, taps);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int64_t n = (int64_t)(taps + 1) * ch;
-  conv1d_bwd_reduce_kernel<<<(unsigned)((n + kMaxThreads - 1) / kMaxThreads),
-                             kMaxThreads, 0, st>>>(part, dw, db, w_code,
-                                                   b_code, ch, taps, runs);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_bwd_t(const void* x, const void* dy, float* part, void* dw,
-                         void* db, int w_code, int b_code, int64_t batch,
-                         int64_t seq, int64_t ch, int taps, int run,
-                         cudaStream_t st) {
-  if (taps <= 4) return launch_bwd<T, 4>(x, dy, part, dw, db, w_code, b_code, batch, seq, ch, taps, run, st);
-  if (taps <= 8) return launch_bwd<T, 8>(x, dy, part, dw, db, w_code, b_code, batch, seq, ch, taps, run, st);
-  if (taps <= 16) return launch_bwd<T, 16>(x, dy, part, dw, db, w_code, b_code, batch, seq, ch, taps, run, st);
-  return launch_bwd<T, 32>(x, dy, part, dw, db, w_code, b_code, batch, seq, ch, taps, run, st);
+  if (col < cols) {
+    const float* pc = part + col;
+    int64_t r = t;
+    for (; r + 3 * kSumChains < groups; r += 4 * kSumChains) {
+      const float a0 = pc[r * cols], a1 = pc[(r + kSumChains) * cols],
+                  a2 = pc[(r + 2 * kSumChains) * cols],
+                  a3 = pc[(r + 3 * kSumChains) * cols];
+      s += a0; s += a1; s += a2; s += a3;
+    }
+    for (; r < groups; r += kSumChains) s += pc[r * cols];
+  }
+  chain[t][threadIdx.x] = s;
+#pragma unroll
+  for (int h = kSumChains / 2; h >= 1; h /= 2) {
+    __syncthreads();
+    if (t < h) chain[t][threadIdx.x] += chain[t + h][threadIdx.x];
+  }
+  if (t != 0 || col >= cols) return;
+  const float v = chain[0][threadIdx.x];
+  const int64_t i = col / ch;
+  if (i < taps) store_as(dw, w_code, col, v);
+  else if (b_code >= 0) store_as(db, b_code, col - i * ch, v);
 }
 
 struct Args {
@@ -401,6 +592,106 @@ cudaError_t launch(const Args& a, int inst, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+struct BwdArgs {
+  const void* x;
+  const void* dy;
+  const void* w;
+  void* dx;
+  float* part;
+  int64_t batch, seq, ch, groups;
+  int taps, run, threads, ahead;
+};
+
+// The run groups (blocks along the positions) of a plan: runs of `run`
+// positions in each batch row, threads / 32 of them a block.
+int64_t bwd_groups(const BwdArgs& a) {
+  const int64_t runs = a.batch * ((a.seq + a.run - 1) / a.run);
+  const int64_t rows = a.threads / 32;
+  return (runs + rows - 1) / rows;
+}
+
+template <typename T, int K, int AHEAD>
+cudaError_t launch_bwd_vec(const BwdArgs& a, cudaStream_t st) {
+  constexpr int V = Chunk<T>::V;
+  const int64_t chunks = a.ch / V;
+  const int64_t cblocks = (chunks + 31) / 32;
+  const int64_t runs_per_row = (a.seq + a.run - 1) / a.run;
+  const int64_t blocks = a.groups * cblocks;
+  if (blocks > INT32_MAX || chunks > INT32_MAX / 8)   // 8: AHEAD's largest
+    return cudaErrorInvalidConfiguration;
+  const dim3 block(32, a.threads / 32);
+  const size_t smem = (size_t)block.y * (K + 1) * 32 * V * sizeof(float);
+  conv1d_bwd_vec_kernel<T, K, AHEAD><<<(unsigned)blocks, block, smem, st>>>(
+      (const uint4*)a.x, (const uint4*)a.dy, (const uint4*)a.w, (uint4*)a.dx,
+      a.part, a.seq, (int)chunks, (unsigned)cblocks,
+      a.batch * runs_per_row, runs_per_row, a.run);
+  return cudaGetLastError();
+}
+
+template <typename T, int K>
+cudaError_t launch_bwd_vec_k(const BwdArgs& a, cudaStream_t st) {
+  switch (a.ahead) {
+    case 1: return launch_bwd_vec<T, K, 1>(a, st);
+    case 2: return launch_bwd_vec<T, K, 2>(a, st);
+    case 4: return launch_bwd_vec<T, K, 4>(a, st);
+    case 8: return launch_bwd_vec<T, K, 8>(a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int KW>
+cudaError_t launch_bwd_generic(const BwdArgs& a, cudaStream_t st) {
+  const int64_t cblocks = (a.ch + 31) / 32;
+  const int64_t runs_per_row = (a.seq + a.run - 1) / a.run;
+  const int64_t blocks = a.groups * cblocks;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  const dim3 block(32, a.threads / 32);
+  const size_t smem = (size_t)block.y * (a.taps + 1) * 32 * sizeof(float);
+  conv1d_bwd_generic_kernel<T, KW><<<(unsigned)blocks, block, smem, st>>>(
+      (const T*)a.x, (const T*)a.dy, (const T*)a.w, (T*)a.dx, a.part, a.seq,
+      a.ch, (unsigned)cblocks, a.batch * runs_per_row, runs_per_row, a.run,
+      a.taps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const BwdArgs& a, int inst, void* dw, void* db,
+                       int b_code, cudaStream_t st) {
+  if (a.taps < 1 || a.taps > kMaxTaps || a.run < 1 || a.threads < 32
+      || a.threads > kMaxThreads || a.threads % 32 || b_code < -1
+      || b_code > 1 || (b_code >= 0 && db == nullptr)
+      || (a.dx == nullptr && a.part == nullptr)
+      || ((a.part == nullptr) != (dw == nullptr))
+      || (a.part != nullptr && a.groups != bwd_groups(a)))
+    return cudaErrorInvalidValue;
+  cudaError_t e;
+  if (inst == 0) {
+    if (a.taps <= 4) e = launch_bwd_generic<T, 4>(a, st);
+    else if (a.taps <= 8) e = launch_bwd_generic<T, 8>(a, st);
+    else if (a.taps <= 16) e = launch_bwd_generic<T, 16>(a, st);
+    else e = launch_bwd_generic<T, 32>(a, st);
+  } else {
+    // a vector instance: its taps, whole 16-byte chunks a row, aligned rows
+    if (inst != a.taps || inst > kVecTaps || a.ch % Chunk<T>::V
+        || (uintptr_t)a.x % 16 || (uintptr_t)a.dy % 16 || (uintptr_t)a.w % 16
+        || (uintptr_t)a.dx % 16)
+      return cudaErrorInvalidValue;
+    switch (inst) {
+      case 1: e = launch_bwd_vec_k<T, 1>(a, st); break;
+      case 2: e = launch_bwd_vec_k<T, 2>(a, st); break;
+      case 3: e = launch_bwd_vec_k<T, 3>(a, st); break;
+      default: e = launch_bwd_vec_k<T, 4>(a, st); break;
+    }
+  }
+  if (e != cudaSuccess || a.part == nullptr) return e;
+  const int64_t cols = (int64_t)(a.taps + 1) * a.ch;
+  const int64_t blocks = (cols + 31) / 32;
+  if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
+  conv1d_bwd_sum_kernel<<<(unsigned)blocks, dim3(32, kSumChains), 0, st>>>(
+      a.part, dw, db, sizeof(T) == 4 ? 0 : 1, b_code, a.groups, a.ch, a.taps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -426,25 +717,29 @@ int conv1d_launch(const void* x, const void* w, const void* bias, void* y,
   return (int)cudaErrorInvalidValue;
 }
 
-// The taps' and bias's gradients.  dtype: 0 = float32, 1 = bfloat16, of x
-// and dy: (batch, seq, ch), contiguous on the device; 1 <= taps <= 32.
-// part: a float32 workspace of batch * ceil(seq / run) * (taps + 1) * ch
-// (at most 65,535 runs).  dw: (taps, ch) contiguous, of type w_dtype (0
-// float32, 1 bfloat16); db: (ch,) contiguous of type b_dtype, or b_dtype -1
-// and no db.  Launches two kernels on the stream; returns
-// cudaGetLastError().
-int conv1d_bwd_wb_launch(const void* x, const void* dy, float* part, void* dw,
-                         void* db, int dtype, int w_dtype, int b_dtype,
-                         int64_t batch, int64_t seq, int64_t ch, int taps,
-                         int run, void* stream) {
+// The three gradients of the forward's input x, taps w and bias in one
+// pass.  dtype: 0 = float32, 1 = bfloat16, of x, dy, w, dx and dw; x and dy
+// (batch, seq, ch), w (taps, ch), contiguous on the device; 1 <= taps <= 32.
+// dx: (batch, seq, ch), or null and no dx.  part: a float32 workspace of
+// (groups, taps + 1, ch), groups = ceil(batch * ceil(seq / run) / (threads
+// / 32)), with dw (taps, ch) of x's type and db (ch,) of type b_dtype (0
+// float32, 1 bfloat16; or -1 and no db); or part and dw null and no dw or
+// db.  inst: the vector instance K (1-4, = taps; ch a multiple of 16 bytes'
+// worth of elements; x, dy, w and dx 16-byte aligned) or 0, the generic
+// instance, as kernels/conv1d/kernel.py:plan_bwd picks it; a thread owns run
+// >= 1 positions; threads a block a multiple of 32 up to 256; ahead (1, 2,
+// 4 or 8) rows in flight a vector thread.  Launches two kernels on the
+// stream where dw is wanted, one where not; returns cudaGetLastError().
+int conv1d_bwd_launch(const void* x, const void* dy, const void* w, void* dx,
+                      float* part, void* dw, void* db, int dtype, int b_dtype,
+                      int64_t batch, int64_t seq, int64_t ch, int64_t groups,
+                      int taps, int inst, int run, int threads, int ahead,
+                      void* stream) {
+  const BwdArgs a{x, dy, w, dx, part, batch, seq, ch, groups, taps, run,
+                  threads, ahead};
   cudaStream_t s = (cudaStream_t)stream;
-  if (taps < 1 || taps > kMaxTaps || run < 1 || w_dtype < 0 || w_dtype > 1
-      || b_dtype < -1 || b_dtype > 1 || (b_dtype >= 0 && db == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_bwd_t<float>(x, dy, part, dw, db, w_dtype, b_dtype, batch, seq, ch, taps, run, s);
-  if (dtype == 1)
-    return launch_bwd_t<__nv_bfloat16>(x, dy, part, dw, db, w_dtype, b_dtype, batch, seq, ch, taps, run, s);
+  if (dtype == 0) return launch_bwd<float>(a, inst, dw, db, b_dtype, s);
+  if (dtype == 1) return launch_bwd<__nv_bfloat16>(a, inst, dw, db, b_dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

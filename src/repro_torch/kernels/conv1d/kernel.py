@@ -13,10 +13,12 @@ float32 in tap order, casts to ``x.dtype`` and adds the optional bias after
 that cast in float32, rounding again.  On a CPU tensor the wrapper runs the
 plain version, :func:`conv1d_ref`, which adds the bias before its one cast.
 
-:func:`conv1d_bwd_wb` wraps the taps' and bias's gradients of the same
-source (``conv1d_bwd_wb_launch``): per-run f32 partial sums, then one
-reduction in run order, so the result is deterministic.  Its plain version
-is :func:`conv1d_bwd_ref`.
+:func:`conv1d_bwd` wraps the backward of the same source
+(``conv1d_bwd_launch``): one pass over x and dy gives dx, dw and db, dx with
+the bits of K5 on the time-reversed gradient, dw and db from f32 partial
+sums added in an order that depends on the shapes alone (:func:`plan_bwd`),
+so the result is deterministic.  Its plain version is
+:func:`conv1d_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -37,13 +39,21 @@ AHEADS = (1, 2, 4, 8)   # rows in flight a vector thread is built for
 # grid would leave an SM fewer than MIN_THREADS_PER_SM threads.
 RUN, AHEAD, THREADS, MIN_THREADS_PER_SM = 8, 8, 64, 512
 GENERIC_RUN, GENERIC_THREADS = 64, 128
-# runs of positions a thread of the backward's first kernel sums, doubled
-# while a launch would have more than BWD_MAX_RUNS (its grid's y extent)
-BWD_RUN, BWD_MAX_RUNS = 64, 65_535
+# The backward's plan (scripts/k5_bwd.py --sweep measures it): runs of
+# BWD_RUN positions, BWD_THREADS a block (32 chunks of BWD_THREADS / 32
+# runs, whose sums meet in shared memory), BWD_AHEAD[itemsize] rows a block
+# of loads (two blocks in flight); the generic instance over runs of
+# BWD_GENERIC_RUN.  SUM_CHAINS: the chains of workspace rows its second
+# kernel adds (kSumChains).
+BWD_RUN, BWD_THREADS, BWD_AHEAD = 32, 128, {2: 2, 4: 4}
+BWD_GENERIC_RUN, BWD_GENERIC_THREADS = 64, 128
+SUM_CHAINS = 8
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p]
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
@@ -148,57 +158,97 @@ def launch_plan(x: torch.Tensor, w: torch.Tensor) -> Plan:
     return plan(bs, s, c, w.shape[0], x.element_size(), sms, aligned)
 
 
-def bwd_run(batch: int, seq: int) -> int:
-    """Positions a thread of the backward sums: ``BWD_RUN``, doubled while
-    the launch would have more than ``BWD_MAX_RUNS`` runs."""
-    run = BWD_RUN
-    while batch * -(-seq // run) > BWD_MAX_RUNS:
-        run *= 2
-    return run
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """One launch of K5's backward: ``instance`` is the vector instance's
+    K, or 0 for the generic instance; a thread owns ``run`` positions;
+    ``threads`` a block (32 units of ``threads // 32`` runs); ``ahead`` rows
+    in flight a vector thread (1 for the generic)."""
+    instance: int
+    run: int
+    threads: int
+    ahead: int
 
 
-def conv1d_bwd_wb(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
-                  b: torch.Tensor | None = None
-                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """The gradients of the taps ``w`` (K, C) and of the bias ``b`` (C,) or
-    None, for the forward's input x (B, S, C) and its output's gradient dy
-    (B, S, C) of x's type, in ``w``'s and ``b``'s types.  Launches K5's
-    backward on CUDA tensors; runs :func:`conv1d_bwd_ref` on CPU ones."""
-    dtype_code = _build.check_grid(x, 3, "conv1d_bwd_wb")
+def plan_bwd(batch: int, seq: int, ch: int, taps: int, itemsize: int,
+             aligned: bool) -> BwdPlan:
+    """K5's backward for x (batch, seq, ch) and ``taps`` taps; ``aligned``:
+    x, dy, w and dx start on 16-byte boundaries.  A vector instance where
+    ``taps <= VEC_TAPS``, the rows are whole 16-byte chunks and
+    ``aligned``, else the generic instance.  The shapes alone decide it,
+    never the card, so the order of dw's and db's sums, and their bits, do
+    too."""
+    if not (aligned and taps <= VEC_TAPS and ch * itemsize % 16 == 0):
+        return BwdPlan(0, BWD_GENERIC_RUN, BWD_GENERIC_THREADS, 1)
+    return BwdPlan(taps, BWD_RUN, BWD_THREADS, BWD_AHEAD[itemsize])
+
+
+def bwd_groups(p: BwdPlan, batch: int, seq: int) -> int:
+    """Rows of the backward's workspace: its blocks along the positions,
+    ``threads // 32`` runs each."""
+    return -(-batch * -(-seq // p.run) // (p.threads // 32))
+
+
+def conv1d_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor | None = None, *, need_x: bool = True,
+               need_wb: bool = True, launch: BwdPlan | None = None
+               ) -> tuple[torch.Tensor | None, torch.Tensor | None,
+                          torch.Tensor | None]:
+    """(dx, dw, db): the gradients of the forward's input x (B, S, C), taps
+    w (K, C) of x's type and bias b (C,) or None, for its output's gradient
+    dy (B, S, C) of x's type; dx None unless ``need_x``, dw and db None
+    unless ``need_wb`` (db also without a bias), each in its input's type.
+    Launches K5's backward on CUDA tensors, once, with :func:`plan_bwd`'s
+    launch unless ``launch`` gives another; runs :func:`conv1d_bwd_ref` on
+    CPU ones."""
+    dtype_code = _build.check_grid(x, 3, "conv1d_bwd", strided=True)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
-        raise ValueError(f"conv1d_bwd_wb: dy {tuple(dy.shape)} {dy.dtype} on "
+        raise ValueError(f"conv1d_bwd: dy {tuple(dy.shape)} {dy.dtype} on "
                          f"{dy.device} must match x {tuple(x.shape)} "
                          f"{x.dtype} on {x.device}")
-    if w.dim() != 2 or w.shape[1] != x.shape[2]:
-        raise ValueError(f"conv1d_bwd_wb takes taps (K, {x.shape[2]}), got "
-                         f"{tuple(w.shape)}")
+    if w.dim() != 2 or w.shape[1] != x.shape[2] or w.dtype != x.dtype:
+        raise ValueError(f"conv1d_bwd takes taps (K, {x.shape[2]}) of type "
+                         f"{x.dtype}, got {tuple(w.shape)} {w.dtype}")
+    if b is not None and tuple(b.shape) != (x.shape[2],):
+        raise ValueError(f"conv1d_bwd takes a bias ({x.shape[2]},), got "
+                         f"{tuple(b.shape)}")
     if x.device.type == "cpu":
-        _, dw, db = conv1d_bwd_ref(x, w, b, dy)
-        return dw, db
+        dx, dw, db = conv1d_bwd_ref(x, w, b, dy)
+        return (dx if need_x else None, dw if need_wb else None,
+                db if need_wb else None)
     kk = w.shape[0]
     if not 1 <= kk <= MAX_TAPS:
         raise ValueError(f"conv1d kernel takes 1 to {MAX_TAPS} taps, got {kk}")
-    for t in (w, b):
-        if t is not None and t.dtype not in _build.DTYPE_CODES:
-            raise TypeError(f"conv1d_bwd_wb: taps and bias are float32 or "
-                            f"bfloat16, got {t.dtype}")
-    x, dy = x.contiguous(), dy.contiguous()
+    if b is not None and b.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"conv1d_bwd: the bias is float32 or bfloat16, got "
+                        f"{b.dtype}")
+    if not (need_x or need_wb):
+        return None, None, None
+    x, dy, w = x.contiguous(), dy.contiguous(), w.contiguous()
     bs, s, c = x.shape
-    dw = torch.empty(w.shape, dtype=w.dtype, device=x.device)
-    db = (None if b is None
-          else torch.empty(b.shape, dtype=b.dtype, device=x.device))
+    dx = torch.empty_like(x) if need_x else None
+    dw = torch.empty_like(w) if need_wb else None
+    db = (torch.empty(b.shape, dtype=b.dtype, device=x.device)
+          if need_wb and b is not None else None)
     if x.numel() == 0:
-        dw.zero_()
-        return dw, None if db is None else db.zero_()
-    run = bwd_run(bs, s)
-    part = torch.empty((bs * -(-s // run), kk + 1, c), dtype=torch.float32,
-                       device=x.device)
+        for t in (dw, db):
+            if t is not None:
+                t.zero_()
+        return dx, dw, db
+    if launch is None:
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, w))
+        launch = plan_bwd(bs, s, c, kk, x.element_size(), aligned)
+    _check_plan(launch, kk)
+    groups = bwd_groups(launch, bs, s)
+    part = (torch.empty((groups, kk + 1, c), dtype=torch.float32,
+                        device=x.device) if need_wb else None)
     with torch.cuda.device(x.device):
-        _build.launch("conv1d_bwd_wb", "conv1d", _BWD_ARGTYPES, x.data_ptr(),
-                      dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                      None if db is None else db.data_ptr(), dtype_code,
-                      _build.DTYPE_CODES[w.dtype],
+        _build.launch("conv1d_bwd", "conv1d", _BWD_ARGTYPES, x.data_ptr(),
+                      dy.data_ptr(), w.data_ptr(),
+                      *(None if t is None else t.data_ptr()
+                        for t in (dx, part, dw, db)), dtype_code,
                       -1 if db is None else _build.DTYPE_CODES[db.dtype],
-                      bs, s, c, kk, run, _build.stream_handle(x.device),
-                      entry="conv1d_bwd_wb")
-    return dw, db
+                      bs, s, c, groups, kk, launch.instance, launch.run,
+                      launch.threads, launch.ahead,
+                      _build.stream_handle(x.device), entry="conv1d_bwd")
+    return dx, dw, db

@@ -8,19 +8,19 @@ single cast (as the JAX package's XLA path does).  ``backend="cuda"`` raises
 on a CPU tensor.
 
 The op is one ``torch.autograd.Function``.  On CUDA tensors its backward
-launches kernels too: the input gradient is K5 itself on the time-reversed
-upstream gradient, ``dx = flip(conv(flip(dy), w))`` with the same taps and
-no bias (the causal conv's transpose), and the taps' and bias's gradients
-are K5's backward (:func:`conv1d_bwd_wb`).  On CPU tensors forward and
-backward run the plain versions (:func:`conv1d_ref` and its vector-Jacobian
-product :func:`conv1d_bwd_ref`).
+is one launch of K5's backward (:func:`conv1d_bwd`), which gives dx, dw and
+db in one pass over x and dy, each only where autograd needs it; dx has the
+bits of K5 on the time-reversed gradient (the causal conv's transpose).
+On CPU tensors forward and backward run the plain versions
+(:func:`conv1d_ref` and its vector-Jacobian product
+:func:`conv1d_bwd_ref`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.conv1d.kernel import conv1d_bwd_wb, conv1d_kernel
+from repro_torch.kernels.conv1d.kernel import conv1d_bwd, conv1d_kernel
 from repro_torch.kernels.conv1d.ref import conv1d_bwd_ref, conv1d_ref
 
 
@@ -42,11 +42,8 @@ class CausalConv1d(torch.autograd.Function):
         if x.device.type == "cpu":
             dx, dw, db = conv1d_bwd_ref(x, w, b, dy)
         else:
-            dx = dw = db = None
-            if need_x:
-                dx = conv1d_kernel(dy.flip(1), w).flip(1)
-            if need_w or need_b:
-                dw, db = conv1d_bwd_wb(x, dy, w, b)
+            dx, dw, db = conv1d_bwd(x, dy, w, b, need_x=need_x,
+                                    need_wb=need_w or need_b)
         return (dx if need_x else None, dw if need_w else None,
                 db if need_b else None)
 

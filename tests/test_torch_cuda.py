@@ -544,8 +544,8 @@ def test_stencil1d_vpu_skips_zero_taps(dev, rng, dtype, r, t, zeros):
 
 # -- the backward of K5 and K6 -------------------------------------------------
 # (b, s, c, k, dtype, bias, strided): the model's shape, the vector and the
-# generic forward instance for dx (ragged channels), one and many runs of
-# the partial sums, a strided input
+# generic instance (ragged channels, K = 7), one and many runs and blocks of
+# runs, a strided input, K = 1, a sequence shorter than the taps
 CASES_CONV_BWD = [
     (1, 4096, 2560, 4, "bfloat16", True, False),
     (1, 4096, 2560, 4, "float32", True, False),
@@ -554,6 +554,9 @@ CASES_CONV_BWD = [
     (3, 77, 258, 3, "float32", True, True),
     (1, 100, 48, 7, "bfloat16", False, False),
     (2, 5, 16, 4, "float32", True, False),
+    (3, 1000, 264, 1, "bfloat16", True, False),
+    (2, 333, 40, 1, "float32", False, True),
+    (3, 2, 64, 4, "bfloat16", True, False),
 ]
 # (b, hq, hkv, s, d, window, dtype, strided): MQA and GQA, S not a multiple
 # of a tile, window >= S and < S, the model's shape and views; then bf16 at
@@ -591,12 +594,19 @@ def _grad_ok(kernel, dtype, got, want, upstream):
     assert good, (kernel, dtype, err, rel)
 
 
+def _flipped_dx(dy, w):
+    """dx as K5 on the time-reversed gradient: the bits the backward keeps."""
+    return k5.conv1d_kernel(dy.flip(1).contiguous(), w).flip(1)
+
+
 @pytest.mark.parametrize("b,s,c,k,dtype,bias,strided", CASES_CONV_BWD)
 def test_conv1d_backward_matches_plain_version(dev, rng, b, s, c, k, dtype,
                                                bias, strided):
-    """dx (K5 on the flipped gradient) and dw/db (K5's backward) through the
-    op's autograd against the vector-Jacobian product of the plain version,
-    within chip_smoke.py's GRAD_TOL."""
+    """dx, dw and db (one launch of conv1d_bwd, none of K5) through the op's
+    autograd against the vector-Jacobian product of the plain version,
+    within chip_smoke.py's GRAD_TOL, dx also bit for bit against K5 on the
+    flipped gradient; with only x, or only w and b, needing a gradient it
+    launches once too and gives the same bits."""
     x = _x(rng, (b, s, 2 * c if strided else c), dtype, dev)
     x = x[..., ::2] if strided else x
     w = _x(rng, (k, c), dtype, dev)
@@ -605,22 +615,71 @@ def test_conv1d_backward_matches_plain_version(dev, rng, b, s, c, k, dtype,
     leaves = [t.clone().requires_grad_() for t in (x, w)]
     if bias:
         leaves.append(bb.clone().requires_grad_())
-    before = {n: _build.LAUNCHES.get(n, 0) for n in ("conv1d", "conv1d_bwd_wb")}
     y = causal_conv1d(*leaves, backend="cuda")
+    before = {n: _build.LAUNCHES.get(n, 0) for n in ("conv1d", "conv1d_bwd")}
     got = torch.autograd.grad(y, leaves, dy)
-    assert _build.LAUNCHES["conv1d"] == before["conv1d"] + 2
-    assert _build.LAUNCHES["conv1d_bwd_wb"] == before["conv1d_bwd_wb"] + 1
+    assert _build.LAUNCHES.get("conv1d", 0) == before["conv1d"]
+    assert _build.LAUNCHES["conv1d_bwd"] == before["conv1d_bwd"] + 1
     want = conv1d_bwd_ref(x, w, bb, dy)
     for g, ww in zip(got, want):
         assert g.dtype == ww.dtype
         _grad_ok("conv1d", dtype, g, ww, dy)
-    # one input needing grad launches only what it needs
+    assert torch.equal(got[0], _flipped_dx(dy, w))
+    # the wrapper on the view itself gives the op's bits
+    direct = k5.conv1d_bwd(x, dy, w, bb)
+    for g, d in zip(got, direct):
+        assert torch.equal(g, d)
+    # only x, then only w (and b), needing a gradient: one launch each
     xr = x.clone().requires_grad_()
-    before = dict(_build.LAUNCHES)
+    before = _build.LAUNCHES["conv1d_bwd"]
     (dx,) = torch.autograd.grad(causal_conv1d(xr, w, bb), [xr], dy)
-    assert _build.LAUNCHES.get("conv1d_bwd_wb", 0) == before.get(
-        "conv1d_bwd_wb", 0)
-    _grad_ok("conv1d", dtype, dx, want[0], dy)
+    assert _build.LAUNCHES["conv1d_bwd"] == before + 1
+    assert torch.equal(dx, got[0])
+    wb = [w.clone().requires_grad_()] + ([bb.clone().requires_grad_()]
+                                         if bias else [])
+    only = torch.autograd.grad(causal_conv1d(x, *wb), wb, dy)
+    assert _build.LAUNCHES["conv1d_bwd"] == before + 2
+    for g, d in zip(only, got[1:]):
+        assert torch.equal(g, d)
+    assert k5.conv1d_bwd(x, dy, w, bb, need_wb=False)[1:] == (None, None)
+    assert k5.conv1d_bwd(x, dy, w, bb, need_x=False)[0] is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv1d_backward_is_deterministic_at_the_model_shape(dev, rng, dtype):
+    """Two backward calls at RecurrentGemma-2B's training shape ((1, 4096)
+    tokens, lru_width 2560, 4 taps) give equal bits: dw's and db's sums run
+    in an order fixed by the shapes, with no atomics."""
+    x, dy = (_x(rng, (1, 4096, 2560), dtype, dev) for _ in range(2))
+    w, bb = _x(rng, (4, 2560), dtype, dev), _x(rng, (2560,), dtype, dev)
+    first = k5.conv1d_bwd(x, dy, w, bb)
+    again = k5.conv1d_bwd(x, dy, w, bb)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("b,s,c,k,dtype,bias",
+                         [case[:-1] for case in CASES_CONV_BWD])
+def test_conv1d_backward_bits_equal_the_emulation(dev, rng, b, s, c, k,
+                                                  dtype, bias):
+    """The kernel's dx, dw and db equal, bit for bit, the CPU emulation of
+    its order of operations (tests/test_torch_tiles.py) under the plan it
+    launched: the partition and the sums depend on the shapes alone."""
+    from test_torch_tiles import emulate_k5_bwd
+    x = _x(rng, (b, s, c), dtype, dev)
+    w = _x(rng, (k, c), dtype, dev)
+    bb = _x(rng, (c,), dtype, dev) if bias else None
+    dy = _x(rng, (b, s, c), dtype, dev)
+    got = k5.conv1d_bwd(x, dy, w, bb)
+    plan = k5.plan_bwd(b, s, c, k, x.element_size(), True)
+    want = emulate_k5_bwd(*(None if t is None else t.cpu()
+                            for t in (x, dy, w, bb)), plan)
+    for g, ww in zip(got, want):
+        if ww is None:
+            assert g is None
+        else:
+            assert torch.equal(g.cpu(), ww)
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,w,dtype,strided", CASES_SWA_BWD)
@@ -687,7 +746,7 @@ def test_gradient_through_checkpoint(dev, dtype):
         logits, _ = model(toks, remat=remat)
         loss = xent_loss(logits[:, :-1], toks[:, 1:])
         grads[remat] = torch.autograd.grad(loss, params)
-        for n in ("conv1d", "conv1d_bwd_wb", "swa", "swa_bwd_dq",
+        for n in ("conv1d", "conv1d_bwd", "swa", "swa_bwd_dq",
                   "swa_bwd_dkdv", "swa_bwd_fold"):
             assert _build.LAUNCHES.get(n, 0) > 0, (remat, n)
     for remat in ("full", "dots"):

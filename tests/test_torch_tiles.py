@@ -26,7 +26,12 @@ arithmetic of the K2 and K6 tensor-core paths, on the CPU (no jax, no card).
   and aligned tensors, the generic one otherwise, and the run, threads and
   rows in flight for the model's shape and the edge cases; a torch
   emulation of K5's bf16 double rounding (sum cast to bf16, bias added in
-  f32, cast again) held to ``chip_smoke.py``'s limits.
+  f32, cast again) held to ``chip_smoke.py``'s limits.  K5's backward:
+  its plan (instance, run, rows in flight, threads; the workspace under 5%
+  of x and dy; more runs than a grid's y extent) and an emulation of its
+  order of operations, with fmaf's exact bits, held to ``GRAD_TOL``, its
+  dx bit for bit K5 on the time-reversed gradient (the card's tests hold
+  the kernel's bits to this emulation).
 - K7's planner: the ``ITEMS`` instance and threads of the paper's 2D
   stage-1 lanes (w = 1-5 and 16) and the heat2d sweep's, and an instance
   for every lane whose state fitted one block's shared memory when K7 kept
@@ -52,7 +57,7 @@ import torch
 
 from repro_torch.kernels import _build, sliding_window_attention
 from repro_torch.kernels.conv1d import kernel as k5
-from repro_torch.kernels.conv1d.ref import conv1d_ref
+from repro_torch.kernels.conv1d.ref import conv1d_bwd_ref, conv1d_ref
 from repro_torch.kernels.stencil1d import kernel as k2
 from repro_torch.kernels.stencil1d.ops import plan_1d_blocks
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref
@@ -917,6 +922,194 @@ def test_k5_f32_emulation_keeps_the_f32_limit():
                                        emulate_k5(x, w, b),
                                        conv1d_ref(x, w, b))
     assert good, err
+
+
+# -- K5's backward: its plan and its order of operations ----------------------
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_conv1d_plan_bwd_model_shape(itemsize):
+    """RecurrentGemma-2B's training shape, x (1, 4096, 2560), K = 4: the
+    vector instance over runs of 32 in blocks of 128 threads, 2 bf16 / 4
+    f32 rows a block of loads; its workspace of f32 partial sums (a row of K + 1
+    sums a channel for each block of runs) stays under 5% of x and dy."""
+    p = k5.plan_bwd(1, 4096, 2560, 4, itemsize, True)
+    assert p == k5.BwdPlan(4, k5.BWD_RUN, k5.BWD_THREADS,
+                           k5.BWD_AHEAD[itemsize])
+    assert p.ahead in k5.AHEADS and p.ahead <= p.run
+    assert p.threads % 32 == 0 and p.threads <= k5.MAX_THREADS
+    part = k5.bwd_groups(p, 1, 4096) * 5 * 2560 * 4
+    assert part <= 0.05 * 2 * 4096 * 2560 * itemsize
+
+
+@pytest.mark.parametrize("b,s,c,k,itemsize,aligned,want", [
+    *((1, 4096, 2560, k, 2, True, k) for k in (1, 2, 3, 4)),
+    (1, 4096, 2560, 7, 2, True, 0),        # K past the vector instances
+    (1, 100, 2561, 4, 2, True, 0),         # rows not whole 16-byte chunks
+    (1, 100, 2562, 4, 4, True, 0),
+    (1, 100, 2564, 4, 4, True, 4),
+    (1, 100, 2560, 4, 2, False, 0),        # off a 16-byte boundary
+    (3, 2, 64, 4, 2, True, 4),             # S shorter than K
+])
+def test_conv1d_plan_bwd_instance(b, s, c, k, itemsize, aligned, want):
+    p = k5.plan_bwd(b, s, c, k, itemsize, aligned)
+    assert p.instance == want
+    if want == 0:
+        assert p == k5.BwdPlan(0, k5.BWD_GENERIC_RUN,
+                               k5.BWD_GENERIC_THREADS, 1)
+
+
+@pytest.mark.parametrize("b,s,c,itemsize", [
+    (64, 65536, 16, 2), (1, 10 ** 7, 8, 4), (1024, 4096, 2560, 2)])
+def test_conv1d_plan_bwd_takes_more_than_65535_runs(b, s, c, itemsize):
+    """The grid is flattened over x: more runs than a grid's y extent
+    (65,535) plan and fit the launcher's limit of 2^31 - 1 blocks."""
+    p = k5.plan_bwd(b, s, c, 4, itemsize, True)
+    runs = b * -(-s // p.run)
+    cblocks = -(-(c * itemsize // 16) // 32)
+    assert runs > 65_535
+    assert k5.bwd_groups(p, b, s) == -(-runs // (p.threads // 32))
+    assert k5.bwd_groups(p, b, s) * cblocks < 2 ** 31
+
+
+def fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf's bits on float32 tensors (a test helper): the product is exact
+    in float64, TwoSum gives the float64 sum's rounding error, and a sum
+    that lands exactly halfway between two floats goes to the side of its
+    error, so the result is the exact a * b + c rounded once."""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    r = s.float()
+    rd = r.double()
+    other = torch.nextafter(r, torch.where(s > rd, math.inf, -math.inf
+                                           ).float())
+    tie = (s != rd) & ((rd + other.double()) * 0.5 == s) & (err != 0)
+    side = torch.where(err > 0, torch.maximum(r, other),
+                       torch.minimum(r, other))
+    return torch.where(tie, side, r)
+
+
+def test_fmaf_rounds_once():
+    """The helper where a float64 sum rounds twice: a * b + c lies just
+    below the midpoint of two floats, the float64 sum on it, and a cast to
+    float32 would take the even float above; fmaf gives the one below."""
+    ulp = 2.0 ** -23
+    a = torch.tensor([2.0 ** -24 * (1 + ulp)])
+    b = torch.tensor([1 - ulp])
+    c = torch.tensor([1 + ulp])
+    # a * b + c = 1 + ulp + ulp / 2 - 2^-70
+    twice = (a.double() * b.double() + c.double()).float().item()
+    assert twice == 1 + 2 * ulp
+    assert fmaf(a, b, c).item() == 1 + ulp
+    assert fmaf(-a, b, -c).item() == -(1 + ulp)
+    assert fmaf(a, b, torch.tensor([1.0])).item() == 1.0
+
+
+def emulate_k5_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K5 without a bias, with fmaf's exact bits: the chain in tap order
+    from 0 over the zero-padded input, cast once to x's type."""
+    kk, s = w.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x.float(), (0, 0, kk - 1, 0))
+    acc = torch.zeros(x.shape)
+    for k in range(kk):
+        acc = fmaf(xp[:, k:k + s], w[k].float().expand_as(acc), acc)
+    return acc.to(x.dtype)
+
+
+def emulate_k5_bwd(x, dy, w, b, plan):
+    """K5's backward (csrc/conv1d.cu, conv1d_bwd_launch) in its order of
+    operations under ``plan`` (a test helper, never on the main path):
+    dx[u] as fmaf over dy[u+K-1-k] in tap order from 0, cast once; each
+    thread's run of positions, x[u] paired with dy[u+j] (j = K-1-k, pairs
+    past S-1 skipped) in an fmaf chain a tap and dy[u] added for db, all
+    from 0 in float32; the threads of a block (``threads // 32``
+    consecutive runs) added in slot order; the blocks' rows as
+    ``SUM_CHAINS`` strided chains joined by a fixed tree; cast to w's and
+    b's types.  Returns (dx, dw, db)."""
+    bs, s, c = x.shape
+    kk = w.shape[0]
+    run, rows = plan.run, plan.threads // 32
+    xf, gf, wf = x.float(), dy.float(), w.float()
+    gp = torch.nn.functional.pad(gf, (0, 0, 0, kk - 1))
+    acc = torch.zeros(x.shape)
+    for k in range(kk):
+        acc = fmaf(gp[:, kk - 1 - k:kk - 1 - k + s], wf[k].expand_as(acc),
+                   acc)
+    dx = acc.to(x.dtype)
+    rpr = -(-s // run)
+    runs = bs * rpr
+    bidx = torch.arange(runs) // rpr
+    s0 = torch.arange(runs) % rpr * run
+    xq = torch.nn.functional.pad(xf, (0, 0, 0, rpr * run - s))
+    gq = torch.nn.functional.pad(gf, (0, 0, 0, rpr * run - s + kk))
+    sums = torch.zeros(kk + 1, runs, c)          # by tap, then db
+    for i in range(run):
+        u = s0 + i
+        live = (u < s)[:, None]
+        xv = xq[bidx, u]
+        for j in range(kk):
+            pair = (u + j < s)[:, None]
+            sums[kk - 1 - j] = torch.where(
+                pair, fmaf(xv, gq[bidx, u + j], sums[kk - 1 - j]),
+                sums[kk - 1 - j])
+        sums[kk] = torch.where(live, sums[kk] + gq[bidx, u], sums[kk])
+    groups = -(-runs // rows)
+    sums = torch.nn.functional.pad(sums, (0, 0, 0, groups * rows - runs))
+    sums = sums.reshape(kk + 1, groups, rows, c)
+    part = torch.zeros(kk + 1, groups, c)
+    for t in range(rows):
+        part = part + sums[:, :, t]
+    chains = [torch.zeros(kk + 1, c) for _ in range(k5.SUM_CHAINS)]
+    for r in range(groups):
+        chains[r % k5.SUM_CHAINS] = chains[r % k5.SUM_CHAINS] + part[:, r]
+    while len(chains) > 1:
+        h = len(chains) // 2
+        chains = [chains[t] + chains[t + h] for t in range(h)]
+    total = chains[0]
+    return (dx, total[:kk].to(w.dtype),
+            None if b is None else total[kk].to(b.dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,c,k,bias,aligned", [
+    (1, 512, 2560, 4, True, True),     # a cut of the model's training shape
+    (2, 100, 64, 4, True, True),       # S not a multiple of the run
+    (3, 2, 64, 4, True, True),         # S < K
+    (3, 77, 264, 3, False, True),      # B = 3, K = 3
+    (2, 70, 48, 1, True, True),        # K = 1
+    (2, 150, 40, 7, True, True),       # the generic instance: K = 7
+    (2, 200, 36, 4, False, False),     # and unaligned
+])
+def test_k5_bwd_emulation_fits_grad_tol(dtype, b, s, c, k, bias, aligned):
+    """The kernel's order of operations, emulated on the CPU, within
+    chip_smoke.py's GRAD_TOL of the vector-Jacobian product of the plain
+    version; its dx bit for bit K5 (fmaf chain) on the time-reversed
+    gradient, and in bf16, whose products are exact in f32, the plain
+    version on it."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+    x, dy = (torch.from_numpy(rng.normal(size=(b, s, c)).astype(np.float32)
+                              ).to(dt) for _ in range(2))
+    w = torch.from_numpy(rng.normal(size=(k, c)).astype(np.float32)).to(dt)
+    bb = (torch.from_numpy(rng.normal(size=c).astype(np.float32)).to(dt)
+          if bias else None)
+    plan = k5.plan_bwd(b, s, c, k, x.element_size(), aligned)
+    assert (plan.instance == 0) == (k > k5.VEC_TAPS or not aligned)
+    got = emulate_k5_bwd(x, dy, w, bb, plan)
+    want = conv1d_bwd_ref(x, w, bb, dy)
+    for g, ww in zip(got, want):
+        if ww is None:
+            assert g is None
+            continue
+        good, err, rel = chip_smoke.grad_error("conv1d", dt, g, ww, dy)
+        assert good, (err, rel)
+    flipped = emulate_k5_fwd(dy.flip(1), w).flip(1)
+    assert torch.equal(got[0], flipped)
+    if dt == torch.bfloat16:
+        assert torch.equal(got[0], conv1d_ref(dy.flip(1), w).flip(1))
 
 
 # -- K7: the batched cycle engine's planner -----------------------------------
