@@ -18,13 +18,17 @@ whole backward
 q, k and v at once); the fold's device time alone (``fold_queued_ms``:
 calls issued behind a sleeping kernel, as its ~13 µs are shorter than its
 wrapper's host time); the launches one whole backward makes; and whether
-two whole backward calls gave equal bits.  With ``--src`` (another
+two whole backward calls gave equal bits; and SHA-256 digests of the bytes
+of the forward's output and of dq, dk and dv (``sha256``), the backward's
+taken with a seeded normal tensor in place of the forward's output, so
+that its bits depend on the backward's kernels alone.  With ``--src`` (another
 checkout's ``src/``, such as its parent's from ``git archive`` into
 ``build/``, built into that checkout's ``build/``) the same line, so two
 checkouts compare line for line: run both in one call, on one card, in
 turns.  The card's name and power limit come first.
 """
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -65,6 +69,11 @@ def queued_ms(fn, reps: int) -> float:
     en.record()
     torch.cuda.synchronize()
     return st.elapsed_time(en) / reps
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
 
 
 def spread(t: list[float]) -> dict:
@@ -122,13 +131,17 @@ def main() -> int:
     launches = {n: c for n, c in _build.LAUNCHES.items() if c}
     again = k6.swa_bwd_kernel(q, k, v, o, do, window=WINDOW)
     equal = all(torch.equal(a, b) for a, b in zip(first, again))
+    o_seeded = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
+    sha = {"out": digest(o), **dict(zip(("dq", "dk", "dv"), map(digest, (
+        k6.swa_bwd_kernel(q, k, v, o_seeded, do, window=WINDOW)))))}
     print(json.dumps({
         "line": "bwd", "src": str(args.src), "shape": [B, HQ, HKV, S, D],
         "window": WINDOW, "dtype": args.dtype,
         **{name: spread(times_ms(fn, args.reps)) for name, fn in fns.items()},
         **({"fold_queued_ms": queued_ms(fns["fold"], args.reps)}
            if "fold" in fns else {}),
-        "launches": launches, "bit_equal_twice": equal}), flush=True)
+        "launches": launches, "bit_equal_twice": equal, "sha256": sha}),
+        flush=True)
     return 0
 
 

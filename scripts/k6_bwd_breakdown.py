@@ -29,7 +29,6 @@ the whole backward, and the ``ptxas`` registers and spills of the two f32
 kernels at Dp = 256; the card's name and power limit first.
 """
 import json
-import shutil
 import statistics
 import subprocess
 import sys
@@ -86,17 +85,18 @@ PATCHES = {
 
 
 def use_variant(name: str) -> None:
-    """Point the build at a patched copy of the sources."""
-    src = (CSRC / "swa_bwd.cu").read_text()
+    """Point the build at a copy of the sources patched for ``name`` (each
+    patch in ``swa_bwd.cu`` or a header, once)."""
+    files = {p.name: p.read_text()
+             for p in [CSRC / "swa_bwd.cu", *CSRC.glob("*.cuh")]}
     for old, new in PATCHES[name]:
-        if src.count(old) != 1:
+        if sum(text.count(old) for text in files.values()) != 1:
             raise SystemExit(f"variant {name}: its patch no longer applies")
-        src = src.replace(old, new)
+        files = {n: text.replace(old, new) for n, text in files.items()}
     d = EXP / (name if PATCHES[name] else "tree")
     d.mkdir(parents=True, exist_ok=True)
-    (d / "swa_bwd.cu").write_text(src)
-    for header in CSRC.glob("*.cuh"):
-        shutil.copy(header, d / header.name)
+    for n, text in files.items():
+        (d / n).write_text(text)
     _build.CSRC, _build.BUILD_DIR = d, d / "lib"
     _build._libs.clear()
     _build.build("swa_bwd")

@@ -38,18 +38,32 @@
 // ordered so that the query heads of one KV head run side by side (K/V
 // reuse in L2) and the longest bands start first.
 //
-// float32 keeps a CUDA-core kernel (swa_f32_kernel): the f32 limit of 2e-5
-// rules out TF32 and bf16 products.  One block of 8 warps per (b, hq,
-// 64-query tile) keeps its query tile scaled in shared memory and walks
-// 32-key tiles (K transposed with a padded stride, V row-major); lane l
-// scores key l against its warp's 8 rows and owns output columns l, l+32,
-// ... of P.V in registers.  Shared memory 4*(64*Dp + Dp*33 + 32*Dp + 8*8*32)
-// bytes (Dp = D rounded up to 4), 140,288 B at D = 256.
+// float32 runs on the tensor cores too (swa_f32_kernel), on mma.sync
+// m16n8k8 in 3xTF32 with the helpers of the f32 backward (tf32.cuh): each
+// operand split into a TF32 hi and the rest as it is read, three products
+// summed in f32, which keeps the f32 limit of 2e-5 that one TF32 product
+// misses, and long sums in short chunks added by FADD, as the tensor cores
+// truncate.  One block of 8 warps per (b, hq, 64-query tile) on 32-key
+// tiles; Q (64 x Dp) and a two-stage ring of K and V tiles are f32 in
+// shared memory in the swizzle that serves ldmatrix along rows and element
+// reads down columns (Dp = 64, 128 or 256, D zero-filled), filled by
+// cp.async while the warps compute on the other stage.  Warps w and w + 4
+// share query rows 16 (w % 4)..+15: each computes S for its 16 keys of the
+// tile, scales it in f32 by scale log2e and masks it only where its keys
+// meet the band's edge or seq; the pair takes each row's running max from
+// both halves through shared memory (named barrier 1 + w % 4), so both
+// hold the same bits of m, alpha and P; each keeps the partial sum l of its
+// own keys (added once at the end); each turns its P into split A
+// fragments, hands them to the other, and adds P V over the tile's 32 keys
+// into its half of the output's columns (64 registers a thread at
+// Dp = 256), rescaled by alpha first.  Shared memory
+// 4 * (Dp * (64 + 4*32) + 8*512 + 8*16) bytes, 213,504 B at Dp = 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tf32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -62,158 +76,216 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32: 3xTF32 products (mma.sync m16n8k8) on the tensor cores
 // ---------------------------------------------------------------------------
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 32;        // keys per tile (one per lane)
-constexpr int kWarps = 8;
-constexpr int kRows = kBQ / kWarps;
-constexpr int kThreads = kWarps * 32;
+constexpr int kFRows = 64;               // query rows a block, 16 a warp pair
+constexpr int kFKeys = 32;               // keys a tile, 16 a warp
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+template <int DP>
+constexpr size_t f32_smem() {
+  return 4 * (size_t)DP * (kFRows + 4 * kFKeys) + 4 * (8 * kXch + 8 * 16);
 }
 
-template <int NC>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int DP>
+__global__ void __launch_bounds__(kFThreads, 1)
 swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, Strides st,
-               int hq_n, int group, int seq, int dim, int dp, int window,
-               float scale, int q_tiles) {
+               int hkv_n, int group, int seq, int dim, int window,
+               float scale_log2, int q_tiles, int vec) {
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // kBQ x dp
-  float* kt = qs + kBQ * dp;                      // dp x (kBK + 1)
-  float* vs = kt + dp * (kBK + 1);                // kBK x dp
-  float* ps = vs + kBK * dp;                      // kWarps x kRows x kBK
+  float* qs = reinterpret_cast<float*>(smem4);                 // kFRows x DP
+  float* ring = qs + kFRows * DP;                              // 2 x (K, V), kFKeys x DP each
+  uint32_t* xch = reinterpret_cast<uint32_t*>(ring + 4 * kFKeys * DP);   // 8 x kXch: P
+  float* mxs = reinterpret_cast<float*>(xch + 8 * kXch);      // 8 warps x 16 rows: max, then sum
+  auto stage = [&](int t) { return ring + (t & 1) * 2 * kFKeys * DP; };   // K, then V
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qt = (int)(blockIdx.x % q_tiles);
-  const int64_t bh = blockIdx.x / q_tiles;
-  const int hq = (int)(bh % hq_n);
-  const int64_t b = bh / hq_n;
-  const int hk = hq / group;
-  const int q0 = qt * kBQ;
+  const int gl = lane >> 2, ql = lane & 3;
+  const int wr = warp & 3, wh = warp >> 2;   // rows 16 wr..; keys 16 wh.. of a tile
+  const int gi = (int)(blockIdx.x % group);
+  const int rest = (int)(blockIdx.x / group);
+  const int qt = q_tiles - 1 - rest % q_tiles;     // longest bands first
+  const int bkv = rest / q_tiles;
+  const int hk = bkv % hkv_n, b = bkv / hkv_n;
+  const int hq = hk * group + gi;
   const float* qb = q + b * st.q[0] + hq * st.q[1];
   const float* kb = k + b * st.k[0] + hk * st.k[1];
   const float* vb = v + b * st.v[0] + hk * st.v[1];
   float* ob = o + b * st.o[0] + hq * st.o[1];
 
-  for (int idx = tid; idx < kBQ * dp; idx += kThreads) {
-    const int r = idx / dp, d = idx - r * dp;
-    const int qpos = q0 + r;
-    qs[idx] = (qpos < seq && d < dim) ? qb[qpos * st.q[2] + d] * scale : 0.f;
-  }
-
-  const int r0 = warp * kRows;
-  float m[kRows], l[kRows], acc[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  }
-  float* pw = ps + warp * kRows * kBK;
-
+  const int q0 = qt * kFRows;
   const int kv_lo = max(0, q0 - window + 1);
-  const int kv_hi = min(seq, q0 + kBQ);          // exclusive
-  for (int kv0 = (kv_lo / kBK) * kBK; kv0 < kv_hi; kv0 += kBK) {
-    __syncthreads();                              // the last tile is consumed
-    for (int idx = tid; idx < kBK * dp; idx += kThreads) {
-      const int j = idx / dp, d = idx - j * dp;
-      const int kpos = kv0 + j;
-      const bool in = kpos < seq && d < dim;
-      kt[d * (kBK + 1) + j] = in ? kb[kpos * st.k[2] + d] : 0.f;
-      vs[idx] = in ? vb[kpos * st.v[2] + d] : 0.f;
-    }
-    __syncthreads();
+  const int kv_hi = min(seq, q0 + kFRows);         // exclusive
+  const int t0 = kv_lo / kFKeys * kFKeys;
+  const int n = (kv_hi - t0 + kFKeys - 1) / kFKeys;
 
-    float s[kRows];
+  load_tile<DP, kFRows>(qs, qb, st.q[2], q0, seq, dim, vec, tid);
+  load_tile<DP, kFKeys>(stage(0), kb, st.k[2], t0, seq, dim, vec, tid);
+  load_tile<DP, kFKeys>(stage(0) + kFKeys * DP, vb, st.v[2], t0, seq, dim, vec, tid);
+  cp_async_commit();
+
+  const FragCols fc(lane);
+  const int r0 = 16 * wr;                          // the warp's first row in the block
+  const int qrow0 = q0 + r0 + gl, qrow1 = qrow0 + 8;
+  const int row_lo = q0 + r0;
+  auto skip_half = [&](int kv0, int h) { return keys16_skip(kv0 + 16 * h, row_lo, seq, window); };
+  auto edge_half = [&](int kv0, int h) { return keys16_edge(kv0 + 16 * h, row_lo, seq, window); };
+
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;   // rows g, g + 8; log2 units
+  float acc[DP / 16][4];                           // O l, columns wh DP/2 ..
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    for (int d = 0; d < dp; d += 4) {
-      const float k0 = kt[(d + 0) * (kBK + 1) + lane];
-      const float k1 = kt[(d + 1) * (kBK + 1) + lane];
-      const float k2 = kt[(d + 2) * (kBK + 1) + lane];
-      const float k3 = kt[(d + 3) * (kBK + 1) + lane];
+  for (int i = 0; i < DP / 16; ++i)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qs + (r0 + r) * dp + d);
-        s[r] = fmaf(qv.x, k0, s[r]);
-        s[r] = fmaf(qv.y, k1, s[r]);
-        s[r] = fmaf(qv.z, k2, s[r]);
-        s[r] = fmaf(qv.w, k3, s[r]);
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int t = 0; t < n; ++t) {
+    cp_async_wait_group<0>();
+    __syncthreads();                               // tile t landed; tile t - 1 is read
+    if (t + 1 < n) {
+      float* nx = stage(t + 1);
+      const int kn = t0 + (t + 1) * kFKeys;
+      load_tile<DP, kFKeys>(nx, kb, st.k[2], kn, seq, dim, vec, tid);
+      load_tile<DP, kFKeys>(nx + kFKeys * DP, vb, st.v[2], kn, seq, dim, vec, tid);
+      cp_async_commit();
+    }
+    const int kv0 = t0 + t * kFKeys;
+    const bool skip0 = skip_half(kv0, 0), skip1 = skip_half(kv0, 1);
+    if (skip0 && skip1) continue;                  // the pair's rows meet no key of the tile
+    const float* ks = stage(t);
+    const float* vs = ks + kFKeys * DP;
+
+    // S = Q K^T for the warp's 16 keys, in log2 units, masked to -1e30
+    float s[2][4];
+    float mx0 = kNegInf, mx1 = kNegInf;
+    if (wh ? skip1 : skip0) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = kNegInf;
+    } else {
+      product16<DP>(s, qs, r0, ks, 16 * wh, fc);
+      const bool edge = edge_half(kv0, wh);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[nt][e] * scale_log2;
+          if (edge && !in_band(e < 2 ? qrow0 : qrow1, kv0 + 16 * wh + 8 * nt + 2 * ql + (e & 1),
+                               seq, window))
+            x = kNegInf;
+          s[nt][e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+        }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
     }
-
-    const int kpos = kv0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = q0 + r0 + r;
-      const bool ok = kpos <= qpos && kpos > qpos - window && kpos < seq;
-      const float sv = ok ? s[r] : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(sv));
-      const float p = ok ? expf(sv - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
-      m[r] = m_new;
-      pw[r * kBK + lane] = p;
+    // the running max over both halves: the pair's warps take the same bits
+    if (ql == 0) {
+      mxs[warp * 16 + gl] = mx0;
+      mxs[warp * 16 + gl + 8] = mx1;
     }
-    __syncwarp();
-
-    for (int j = 0; j < kBK; ++j) {
-      float vv[NC];
+    bar_sync(1 + wr, 64);
+    const float* pm = mxs + (warp ^ 4) * 16;
+    const float mn0 = fmaxf(m0, fmaxf(mx0, pm[gl])), mn1 = fmaxf(m1, fmaxf(mx1, pm[gl + 8]));
+    const float alpha0 = fast_exp2(m0 - mn0), alpha1 = fast_exp2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    // P = 2^(S - m) on the band: the A fragments of the tile's k-steps
+    // 2 wh and 2 wh + 1, handed to warp ^ 4 too
+    float sum0 = 0.f, sum1 = 0.f;
+    Frag own[2];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = lane + 32 * c;
-        vv[c] = d < dim ? vs[j * dp + d] : 0.f;
+    for (int nt = 0; nt < 2; ++nt) {
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sv = s[nt][e];
+        x[e] = sv == kNegInf ? 0.f : fast_exp2(sv - (e < 2 ? mn0 : mn1));
+        if (e < 2) sum0 += x[e]; else sum1 += x[e];
       }
+      acc_to_a(x, own[nt]);
+      xch_put(xch + warp * kXch, nt, lane, own[nt]);
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = pw[r * kBK + j];
+    for (int i = 0; i < DP / 16; ++i) {
+      acc[i][0] *= alpha0;
+      acc[i][1] *= alpha0;
+      acc[i][2] *= alpha1;
+      acc[i][3] *= alpha1;
+    }
+    bar_sync(1 + wr, 64);
+    // O += P V, the warp's half of D, over each half of the tile's keys
+    // (16, two k-steps of 8) in a chunk of its own
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+    for (int h = 0; h < 2; ++h) {
+      if (h ? skip1 : skip0) continue;
+      Frag fa[2];
+      if (h == wh) {
+        fa[0] = own[0];
+        fa[1] = own[1];
+      } else {
+        xch_get(xch + (warp ^ 4) * kXch, 0, lane, fa[0]);
+        xch_get(xch + (warp ^ 4) * kXch, 1, lane, fa[1]);
       }
+      add_product16<DP>(acc, fa, vs, 16 * h, wh * (DP / 2), fc, ql);
     }
   }
 
+  // l over both halves of the keys: the pair's partial sums share m, and
+  // both warps add them in an order that gives the same bits
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + r0 + r;
-    if (qpos >= seq) continue;
-    const float den = fmaxf(l[r], 1e-30f);
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if (ql == 0) {                                   // the pair has read the maxima
+    mxs[warp * 16 + gl] = l0;
+    mxs[warp * 16 + gl + 8] = l1;
+  }
+  bar_sync(1 + wr, 64);
+  const float* pl = mxs + (warp ^ 4) * 16;
+  const float den0 = fmaxf(l0 + pl[gl], 1e-30f), den1 = fmaxf(l1 + pl[gl + 8], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < dim) ob[qpos * st.o[2] + d] = acc[r][c] / den;
+  for (int nt = 0; nt < DP / 16; ++nt) {
+    const int d = wh * (DP / 2) + nt * 8 + 2 * ql;
+    if (d >= dim) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qpos = h ? qrow1 : qrow0;
+      if (qpos >= seq) continue;
+      const float den = h ? den1 : den0;
+      const float y0 = acc[nt][2 * h] / den, y1 = acc[nt][2 * h + 1] / den;
+      float* dst = ob + qpos * st.o[2] + d;
+      if (vec) {
+        *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
+      } else {
+        dst[0] = y0;
+        if (d + 1 < dim) dst[1] = y1;
+      }
     }
   }
 }
 
-template <int NC>
+template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        const Strides& st, int64_t batch, int hq, int hkv,
-                       int seq, int dim, int window, float scale, size_t smem,
-                       cudaStream_t stream) {
-  const int q_tiles = (seq + kBQ - 1) / kBQ;
+                       int seq, int dim, int window, float scale, int vec,
+                       size_t smem, cudaStream_t stream) {
+  if (smem != f32_smem<DP>()) return cudaErrorInvalidValue;
+  const int q_tiles = (seq + kFRows - 1) / kFRows;
   const int64_t blocks = batch * hq * (int64_t)q_tiles;
   if (blocks > INT32_MAX) return cudaErrorInvalidConfiguration;
-  const int dp = (dim + 3) & ~3;
   cudaError_t e = cudaFuncSetAttribute(
-      (const void*)swa_f32_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      (const void*)swa_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  swa_f32_kernel<NC><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, st, hq,
-      hq / hkv, seq, dim, dp, window, scale, q_tiles);
+  swa_f32_kernel<DP><<<(unsigned)blocks, kFThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, st, hkv,
+      hq / hkv, seq, dim, window, scale * kLog2e, q_tiles, vec);
   return cudaGetLastError();
 }
 
@@ -414,13 +486,14 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  q, o:
+// dtype: 0 = float32 (mma.sync in 3xTF32), 1 = bfloat16 (wgmma).  q, o:
 // (batch, hq, seq, dim); k, v: (batch, hkv, seq, dim); all of that type on
 // the device, unit stride along dim; strides: 12 int64, the (batch, head,
 // position) element strides of q, k, v and o in that order.  hq % hkv == 0,
-// 1 <= dim <= 256, window >= 1.  vec (bf16 only): dim % 8 == 0 and every
-// pointer and row 16-byte aligned.  smem: dynamic shared memory, as
-// kernels/swa/kernel.py:smem_bytes gives it.  Returns cudaGetLastError().
+// 1 <= dim <= 256, window >= 1.  vec: dim a multiple of 16 bytes (8 bf16, 4
+// f32) and every pointer and row 16-byte aligned.  smem: dynamic shared
+// memory, as kernels/swa/kernel.py:smem_bytes gives it (f32: refused unless
+// it is the kernel's layout).  Returns cudaGetLastError().
 int swa_launch(const void* q, const void* k, const void* v, void* o, int dtype,
                const int64_t* strides, int64_t batch, int hq, int hkv, int seq,
                int dim, int window, float scale, int vec, size_t smem,
@@ -436,10 +509,9 @@ int swa_launch(const void* q, const void* k, const void* v, void* o, int dtype,
     st.o[i] = strides[9 + i];
   }
   if (dtype == 0) {
-    if (dim <= 32) return launch_f32<1>(q, k, v, o, st, batch, hq, hkv, seq, dim, window, scale, smem, s);
-    if (dim <= 64) return launch_f32<2>(q, k, v, o, st, batch, hq, hkv, seq, dim, window, scale, smem, s);
-    if (dim <= 128) return launch_f32<4>(q, k, v, o, st, batch, hq, hkv, seq, dim, window, scale, smem, s);
-    return launch_f32<8>(q, k, v, o, st, batch, hq, hkv, seq, dim, window, scale, smem, s);
+    if (dim <= 64) return launch_f32<64>(q, k, v, o, st, batch, hq, hkv, seq, dim, window, scale, vec, smem, s);
+    if (dim <= 128) return launch_f32<128>(q, k, v, o, st, batch, hq, hkv, seq, dim, window, scale, vec, smem, s);
+    return launch_f32<256>(q, k, v, o, st, batch, hq, hkv, seq, dim, window, scale, vec, smem, s);
   }
   if (dtype == 1) {
     if (dim <= 64) return launch_wgmma<64>(q, k, v, o, st, batch, hq, hkv, seq, dim, window, scale, vec, smem, s);

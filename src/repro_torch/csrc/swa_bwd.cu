@@ -59,7 +59,8 @@
 // swa_bwd_dkdv_wgmma_kernel's groups are its two warpgroups, on 64-query
 // tiles, P^T and dS^T rounded to bf16 in registers, Q and dO read MN-major.
 //
-// float32 (mma.sync m16n8k8 in 3xTF32, mma_tf32 in common.cuh, as K2's:
+// float32 (mma.sync m16n8k8 in 3xTF32, mma_tf32 in common.cuh, as K2's,
+// the fragment helpers shared with the f32 forward in tf32.cuh:
 // each f32 operand split as hi + lo, hi TF32, and a product summing lo*hi,
 // hi*lo and hi*hi in f32, which keeps the 1e-5 bar that one TF32 product
 // misses; long sums in chunks, as the tensor cores truncate, mma3_apart).
@@ -107,6 +108,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "tf32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -139,12 +141,6 @@ constexpr size_t dq_smem() {
 template <int DP>
 constexpr size_t dkdv_smem() {
   return 2 * DP * 6 * kTile + 4 * 4 * kTile + 4 * kTile * kTile + 1024;
-}
-
-// 4 bytes global -> shared; src_bytes 0 writes a zero
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes));
 }
 
 // a K-major descriptor of a ROWS-row tile advanced by ki steps of 16
@@ -582,11 +578,9 @@ swa_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // ---------------------------------------------------------------------------
 // float32: 3xTF32 products (mma.sync m16n8k8) on the tensor cores
 // ---------------------------------------------------------------------------
-constexpr int kFThreads = 256;           // 8 warps
 constexpr int kFRows = 64;               // dq: query rows a block, 16 a warp pair
 constexpr int kFKeys = 32;               // dq: keys a tile, 16 a warp
 constexpr int kFQT = 16;                 // dkdv: queries a tile (keys a block: kTile)
-constexpr int kXch = 2 * 8 * 32;         // dq: u32s of a warp's dS fragments (2 k-steps, hi, lo)
 
 template <int DP>
 constexpr size_t f32_dq_smem() {
@@ -595,165 +589,6 @@ constexpr size_t f32_dq_smem() {
 template <int DP>
 constexpr size_t f32_dkdv_smem() {
   return 4 * (size_t)DP * (2 * kTile + 4 * kFQT) + 4 * (4 * kFQT + 4 * 8 * 32);
-}
-
-// Column c of row r of a swizzled f32 tile: XORed with 8 ((r >> 1) & 3) +
-// 4 (r & 1) within its 32-column chunk, so lanes (g, q) = (lane / 4, lane %
-// 4) reading rows g, columns q (+ 4), or rows 2q (+ 1), column g, hit 32
-// banks; cp.async's 16-byte chunks stay whole.
-__device__ __forceinline__ int swz(int r, int c) {
-  return c ^ ((((r >> 1) & 3) << 3) | ((r & 1) << 2));
-}
-
-// The lane's rows and swizzled columns, within a 32-column chunk, of the
-// fragment reads: ldmatrix of an A operand (16 rows x 8 columns: four 8 x
-// 4 blocks, rows then columns) or of two n-tiles of a B operand read along
-// its rows (16 rows x 8: blocks columns first); rows 2q + i, column 8j + g
-// of a B operand read down its columns.
-struct FragCols {
-  int a_row, a_col[4];   // A: row a_row, columns a_col[j] = 8j + 4 (lane / 16)
-  int b_row, b_col[4];   // B along rows: columns 8j + 4 (lane / 8 % 2)
-  int col[4][2];         // B down columns
-  __device__ __forceinline__ explicit FragCols(int lane) {
-    const int g = lane >> 2, q = lane & 3;
-    a_row = (lane & 7) + 8 * ((lane >> 3) & 1);
-    b_row = (lane & 7) + 8 * (lane >> 4);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      a_col[j] = swz(lane, 8 * j + 4 * (lane >> 4));
-      b_col[j] = swz(lane, 8 * j + 4 * ((lane >> 3) & 1));
-#pragma unroll
-      for (int i = 0; i < 2; ++i) col[j][i] = swz(2 * q + i, 8 * j + g);
-    }
-  }
-};
-
-// ldmatrix of f32 tiles: four blocks of 8 rows x 4 f32 (8 x 8 16-bit
-// values); lane t gives the address of row t % 8 of block t / 8 and gets
-// from block i the f32 at row t / 4, column t % 4 in r[i], which is the
-// layout of mma.sync's TF32 fragments
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-struct Frag {
-  uint32_t hi[4], lo[4];
-};
-
-// v = hi + lo, the TF32 parts of an f32 operand: hi is v rounded to TF32
-// (to nearest, ties away from zero, as cvt.rna, in two integer operations,
-// which run faster here than cvt.rna.tf32.f32), lo = v - hi exactly,
-// passed as f32: the tensor cores read a TF32 operand's top 19 bits, and
-// lo's lower bits weigh under 2^-22 of v.
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-// The fragment reads below take a column as c32 + 8j: c32 a multiple of 32,
-// j = 0..3 known at compile time; r0, n0 and k0 are multiples of 8.
-// A operand: rows r0 + g, r0 + g + 8, columns c32 + 8j + q, c32 + 8j + q + 4
-// of a DP-wide tile, split
-template <int DP>
-__device__ __forceinline__ void load_a(const float* t, int r0, int c32, int j,
-                                       const FragCols& fc, Frag& f) {
-  uint32_t v[4];
-  ldsm_x4(v, t + (r0 + fc.a_row) * DP + c32 + fc.a_col[j]);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(__uint_as_float(v[i]), f.hi[i], f.lo[i]);
-}
-
-// B operands of two n-tiles read along a tile's rows: n = rows n0 + g and
-// n0 + 8 + g, depth = columns c32 + 8j + q, c32 + 8j + q + 4; split
-template <int DP>
-__device__ __forceinline__ void load_b_rows(const float* t, int n0, int c32, int j,
-                                            const FragCols& fc, uint32_t (&hi)[2][2],
-                                            uint32_t (&lo)[2][2]) {
-  uint32_t v[4];
-  ldsm_x4(v, t + (n0 + fc.b_row) * DP + c32 + fc.b_col[j]);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(__uint_as_float(v[i]), hi[i >> 1][i & 1], lo[i >> 1][i & 1]);
-}
-
-// B operand read down a tile's columns, depth permuted as acc_to_a leaves
-// it: depth slots q, q + 4 = rows k0 + 2q, k0 + 2q + 1 (k0 % 8 == 0); n =
-// column c32 + 8j + g
-template <int DP>
-__device__ __forceinline__ void load_b_cols(const float* t, int k0, int c32, int j,
-                                            const FragCols& fc, int q, uint32_t (&hi)[2],
-                                            uint32_t (&lo)[2]) {
-  const float* p = t + (k0 + 2 * q) * DP + c32;
-  split(p[fc.col[j][0]], hi[0], lo[0]);
-  split(p[DP + fc.col[j][1]], hi[1], lo[1]);
-}
-
-// An 8-column n-tile of an accumulator (rows g, g + 8; columns 2q, 2q + 1)
-// as the A operand of a product over those columns: depth slot q holds
-// column 2q and slot q + 4 column 2q + 1
-__device__ __forceinline__ void acc_to_a(const float (&x)[4], Frag& f) {
-  split(x[0], f.hi[0], f.lo[0]);
-  split(x[2], f.hi[1], f.lo[1]);
-  split(x[1], f.hi[2], f.lo[2]);
-  split(x[3], f.hi[3], f.lo[3]);
-}
-
-// c += a . b in 3xTF32, the small products first
-__device__ __forceinline__ void mma3(float (&c)[4], const Frag& a, const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  mma_tf32(c, a.lo, bh[0], bh[1]);
-  mma_tf32(c, a.hi, bl[0], bl[1]);
-  mma_tf32(c, a.hi, bh[0], bh[1]);
-}
-
-// The tensor cores round their sum toward zero at every product, so one
-// accumulator carried through thousands of products drifts past the f32
-// bar.  Long sums therefore run in short chunks, each product of a chunk
-// into accumulators zeroed for it, added to the f32 total by FADD (round to
-// nearest); over D, the hi*hi products and the small ones take accumulators
-// of their own, which also gives the tensor cores independent chains.
-__device__ __forceinline__ void mma3_apart(float (&big)[4], float (&small)[4], const Frag& a,
-                                           const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
-  mma_tf32(small, a.lo, bh[0], bh[1]);
-  mma_tf32(small, a.hi, bl[0], bl[1]);
-  mma_tf32(big, a.hi, bh[0], bh[1]);
-}
-
-// rows [row0, row0 + ROWS) of a (position, D) f32 slab into a DP-wide
-// swizzled tile by cp.async, zero past seq and past dim: 16-byte chunks
-// where vec (D % 4 == 0, rows 16-byte aligned), else 4 bytes each
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t ld, int row0,
-                                          int seq, int dim, bool vec, int tid) {
-  if (vec) {
-    constexpr int cpr = DP / 4;
-    for (int idx = tid; idx < ROWS * cpr; idx += kFThreads) {
-      const int r = idx / cpr, c = (idx % cpr) * 4;
-      const int pos = row0 + r;
-      const bool in = pos < seq && c < dim;
-      cp_async16(smem_addr(dst + r * DP + swz(r, c)), in ? src + pos * ld + c : src,
-                 in ? 16 : 0);
-    }
-  } else {
-    for (int idx = tid; idx < ROWS * DP; idx += kFThreads) {
-      const int r = idx / DP, c = idx % DP;
-      const int pos = row0 + r;
-      const bool in = pos < seq && c < dim;
-      cp_async4(smem_addr(dst + r * DP + swz(r, c)), in ? src + pos * ld + c : src, in ? 4 : 0);
-    }
-  }
-}
-
-// named barrier `id` over `n` threads: arrive and wait, or arrive only
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ bool in_band(int qpos, int kpos, int seq, int window) {
-  return kpos <= qpos && kpos > qpos - window && qpos < seq && kpos < seq;
 }
 
 template <int DP>
@@ -817,42 +652,14 @@ swa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const FragCols fc(lane);
   const int r0 = 16 * wr;                          // the warp's first row in the block
   const int qrow0 = q0 + r0 + gl, qrow1 = qrow0 + 8;
-  const int row_lo = q0 + r0, row_hi = row_lo + 15;
+  const int row_lo = q0 + r0;
   const float scale_log2 = scale * kLog2e;
-  // key half h (16 keys) of the tile at kv0: no key meets the warp's rows'
-  // band (skip), or some pair is outside it (edge)
-  auto skip_half = [&](int kv0, int h) {
-    const int lo = kv0 + 16 * h;
-    return lo > row_hi || lo + 15 <= row_lo - window || lo >= seq;
-  };
-  auto edge_half = [&](int kv0, int h) {
-    const int lo = kv0 + 16 * h;
-    return !(lo + 15 <= row_lo && lo > row_hi - window && lo + 16 <= seq);
-  };
+  auto skip_half = [&](int kv0, int h) { return keys16_skip(kv0 + 16 * h, row_lo, seq, window); };
+  auto edge_half = [&](int kv0, int h) { return keys16_edge(kv0 + 16 * h, row_lo, seq, window); };
   // s = the warp's 16 rows of `a` times its 16 key rows of `bt`, over D
   // in 32-column chunks (mma3_apart)
   auto product = [&](float (&s)[2][4], const float* a, const float* bt) {
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll 2
-    for (int c32 = 0; c32 < DP; c32 += 32) {
-      float big[2][4] = {}, small[2][4] = {};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Frag fa;
-        uint32_t bh[2][2], bl[2][2];
-        load_a<DP>(a, r0, c32, j, fc, fa);
-        load_b_rows<DP>(bt, 16 * wh, c32, j, fc, bh, bl);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) mma3_apart(big[nt], small[nt], fa, bh[nt], bl[nt]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] += big[nt][e] + small[nt][e];
-    }
+    product16<DP>(s, a, r0, bt, 16 * wh, fc);
   };
 
   // pass 1: running max and sum (log2 units) of each row over the warp's
@@ -972,12 +779,7 @@ swa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         x[e] = ok ? fast_exp2(s[nt][e] * scale_log2 - lse2[h]) * (dp[nt][e] - dl[h]) : 0.f;
       }
       acc_to_a(x, own[nt]);
-      uint32_t* xw = xch + warp * kXch + nt * 256 + lane;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        xw[e * 32] = own[nt].hi[e];
-        xw[(4 + e) * 32] = own[nt].lo[e];
-      }
+      xch_put(xch + warp * kXch, nt, lane, own[nt]);
     }
     bar_sync(1 + wr, 64);
     // dQ += dS K, the warp's half of D, over each half of the tile's keys
@@ -990,29 +792,10 @@ swa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         fa[0] = own[0];
         fa[1] = own[1];
       } else {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const uint32_t* xr = xch + (warp ^ 4) * kXch + i * 256 + lane;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            fa[i].hi[e] = xr[e * 32];
-            fa[i].lo[e] = xr[(4 + e) * 32];
-          }
-        }
+        xch_get(xch + (warp ^ 4) * kXch, 0, lane, fa[0]);
+        xch_get(xch + (warp ^ 4) * kXch, 1, lane, fa[1]);
       }
-#pragma unroll
-      for (int nt = 0; nt < DP / 16; ++nt) {
-        float c[4] = {};
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          uint32_t bh[2], bl[2];
-          load_b_cols<DP>(kbuf, 8 * (2 * h + i), wh * (DP / 2) + 32 * (nt >> 2), nt & 3, fc,
-                          ql, bh, bl);
-          mma3(c, fa[i], bh, bl);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] += c[e];
-      }
+      add_product16<DP>(acc, fa, kbuf, 16 * h, wh * (DP / 2), fc, ql);
     }
     if (t + 1 < n) cp_async_wait_group<0>();
     __syncthreads();                               // K(t) and the fragments are read; V(t+1) landed
@@ -1129,26 +912,7 @@ swa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     // S^T = K Q^T (group 0) or dP^T = V dO^T (group 1), over D in
     // 32-column chunks (mma3_apart)
     float s[2][4] = {};
-    if (!skip) {
-      const float* bt = grp == 0 ? qs : gs;
-#pragma unroll 2
-      for (int c32 = 0; c32 < DP; c32 += 32) {
-        float big[2][4] = {}, small[2][4] = {};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          Frag fa;
-          uint32_t bh[2][2], bl[2][2];
-          load_a<DP>(at, r0, c32, j, fc, fa);
-          load_b_rows<DP>(bt, 0, c32, j, fc, bh, bl);
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) mma3_apart(big[nt], small[nt], fa, bh[nt], bl[nt]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] += big[nt][e] + small[nt][e];
-      }
-    }
+    if (!skip) product16<DP>(s, at, r0, grp == 0 ? qs : gs, 0, fc);
     if (grp == 0) {
       // P^T = 2^(S^T scale log2e - LSE_col) on the band, handed to group 1
 #pragma unroll
@@ -1181,18 +945,7 @@ swa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     Frag fa[2];
     acc_to_a(s[0], fa[0]);
     acc_to_a(s[1], fa[1]);
-#pragma unroll
-    for (int nt = 0; nt < DP / 8; ++nt) {
-      float c[4] = {};
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t bh[2], bl[2];
-        load_b_cols<DP>(bt, 8 * kk, 32 * (nt >> 2), nt & 3, fc, ql, bh, bl);
-        mma3(c, fa[kk], bh, bl);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] += c[e];
-    }
+    add_product16<DP>(acc, fa, bt, 0, 0, fc, ql);
   }
 
   // this part's f32 partial: plane 0 dK, plane 1 dV, each (B, Hkv, S, dim)

@@ -1,13 +1,17 @@
 """Wrapper of the hand-written CUDA kernel K6 in ``csrc/swa.cu``, which
 replaces ``repro.kernels.swa.kernel``'s ``swa_pallas``.
 
-bfloat16 runs on the tensor cores: one block of two warpgroups per (batch,
-query head, 128-query tile) computes QKᵀ and P·V with ``wgmma`` out of bf16
-tiles in shared memory (Q, and a two-stage ring of 64-key K/V tiles filled
-by ``cp.async``, all in the 128-byte swizzle).  float32 runs on the CUDA
-cores, one block of 8 warps per 64 queries walking 32-key tiles, as its
-2e-5 limit rules out bf16 and single TF32 products (3xTF32, as in the
-backward, would keep it).  Both mask by the true
+Both types run on the tensor cores.  bfloat16: one block of two
+warpgroups per (batch, query head, 128-query tile) computes QKᵀ and P·V
+with ``wgmma`` out of bf16 tiles in shared memory (Q, and a two-stage ring
+of 64-key K/V tiles filled by ``cp.async``, all in the 128-byte swizzle).
+float32: one block of 8 warps per (batch, query head, 64-query tile) on
+32-key tiles computes them with ``mma.sync`` in 3xTF32 (each operand split
+into two TF32 parts, three products summed in f32, long sums in chunks),
+which keeps its 2e-5 limit where one TF32 product would not; Q and a
+two-stage ring of K/V tiles are f32 in shared memory, and the two warps
+that share 16 query rows, 16 keys of a tile each, share the rows' running
+max and hand each other their probabilities.  Both mask by the true
 sequence length, so nothing is padded, and both read q, k, v and write the
 output through (batch, head, position) strides, so a (B, S, H, D) tensor
 viewed as (B, H, S, D) goes in without a copy and the output takes q's
@@ -45,7 +49,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.swa.ref import (swa_bwd_fold_ref, swa_bwd_ref,
                                         swa_ref)
 
-F32_BLOCK_Q, F32_BLOCK_K, F32_WARPS = 64, 32, 8   # kBQ, kBK, kWarps in swa.cu
+F32_BLOCK_Q, F32_BLOCK_K, F32_WARPS = 64, 32, 8   # kFRows, kFKeys, kFThreads / 32
+F32_XCH = 2 * 8 * 32            # kXch: u32s of a warp's P fragments (tf32.cuh)
 WG_BLOCK_Q, WG_BLOCK_K = 128, 64                  # kWQ, kWK in swa.cu
 MAX_HEAD_DIM = 256
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -101,7 +106,7 @@ def bwd_smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16
                 "swa_bwd_dkdv": 2 * dp * 6 * BWD_TILE + 4 * 4 * BWD_TILE
                 + 4 * BWD_TILE * BWD_TILE + 1024}
     return {"swa_bwd_dq": 4 * dp * (2 * F32_BWD_ROWS + 2 * F32_BWD_KEYS)
-            + 4 * (8 * 512 + F32_BWD_ROWS + 8 * 16 * 2),
+            + 4 * (8 * F32_XCH + F32_BWD_ROWS + 8 * 16 * 2),
             "swa_bwd_dkdv": 4 * dp * (2 * BWD_TILE + 4 * F32_BWD_QT)
             + 4 * (4 * F32_BWD_QT + 4 * 8 * 32)}
 
@@ -120,16 +125,16 @@ def bwd_parts(batch: int, hkv: int, seq: int, group: int,
 
 
 def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Dynamic shared memory of one block, laid out as swa.cu uses it: for
-    bf16, Q and two (K, V) stages with D zero-filled to 64, 128 or 256, and
-    1024 bytes to align the swizzled tiles; for f32, Q, Kᵀ, V and the
-    probability strips."""
+    """Dynamic shared memory of one block, laid out as swa.cu uses it, D
+    zero-filled to Dp = 64, 128 or 256: for bf16, Q and two (K, V) stages,
+    and 1024 bytes to align the swizzled tiles; for f32 (swa.cu's
+    f32_smem), Q and two (K, V) stages, the 8 warps' P fragments (2 k-steps
+    x 8 u32 x 32 lanes) and each warp's 16 rows' tile max."""
+    dp = next(p for p in (64, 128, 256) if head_dim <= p)
     if dtype == torch.bfloat16:
-        dp = next(p for p in (64, 128, 256) if head_dim <= p)
         return 2 * (WG_BLOCK_Q + 4 * WG_BLOCK_K) * dp + 1024
-    dp = (head_dim + 3) // 4 * 4
-    return 4 * (F32_BLOCK_Q * dp + dp * (F32_BLOCK_K + 1) + F32_BLOCK_K * dp
-                + F32_WARPS * (F32_BLOCK_Q // F32_WARPS) * F32_BLOCK_K)
+    return (4 * dp * (F32_BLOCK_Q + 4 * F32_BLOCK_K)
+            + 4 * F32_WARPS * (F32_XCH + 16))
 
 
 def _unit_last(t: torch.Tensor) -> torch.Tensor:
@@ -169,7 +174,8 @@ def swa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     tensors = (q, k, v, out)
     strides = [st for t in tensors for st in t.stride()[:3]]
-    vec = int(d % 8 == 0 and all(st % 8 == 0 for st in strides)
+    per16 = 16 // q.element_size()      # elements in 16 bytes
+    vec = int(d % per16 == 0 and all(st % per16 == 0 for st in strides)
               and all(t.data_ptr() % 16 == 0 for t in tensors))
     c_strides = (ctypes.c_int64 * 12)(*strides)
     with torch.cuda.device(q.device):

@@ -168,6 +168,16 @@ CASES_SWA = [
     (1, 10, 1, 4096, 256, 2048, "bfloat16"),
     (1, 4, 2, 500, 64, 600, "bfloat16"),
     (1, 4, 1, 300, 256, 300, "bfloat16"),
+    # the f32 tensor-core path's edges: S not a multiple of its 32-key or
+    # 64-query tiles, window 1 and past S, D = 1, 4, 18 (4-byte loads), 100,
+    # 129 and 256 (Dp 64, 128, 256), GQA 5:1, and the prefill's shape
+    (1, 2, 1, 97, 100, 40, "float32"),
+    (1, 2, 1, 97, 4, 1, "float32"),
+    (2, 2, 1, 70, 1, 16, "float32"),
+    (1, 5, 1, 333, 18, 64, "float32"),
+    (1, 4, 2, 200, 129, 500, "float32"),
+    (1, 5, 1, 2113, 256, 300, "float32"),
+    (2, 10, 1, 4096, 256, 2048, "float32"),
 ]
 
 
@@ -504,6 +514,21 @@ def test_swa_kernel_reads_strided_views(dev, rng, d, dtype):
     assert y.stride() == q.stride()
     _close(y, swa_plain(q.contiguous(), k.contiguous(), v.contiguous(),
                         window=300), TOL[dtype])
+
+
+def test_swa_f32_forward_is_deterministic_at_the_model_shape(dev, rng):
+    """Two f32 forward calls at RecurrentGemma-2B's prefill shape ((2, 4096)
+    tokens, 10 query heads over 1 KV head, D = 256, window 2048, the
+    (B, S, H, D) views the model passes) give equal bits: every sum runs in
+    a fixed order, and the two warps that share rows take the same bits of
+    the running max."""
+    q, k, v = (_x(rng, (2, 4096, h, 256), "float32", dev).transpose(1, 2)
+               for h in (10, 1, 1))
+    first = sliding_window_attention(q, k, v, window=2048, backend="cuda")
+    again = sliding_window_attention(q, k, v, window=2048, backend="cuda")
+    torch.cuda.synchronize()
+    assert first.stride() == q.stride()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -68,7 +68,8 @@ from repro_torch.kernels.stencil3d.ops import (DEFAULT_BLOCK, _auto_block,
                                                fit_block)
 from repro_torch.kernels.swa import kernel as k6
 from repro_torch.kernels.swa.ops import swa_plain
-from repro_torch.kernels.swa.ref import swa_bwd_fold_ref, swa_bwd_ref
+from repro_torch.kernels.swa.ref import (swa_bwd_fold_ref, swa_bwd_ref,
+                                        swa_ref)
 
 ROOT = Path(__file__).resolve().parents[1]
 LIMIT = _build.H100_SMEM_PER_BLOCK
@@ -281,9 +282,21 @@ def test_swa_tensor_core_smem(d, want):
     assert want <= LIMIT
 
 
-@pytest.mark.parametrize("d", [18, 40, 256])
+SWA_F32_SMEM = {1: 66_048, 18: 66_048, 40: 66_048, 64: 66_048,
+                65: 115_200, 128: 115_200, 256: 213_504}
+
+
+@pytest.mark.parametrize("d", [1, 18, 40, 64, 65, 128, 256])
 def test_swa_f32_smem_fits(d):
-    assert k6.smem_bytes(d, torch.float32) <= LIMIT
+    """swa.cu's f32_smem: 4 B x (64 Q rows + 2 stages x (32 K + 32 V rows))
+    x (D zero-filled to 64, 128 or 256), then the 8 warps' P fragments (2
+    k-steps x 8 u32 x 32 lanes) and each warp's 16 rows' tile max."""
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    got = k6.smem_bytes(d, torch.float32)
+    assert got == 4 * dp * (64 + 4 * 32) + 4 * 8 * (512 + 16) \
+        == SWA_F32_SMEM[d]
+    assert (k6.F32_BLOCK_Q, k6.F32_BLOCK_K, k6.F32_WARPS) == (64, 32, 8)
+    assert got <= LIMIT
 
 
 @pytest.mark.parametrize("d,want", [(32, (58_880, 67_584)),
@@ -803,6 +816,63 @@ def test_k6_bwd_f32_split_fits_grad_tol():
         good1, err1, rel1 = chip_smoke.grad_error("swa", torch.float32, g1, w,
                                                   dout)
         assert not good1 and rel1 > 10 * rel, (name, rel1, rel)
+
+
+def emulate_k6_fwd_f32(q, k, v, *, window: int, split: bool = True,
+                       tile: int = 32):
+    """K6's f32 forward arithmetic in torch (a test helper, never on the
+    main path): S = Q Kᵀ in 3xTF32 (``_mm3``), times scale·log2e in f32,
+    masked to -1e30; an online softmax over the kernel's 32-key tiles in f32
+    (m the running max over the tile's keys, alpha = 2^(m_old - m_new), P
+    = 2^(S - m_new) and 0 where masked, l = l·alpha + ΣP); the accumulator
+    rescaled by alpha, then P·V of the tile's keys in 3xTF32 added to it;
+    out = acc / max(l, 1e-30).  ``split=False``: every product one TF32
+    product."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    kf = k.repeat_interleave(group, dim=1)
+    vf = v.repeat_interleave(group, dim=1)
+    scale_log2 = torch.tensor((1.0 / math.sqrt(d)) * math.log2(math.e),
+                              dtype=torch.float32)
+    neg = torch.tensor(-1e30)
+    m = torch.full((b, hq, s, 1), -1e30)
+    l = torch.zeros((b, hq, s, 1))
+    acc = torch.zeros((b, hq, s, d))
+    i = torch.arange(s)[:, None]
+    for k0 in range(0, s, tile):
+        j = torch.arange(k0, min(k0 + tile, s))[None, :]
+        mask = (j <= i) & (j > i - window)
+        sc = _mm3(q, kf[:, :, k0:k0 + tile].transpose(-1, -2), split)
+        sc = torch.where(mask, sc * scale_log2, neg)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp2(sc - m_new), 0.0)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm3(p, vf[:, :, k0:k0 + tile], split)
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+def test_k6_fwd_f32_split_fits_the_f32_limit():
+    """D = 256, GQA 4:1, S = 777, window 256: the emulated 3xTF32 forward
+    within the f32 limit (2e-5, chip_smoke.LM_TOL) of the plain version
+    (swa_ref), and one TF32 product a product would miss it, which is why
+    every operand is split."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               for shape in ((1, 4, 777, 256), (1, 1, 777, 256),
+                             (1, 1, 777, 256)))
+    want = swa_ref(q, k, v, window=256)
+    tol = chip_smoke.LM_TOL["swa"][torch.float32][0]
+    got = emulate_k6_fwd_f32(q, k, v, window=256)
+    err = (got - want).abs().max().item()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert err <= tol, err
+    one = (emulate_k6_fwd_f32(q, k, v, window=256, split=False)
+           - want).abs().max().item()
+    assert one > tol and one > 10 * err, (one, err)
 
 
 def test_swa_takes_strided_views_on_cpu():
