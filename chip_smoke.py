@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stencil main path, its CGRA model with the
-tuner's batched stage 1, its RecurrentGemma-2B serving and training paths
-and the other LM families on one NVIDIA GPU (H100).
+tuner's batched stage 1, its RecurrentGemma-2B serving and training paths,
+the other LM families and its multi-device stencils on one NVIDIA GPU
+(H100).
 
     PYTHONPATH=src python3 chip_smoke.py [--device cuda:0] [--seed 0]
 
@@ -171,6 +172,29 @@ and the other LM families on one NVIDIA GPU (H100).
    on the card, which must launch K3: its error against the oracle within
    2e-5 and its 1/16-grid simulation exact.
 
+10. The ``distributed`` phase (``distributed_phase``, ~30 s): the
+   multi-device slice on the one card.  ``DIST_RANKS`` (4) gloo ranks,
+   spawned by ``run_local_world``, share the card; each holds its shard of
+   the grid (made on the card from ``--seed``) as a DTensor and runs each
+   distributed stencil, which exchanges halos through the host (gloo reads
+   host memory) and sweeps its haloed shard with K1, K3 or K4: the paper's
+   17-pt 1D (r = 8) on 2^26 points, T = 4, 4 strips; the seismic 49-pt 2D
+   (r = 12) on 8192 x 8192, T = 4, mesh (2, 2); ``star_3d`` r = 2 on 512^3,
+   T = 2, z and y over (2, 2); all f32.  One fused block runs with the
+   launch counts zeroed just before and read just after on every rank (K1
+   1, K3 1, K4 2); the result is gathered on rank 0 through the host and
+   held to the single-device op on the whole grid and to the oracle
+   (``core/reference.py`` on the card) within 2e-5, its bit-equality to
+   the op printed; a fused block is timed barrier to barrier (exchange
+   included), then the exchanges alone and every rank's op on a haloed
+   shard alone, the same way, and the op on the whole grid alone
+   (``distributed`` lines, with ``halo_bytes_per_step`` and whether gloo
+   takes CUDA tensors in an all-reduce).  Then this process is the one
+   rank of an NCCL world: ``distributed_stencil2d`` on a (1, 1) mesh
+   (2048 x 2048, K3 once, bit-equal to the op) and ``int8_psum`` on the
+   card (``distributed_nccl``; with no peer, NCCL's point-to-point
+   exchange between two cards stays unrun on a one-card machine).
+
 Any build error, launch error, mismatch or kernel that its path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
 one it exits non-zero before doing anything.
@@ -190,12 +214,15 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import distribute_tensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -240,6 +267,17 @@ from repro_torch.train.train_step import (LOSS_RANGE,  # noqa: E402
                                           OPTIMIZER_RANGE, make_loss_fn,
                                           make_train_step)
 from repro_torch.analysis.lint import lint_paths  # noqa: E402
+from repro_torch.core.reference import stencil_reference  # noqa: E402
+from repro_torch.distributed.collectives import int8_psum  # noqa: E402
+from repro_torch.distributed.halo import (distributed_stencil1d,  # noqa: E402
+                                          distributed_stencil2d,
+                                          distributed_stencil3d,
+                                          halo_bytes_per_step, halo_exchange)
+from repro_torch.distributed.halo import sweep as dist_sweep  # noqa: E402
+from repro_torch.distributed.sharding import (PartitionSpec,  # noqa: E402
+                                              make_mesh_compat, placements,
+                                              shard_offsets)
+from repro_torch.launch.mesh import run_local_world  # noqa: E402
 from repro_torch.telemetry import (Telemetry, bottleneck_table,  # noqa: E402
                                    render_report, validate_trace,
                                    write_trace)
@@ -2400,6 +2438,216 @@ def observe_phase(seed: int, failures: list[str]) -> None:
                       "ok": ok}))
 
 
+# -- the multi-device slice: gloo ranks sharing the card ----------------------
+DIST_RANKS = 4
+DIST_REPS = 5                 # timed fused blocks a case, after one warm-up
+DIST_TIMEOUT_S = 300
+NCCL_GRID = (2048, 2048)      # the one-rank NCCL world's 2D grid
+DIST_BUILD = {1: distributed_stencil1d, 2: distributed_stencil2d,
+              3: distributed_stencil3d}
+
+
+def dist_cases() -> list[tuple]:
+    """(name, spec, mesh shape, mesh axes, kernel, its launches a fused
+    block): each past the L2, in f32."""
+    return [
+        ("1d_17pt", dataclasses.replace(
+            paper_stencil_1d(n=2 ** 26, dtype="float32"), timesteps=4),
+         (4,), ("data",), "stencil1d_vpu", 1),
+        ("2d_49pt_seismic", dataclasses.replace(
+            paper_stencil_2d(8192, 8192, dtype="float32"), timesteps=4),
+         (2, 2), ("pod", "data"), "stencil2d", 1),
+        ("3d_star_r2", dataclasses.replace(
+            star_3d(512, 512, 512, r=2, dtype="float32"), timesteps=2),
+         (2, 2), ("pod", "data"), "stencil3d", 2),
+    ]
+
+
+def barrier_ms(fn) -> list[float]:
+    """ms of ``fn`` run by every rank at once, barrier to barrier (the card
+    synchronised before the second), ``DIST_REPS`` times after a warm-up."""
+    times = []
+    for _ in range(DIST_REPS + 1):
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times[1:]
+
+
+def dist_rank(seed: int) -> dict:
+    """One of ``DIST_RANKS`` gloo ranks on the card.  Each case: the whole
+    grid from ``seed`` on the card, this rank's shard as a DTensor, one
+    fused block with the launch counts zeroed just before and read just
+    after, ``DIST_REPS`` blocks timed barrier to barrier (exchange
+    included), then the exchanges alone and the sweeps of a haloed shard
+    alone; the result gathered on rank 0 through the host and held there
+    to the single-device op and the oracle, the op timed alone."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank, world = dist.get_rank(), dist.get_world_size()
+    # does the installed gloo take CUDA tensors in an all-reduce?  (found
+    # out and printed only: the port stages gloo's payloads on the host)
+    probe = torch.ones(1, device=dev)
+    try:
+        dist.all_reduce(probe)
+        gloo_cuda = probe.item() == world
+    except RuntimeError as e:
+        gloo_cuda = f"{type(e).__name__}: {str(e)[:160]}"
+    out = {"gloo_cuda_all_reduce": gloo_cuda, "cases": []}
+    for name, spec, shape, axes, kernel, _ in dist_cases():
+        mesh = make_mesh_compat(shape, axes)
+        place = placements(PartitionSpec(*axes), mesh)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(spec.grid_shape, generator=gen, device=dev)
+        xd = distribute_tensor(x, mesh, place, src_data_rank=None)
+        step = DIST_BUILD[spec.ndim](spec, mesh,
+                                     axes[0] if spec.ndim == 1 else axes)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        y = step(xd)
+        torch.cuda.synchronize()
+        row = {"launches": _build.LAUNCHES.get(kernel, 0),
+               "block_ms": barrier_ms(lambda: step(xd))}
+        # the exchanges alone: each mesh axis's halo_exchange on the shard
+        local = xd.to_local()
+        halos = [(d, spec.radii[d] * spec.timesteps, mesh.get_group(a))
+                 for d, a in enumerate(axes)]
+        row["exchange_ms"] = barrier_ms(lambda: [
+            halo_exchange(local, halo, group, axis)
+            for axis, halo, group in halos])
+        # the sweeps alone: each rank's op on a haloed shard at once
+        ext = torch.zeros([n + 2 * h if d < len(axes) else n for d, (n, h)
+                           in enumerate(zip(local.shape, (
+                               r * spec.timesteps for r in spec.radii)))],
+                          device=dev)
+        row["sweep_ms"] = barrier_ms(lambda: dist_sweep(ext, spec))
+        del ext
+        local = y.to_local().cpu()
+        starts = [None] * world
+        dist.all_gather_object(starts, shard_offsets(
+            local.shape, mesh, place, mesh.get_coordinate()))
+        parts = [torch.empty_like(local) for _ in range(world)] if rank == 0 \
+            else None
+        dist.gather(local, parts, dst=0)
+        if rank == 0:
+            full = torch.full(spec.grid_shape, float("nan"), device=dev)
+            for start, part in zip(starts, parts):
+                full[tuple(slice(a, a + n) for a, n in
+                           zip(start, part.shape))] = part.to(dev)
+            single = dist_sweep(x, spec)
+            oracle = stencil_reference(x, spec)
+            row.update({
+                "err_single": (full - single).abs().max().item(),
+                "err_oracle": (full - oracle).abs().max().item(),
+                "bit_equal_single": torch.equal(full, single),
+                "single_ms": median_ms(lambda: dist_sweep(x, spec),
+                                       reps=DIST_REPS)})
+            del full, single, oracle
+        dist.barrier()                  # the others wait while rank 0 checks
+        out["cases"].append(row)
+        del x, xd, y, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def nccl_rank(seed: int) -> dict:
+    """The one rank of an NCCL world on the card: ``distributed_stencil2d``
+    on a (1, 1) mesh and ``int8_psum`` run NCCL's side of the transport
+    rule.  With no peer, no point-to-point message is sent."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh_compat((1, 1), ("pod", "data"))
+    spec = dataclasses.replace(paper_stencil_2d(*NCCL_GRID, dtype="float32"),
+                               timesteps=4)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(spec.grid_shape, generator=gen, device=dev)
+    xd = distribute_tensor(x, mesh, placements(PartitionSpec("pod", "data"),
+                                               mesh), src_data_rank=None)
+    _build.reset_launches()
+    y = distributed_stencil2d(spec, mesh)(xd).to_local()
+    torch.cuda.synchronize()
+    k3_launches = _build.LAUNCHES.get("stencil2d", 0)
+    single = stencil2d_from_spec(x, spec)
+    q = torch.randn(1 << 20, generator=gen, device=dev)
+    got = int8_psum(q, mesh.get_group("data"))
+    scale = torch.clamp(q.abs().max(), min=1e-12) / 127.0
+    want = torch.clamp(torch.round(q / scale), -127, 127).to(
+        torch.int8).float() * scale
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "k3_launches": k3_launches,
+            "on_card": y.is_cuda and got.is_cuda,
+            "err_single": (y - single).abs().max().item(),
+            "bit_equal_single": torch.equal(y, single),
+            "psum_err": (got - want).abs().max().item()}
+
+
+def distributed_phase(seed: int, failures: list[str]) -> None:
+    """The multi-device slice on the one card: ``DIST_RANKS`` gloo ranks
+    (``run_local_world``), each sweeping its haloed shard with K1, K3 or K4
+    (``dist_rank``), then a one-rank NCCL world in this process
+    (``nccl_rank``)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_local_world(dist_rank, DIST_RANKS, seed,
+                            timeout=DIST_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    tol = TOL[torch.float32]
+    for i, (name, spec, shape, axes, kernel, per_block) in enumerate(
+            dist_cases()):
+        rows = [r["cases"][i] for r in ranks]
+        head = rows[0]
+        launches = [r["launches"] for r in rows]
+        ok = (head["err_single"] <= tol and head["err_oracle"] <= tol
+              and launches == [per_block] * DIST_RANKS)
+        if not ok:
+            failures.append(f"distributed {name}: error {head['err_single']} "
+                            f"from the single-device op, "
+                            f"{head['err_oracle']} from the oracle (tol "
+                            f"{tol}), {kernel} launches per rank {launches}")
+        shards = shape + (1,) * (spec.ndim - len(shape))
+        print(json.dumps({
+            "phase": "distributed", "case": name, "ranks": DIST_RANKS,
+            "backend": "gloo", "mesh": dict(zip(axes, shape)),
+            "grid": list(spec.grid_shape), "radii": list(spec.radii),
+            "timesteps": spec.timesteps, "dtype": spec.dtype,
+            "halo_bytes_per_step": halo_bytes_per_step(spec, shards),
+            "kernel": kernel, "launches_per_rank_per_block": launches,
+            "max_abs_err_vs_single": head["err_single"],
+            "max_abs_err_vs_oracle": head["err_oracle"], "tol": tol,
+            "bit_equal_single": head["bit_equal_single"],
+            "block_ms": statistics.median(head["block_ms"]),
+            "block_ms_spread": spread(head["block_ms"]),
+            "single_ms": head["single_ms"],
+            "exchange_ms": statistics.median(head["exchange_ms"]),
+            "sweep_ms": statistics.median(head["sweep_ms"]),
+            "gloo_cuda_all_reduce": ranks[0]["gloo_cuda_all_reduce"],
+            "ok": ok}))
+    # this process is the one rank: no spawn, no second import of the script
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(Path(tmp) / "store"), 1), rank=0, world_size=1)
+        try:
+            got = nccl_rank(seed)
+        finally:
+            dist.destroy_process_group()
+    ok = (got["backend"] == "nccl" and got["on_card"]
+          and got["k3_launches"] == 1 and got["err_single"] <= tol
+          and got["psum_err"] == 0.0)
+    if not ok:
+        failures.append(f"distributed nccl: {got}")
+    print(json.dumps({
+        "phase": "distributed_nccl", "ranks": 1, "grid": list(NCCL_GRID),
+        **got, "tol": tol,
+        "note": "one rank has no peer: NCCL's point-to-point exchange "
+                "between two cards is not run on a one-card machine",
+        "ok": ok}))
+    print(json.dumps({"phase": "distributed_wall", "gloo_world_s": world_s,
+                      "nccl_world_s": time.perf_counter() - t1,
+                      "s": time.perf_counter() - t0}))
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -2499,6 +2747,12 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- observability: lint, traces, the seismic walkthrough ---------------
     observe_phase(args.seed, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+
+    # -- the multi-device slice: 4 gloo ranks on the card, then NCCL -------
+    distributed_phase(args.seed, failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1

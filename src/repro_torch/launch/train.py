@@ -11,10 +11,11 @@
     the job from the last checkpoint;
   * microbatch gradient accumulation, remat, optional gradient compression.
 
-One device: --data-par and --model-par take only 1 until the port's
-multi-device slice.  --device defaults to ``cuda`` and raises when there is
-no GPU; RecurrentGemma then trains through K5 and K6 and their backward
-kernels.
+One device: --data-par and --model-par take only 1 until the trainer's
+parallel slice (its meshes and sharding rules are in ``launch/mesh.py``
+and ``distributed/sharding.py``).  --device defaults to ``cuda`` and
+raises when there is no GPU; RecurrentGemma then trains through K5 and K6
+and their backward kernels.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir build/ck \\
@@ -96,7 +97,7 @@ def run(argv=None) -> tuple[int, list[float]]:
                          "--device cpu to run on the CPU")
     if args.data_par != 1 or args.model_par != 1:
         raise SystemExit("--data-par and --model-par take only 1: the "
-                         "port's multi-device slice is not ported yet")
+                         "trainer's parallel slice is not ported yet")
     cfg = _config(args)
     model = build_model(cfg, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(args.seed))

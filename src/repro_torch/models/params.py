@@ -67,6 +67,23 @@ def _leaves(tree: dict):
             yield from _leaves(v)
 
 
+def _map(f, tree: dict) -> dict:
+    return {k: f(v) if is_spec(v) else _map(f, v) for k, v in tree.items()}
+
+
+def shape_tree(spec_tree: dict, default_dtype: str = "float32") -> dict:
+    """Meta-device tensors of each spec's shape and type (the counterpart of
+    ``jax.ShapeDtypeStruct``: nothing is allocated), same structure."""
+    return _map(lambda s: torch.empty(s.shape, dtype=spec_dtype(
+        s, default_dtype), device="meta"), spec_tree)
+
+
+def logical_tree(spec_tree: dict) -> dict:
+    """Each spec's logical axis names, same structure: the input of
+    :func:`repro_torch.distributed.sharding.tree_shardings`."""
+    return _map(lambda s: s.logical, spec_tree)
+
+
 def param_count(spec_tree: dict) -> int:
     """Elements of every Spec in a (nested) dict of specs."""
     return sum(math.prod(s.shape) for s in _leaves(spec_tree))

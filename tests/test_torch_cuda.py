@@ -997,3 +997,95 @@ def test_kernel_matches_oracle_property(dev):
                                    atol=1e-4)
 
     prop()
+
+
+# ---- the multi-device slice: gloo ranks sharing the card --------------------
+# (grid, radii, timesteps, mesh shape): grids ragged against the kernels'
+# tiles; 2D and 3D split once along each mesh axis in turn
+CASES_DIST = [
+    ((2002,), (8,), 3, (2,)),
+    ((74, 106), (2, 3), 2, (2, 1)),
+    ((74, 106), (12, 12), 2, (1, 2)),
+    ((18, 26, 45), (1, 1, 2), 2, (2, 1)),
+    ((18, 26, 45), (2, 2, 2), 2, (1, 2)),
+]
+
+
+def _dist_spec(grid, radii, t, seed):
+    from repro_torch.core.spec import StencilSpec
+    rng = np.random.default_rng(seed)
+    coeffs = tuple(tuple((rng.normal(size=2 * r + 1) / (2 * r + 1)).tolist())
+                   for r in radii)
+    return StencilSpec(grid, radii, coeffs, timesteps=t), rng.normal(
+        size=grid).astype(np.float32)
+
+
+def _distributed_rank() -> dict:
+    """One of 2 gloo ranks on the card: each case of ``CASES_DIST`` through
+    ``distributed_stencil{1,2,3}d`` on CUDA shards, and ``int8_psum`` on a
+    CUDA tensor; its parts of each output and its launches per case."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed import halo
+    from repro_torch.distributed.collectives import int8_psum
+    from repro_torch.distributed.sharding import (PartitionSpec,
+                                                  make_mesh_compat,
+                                                  placements, shard_offsets)
+    out = {"cases": []}
+    for i, (grid, radii, t, mesh_shape) in enumerate(CASES_DIST):
+        spec, x = _dist_spec(grid, radii, t, i)
+        axes = ("data",) if len(grid) == 1 else ("pod", "data")
+        mesh = make_mesh_compat(mesh_shape, axes)
+        build = (lambda s: halo.distributed_stencil1d(s, mesh, "data"),
+                 lambda s: halo.distributed_stencil2d(s, mesh, axes),
+                 lambda s: halo.distributed_stencil3d(s, mesh, axes)
+                 )[len(grid) - 1]
+        place = placements(PartitionSpec(*axes), mesh)
+        xd = distribute_tensor(torch.from_numpy(x).cuda(), mesh, place,
+                               src_data_rank=None)
+        _build.reset_launches()
+        y = build(spec)(xd).to_local()
+        assert y.is_cuda
+        out["cases"].append((shard_offsets(y.shape, mesh, place,
+                                           mesh.get_coordinate()),
+                             y.cpu().numpy(), dict(_build.LAUNCHES)))
+    mesh = make_mesh_compat((2,), ("d",))
+    rank = mesh.get_coordinate()[0]
+    xq = np.random.default_rng(9).normal(size=(2, 1000)).astype(np.float32)
+    y = int8_psum(torch.from_numpy(xq[rank]).cuda(), mesh.get_group("d"))
+    assert y.is_cuda
+    out["psum"] = y.cpu().numpy()
+    return out
+
+
+@pytest.fixture(scope="module")
+def distributed_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.launch.mesh import run_local_world
+    return run_local_world(_distributed_rank, 2, timeout=600)
+
+
+@pytest.mark.parametrize("i", range(len(CASES_DIST)))
+def test_distributed_stencil_matches_single_device_op(dev, distributed_world,
+                                                      i):
+    """Each rank's shard swept by K1/K3/K4 on the card; the gathered grid
+    within 2e-5 of the same op on the whole grid."""
+    grid, radii, t, mesh_shape = CASES_DIST[i]
+    spec, x = _dist_spec(grid, radii, t, i)
+    got = np.full(grid, np.nan, np.float32)
+    for r in distributed_world:
+        start, a, launches = r["cases"][i]
+        got[tuple(slice(s, s + n) for s, n in zip(start, a.shape))] = a
+        kernel = ("stencil1d_vpu", "stencil2d", "stencil3d")[len(grid) - 1]
+        assert launches.get(kernel, 0) == (t if len(grid) == 3 else 1)
+    from repro_torch.distributed.halo import sweep
+    want = sweep(torch.from_numpy(x).to(dev), spec).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL["float32"])
+
+
+def test_int8_psum_on_cuda_tensors(dev, distributed_world):
+    xq = np.random.default_rng(9).normal(size=(2, 1000)).astype(np.float32)
+    true = xq.sum(axis=0)
+    y0, y1 = (r["psum"] for r in distributed_world)
+    assert np.array_equal(y0, y1)
+    assert np.abs(y0 - true).max() / np.abs(true).max() < 0.05

@@ -70,7 +70,8 @@ def test_import_loads_no_jax_and_no_repro():
                 "configs.granite_moe_3b_a800m", "configs.qwen2_vl_2b",
                 "train.optim", "train.train_step", "data.pipeline",
                 "checkpoint.manager", "distributed.collectives",
-                "launch.train"):
+                "launch.train", "distributed.halo", "distributed.sharding",
+                "launch.mesh"):
         assert f"repro_torch.{mod}" in loaded
 
 
@@ -80,9 +81,11 @@ def test_sources_import_no_jax_and_no_repro():
     paths += [root / "chip_smoke.py", root / "tests" / "test_torch_cuda.py",
               root / "tests" / "test_torch_cgra_model.py",
               root / "tests" / "test_torch_engine_batch.py",
-              root / "tests" / "test_torch_property.py"]
+              root / "tests" / "test_torch_property.py",
+              root / "tests" / "test_torch_distributed.py",
+              root / "tests" / "torch_distributed_cases.py"]
     paths += sorted((root / "examples").glob("*_torch.py"))
-    assert len([p for p in paths if p.parent.name == "examples"]) == 6
+    assert len([p for p in paths if p.parent.name == "examples"]) == 7
     paths += sorted((root / "scripts").glob("*.py"))
     for path in paths:
         for line in path.read_text().splitlines():

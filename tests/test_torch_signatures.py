@@ -25,11 +25,13 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 class Diff:
     """How a port signature departs from the reference's: reference
     parameters it drops, parameters of its own, and defaults it changes
-    (name -> the port's default)."""
+    (name -> the port's default); or, with ``contract``, none of these but
+    what a parameter takes or what comes back (``why`` says how)."""
     why: str
     dropped: tuple = ()
     added: tuple = ()
     defaults: tuple = ()       # ((name, port default), ...)
+    contract: bool = False
 
 
 PARAMS = "the nn.Module holds its parameters: no params argument"
@@ -38,10 +40,16 @@ DEVICE = "the port's tensors are made on device= (None or 'cuda': the card)"
 TILES = ("Pallas tile and VMEM keywords dropped: the CUDA kernels pick their "
          "own tiles from the card's shared memory")
 PLANNER = "the planner is re-derived for the card's shared memory"
+GROUP = ("axis_name is the mesh axis's ProcessGroup (mesh.get_group(name)), "
+         "where jax's shard_map context resolved a name")
+SHARDED = ("mesh is a DeviceMesh; the callable takes and returns a DTensor "
+           "of the whole grid in the reference's layout (not a jitted "
+           "function of a whole array): to_local() is the shard")
 
 DIFFERENCES = {
     "checkpoint.manager.CheckpointManager.restore": Diff(
-        "no shardings until distributed/ is ported", dropped=("shardings",)),
+        "no shardings until the trainer's parallel slice (--data-par and "
+        "--model-par above 1) is ported", dropped=("shardings",)),
     "core.simulator.simulate": Diff(DEVICE, added=("device",)),
     "core.simulator.simulate_batch": Diff(
         "the batched engine is K7 ('cuda'), run on device=",
@@ -49,6 +57,26 @@ DIFFERENCES = {
     "explore.search.explore": Diff(DEVICE, added=("device",)),
     "distributed.collectives.compress_decompress": Diff(
         "groups: the reference's stacked leaves", added=("groups",)),
+    "distributed.collectives.int8_psum": Diff(GROUP, contract=True),
+    "distributed.collectives.compressed_psum_tree": Diff(GROUP,
+                                                         contract=True),
+    "distributed.halo.halo_exchange": Diff(GROUP, contract=True),
+    "distributed.halo.distributed_stencil1d": Diff(SHARDED, contract=True),
+    "distributed.halo.distributed_stencil2d": Diff(SHARDED, contract=True),
+    "distributed.halo.distributed_stencil3d": Diff(SHARDED, contract=True),
+    "distributed.sharding.make_mesh_compat": Diff(
+        DEVICE + "; a DeviceMesh over the default process group",
+        added=("device",)),
+    "distributed.sharding.named_sharding": Diff(
+        "the DTensor placements of the spec on a DeviceMesh (Shard(dim) or "
+        "Replicate() per mesh axis), not a NamedSharding", contract=True),
+    "distributed.sharding.tree_shardings": Diff(
+        "a dict tree of named_sharding's placements", contract=True),
+    "distributed.sharding.constrain": Diff(
+        "returns x: the port has no SPMD partitioner to anchor (the "
+        "reference's behaviour with no mesh set)", contract=True),
+    "launch.mesh.make_production_mesh": Diff(DEVICE, added=("device",)),
+    "launch.mesh.make_local_mesh": Diff(DEVICE, added=("device",)),
     "train.optim.apply_updates": Diff(
         "decay and groups: the reference's stacked leaves",
         added=("decay", "groups")),
@@ -90,10 +118,11 @@ DIFFERENCES = {
 MISSING = {
     "core.roofline": {"TpuRooflineTerms", "TpuRooflineTerms.__init__",
                       "TpuRooflineTerms.as_dict"},     # with analysis/rooflines
-    "distributed.collectives": {"compressed_psum_tree", "int8_psum"},
+    # jax shims: shard_map has no counterpart (each rank runs its shard's
+    # code itself) and no ambient mesh is installed (constrain is a no-op)
+    "distributed.sharding": {"shard_map_compat", "mesh_context"},
     "kernels.stencil1d.kernel": {"make_band"},         # K2 builds it on the card
-    "models.params": {"init_leaf", "init_params",      # nn.Module init
-                      "logical_tree", "shape_tree"},   # sharding rules' input
+    "models.params": {"init_leaf", "init_params"},     # nn.Module init
     "models.transformer": {"maybe_scan", "stack_specs"},   # one block a layer
 }
 
@@ -179,7 +208,8 @@ def test_every_recorded_difference_is_of_a_shared_function():
             importlib.import_module(f"repro.{module}"))}
     assert set(DIFFERENCES) <= names
     for key, diff in DIFFERENCES.items():
-        assert diff.why and (diff.dropped or diff.added or diff.defaults), key
+        assert diff.why and (diff.dropped or diff.added or diff.defaults
+                             or diff.contract), key
 
 
 def test_the_repaired_signatures_behave_as_the_reference():
