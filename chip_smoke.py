@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stencil main path, its CGRA model with the
 tuner's batched stage 1, its RecurrentGemma-2B serving and training paths,
-the other LM families and its multi-device stencils on one NVIDIA GPU
-(H100).
+the other LM families, its multi-device stencils and its data- and
+tensor-parallel trainer on one NVIDIA GPU (H100).
 
     PYTHONPATH=src python3 chip_smoke.py [--device cuda:0] [--seed 0]
 
@@ -195,6 +195,24 @@ the other LM families and its multi-device stencils on one NVIDIA GPU
    card (``distributed_nccl``; with no peer, NCCL's point-to-point
    exchange between two cards stays unrun on a one-card machine).
 
+11. The ``train_parallel`` phase (``train_parallel_phase``): the trainer's
+   parallel slice.  One period (3 layers) of RecurrentGemma-2B at full
+   width (d_model 2560, vocab 256,000, 10/1 heads of 256, lru_width 2560,
+   d_ff 7680), f32 weights, bf16 activations, remat "dots", trained
+   ``PAR_STEPS`` (3) steps of ``SyntheticLM`` markov batches of (2, 4096)
+   through ``launch.train.run``: in this process (one rank), then in a
+   2-rank gloo world sharing the card (``run_local_world``) at (D, M) =
+   (2, 1) and at (1, 2), each run's memory freed before the next.  For
+   each layout: the losses beside the one-rank run's within
+   ``PAR_LOSS_RTOL`` (1e-3, relative), every rank's K5, ``conv1d_bwd``,
+   K6 and K6-bwd launches in each step (counts zeroed just before and
+   read just after) equal to ``train_launches`` for 3 layers, its
+   parameter elements equal to ``resolve_spec``'s split, step ms, peak
+   memory and the bytes all-reduced per step over the data and the model
+   group (``tensor_parallel.wire_bytes``).  Gloo carries every collective
+   through the host; NCCL between cards stays unmeasured on one card
+   (``train_parallel_note``).
+
 Any build error, launch error, mismatch or kernel that its path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
 one it exits non-zero before doing anything.
@@ -208,6 +226,7 @@ import hashlib
 import importlib.util
 import io
 import json
+import math
 import multiprocessing
 import re
 import shutil
@@ -217,6 +236,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -268,15 +288,17 @@ from repro_torch.train.train_step import (LOSS_RANGE,  # noqa: E402
                                           make_train_step)
 from repro_torch.analysis.lint import lint_paths  # noqa: E402
 from repro_torch.core.reference import stencil_reference  # noqa: E402
+from repro_torch.distributed import tensor_parallel as tp  # noqa: E402
 from repro_torch.distributed.collectives import int8_psum  # noqa: E402
 from repro_torch.distributed.halo import (distributed_stencil1d,  # noqa: E402
                                           distributed_stencil2d,
                                           distributed_stencil3d,
                                           halo_bytes_per_step, halo_exchange)
 from repro_torch.distributed.halo import sweep as dist_sweep  # noqa: E402
-from repro_torch.distributed.sharding import (PartitionSpec,  # noqa: E402
+from repro_torch.distributed.sharding import (DEFAULT_RULES,  # noqa: E402
+                                              PartitionSpec,
                                               make_mesh_compat, placements,
-                                              shard_offsets)
+                                              resolve_spec, shard_offsets)
 from repro_torch.launch.mesh import run_local_world  # noqa: E402
 from repro_torch.telemetry import (Telemetry, bottleneck_table,  # noqa: E402
                                    render_report, validate_trace,
@@ -2648,6 +2670,146 @@ def distributed_phase(seed: int, failures: list[str]) -> None:
                       "s": time.perf_counter() - t0}))
 
 
+# -- the trainer's parallel slice: data and tensor parallel on the card -------
+PAR_LAYOUTS = ((2, 1), (1, 2))          # (data, model): 2 gloo ranks each
+PAR_BATCH, PAR_SEQ, PAR_STEPS = 2, 4096, 3
+PAR_TIMEOUT_S = 600
+# each step's loss of a layout against the one-rank run's, relative, set
+# before the first run on the card: bf16 activations at full width, where
+# a split product (summed in f32 across ranks) or a half batch (another
+# cuBLAS tiling) rounds some outputs differently; the whole-step check's
+# bar for the kernels against their plain versions
+PAR_LOSS_RTOL = 1e-3
+
+
+def par_argv(seed: int, data: int, model: int) -> list[str]:
+    """launch.train's command for one period (3 layers) of
+    RecurrentGemma-2B at full width, f32 weights, bf16 activations."""
+    return ["--arch", ARCH, "--override", f"num_layers={STEP_LAYERS}",
+            "--steps", str(PAR_STEPS), "--batch", str(PAR_BATCH), "--seq",
+            str(PAR_SEQ), "--remat", TRAIN_REMAT, "--data-pattern", "markov",
+            "--seed", str(seed), "--log-every", "1", "--ckpt-every", "0",
+            "--data-par", str(data), "--model-par", str(model)]
+
+
+def predicted_elements(mdl, data: int, model: int) -> int:
+    """Parameter elements a rank holds at (data, model): each spec divided
+    by the mesh axes that ``resolve_spec`` splits it over under the
+    trainer's rules (FSDP off)."""
+    sizes = {"data": data, "model": model}
+    rules = {**DEFAULT_RULES, **tp.FSDP_OFF}
+    total = 0
+    for spec in mdl.specs().values():
+        parts = resolve_spec(spec.shape, spec.logical,
+                             SimpleNamespace(shape=sizes), rules)
+        total += math.prod(spec.shape) // math.prod(
+            sizes[a] for part in parts if part
+            for a in ((part,) if isinstance(part, str) else part))
+    return total
+
+
+def par_run(seed: int, data: int, model: int) -> dict:
+    """One rank of launch.train at (data, model), instrumented around each
+    step: the kernels' launches, the bytes all-reduced per mesh axis (the
+    counts zeroed just before the step and read just after), the step's
+    host ms (it ends in the loss's read, which synchronises) and peak
+    memory; the rank's parameter elements against ``resolve_spec``'s."""
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=STEP_LAYERS)
+    rec = {"launches": [], "ms": [], "wire": [], "peak_gb": [],
+           "aux": []}
+
+    def before(step):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        tp.reset_wire()
+
+    def after(step, info):
+        torch.cuda.synchronize()
+        rec["launches"].append({k: _build.LAUNCHES.get(k, 0)
+                                for k in train_launches(cfg, TRAIN_REMAT)})
+        rec["wire"].append(tp.wire_bytes())
+        rec["ms"].append(info["seconds"] * 1e3)
+        rec["aux"].append(info["aux"])
+        rec["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+        if "elements" not in rec:
+            rec["elements"] = sum(p.numel()
+                                  for p in info["model"].parameters())
+            rec["predicted"] = predicted_elements(info["model"], data, model)
+    rc, losses = train_cli.run(par_argv(seed, data, model),
+                               before_step=before, after_step=after)
+    rec.update(rc=rc, losses=losses,
+               rank=dist.get_rank() if dist.is_initialized() else 0)
+    return rec
+
+
+def train_parallel_phase(seed: int, failures: list[str]) -> None:
+    """The trainer's parallel slice on the one card: one period of
+    RecurrentGemma-2B at full width trained PAR_STEPS steps through
+    ``launch.train.run`` in this process (one rank), then in a 2-rank gloo
+    world sharing the card at each of PAR_LAYOUTS; each layout's losses
+    against the one-rank run's, its launches, elements, step ms, peak
+    memory and bytes all-reduced on every rank."""
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=STEP_LAYERS)
+    want = train_launches(cfg, TRAIN_REMAT)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    runs = {(1, 1): [par_run(seed, 1, 1)]}
+    torch.cuda.empty_cache()
+    for d, m in PAR_LAYOUTS:
+        runs[(d, m)] = run_local_world(par_run, d * m, seed, d, m,
+                                       timeout=PAR_TIMEOUT_S)
+        torch.cuda.empty_cache()
+    one = runs[(1, 1)][0]["losses"]
+    for (d, m), ranks in runs.items():
+        rels = [max(abs(a - b) / abs(b) for a, b in zip(r["losses"], one))
+                for r in ranks]
+        launched = all(step == want for r in ranks for step in r["launches"])
+        elements_ok = all(r["elements"] == r["predicted"] for r in ranks)
+        same = all(r["losses"] == ranks[0]["losses"] for r in ranks)
+        ok = (all(r["rc"] == 0 and len(r["losses"]) == PAR_STEPS
+                  and np.isfinite(r["losses"]).all() for r in ranks)
+              and max(rels) <= PAR_LOSS_RTOL and launched and elements_ok
+              and same and all(n > 0 for n in want.values()))
+        if not ok:
+            failures.append(
+                f"train_parallel {(d, m)}: losses "
+                f"{[r['losses'] for r in ranks]} against one rank's {one} "
+                f"(rel {rels}, tol {PAR_LOSS_RTOL}), launches "
+                f"{[r['launches'] for r in ranks]} (want {want} a step), "
+                f"elements {[(r['elements'], r['predicted']) for r in ranks]}")
+        wire = [{a: [w.get(a, {}).get("bytes", 0) for w in r["wire"]]
+                 for a in ("data", "model")} for r in ranks]
+        print(json.dumps({
+            "phase": "train_parallel", "arch": ARCH, "layers": STEP_LAYERS,
+            "d_model": cfg.d_model, "param_dtype": cfg.param_dtype,
+            "dtype": cfg.dtype, "tokens": [PAR_BATCH, PAR_SEQ],
+            "remat": TRAIN_REMAT, "data": d, "model": m, "ranks": d * m,
+            "backend": "gloo" if d * m > 1 else None,
+            "losses": ranks[0]["losses"], "losses_one_rank": one,
+            "loss_rel": max(rels), "loss_rtol": PAR_LOSS_RTOL,
+            "aux": ranks[0]["aux"],
+            "launches_per_step": [r["launches"] for r in ranks],
+            "launches_want": want,
+            "elements": [r["elements"] for r in ranks],
+            "elements_predicted": [r["predicted"] for r in ranks],
+            "step_ms": [r["ms"] for r in ranks],
+            "step_ms_median_after_first": [statistics.median(r["ms"][1:])
+                                           for r in ranks],
+            "peak_gb": [max(r["peak_gb"]) for r in ranks],
+            "wire_bytes_per_step": wire,
+            "wire_calls_per_step": [[{a: c["calls"] for a, c in w.items()}
+                                     for w in r["wire"]] for r in ranks],
+            "ok": ok}))
+    print(json.dumps({
+        "phase": "train_parallel_note",
+        "note": "gloo ranks share the one card and all-reduce through the "
+                "host; NCCL between cards is not measured on a one-card "
+                "machine"}))
+    print(json.dumps({"phase": "train_parallel_wall",
+                      "s": time.perf_counter() - t0}))
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -2753,6 +2915,12 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- the multi-device slice: 4 gloo ranks on the card, then NCCL -------
     distributed_phase(args.seed, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+
+    # -- the trainer's parallel slice: (2, 1) and (1, 2) on the card -------
+    train_parallel_phase(args.seed, failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1

@@ -15,7 +15,11 @@ Layout:  <dir>/step_<k>/  { manifest.json, arr_<i>.npy ... }
     caller may update its tensors in place right after) and hands them to a
     writer thread;
   * data-pipeline state rides in the manifest, so a restore resumes the
-    exact batch sequence.
+    exact batch sequence;
+  * checkpoints are mesh-agnostic (whole arrays): a trainer split over a
+    mesh gathers its leaves before ``save``, and ``restore(...,
+    shardings=, mesh=)`` hands each rank its slice, so a run may resume
+    on another mesh (elastic resume).
 """
 from __future__ import annotations
 
@@ -153,14 +157,23 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any) -> tuple[Any, dict]:
+    def restore(self, step: int, like: Any, shardings: Any | None = None,
+                *, mesh=None) -> tuple[Any, dict]:
         """Restore into the structure of ``like`` (a tree of tensors or
-        arrays): each leaf comes back as a tensor of the ``like`` leaf's
-        type on its device (an array of its type for an array)."""
+        arrays of the whole shapes): each leaf comes back as a tensor of
+        the ``like`` leaf's type on its device (the CPU for a meta tensor;
+        an array of its type for an array).  ``shardings``: an optional
+        tree of the same structure (a subtree may be None) whose leaves
+        are placements tuples on ``mesh`` (``sharding.tree_shardings``'s);
+        such a leaf comes back as this rank's slice (elastic resume)."""
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_name = {a["name"]: a for a in manifest["arrays"]}
+        places = dict(_flatten_places(shardings))
+        if places and mesh is None:
+            raise ValueError("restore(shardings=...) needs the mesh= they "
+                             "are placements on")
         vals = []
         for name, leaf in _flatten(like):
             a = by_name[name]
@@ -169,8 +182,38 @@ class CheckpointManager:
             if tuple(t.shape) != expect:
                 raise ValueError(f"ckpt shape mismatch for {name}: "
                                  f"{tuple(t.shape)} vs {expect}")
+            if name in places:
+                from repro_torch.distributed.tensor_parallel import shard_of
+                t = shard_of(t, mesh, places[name])
             if isinstance(leaf, torch.Tensor):
-                vals.append(t.to(device=leaf.device, dtype=leaf.dtype))
+                dev = "cpu" if leaf.device.type == "meta" else leaf.device
+                vals.append(t.to(device=dev, dtype=leaf.dtype))
             else:
                 vals.append(t.numpy().astype(np.asarray(leaf).dtype))
         return _rebuild(like, iter(vals)), manifest["extra"]
+
+
+def _is_placements(x) -> bool:
+    from torch.distributed.tensor.placement_types import Placement
+    return (isinstance(x, tuple) and not _is_namedtuple(x) and bool(x)
+            and all(isinstance(p, Placement) for p in x))
+
+
+def _flatten_places(tree, path: str = "") -> list[tuple[str, tuple]]:
+    """(keystr path, placements) of a shardings tree, in :func:`_flatten`'s
+    paths; a placements tuple is a leaf, None an empty subtree."""
+    if tree is None:
+        return []
+    if _is_placements(tree):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _flatten_places(tree[k], f"{path}[{k!r}]")]
+    if _is_namedtuple(tree):
+        return [kv for f in tree._fields
+                for kv in _flatten_places(getattr(tree, f), f"{path}.{f}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, x in enumerate(tree)
+                for kv in _flatten_places(x, f"{path}[{i}]")]
+    raise TypeError(f"a shardings leaf at {path or 'the root'} is "
+                    f"{type(tree).__name__}, not a placements tuple")

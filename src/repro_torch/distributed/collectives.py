@@ -52,16 +52,27 @@ def _topk_mask(x: torch.Tensor, frac: float,
     return (x.abs() >= thresh).to(x.dtype)
 
 
-def _topk_threshold(xs: list[torch.Tensor], frac: float) -> torch.Tensor:
+def _topk_threshold(xs: list[torch.Tensor], frac: float,
+                    axis=None) -> torch.Tensor:
+    """The k-th largest magnitude of the leaf made of ``xs``, k = max(1,
+    int(size * frac)).  With ``axis``, each of ``xs`` is this rank's equal
+    slice of a leaf split over it: k counts the whole leaf, and the
+    threshold is the k-th largest of the ranks' own k largest."""
     flat = torch.cat([x.abs().reshape(-1) for x in xs])
-    k = max(1, int(flat.numel() * frac))
-    return torch.topk(flat, k).values[-1]
+    k = max(1, int(flat.numel() * (axis.size if axis else 1) * frac))
+    if axis is None:
+        return torch.topk(flat, k).values[-1]
+    from repro_torch.distributed import tensor_parallel
+    mine = torch.topk(flat, min(k, flat.numel())).values
+    return torch.topk(torch.cat(tensor_parallel.gather_over(mine, axis)),
+                      k).values[-1]
 
 
 def compress_decompress(grads: dict[str, torch.Tensor],
                         ef_state: dict[str, EFState], *, method: str = "int8",
                         topk_frac: float = 0.01,
-                        groups: list[list[str]] | None = None
+                        groups: list[list[str]] | None = None,
+                        shards=None
                         ) -> tuple[dict[str, torch.Tensor],
                                    dict[str, EFState]]:
     """Lossy compression with error feedback.  Returns (effective grads, new
@@ -69,7 +80,10 @@ def compress_decompress(grads: dict[str, torch.Tensor],
     "topk" (keep the top ``topk_frac`` magnitudes of a leaf) or "none"
     (identity).  ``groups``: lists of names compressed as one leaf (the JAX
     package's leaf that stacks those layers: one scale, one threshold over
-    all of them); by default each name alone."""
+    all of them); by default each name alone.  ``shards``
+    (``tensor_parallel.Sharded``): the names held as this rank's slice of
+    a leaf split over its model axis; their scale and threshold are the
+    whole leaf's."""
     if method == "none":
         return grads, ef_state
     if method not in ("int8", "topk"):
@@ -78,14 +92,18 @@ def compress_decompress(grads: dict[str, torch.Tensor],
     for names in groups or [[n] for n in grads]:
         corrected = [grads[n].float() + ef_state[n].error.float()
                      for n in names]
+        axis = (shards.axis if shards is not None
+                and names[0] in shards.names else None)
         if method == "int8":
-            scale = torch.clamp(torch.stack([c.abs().max()
-                                             for c in corrected]).max(),
-                                min=1e-12) / 127.0
+            amax = torch.stack([c.abs().max() for c in corrected]).max()
+            if axis is not None:
+                from repro_torch.distributed import tensor_parallel
+                amax = tensor_parallel.max_over(amax, axis)
+            scale = torch.clamp(amax, min=1e-12) / 127.0
             sent = [_dequantize_int8(_quantize_int8(c, scale)[0], scale)
                     for c in corrected]
         else:
-            thresh = _topk_threshold(corrected, topk_frac)
+            thresh = _topk_threshold(corrected, topk_frac, axis)
             sent = [c * _topk_mask(c, topk_frac, thresh) for c in corrected]
         for n, c, snt in zip(names, corrected, sent):
             effective[n] = snt.to(grads[n].dtype)

@@ -13,15 +13,20 @@ from ``mesh_dim_names``, sizes from ``mesh.mesh.shape``) or anything whose
 ``.shape`` maps axis names to sizes.  A spec is a :class:`PartitionSpec`,
 the tuple jax's ``PartitionSpec`` is; :func:`named_sharding` turns it into
 the DTensor placements of a ``DeviceMesh``.  The port has no SPMD
-partitioner: :func:`constrain` returns its input.
+partitioner: :func:`constrain` returns its input, and the layers split
+their products by hand over the ``model`` axis of the mesh that
+:func:`mesh_context` installs (``distributed/tensor_parallel.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Mapping, Sequence
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.distributed import tensor_parallel
 
 # candidates are tuples-of-mesh-axes (a tuple shards a dim over several axes)
 Rules = Mapping[str, Sequence[tuple[str, ...]]]
@@ -82,6 +87,20 @@ def make_mesh_compat(shape: tuple[int, ...], axes: tuple[str, ...],
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(torch.device(device).type, tuple(shape),
                             mesh_dim_names=tuple(axes))
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    """Context manager installing ``mesh`` (a ``DeviceMesh``) as the
+    ambient mesh: layers whose parameters are split over its ``model`` axis
+    sum their partial products over it, and the train step averages over
+    its ``data`` axis.  The previous mesh (or none) comes back on exit."""
+    prev = tensor_parallel.ambient_mesh()
+    tensor_parallel.set_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        tensor_parallel.set_mesh(prev)
 
 
 def _axes_size(sizes: Mapping[str, int], axes: tuple[str, ...]) -> int:
@@ -161,8 +180,9 @@ def named_sharding(shape: tuple[int, ...], logical: tuple[str | None, ...],
 
 def constrain(x, logical: tuple, rules: Rules | None = None):
     """Activation sharding constraint by logical names: ``x`` unchanged.
-    The port has no SPMD partitioner to anchor, which is the reference's
-    behaviour when no mesh is set."""
+    The port has no SPMD partitioner to anchor (the reference's behaviour
+    when no mesh is set); under :func:`mesh_context` the layers place
+    their collectives themselves."""
     return x
 
 

@@ -1,0 +1,407 @@
+"""Data and tensor parallelism by hand: what GSPMD derives for the JAX
+package from its ``constrain`` anchors, written out for the port's layers.
+
+The ambient mesh is the ``DeviceMesh`` that
+:func:`repro_torch.distributed.sharding.mesh_context` installs (the
+reference's trainer runs its step under ``mesh_context`` too).  With no
+mesh, or an axis of size 1, every function here leaves the one-device
+computation as it is.
+
+Layout: a parameter is split over ``model`` where the sharding rules split
+it (:func:`shard_parameters`, ``tree_shardings`` under
+``{**DEFAULT_RULES, "fsdp": [()]}``); a rank holds its slice as a plain
+tensor.  A layer sees that a parameter is split from its shape
+(:func:`split_axis`): the layout is never chosen here.
+
+The residual stream is replicated over ``model``.  A layer whose
+parameters are split runs in the Megatron pattern (Shoeybi et al., 2019):
+every tensor that enters the split region from the replicated one, an
+activation or a replicated parameter, passes :func:`copy_in` (identity
+forward, all-reduce of the gradient), and every partial sum that leaves
+it passes :func:`reduce_out` (all-reduce forward, identity backward).  So
+after the backward pass each rank holds the whole gradient of every
+parameter it holds, split or replicated.  Partial products are summed in
+float32 and cast once.
+
+Data parallelism: rank ``(d, m)`` takes rows ``[d·B/D, (d+1)·B/D)`` of each
+global batch; :func:`mean_over_data` averages the gradients (float32, sum
+then ``/ D``), the loss and the aux loss.  Payloads cross the wire as
+:func:`repro_torch.distributed.collectives.wire_device` says.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.collectives import wire_device
+
+# the tensor-parallel families; the others raise for --model-par > 1
+MODEL_PARALLEL_FAMILIES = ("dense", "hybrid")
+MODEL_PARALLEL_TODO = "ROADMAP.md Queue 1 item 5c"
+# the trainer's layout: the rules' model-axis splits, no FSDP over data
+FSDP_OFF = {"fsdp": [()]}
+BUCKET_BYTES = 256 << 20          # data-parallel gradients per all-reduce
+
+_MESH: list = [None]              # the ambient DeviceMesh (mesh_context)
+# bytes and calls all-reduced over each mesh axis since reset_wire()
+WIRE: dict[str, list[int]] = {}
+
+
+class Axis(NamedTuple):
+    """One mesh axis seen from this rank: its name, ``ProcessGroup``, this
+    rank's index along it and its size."""
+    name: str
+    group: object
+    rank: int
+    size: int
+
+
+class Sharded(NamedTuple):
+    """The optimizer's view of a split layout: the model axis, and the
+    names of the parameters split over it (every other one replicated)."""
+    axis: Axis
+    names: frozenset
+
+
+def set_mesh(mesh) -> None:
+    _MESH[0] = mesh
+
+
+def ambient_mesh():
+    return _MESH[0]
+
+
+def mesh_axis(name: str) -> Axis | None:
+    """The ambient mesh's axis ``name``, or None (no mesh, no such axis, or
+    an axis of size 1)."""
+    mesh = _MESH[0]
+    if mesh is None or name not in (mesh.mesh_dim_names or ()):
+        return None
+    size = mesh.size(mesh.mesh_dim_names.index(name))
+    if size == 1:
+        return None
+    return Axis(name, mesh.get_group(name), mesh.get_local_rank(name), size)
+
+
+def model_axis() -> Axis | None:
+    return mesh_axis("model")
+
+
+def data_axis() -> Axis | None:
+    return mesh_axis("data")
+
+
+def split_axis(local: int, whole: int) -> Axis | None:
+    """The model axis where a parameter dim of the whole size ``whole`` is
+    held as ``local`` (split), None where it is whole.  A split dim outside
+    a mesh with that split raises: the layer cannot sum its partial
+    products."""
+    if local == whole:
+        return None
+    axis = model_axis()
+    if axis is None or local * axis.size != whole:
+        raise ValueError(f"a parameter dim of {whole} held as {local} needs "
+                         f"a model axis of {whole // max(local, 1)} ranks "
+                         "in mesh_context; the ambient mesh has "
+                         f"{axis.size if axis else 1}")
+    return axis
+
+
+def reset_wire() -> None:
+    WIRE.clear()
+
+
+def wire_bytes() -> dict[str, dict[str, int]]:
+    """Bytes and calls all-reduced per mesh axis since :func:`reset_wire`."""
+    return {a: {"bytes": b, "calls": c} for a, (b, c) in WIRE.items()}
+
+
+def _reduce(x: torch.Tensor, axis: Axis,
+            op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """All-reduce of a copy of ``x`` over ``axis`` (never in place: the
+    input may be held for the backward pass), counted in :data:`WIRE`."""
+    rec = WIRE.setdefault(axis.name, [0, 0])
+    rec[0] += x.numel() * x.element_size()
+    rec[1] += 1
+    wire = x.detach().to(wire_device(axis.group, x.device), copy=True)
+    dist.all_reduce(wire, op=op, group=axis.group)
+    return wire.to(x.device)
+
+
+def _sum_f32(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    return _reduce(x.float(), axis).to(x.dtype)
+
+
+class _CopyIn(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the model axis."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.axis), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """All-reduce forward (in float32); identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _sum_f32(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_in(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``x`` entering the split region (a column-parallel input)."""
+    return _CopyIn.apply(x, axis)
+
+
+def reduce_out(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum over the model axis of partial sums ``x`` (a row-parallel
+    output), in x's type, summed in float32."""
+    return _ReduceOut.apply(x, axis)
+
+
+def enter(p, specs: dict, axis: Axis) -> dict[str, torch.Tensor]:
+    """A layer's parameters inside its split region: each one held whole
+    (replicated) passes :func:`copy_in`, so its gradient, partial on each
+    rank, is summed; the split ones as they are."""
+    return {k: copy_in(v, axis) if tuple(v.shape) == specs[k].shape else v
+            for k, v in p.items()}
+
+
+def row_parallel(a: torch.Tensor, w: torch.Tensor,
+                 axis: Axis) -> torch.Tensor:
+    """``a @ w.to(a.dtype)`` with the contracted dim split over the model
+    axis: each rank's product of the values in a's type, accumulated and
+    summed over the ranks in float32, cast once."""
+    part = a.float() @ w.to(a.dtype).float()
+    return reduce_out(part, axis).to(a.dtype)
+
+
+def local_slice(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """This rank's even slice of the last dim of ``x``."""
+    n = x.shape[-1] // axis.size
+    return x.narrow(-1, axis.rank * n, n)
+
+
+def scatter_sum(part: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """This rank's slice of the last dim of the sum of ``part`` over the
+    model axis (a reduce-scatter as an all-reduce, then a slice: gloo and
+    NCCL both take it).  The slice's gradient, zero elsewhere, is summed
+    over the ranks, so each rank's ``part`` gets the whole gradient."""
+    return local_slice(copy_in(reduce_out(part, axis), axis), axis)
+
+
+def kv_select(heads: int, kv_heads: int, q_per_kv: int,
+              axis: Axis) -> tuple[list[int], int]:
+    """The KV heads that this rank's ``heads`` local query heads (global
+    ``rank·heads ...``) attend with, where the KV heads are held whole:
+    global query head ``j`` reads KV head ``j // q_per_kv``.  Returns
+    (their indices, the local query heads per KV head); where the local
+    heads do not share their KV heads evenly, one KV head per query head
+    (a group of 1)."""
+    per = [j // q_per_kv for j in range(axis.rank * heads,
+                                         (axis.rank + 1) * heads)]
+    uniq = sorted(set(per))
+    group = heads // len(uniq)
+    if per == [u for u in uniq for _ in range(group)]:
+        return uniq, group
+    return per, 1
+
+
+def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor,
+                         dtype: torch.dtype, axis: Axis) -> torch.Tensor:
+    """Rows of a table split over the vocabulary: each rank looks up the
+    tokens in its rows (zeros elsewhere), the ranks' rows are summed (one
+    is non-zero, so the sum is exact), then cast."""
+    n = table.shape[0]
+    local = tokens - axis.rank * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)] * mine[..., None]
+    return reduce_out(rows, axis).to(dtype)
+
+
+def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                        axis: Axis, z_loss: float = 1e-4) -> torch.Tensor:
+    """``transformer.xent_loss`` of logits split over the vocabulary (f32,
+    each rank its ``V / M`` columns): the max, the sum of exponentials and
+    the target logit each reduced over the model axis."""
+    n = logits.shape[-1]
+    top = _reduce(logits.detach().amax(-1), axis, dist.ReduceOp.MAX)
+    s = reduce_out(torch.exp(logits - top[..., None]).sum(-1), axis)
+    lse = top + torch.log(s)
+    local = labels.long() - axis.rank * n
+    mine = (local >= 0) & (local < n)
+    ll = torch.take_along_dim(logits, local.clamp(0, n - 1)[..., None],
+                              dim=-1)[..., 0]
+    ll = reduce_out(ll * mine, axis)
+    loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss
+
+
+def mean_over_data(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The mean over the data axis, in float32 (sum, then ``/ D``)."""
+    return _reduce(x.float(), axis) / axis.size
+
+
+def mean_grads_over_data(grads: dict[str, torch.Tensor],
+                         axis: Axis) -> dict[str, torch.Tensor]:
+    """Each gradient's mean over the data axis (float32 sum, then ``/ D``,
+    cast back), the leaves packed into all-reduces of at most
+    :data:`BUCKET_BYTES`."""
+    names = list(grads)
+    out: dict[str, torch.Tensor] = {}
+    start = 0
+    while start < len(names):
+        end, size = start, 0
+        while end < len(names) and (end == start or size + 4 * grads[
+                names[end]].numel() <= BUCKET_BYTES):
+            size += 4 * grads[names[end]].numel()
+            end += 1
+        chunk = names[start:end]
+        flat = torch.cat([grads[n].float().reshape(-1) for n in chunk])
+        flat = _reduce(flat, axis) / axis.size
+        for n, part in zip(chunk, flat.split([grads[n].numel()
+                                              for n in chunk])):
+            out[n] = part.view(grads[n].shape).to(grads[n].dtype)
+        del flat
+        start = end
+    return out
+
+
+def sq_norm(tree: dict[str, torch.Tensor], shards: Sharded) -> torch.Tensor:
+    """The squared global norm of a tree laid out as ``shards`` says: the
+    split leaves' local sums added over the model axis, the replicated
+    leaves counted once."""
+    def part(names):
+        return sum((torch.sum(torch.square(tree[n].float())) for n in names),
+                   torch.zeros((), device=next(iter(tree.values())).device))
+    split = [n for n in tree if n in shards.names]
+    rest = [n for n in tree if n not in shards.names]
+    return _reduce(part(split), shards.axis) + part(rest)
+
+
+def max_over(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    return _reduce(x, axis, dist.ReduceOp.MAX)
+
+
+def gather_over(x: torch.Tensor, axis: Axis) -> list[torch.Tensor]:
+    """Every rank's ``x`` (all of one shape) along ``axis``, in rank order,
+    on x's device."""
+    wire = x.detach().to(wire_device(axis.group, x.device), copy=True)
+    parts = [torch.empty_like(wire) for _ in range(axis.size)]
+    dist.all_gather(parts, wire, group=axis.group)
+    return [t.to(x.device) for t in parts]
+
+
+def parameter_layout(model, mesh) -> dict[str, tuple]:
+    """Each parameter's placements on ``mesh``: ``tree_shardings`` over the
+    model's ``shape_tree`` and ``logical_tree`` under the rules with FSDP
+    off (model-axis splits only)."""
+    from repro_torch.distributed.sharding import DEFAULT_RULES, tree_shardings
+    from repro_torch.models import params as pr
+    specs = model.specs()
+    return tree_shardings(pr.shape_tree(specs), pr.logical_tree(specs), mesh,
+                          {**DEFAULT_RULES, **FSDP_OFF})
+
+
+def shard_of(x: torch.Tensor, mesh, place: tuple) -> torch.Tensor:
+    """This rank's slice of a whole tensor laid out ``place`` on ``mesh``
+    (a copy, contiguous)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed.sharding import mesh_sizes, shard_offsets
+    sizes = list(mesh_sizes(mesh).values())
+    local = list(x.shape)
+    for n, p in zip(sizes, place):
+        if isinstance(p, Shard):
+            local[p.dim] //= n
+    starts = shard_offsets(local, mesh, place, mesh.get_coordinate())
+    for dim, (s, n) in enumerate(zip(starts, local)):
+        x = x.narrow(dim, s, n)
+    return x.contiguous()
+
+
+def whole_of(x: torch.Tensor, mesh, place: tuple) -> torch.Tensor:
+    """The whole tensor of this rank's slice ``x`` laid out ``place`` on
+    ``mesh``, gathered over each axis that splits it (every rank of the
+    axis takes part), on x's device."""
+    from torch.distributed.tensor import Shard
+    names = mesh.mesh_dim_names
+    for i in reversed(range(len(names))):
+        p = place[i]
+        if isinstance(p, Shard) and mesh.size(i) > 1:
+            axis = Axis(names[i], mesh.get_group(names[i]),
+                        mesh.get_local_rank(names[i]), mesh.size(i))
+            x = torch.cat(gather_over(x, axis), dim=p.dim)
+    return x
+
+
+@torch.no_grad()
+def shard_parameters(model, layout: dict[str, tuple], mesh) -> None:
+    """Replace each parameter of ``model`` by this rank's slice of it under
+    ``layout`` (:func:`parameter_layout`), in place of the whole one."""
+    for name, place in layout.items():
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name) if mod_name else model
+        whole = getattr(mod, leaf) if not isinstance(
+            mod, torch.nn.ParameterDict) else mod[leaf]
+        part = shard_of(whole.detach(), mesh, place)
+        if part.shape != whole.shape:
+            new = torch.nn.Parameter(part, requires_grad=whole.requires_grad)
+            if isinstance(mod, torch.nn.ParameterDict):
+                mod[leaf] = new
+            else:
+                setattr(mod, leaf, new)
+
+
+def split_names(model) -> frozenset:
+    """The parameters held as a slice (their shape differs from their
+    spec's)."""
+    specs = model.specs()
+    return frozenset(n for n, p in model.named_parameters()
+                     if tuple(p.shape) != specs[n].shape)
+
+
+def check_model_parallel(cfg, size: int) -> None:
+    """Tensor parallelism is ported for the dense and hybrid families; the
+    others raise rather than quietly replicate."""
+    if size > 1 and cfg.family not in MODEL_PARALLEL_FAMILIES:
+        raise SystemExit(
+            f"--model-par {size}: tensor parallelism of the {cfg.family!r} "
+            f"family ({cfg.name}) is not ported ({MODEL_PARALLEL_TODO}); "
+            f"it runs the {'/'.join(MODEL_PARALLEL_FAMILIES)} families, "
+            "and --data-par for every family")
+
+
+def check_moe_groups(cfg, batch: int, seq: int, data: int,
+                     microbatches: int) -> None:
+    """A data rank's tokens must form the MoE groups the global batch
+    forms (``moe`` groups ``min(moe_group_size, b·s)`` flattened tokens of
+    a microbatch): otherwise the routing, and with it the loss, would
+    change."""
+    if not cfg.num_experts or data == 1:
+        return
+    rows = batch // microbatches
+    g = min(cfg.moe_group_size, rows * seq)
+    local = rows // data * seq
+    if rows % data or local % g:
+        raise SystemExit(
+            f"--data-par {data}: a rank's {local} tokens a microbatch "
+            f"(batch {batch} / microbatches {microbatches} / data "
+            f"{data} x seq {seq}) do not form whole MoE groups of {g} "
+            f"tokens, the global batch's (min(moe_group_size "
+            f"{cfg.moe_group_size}, {rows * seq})), so the routing would "
+            "differ from one device's; pick a batch and seq whose rank "
+            "share is a multiple of the group")

@@ -9,35 +9,58 @@
   * step-time EMA watchdog: a step beyond k sigma is logged and, with
     --watchdog-abort, checkpointed and exits 42 so a supervisor restarts
     the job from the last checkpoint;
-  * microbatch gradient accumulation, remat, optional gradient compression.
+  * microbatch gradient accumulation, remat, optional gradient compression;
+  * --data-par D --model-par M: a world of D·M ranks on a
+    ``make_local_mesh(D, M)``.  Rank (d, m) takes rows [d·B/D, (d+1)·B/D)
+    of each global batch and holds its slice of every parameter that the
+    sharding rules split over ``model`` (FSDP off, as the reference's
+    trainer places nothing by "fsdp"); the step runs under
+    ``mesh_context`` (``distributed/tensor_parallel.py``).  Tensor
+    parallelism covers the dense and hybrid families; data parallelism
+    every family.  The world is the default process group when one is
+    initialized (``launch.mesh.run_local_world``, a test), else torchrun's
+    environment (NCCL for ``--device cuda``, gloo for ``cpu``); rank 0
+    alone prints and writes checkpoints;
+  * elastic resume: checkpoints are mesh-agnostic whole arrays (gathered
+    before the write), so --data-par/--model-par may differ across
+    restarts.
 
-One device: --data-par and --model-par take only 1 until the trainer's
-parallel slice (its meshes and sharding rules are in ``launch/mesh.py``
-and ``distributed/sharding.py``).  --device defaults to ``cuda`` and
-raises when there is no GPU; RecurrentGemma then trains through K5 and K6
-and their backward kernels.
+--device defaults to ``cuda`` and raises when there is no GPU;
+RecurrentGemma then trains through K5 and K6 and their backward kernels,
+on each rank's shard.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir build/ck \\
       [--device cpu]
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --device cpu --reduced \\
+      --data-par 2 --model-par 2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import sys
 import time
+from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.collectives import EFState
 from repro_torch.models import params as pr
 from repro_torch.models.registry import build_model
-from repro_torch.train.optim import OptConfig, init_opt_state
+from repro_torch.train.optim import AdamWState, OptConfig, init_opt_state
 from repro_torch.train.train_step import make_train_step
+
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -86,21 +109,118 @@ def _config(args):
     return cfg
 
 
-def run(argv=None) -> tuple[int, list[float]]:
-    """Runs the loop: (exit code, the loss of each step this run took).
-    The programmatic interface; :func:`main` is the command line's."""
+class World:
+    """This rank's place in a run: the mesh (None on one device), its data
+    index and count, its global rank, and whether the run opened the
+    process group itself (and so closes it)."""
+
+    def __init__(self, args, dev: torch.device):
+        self.mesh, self.opened = None, False
+        self.data, self.data_size, self.rank = 0, 1, 0
+        n = args.data_par * args.model_par
+        if n == 1:
+            return
+        if not dist.is_initialized():
+            if not all(k in os.environ for k in TORCHRUN_ENV):
+                raise SystemExit(
+                    f"--data-par {args.data_par} --model-par "
+                    f"{args.model_par} trains in a world of {n} ranks and "
+                    "no process group is initialized: launch it as "
+                    f"`torchrun --standalone --nproc-per-node {n} -m "
+                    "repro_torch.launch.train ...`, or call run() in each "
+                    "rank of an initialized world (e.g. "
+                    "repro_torch.launch.mesh.run_local_world)")
+            if dev.type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+            self.opened = True
+        if dist.get_world_size() != n:
+            raise SystemExit(f"--data-par {args.data_par} x --model-par "
+                             f"{args.model_par} = {n} ranks, but the world "
+                             f"has {dist.get_world_size()}")
+        from repro_torch.launch.mesh import make_local_mesh
+        self.mesh = make_local_mesh(args.data_par, args.model_par,
+                                    device=dev.type)
+        self.data = self.mesh.get_local_rank("data")
+        self.data_size, self.rank = args.data_par, dist.get_rank()
+
+    def any(self, flag: bool, dev: torch.device) -> bool:
+        """``flag`` of any rank (a max over the world); ``flag`` itself on
+        one device."""
+        if self.mesh is None:
+            return flag
+        axis = tp.Axis("world", None, self.rank, dist.get_world_size())
+        return bool(tp.max_over(torch.tensor([float(flag)], device=dev),
+                                axis)[0])
+
+    def close(self) -> None:
+        if self.opened:
+            dist.destroy_process_group()
+
+
+_KEEP = object()
+
+
+def _map_state(tree: dict, fn, step=_KEEP) -> dict:
+    """{params, opt} with ``fn(name, leaf)`` applied to each parameter's
+    leaves (the parameter, its moments, its error feedback); the optimizer
+    step as it is, or ``step``."""
+    def each(d):
+        return {n: fn(n, t) for n, t in d.items()}
+    opt = tree["opt"]
+    ef = (None if opt.ef is None else
+          {n: EFState(fn(n, e.error)) for n, e in opt.ef.items()})
+    return {"params": each(tree["params"]), "opt": AdamWState(
+        step=opt.step if step is _KEEP else step, m=each(opt.m),
+        v=each(opt.v), ef=ef)}
+
+
+def run(argv=None, *, before_step: Callable | None = None,
+        after_step: Callable | None = None) -> tuple[int, list[float]]:
+    """Runs the loop: (exit code, the loss of each step this run took; in
+    a world, the global batch's loss on every rank).  The programmatic
+    interface; :func:`main` is the command line's.  ``before_step(step)``
+    and ``after_step(step, info)`` (info: loss, aux, seconds, model, mesh)
+    run around each step, for instrumentation."""
     args = parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device "
                          "(torch.cuda.is_available() is False); pass "
                          "--device cpu to run on the CPU")
-    if args.data_par != 1 or args.model_par != 1:
-        raise SystemExit("--data-par and --model-par take only 1: the "
-                         "trainer's parallel slice is not ported yet")
     cfg = _config(args)
+    tp.check_model_parallel(cfg, args.model_par)
+    if args.batch % (args.data_par * args.microbatches):
+        raise SystemExit(f"--batch {args.batch} does not split into "
+                         f"--data-par {args.data_par} x --microbatches "
+                         f"{args.microbatches} equal parts")
+    tp.check_moe_groups(cfg, args.batch, args.seq, args.data_par,
+                        args.microbatches)
+    world = World(args, dev)
+    if world.mesh is not None and dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        with (contextlib.nullcontext() if world.mesh is None
+              else _mesh_context(world.mesh)):
+            return _train(args, cfg, dev, world, before_step, after_step)
+    finally:
+        world.close()
+
+
+def _mesh_context(mesh):
+    from repro_torch.distributed.sharding import mesh_context
+    return mesh_context(mesh)
+
+
+def _train(args, cfg, dev: torch.device, world: World, before_step,
+           after_step) -> tuple[int, list[float]]:
+    mesh, lead = world.mesh, world.rank == 0
     model = build_model(cfg, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    layout = None
+    if mesh is not None:
+        layout = tp.parameter_layout(model, mesh)
+        tp.shard_parameters(model, layout, mesh)
     params = dict(model.named_parameters())
 
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=args.warmup,
@@ -108,6 +228,8 @@ def run(argv=None) -> tuple[int, list[float]]:
                         compression=args.compression)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                   global_batch=args.batch, seed=args.seed,
+                                  host_index=world.data,
+                                  host_count=world.data_size,
                                   pattern=args.data_pattern))
 
     # --- init or resume ------------------------------------------------------
@@ -116,15 +238,27 @@ def run(argv=None) -> tuple[int, list[float]]:
     start_step = 0
     if mgr and args.resume and mgr.latest_step() is not None:
         step = mgr.latest_step()
-        state, extra = mgr.restore(step, {"params": params, "opt": opt_state})
+        tree = {"params": params, "opt": opt_state}
+        if mesh is None:
+            state, extra = mgr.restore(step, tree)
+        else:       # whole leaves (meta), each rank given its slices
+            specs = model.specs()
+            state, extra = mgr.restore(
+                step, _map_state(tree, lambda n, t: torch.empty(
+                    specs[n].shape, dtype=t.dtype, device="meta")),
+                _map_state(tree, lambda n, t: layout[n], step=None),
+                mesh=mesh)
+            state = _map_state(state, lambda n, t: t.to(dev),
+                               step=state["opt"].step.to(dev))
         with torch.no_grad():
             for name, p in params.items():
                 p.copy_(state["params"][name])
         opt_state = state["opt"]
         data.restore(extra["data"])
         start_step = extra["train_step"]
-        print(f"[resume] from checkpoint step {step} "
-              f"(train step {start_step})", flush=True)
+        if lead:
+            print(f"[resume] from checkpoint step {step} "
+                  f"(train step {start_step})", flush=True)
 
     # The stream's position as of the batches this loop took.  The JAX
     # package saves data.state(), which the prefetch thread has already
@@ -133,9 +267,14 @@ def run(argv=None) -> tuple[int, list[float]]:
     consumed = data.state()["step"]
 
     def save(step: int, train_step: int, blocking: bool) -> None:
-        mgr.save(step, {"params": params, "opt": opt_state},
-                 extra={"data": {"step": consumed}, "train_step": train_step},
-                 blocking=blocking)
+        tree = {"params": params, "opt": opt_state}
+        if mesh is not None:    # every rank of a model group takes part
+            tree = _map_state(tree, lambda n, t: tp.whole_of(t, mesh,
+                                                             layout[n]))
+        if lead:
+            mgr.save(step, tree, extra={"data": {"step": consumed},
+                                        "train_step": train_step},
+                     blocking=blocking)
 
     step_fn = make_train_step(model, cfg, opt_cfg, remat=args.remat,
                               microbatches=args.microbatches)
@@ -143,42 +282,58 @@ def run(argv=None) -> tuple[int, list[float]]:
     ema, emvar = None, 0.0
     t_train0 = time.time()
     losses = []
+    rows = args.batch // world.data_size
     try:
         for step in range(start_step, args.steps):
+            if before_step:
+                before_step(step)
             t0 = time.time()
             batch = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
                      for k, v in pf.next_batch().items()}
             consumed += 1
             if cfg.family == "audio":
                 rngf = np.random.default_rng(step)
-                batch["frames"] = torch.from_numpy(
-                    rngf.normal(size=(args.batch, cfg.encoder_seq,
-                                      cfg.d_model)) * 0.02).to(
+                frames = rngf.normal(size=(args.batch, cfg.encoder_seq,
+                                           cfg.d_model)) * 0.02
+                frames = frames[world.data * rows:(world.data + 1) * rows]
+                batch["frames"] = torch.from_numpy(frames).to(
                     device=dev, dtype=getattr(torch, cfg.dtype))
             opt_state, metrics = step_fn(opt_state, batch)
             loss = float(metrics["loss"])
             losses.append(loss)
             dt = time.time() - t0
+            if after_step:
+                after_step(step, {"loss": loss,
+                                  "aux": float(metrics["aux_loss"]),
+                                  "seconds": dt, "model": model,
+                                  "mesh": mesh})
 
             # --- straggler watchdog (EMA + k-sigma) ------------------------
+            slow = False
             if ema is None:
                 ema = dt
             else:
                 dev_t = dt - ema
                 thresh = ema + args.watchdog_sigma * max(emvar ** 0.5,
                                                          0.1 * ema)
-                if step > start_step + 5 and dt > thresh:
-                    print(f"[watchdog] step {step} took {dt:.2f}s "
-                          f"(ema {ema:.2f}s, thresh {thresh:.2f}s)",
-                          flush=True)
-                    if args.watchdog_abort:
-                        if mgr:
-                            save(step, step + 1, blocking=True)
-                        return 42, losses  # supervisor restarts us
+                slow = step > start_step + 5 and dt > thresh
+                note = (f"[watchdog] step {step} took {dt:.2f}s "
+                        f"(ema {ema:.2f}s, thresh {thresh:.2f}s)")
                 ema = 0.9 * ema + 0.1 * dt
                 emvar = 0.9 * emvar + 0.1 * dev_t * dev_t
+            # every rank leaves at the same step, or the others would wait
+            # in the next collective
+            if world.any(slow, dev):
+                if lead:
+                    print(note if slow else f"[watchdog] step {step}: a "
+                          "rank past its threshold", flush=True)
+                if args.watchdog_abort:
+                    if mgr:
+                        save(step, step + 1, blocking=True)
+                    return 42, losses  # supervisor restarts us
 
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if lead and (step % args.log_every == 0
+                         or step == args.steps - 1):
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"aux {float(metrics['aux_loss']):.4f} "
                       f"{dt:.2f}s/step", flush=True)
@@ -192,7 +347,7 @@ def run(argv=None) -> tuple[int, list[float]]:
         mgr.wait()
     n = pr.param_count(model.specs())
     dt_all = time.time() - t_train0
-    if losses:
+    if losses and lead:
         print(f"[done] {args.steps - start_step} steps, {n/1e6:.1f}M params, "
               f"{dt_all:.1f}s total; loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}", flush=True)

@@ -8,6 +8,10 @@ attention (``attend_full``) is the reference's plain f32 einsums and softmax
 cache: global layers write at ``pos``, local layers at ``pos % window`` (a
 ring buffer of ``min(cache_len, window)`` slots, the §III-B line buffer in
 time) and mask each slot by the absolute position it holds.
+
+Under ``mesh_context`` with ``wq`` split over heads (the model axis), the
+prefill runs this rank's query heads alone, column-parallel, and ``wo``
+row-parallel (``distributed/tensor_parallel.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.swa.ops import sliding_window_attention
 from repro_torch.models.common import (apply_rope, mrope_angles, rmsnorm,
                                        rmsnorm_spec, rope_angles)
@@ -66,9 +71,19 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _project(p, x: torch.Tensor, cfg: ArchConfig):
+def _head_axis(p, cfg: ArchConfig) -> tp.Axis | None:
+    """The model axis where ``wq`` is split over heads, else None."""
+    return tp.split_axis(p["wq"].shape[1], cfg.num_heads)
+
+
+def _project(p, x: torch.Tensor, cfg: ArchConfig, axis=None):
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd): the bias, then the
-    per-head RMSNorm."""
+    per-head RMSNorm.  With ``axis`` (heads split over it): this rank's
+    query heads, and the KV heads they read, its own where ``wk`` is split
+    too, else picked from all of them (``tensor_parallel.kv_select``)."""
+    if axis is not None:
+        x = tp.copy_in(x, axis)
+        p = tp.enter(p, attention_specs(cfg), axis)
     q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
@@ -77,6 +92,11 @@ def _project(p, x: torch.Tensor, cfg: ArchConfig):
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if axis is not None and k.shape[2] == cfg.num_kv_heads:
+        idx, _ = tp.kv_select(q.shape[2], cfg.num_kv_heads, cfg.q_per_kv,
+                              axis)
+        if idx != list(range(cfg.num_kv_heads)):
+            k, v = k[:, :, idx], v[:, :, idx]
     return q, k, v
 
 
@@ -92,9 +112,13 @@ def _rope_qk(q, k, cfg: ArchConfig, positions):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
 
-def _out(p, o: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matmul."""
+def _out(p, o: torch.Tensor, axis=None) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul; row-parallel over ``axis``
+    (this rank's heads of ``wo``) where heads are split."""
     h, k, d = p["wo"].shape
+    if axis is not None:
+        return tp.row_parallel(o.flatten(-2), p["wo"].reshape(h * k, d),
+                               axis)
     return o.flatten(-2) @ p["wo"].to(o.dtype).reshape(h * k, d)
 
 
@@ -122,30 +146,33 @@ def attend_full(p, x: torch.Tensor, cfg: ArchConfig, *, positions,
     (B, T, KV, hd) for cross-attention: q is then ``wq`` alone, with no
     bias, no norm and no rope."""
     s = x.shape[1]
+    axis = _head_axis(p, cfg)
     if cross_kv is None:
-        q, k, v = _project(p, x, cfg)
+        q, k, v = _project(p, x, cfg, axis)
         q, k = _rope_qk(q, k, cfg, positions)
         mask = (torch.ones(s, s, dtype=torch.bool, device=x.device)
                 .tril()[None, None] if causal else None)
-        group = cfg.q_per_kv
     else:
+        if axis is not None:
+            raise ValueError("cross-attention split over heads is not "
+                             "ported")
         q = _heads(x, p["wq"])
         k, v = cross_kv
         mask = None
-        group = q.shape[2] // k.shape[2]
-    return _out(p, _sdpa(q, k, v, mask, group))
+    return _out(p, _sdpa(q, k, v, mask, q.shape[2] // k.shape[2]), axis)
 
 
 def attend_local(p, x: torch.Tensor, cfg: ArchConfig, *,
                  positions) -> torch.Tensor:
     """Sliding-window attention, prefill path (kernel K6). x: (B, S, D)."""
-    q, k, v = _project(p, x, cfg)
+    axis = _head_axis(p, cfg)
+    q, k, v = _project(p, x, cfg, axis)
     q, k = _rope_qk(q, k, cfg, positions)
     # (B, S, H, hd) viewed as (B, H, S, hd): K6 reads the views through their
     # strides and writes its output in q's layout, so nothing is copied
     out = sliding_window_attention(q.transpose(1, 2), k.transpose(1, 2),
                                    v.transpose(1, 2), window=cfg.window)
-    return _out(p, out.transpose(1, 2))
+    return _out(p, out.transpose(1, 2), axis)
 
 
 def decode_step(p, x: torch.Tensor, cache: KVCache, cfg: ArchConfig, *,
@@ -163,6 +190,9 @@ def decode_step(p, x: torch.Tensor, cache: KVCache, cfg: ArchConfig, *,
     b, s1, _ = x.shape
     if s1 != 1:
         raise ValueError(f"decode_step takes one token, got {s1}")
+    if _head_axis(p, cfg) is not None:
+        raise ValueError("decode of a model split over heads is not "
+                         "ported: serving runs the whole model")
     q, k_new, v_new = _project(p, x, cfg)
     pos = cache.pos
     pos_arr = (torch.full((b, 1), pos, dtype=torch.int32, device=x.device)

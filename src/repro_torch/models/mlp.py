@@ -4,6 +4,11 @@ MoE with capacity-factor dispatch; port of ``repro.models.mlp``.
 The MoE is the reference's einsums in plain PyTorch (no Pallas kernel there).
 Its dispatch and combine run inside the profiler range ``MOE_DISPATCH``, so a
 trace can split them from the experts' products.
+
+Under ``mesh_context``: the dense MLP with ``wi_gate`` split over ``mlp``
+(the model axis) runs column-parallel, ``wo`` row-parallel; the MoE's
+routed fractions are averaged over the data axis, as the global batch's
+(``distributed/tensor_parallel.py``).
 """
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.common import activation
 from repro_torch.models.params import Spec
 
@@ -28,8 +34,13 @@ def mlp_specs(cfg: ArchConfig) -> dict[str, Spec]:
 
 def mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     act = activation(cfg.act)
+    axis = tp.split_axis(p["wi_gate"].shape[1], cfg.d_ff)
+    if axis is not None:
+        x = tp.copy_in(x, axis)
     g = x @ p["wi_gate"].to(x.dtype)
     u = x @ p["wi_up"].to(x.dtype)
+    if axis is not None:
+        return tp.row_parallel(act(g) * u, p["wo"], axis)
     return (act(g) * u) @ p["wo"].to(x.dtype)
 
 
@@ -121,6 +132,9 @@ def moe(p, x: torch.Tensor, cfg: ArchConfig,
 
     # load-balance aux loss (Switch): E * sum_e f_e * P_e / k
     f_e = onehot.sum(2).mean(dim=(0, 1))                        # fraction routed
+    data = tp.data_axis()
+    if data is not None:      # the global batch's fractions (no gradient)
+        f_e = tp.mean_over_data(f_e, data)
     p_e = probs.mean(dim=(0, 1))
     aux = e * (f_e * p_e).sum() / k
     return out, aux.float()

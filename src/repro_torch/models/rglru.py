@@ -14,6 +14,12 @@ RG-LRU recurrence (per channel):
 The prefill path runs the conv through kernel K5 (``kernels/conv1d``) and the
 linear recurrence as a log2(S)-step doubling scan; the decode path carries
 (conv_state (K-1 tokens), h) per layer.
+
+Under ``mesh_context`` with the width split over ``mlp`` (the model axis):
+``w_in``, ``w_gate_branch`` and the conv column-parallel (K5 on this rank's
+``W / M`` channels), the gate products row-parallel partial sums reduced
+and sliced back to this rank's channels (``wa``/``wx`` split on their
+input dim only), ``ba``/``bx``/``lam`` sliced, ``w_out`` row-parallel.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.conv1d.ops import causal_conv1d
 from repro_torch.models.common import activation, softplus
 from repro_torch.models.params import Spec
@@ -53,11 +60,24 @@ class RGLRUState(NamedTuple):
 
 
 def _gates(p, xc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """xc: (..., W) post-conv branch -> (log_a, b), both float32 (..., W)."""
+    """xc: (..., W) post-conv branch -> (log_a, b), both float32 (..., W).
+    Where ``wa`` holds this rank's rows (the width split over the model
+    axis), xc holds this rank's channels and so do log_a and b: each
+    gate's f32 product is a partial sum over the channels, reduced over
+    the axis and sliced to this rank's."""
     xf = xc.float()
-    r = torch.sigmoid(xf @ p["wa"].float() + p["ba"])
-    i = torch.sigmoid(xf @ p["wx"].float() + p["bx"])
-    log_a = -_C * softplus(p["lam"]) * r
+    axis = tp.split_axis(p["wa"].shape[0], p["wa"].shape[1])
+    if axis is None:
+        ga, gx = xf @ p["wa"].float(), xf @ p["wx"].float()
+        ba, bx, lam = p["ba"], p["bx"], p["lam"]
+    else:
+        ga = tp.scatter_sum(xf @ p["wa"].float(), axis)
+        gx = tp.scatter_sum(xf @ p["wx"].float(), axis)
+        ba, bx, lam = (tp.local_slice(p[k], axis)
+                       for k in ("ba", "bx", "lam"))
+    r = torch.sigmoid(ga + ba)
+    i = torch.sigmoid(gx + bx)
+    log_a = -_C * softplus(lam) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
     return log_a, b
@@ -70,7 +90,8 @@ def rglru_scan(p, xc: torch.Tensor) -> torch.Tensor:
     the one 2^j before it, ``(la_l, b_l)∘(la_r, b_r) = (la_l + la_r,
     exp(la_r)·b_l + b_r)``, so log2(S) rounds of whole-tensor ops and no loop
     over S.  The log-decay carry stays float32; the additive carry ``b`` rides
-    in ``xc.dtype``, as in the JAX package."""
+    in ``xc.dtype``, as in the JAX package.  A split width: see
+    :func:`_gates`."""
     log_a, b = _gates(p, xc)
     b = b.to(xc.dtype)
     s = xc.shape[1]
@@ -87,18 +108,32 @@ def rglru_scan(p, xc: torch.Tensor) -> torch.Tensor:
 def rglru_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Full recurrent block, prefill path. x: (B, S, D)."""
     gelu = activation("gelu")
+    axis = _width_axis(p, cfg)
+    if axis is not None:
+        x = tp.copy_in(x, axis)
+        p = tp.enter(p, rglru_specs(cfg), axis)
     branch = x @ p["w_in"].to(x.dtype)
     gate = x @ p["w_gate_branch"].to(x.dtype)
     xc = causal_conv1d(branch, p["conv_w"].to(x.dtype),
                        p["conv_b"].to(x.dtype))
     h = rglru_scan(p, xc)
     y = h * gelu(gate.float()).to(x.dtype)
+    if axis is not None:
+        return tp.row_parallel(y, p["w_out"], axis)
     return y @ p["w_out"].to(x.dtype)
+
+
+def _width_axis(p, cfg: ArchConfig) -> tp.Axis | None:
+    """The model axis where the recurrence's width is split, else None."""
+    return tp.split_axis(p["w_in"].shape[1], cfg.lru_width or cfg.d_model)
 
 
 def rglru_decode(p, x: torch.Tensor, state: RGLRUState,
                  cfg: ArchConfig) -> tuple[torch.Tensor, RGLRUState]:
     """Single-token decode. x: (B, 1, D)."""
+    if _width_axis(p, cfg) is not None:
+        raise ValueError("decode of a model split over the recurrence's "
+                         "width is not ported: serving runs the whole model")
     gelu = activation("gelu")
     branch = (x @ p["w_in"].to(x.dtype))[:, 0]
     gate = (x @ p["w_gate_branch"].to(x.dtype))[:, 0]

@@ -17,6 +17,11 @@ package's ``jax.checkpoint`` of its scan body does, one layer at a time
 ``"dots"`` also keeps the outputs of the matrix products without batch
 dimensions (``dots_with_no_batch_dims_saveable``).  Gradients do not depend
 on it.
+
+Under ``mesh_context`` with the table split over ``vocab`` (the model
+axis), the embedding is vocabulary-parallel (a masked lookup, then a sum
+over the ranks) and the logits stay split over the vocabulary: the train
+step's cross entropy takes them so (``tensor_parallel.vocab_parallel_xent``).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import params as pr
 from repro_torch.models.attention import (KVCache, attend_full, attend_local,
                                           attention_specs,
@@ -239,7 +245,12 @@ class LM(nn.Module):
         """Token embeddings; ``patches`` (vlm: (B, Tv, D)) replace the first
         Tv positions."""
         cfg = self.cfg
-        h = embed(self.embed, tokens, getattr(torch, cfg.dtype))
+        axis = tp.split_axis(self.embed.shape[0], cfg.vocab_size)
+        if axis is not None:
+            h = tp.vocab_parallel_embed(self.embed, tokens,
+                                        getattr(torch, cfg.dtype), axis)
+        else:
+            h = embed(self.embed, tokens, getattr(torch, cfg.dtype))
         if cfg.family == "hybrid":                      # gemma lineage scales
             # by sqrt(d_model) rounded to the activation type first
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
@@ -249,9 +260,15 @@ class LM(nn.Module):
         return h
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """f32 logits; this rank's columns of the vocabulary where the
+        table is split over it."""
         cfg = self.cfg
         h = rmsnorm(self.final_norm, h, cfg.norm_eps)
         w = self.embed if cfg.tie_embeddings else self.unembed
+        axis = tp.split_axis(w.shape[0 if cfg.tie_embeddings else 1],
+                             cfg.vocab_size)
+        if axis is not None:
+            h = tp.copy_in(h, axis)
         return unembed(w, h, tied=cfg.tie_embeddings)
 
     def reference_leaf(self, name: str) -> str:

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed import tensor_parallel
 from repro_torch.distributed.collectives import (EFState, compress_decompress,
                                                  init_ef)
 
@@ -70,23 +71,37 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
                           for x in tree.values()))
 
 
+def _norm(tree: dict[str, torch.Tensor], shards) -> torch.Tensor:
+    """:func:`global_norm`; over the whole leaves where ``shards`` says
+    some are this rank's slices (``tensor_parallel.sq_norm``)."""
+    if shards is None:
+        return global_norm(tree)
+    return torch.sqrt(tensor_parallel.sq_norm(tree, shards))
+
+
 @torch.no_grad()
 def apply_updates(params: dict[str, torch.Tensor],
                   grads: dict[str, torch.Tensor], state: AdamWState,
                   cfg: OptConfig, decay: dict[str, bool] | None = None,
-                  groups: list[list[str]] | None = None) -> AdamWState:
+                  groups: list[list[str]] | None = None,
+                  shards: tensor_parallel.Sharded | None = None
+                  ) -> AdamWState:
     """One AdamW step, in place on ``params`` and the moments (compression
     with error feedback first, as a compressed all-reduce would deliver the
     gradient).  ``decay``: which parameters take weight decay; by default
     those of rank >= 2 (the reference's rule on its own tree, where a
     stacked layer's norm scales and biases are rank 2:
     ``train_step.decay_mask`` gives a model's).  ``groups``: the names
-    compressed as one leaf (``train_step.reference_leaves``)."""
+    compressed as one leaf (``train_step.reference_leaves``).
+    ``shards``: the names held as this rank's slice of a leaf split over a
+    model axis; the clipping norm and the compression take their
+    statistics over the whole leaves."""
     ef = state.ef
     if cfg.compression != "none":
         grads, ef = compress_decompress(grads, ef, method=cfg.compression,
-                                        topk_frac=cfg.topk_frac, groups=groups)
-    gn = global_norm(grads)
+                                        topk_frac=cfg.topk_frac, groups=groups,
+                                        shards=shards)
+    gn = _norm(grads, shards)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
              if cfg.clip_norm > 0 else 1.0)
     lr = schedule(state.step, cfg)

@@ -5,12 +5,20 @@ the model's parameters are updated in place (the JAX package's pure
 function returns new ones).  Microbatches accumulate gradients in float32
 and average them with the loss and the aux loss, as the reference's scan
 does; ``remat`` is the model's (``transformer.remat_call``).
+
+Under ``mesh_context`` (the reference's trainer jits its step under it
+too): the batch is this data rank's rows; the gradients, the loss and the
+aux loss are averaged over the data axis before the update, and the
+optimizer takes the norm and the compression statistics of the parameters
+split over the model axis over the whole leaves
+(``distributed/tensor_parallel.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.transformer import xent_loss
 from repro_torch.train.optim import OptConfig, apply_updates
 
@@ -31,8 +39,13 @@ def make_loss_fn(model, cfg: ArchConfig, remat: str = "none"):
                                 positions=batch.get("positions"),
                                 patches=batch.get("patches"), remat=remat)
         labels = batch.get("labels", batch["tokens"])
+        axis = tp.split_axis(logits.shape[-1], cfg.vocab_size)
         with torch.profiler.record_function(LOSS_RANGE):
-            loss = xent_loss(logits[:, :-1, :], labels[:, 1:])
+            if axis is not None:
+                loss = tp.vocab_parallel_xent(logits[:, :-1, :],
+                                              labels[:, 1:], axis)
+            else:
+                loss = xent_loss(logits[:, :-1, :], labels[:, 1:])
         return loss + AUX_WEIGHT * aux, (loss, aux)
     return loss_fn
 
@@ -72,6 +85,9 @@ def make_train_step(model, cfg: ArchConfig, opt_cfg: OptConfig, *,
     loss_fn = make_loss_fn(model, cfg, remat)
     params = dict(model.named_parameters())
     decay, groups = decay_mask(model), reference_leaves(model)
+    data, model_ax = tp.data_axis(), tp.model_axis()
+    shards = (tp.Sharded(model_ax, tp.split_names(model))
+              if model_ax is not None else None)
 
     def grads_of(batch):
         total, (loss, aux) = loss_fn(batch)
@@ -100,9 +116,13 @@ def make_train_step(model, cfg: ArchConfig, opt_cfg: OptConfig, *,
             for g in grads.values():
                 g.div_(microbatches)
             loss, aux = loss / microbatches, aux / microbatches
+        if data is not None:
+            grads = tp.mean_grads_over_data(grads, data)
+            loss = tp.mean_over_data(loss, data)
+            aux = tp.mean_over_data(aux, data)
         with torch.profiler.record_function(OPTIMIZER_RANGE):
             opt_state = apply_updates(params, grads, opt_state, opt_cfg,
-                                      decay, groups)
+                                      decay, groups, shards)
         metrics = {"loss": loss.float(), "aux_loss": aux.float(),
                    "step": opt_state.step}
         return opt_state, metrics

@@ -27,6 +27,7 @@ from repro_torch.models.registry import build_model, input_arrays
 from repro_torch.models.transformer import LM
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+SERVE_EXAMPLE = SRC.parent / "examples" / "serve_lm_torch.py"
 C1 = (0.25, 0.5, 0.25)
 CY, CX = (0.1, 0.6, 0.1), (0.1, 0.0, 0.1)
 
@@ -71,7 +72,7 @@ def test_import_loads_no_jax_and_no_repro():
                 "train.optim", "train.train_step", "data.pipeline",
                 "checkpoint.manager", "distributed.collectives",
                 "launch.train", "distributed.halo", "distributed.sharding",
-                "launch.mesh"):
+                "launch.mesh", "distributed.tensor_parallel"):
         assert f"repro_torch.{mod}" in loaded
 
 
@@ -83,9 +84,11 @@ def test_sources_import_no_jax_and_no_repro():
               root / "tests" / "test_torch_engine_batch.py",
               root / "tests" / "test_torch_property.py",
               root / "tests" / "test_torch_distributed.py",
-              root / "tests" / "torch_distributed_cases.py"]
+              root / "tests" / "torch_distributed_cases.py",
+              root / "tests" / "test_torch_train_parallel.py",
+              root / "tests" / "torch_train_cases.py"]
     paths += sorted((root / "examples").glob("*_torch.py"))
-    assert len([p for p in paths if p.parent.name == "examples"]) == 7
+    assert len([p for p in paths if p.parent.name == "examples"]) == 8
     paths += sorted((root / "scripts").glob("*.py"))
     for path in paths:
         for line in path.read_text().splitlines():
@@ -170,7 +173,8 @@ def test_train_modules_import_no_jax_and_no_repro():
     code = ("import json, sys, repro_torch.train.optim,"
             " repro_torch.train.train_step, repro_torch.data.pipeline,"
             " repro_torch.checkpoint.manager,"
-            " repro_torch.distributed.collectives, repro_torch.launch.train;"
+            " repro_torch.distributed.collectives, repro_torch.launch.train,"
+            " repro_torch.distributed.tensor_parallel;"
             "print(json.dumps(sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -231,6 +235,27 @@ def test_lm_ops_differentiate_through_their_autograd_functions():
     assert x.grad.shape == x.shape and q.grad.shape == q.shape
     assert dict(_build.LAUNCHES) == before
     assert not hasattr(_build, "check_no_grad")
+
+
+def test_serve_lm_torch_example_exits_0_on_the_cpu():
+    """examples/serve_lm_torch.py, examples/serve_lm.py's twin: the same
+    arguments to launch.serve, every request completed."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, str(SERVE_EXAMPLE), "--device",
+                          "cpu"], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "[serve] 6/6 requests, 72 tokens" in out.stdout
+
+
+def test_serve_lm_torch_example_needs_a_gpu_unless_asked_for_the_cpu():
+    code = ("import runpy, sys, torch; torch.cuda.is_available = lambda: "
+            "False; sys.argv = ['serve_lm_torch.py'];"
+            f"runpy.run_path({str(SERVE_EXAMPLE)!r}, run_name='__main__')")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
 
 
 def test_serve_cli_needs_a_gpu_unless_asked_for_the_cpu():

@@ -48,15 +48,20 @@ SHARDED = ("mesh is a DeviceMesh; the callable takes and returns a DTensor "
 
 DIFFERENCES = {
     "checkpoint.manager.CheckpointManager.restore": Diff(
-        "no shardings until the trainer's parallel slice (--data-par and "
-        "--model-par above 1) is ported", dropped=("shardings",)),
+        "a shardings leaf is a placements tuple (tree_shardings') on the "
+        "DeviceMesh given as mesh=, not a NamedSharding, and comes back as "
+        "this rank's slice (a local tensor), not a global array; like's "
+        "leaves may be meta tensors (restored on the CPU)",
+        added=("mesh",), contract=True),
     "core.simulator.simulate": Diff(DEVICE, added=("device",)),
     "core.simulator.simulate_batch": Diff(
         "the batched engine is K7 ('cuda'), run on device=",
         added=("device",), defaults=(("engine", "cuda"),)),
     "explore.search.explore": Diff(DEVICE, added=("device",)),
     "distributed.collectives.compress_decompress": Diff(
-        "groups: the reference's stacked leaves", added=("groups",)),
+        "groups: the reference's stacked leaves; shards: the leaves held as "
+        "a rank's slice, whose scale or threshold is the whole leaf's",
+        added=("groups", "shards")),
     "distributed.collectives.int8_psum": Diff(GROUP, contract=True),
     "distributed.collectives.compressed_psum_tree": Diff(GROUP,
                                                          contract=True),
@@ -78,8 +83,9 @@ DIFFERENCES = {
     "launch.mesh.make_production_mesh": Diff(DEVICE, added=("device",)),
     "launch.mesh.make_local_mesh": Diff(DEVICE, added=("device",)),
     "train.optim.apply_updates": Diff(
-        "decay and groups: the reference's stacked leaves",
-        added=("decay", "groups")),
+        "decay and groups: the reference's stacked leaves; shards: the "
+        "leaves held as a rank's slice, normed and compressed whole",
+        added=("decay", "groups", "shards")),
     "kernels.conv1d.ops.causal_conv1d": Diff(
         TILES, dropped=("block_s", "block_c")),
     "kernels.swa.ops.sliding_window_attention": Diff(TILES,
@@ -118,9 +124,9 @@ DIFFERENCES = {
 MISSING = {
     "core.roofline": {"TpuRooflineTerms", "TpuRooflineTerms.__init__",
                       "TpuRooflineTerms.as_dict"},     # with analysis/rooflines
-    # jax shims: shard_map has no counterpart (each rank runs its shard's
-    # code itself) and no ambient mesh is installed (constrain is a no-op)
-    "distributed.sharding": {"shard_map_compat", "mesh_context"},
+    # jax shim: shard_map has no counterpart (each rank runs its shard's
+    # code itself)
+    "distributed.sharding": {"shard_map_compat"},
     "kernels.stencil1d.kernel": {"make_band"},         # K2 builds it on the card
     "models.params": {"init_leaf", "init_params"},     # nn.Module init
     "models.transformer": {"maybe_scan", "stack_specs"},   # one block a layer

@@ -826,7 +826,23 @@ def test_train_cli_runs_as_a_module_on_the_cpu():
     assert "[done] 2 steps" in out.stdout
 
 
-def test_train_cli_refuses_more_than_one_device():
+def test_train_cli_needs_a_world_of_data_times_model_ranks(tmp_path,
+                                                          monkeypatch):
+    """--data-par 2 with no process group and no torchrun environment
+    raises, naming how to launch; in a world of 1 rank it raises too (the
+    parallel runs themselves: tests/test_torch_train_parallel.py)."""
+    import torch.distributed as dist
+    from repro_torch.launch.train import TORCHRUN_ENV
     from repro_torch.launch.train import main as train_main
-    with pytest.raises(SystemExit, match="take only 1"):
-        train_main(["--reduced", "--device", "cpu", "--data-par", "2"])
+    for k in TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    argv = ["--reduced", "--device", "cpu", "--steps", "1", "--data-par", "2"]
+    with pytest.raises(SystemExit, match="--nproc-per-node 2"):
+        train_main(argv)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(SystemExit, match="the world has 1"):
+            train_main(argv + ["--model-par", "2"])
+    finally:
+        dist.destroy_process_group()

@@ -1,0 +1,283 @@
+"""The trainer's parallel slice on the CPU, no jax: ``launch.train.run``
+with ``--data-par``/``--model-par`` above 1 in gloo worlds that
+``run_local_world`` spawns (one 4-rank and one 2-rank world for the module,
+each rank running every job of its world in turn), held to the one-device
+run of the same command in this process.
+
+Tolerances, set before the runs:
+- ``LOSS_RTOL`` 1e-5: each step's loss (and aux loss), relative (float32
+  activations in the reduced configs; a split product sums its parts in
+  another order);
+- the gathered parameters after the steps (the final checkpoint, which
+  rank 0 writes whole) within ``2 x`` the steps' summed learning rate of
+  the one-device run's: an Adam step moves an element by up to about lr
+  whatever the size of its gradient, so a last-bit difference in a
+  gradient near 0 can move it by that much (``tests/test_torch_train.py``'s
+  bar);
+- each rank's local parameter shapes exactly ``resolve_spec``'s split
+  under ``{**DEFAULT_RULES, "fsdp": [()]}``.
+"""
+import json
+import os
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_reduced_config
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import DEFAULT_RULES, resolve_spec
+from repro_torch.launch import train
+from repro_torch.launch.mesh import run_local_world
+from repro_torch.models.registry import build_model
+from repro_torch.train.optim import OptConfig, schedule
+from torch_train_cases import (BASE, STEPS, argv_of, final_params,
+                               keep_until, rank_jobs)
+
+WORLD_TIMEOUT_S = 300
+LOSS_RTOL = 1e-5
+RG, TL, MOE = "recurrentgemma-2b", "tinyllama-1.1b", "granite-moe-1b-a400m"
+# name -> (arch, data, model, extra arguments)
+JOBS = {
+    "rg_2x1": (RG, 2, 1, ()),
+    "rg_1x2": (RG, 1, 2, ("--remat", "dots")),
+    "rg_2x2": (RG, 2, 2, ()),
+    "tl_2x1": (TL, 2, 1, ()),
+    "tl_1x2": (TL, 1, 2, ()),
+    "tl_2x2": (TL, 2, 2, ()),
+    "tl_1x4": (TL, 1, 4, ()),        # 4 heads split, 2 kv heads replicated
+    "tl_2x2_int8_mb2": (TL, 2, 2, ("--compression", "int8",
+                                   "--microbatches", "2")),
+    "tl_2x2_topk": (TL, 2, 2, ("--compression", "topk")),
+    "moe_2x1": (MOE, 2, 1, ("--seq", "256")),   # 512 tokens a rank: a group
+    # the other dense configs: qk-norm scales (replicated) inside the split
+    # heads; q/k/v biases with the 2 kv heads replicated at M 4; 6 heads
+    # that 4 does not divide (attention whole, the MLP split)
+    "qwen3_1x2": ("qwen3-32b", 1, 2, ()),
+    "qwen25_1x4": ("qwen2.5-3b", 1, 4, ()),
+    "cr_1x4": ("command-r-plus-104b", 1, 4, ()),
+}
+# a checkpoint at step 2 of 4, resumed on another mesh
+RESUME_STEPS, RESUME_AT = 4, 2
+
+
+@pytest.fixture(scope="module")
+def tmp(tmp_path_factory):
+    return tmp_path_factory.mktemp("train_parallel")
+
+
+@pytest.fixture(scope="module")
+def one(tmp):
+    """The one-device runs in this process: each job's command at (1, 1),
+    and a 4-step run with a checkpoint every 2 steps (resumed at (2, 2))."""
+    torch.set_num_threads(2)
+    out = {}
+    for name, (arch, _, _, extra) in JOBS.items():
+        ck = str(tmp / f"one_{name}")
+        rc, losses = train.run(argv_of(arch, 1, 1, extra, ck))
+        out[name] = {"rc": rc, "losses": losses, "params": final_params(ck)}
+    ck = str(tmp / "one_ckpt")
+    rc, losses = train.run(argv_of(TL, 1, 1, ("--ckpt-every", "2"), ck,
+                                   RESUME_STEPS))
+    out["ckpt"] = {"rc": rc, "losses": losses, "dir": ck}
+    return out
+
+
+@pytest.fixture(scope="module")
+def world4(tmp, one):
+    """4 ranks: the (2, 2) and (1, 4) jobs, a (2, 2) run of 4 steps with a
+    checkpoint every 2, and the resume at (2, 2) of the (1, 1) run's
+    checkpoint at step 2."""
+    jobs = [(n, argv_of(a, d, m, e, str(tmp / f"w4_{n}")))
+            for n, (a, d, m, e) in JOBS.items() if d * m == 4]
+    jobs.append(("ckpt_2x2", argv_of(TL, 2, 2, ("--ckpt-every", "2"),
+                                     str(tmp / "w4_ckpt"), RESUME_STEPS)))
+    resume = keep_until(one["ckpt"]["dir"], str(tmp / "from_1x1"), RESUME_AT)
+    jobs.append(("resume_2x2", argv_of(TL, 2, 2, ("--resume",), resume,
+                                       RESUME_STEPS)))
+    return run_local_world(rank_jobs, 4, jobs, timeout=WORLD_TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def world2(tmp, world4):
+    """2 ranks: the (2, 1) and (1, 2) jobs, the resume at (1, 2) of the
+    (2, 2) run's checkpoint at step 2, and a world of the wrong size."""
+    jobs = [(n, argv_of(a, d, m, e, str(tmp / f"w2_{n}")))
+            for n, (a, d, m, e) in JOBS.items() if d * m == 2]
+    resume = keep_until(str(tmp / "w4_ckpt"), str(tmp / "from_2x2_a"),
+                        RESUME_AT)
+    jobs.append(("resume_1x2", argv_of(TL, 1, 2, ("--resume",), resume,
+                                       RESUME_STEPS)))
+    jobs.append(("wrong_world", argv_of(TL, 2, 2, (), str(tmp / "wrong"))))
+    return run_local_world(rank_jobs, 2, jobs, timeout=WORLD_TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def worlds(world4, world2):
+    return {**{k: v for r in world4[:1] for k, v in r.items()},
+            **{k: v for r in world2[:1] for k, v in r.items()}}
+
+
+def _rel(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _lr_sum(steps: int) -> float:
+    cfg = OptConfig(warmup_steps=20, total_steps=steps)
+    return sum(float(schedule(torch.tensor(s), cfg)) for s in range(steps))
+
+
+def _ranks(name, world4, world2):
+    d, m = JOBS[name][1:3]
+    return (world4 if d * m == 4 else world2)
+
+
+@pytest.mark.parametrize("name", list(JOBS))
+def test_layout_losses_match_one_device(name, one, worlds, world4, world2):
+    got = worlds[name]
+    assert got.get("rc") == 0, got
+    want = one[name]["losses"]
+    assert len(got["losses"]) == len(want) == STEPS
+    assert _rel(got["losses"], want) <= LOSS_RTOL, (got["losses"], want)
+    # every rank reports the global batch's loss
+    for r in _ranks(name, world4, world2):
+        assert r[name]["losses"] == got["losses"]
+
+
+@pytest.mark.parametrize("name", list(JOBS))
+def test_layout_parameters_match_one_device(name, one, tmp, worlds):
+    d, m = JOBS[name][1:3]
+    got = final_params(str(tmp / f"w{d * m}_{name}"))
+    want = one[name]["params"]
+    assert set(got) == set(want)
+    bound = 2 * _lr_sum(STEPS)
+    for n, w in want.items():
+        assert got[n].shape == w.shape, n
+        err = (got[n].float() - w.float()).abs().max().item()
+        assert err <= bound, (n, err, bound)
+
+
+@pytest.mark.parametrize("name", list(JOBS))
+def test_local_shapes_follow_resolve_spec(name, world4, world2):
+    """At M = 2 a rank holds the split leaves' half, never a replica."""
+    arch, d, m, _ = JOBS[name]
+    cfg = get_reduced_config(arch)
+    specs = build_model(cfg, device="meta").specs()
+    mesh = SimpleNamespace(shape={"data": d, "model": m})
+    rules = {**DEFAULT_RULES, "fsdp": [()]}
+    split = 0
+    for r in _ranks(name, world4, world2):
+        shapes = r[name]["shapes"]
+        assert set(shapes) == set(specs)
+        for n, spec in specs.items():
+            ps = resolve_spec(spec.shape, spec.logical, mesh, rules)
+            want = list(spec.shape)
+            for dim, part in enumerate(ps):
+                if part == "model":
+                    want[dim] //= m
+                    split += m > 1
+                else:
+                    assert part is None, (n, ps)
+            assert shapes[n] == tuple(want), n
+    assert (split > 0) == (m > 1)
+
+
+def test_embedding_and_heads_split_at_two(world2):
+    """tinyllama at (1, 2): the embedding, unembedding, wq and the MLP
+    hold half their elements on each rank."""
+    full = build_model(get_reduced_config(TL), device="meta").specs()
+    for r in world2:
+        shapes = r["tl_1x2"]["shapes"]
+        assert shapes["embed"] == (256, 64)
+        assert shapes["unembed"] == (64, 256)
+        assert shapes["layers.0.attn.wq"] == (64, 2, 16)
+        assert shapes["layers.0.attn.wk"] == (64, 1, 16)
+        assert shapes["layers.0.mlp.wi_gate"] == (64, 80)
+        assert shapes["layers.0.ln1"] == full["layers.0.ln1"].shape
+
+
+def test_checkpoint_from_2x2_resumes_at_1x2(worlds):
+    want = worlds["ckpt_2x2"]["losses"][RESUME_AT:]
+    got = worlds["resume_1x2"]
+    assert got.get("rc") == 0, got
+    assert len(got["losses"]) == RESUME_STEPS - RESUME_AT
+    assert _rel(got["losses"], want) <= LOSS_RTOL
+
+
+def test_checkpoint_from_2x2_resumes_at_1x1(tmp, worlds):
+    resume = keep_until(str(tmp / "w4_ckpt"), str(tmp / "from_2x2_b"),
+                        RESUME_AT)
+    rc, losses = train.run(argv_of(TL, 1, 1, ("--resume",), resume,
+                                   RESUME_STEPS))
+    assert rc == 0 and len(losses) == RESUME_STEPS - RESUME_AT
+    assert _rel(losses, worlds["ckpt_2x2"]["losses"][RESUME_AT:]) <= LOSS_RTOL
+
+
+def test_checkpoint_from_1x1_resumes_at_2x2(one, worlds):
+    got = worlds["resume_2x2"]
+    assert got.get("rc") == 0, got
+    assert _rel(got["losses"], one["ckpt"]["losses"][RESUME_AT:]) <= LOSS_RTOL
+
+
+def test_uninterrupted_2x2_matches_one_device(one, worlds):
+    assert _rel(worlds["ckpt_2x2"]["losses"], one["ckpt"]["losses"]) \
+        <= LOSS_RTOL
+
+
+def test_checkpoint_written_at_2x2_is_the_one_device_format(tmp, one):
+    """The same manifest names, shapes and types as a one-device run's."""
+    def manifest(ck, step):
+        with open(os.path.join(ck, f"step_{step:08d}", "manifest.json")) as f:
+            m = json.load(f)
+        return [(a["name"], a["shape"], a["dtype"]) for a in m["arrays"]], \
+            m["extra"]
+    assert manifest(str(tmp / "w4_ckpt"), RESUME_AT) == \
+        manifest(one["ckpt"]["dir"], RESUME_AT)
+
+
+def test_world_of_the_wrong_size_raises(world2):
+    for r in world2:
+        msg = r["wrong_world"].get("exit", "")
+        assert "4 ranks" in msg and "world has 2" in msg, r["wrong_world"]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-tiny", "qwen2-vl-2b",
+                                  MOE])
+def test_model_par_on_other_families_raises(arch):
+    """No world is needed: the family check comes first."""
+    with pytest.raises(SystemExit, match="Queue 1 item 5c"):
+        train.run(["--arch", arch, *BASE, "--steps", "1", "--model-par",
+                   "2"])
+
+
+def test_moe_groups_that_a_rank_would_split_raise():
+    """granite's group is min(512, 4 x 32) = 128 tokens; a data rank of 2
+    holds 64 a step: its routing would differ, so the run refuses."""
+    with pytest.raises(SystemExit, match="MoE groups of 128"):
+        train.run(["--arch", MOE, *BASE, "--steps", "1", "--data-par", "2"])
+
+
+def test_data_par_without_a_world_raises(monkeypatch):
+    for k in train.TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match="--nproc-per-node 2"):
+        train.run(["--arch", TL, *BASE, "--steps", "1", "--data-par", "2"])
+
+
+@pytest.mark.parametrize("heads,kv,rank,size,want", [
+    (5, 1, 1, 2, ([0], 5)),            # recurrentgemma: 10 heads, MQA, M 2
+    (1, 2, 3, 4, ([1], 1)),            # tinyllama reduced at M 4
+    (4, 4, 1, 8, ([0], 4)),            # tinyllama: 32 heads, 4 kv, M 8
+    (3, 3, 1, 2, ([1, 2, 2], 1)),      # 6 heads over 3 kv: uneven, repeat
+])
+def test_kv_select(heads, kv, rank, size, want):
+    axis = tp.Axis("model", None, rank, size)
+    q_per_kv = heads * size // kv
+    assert tp.kv_select(heads, kv, q_per_kv, axis) == want
+
+
+def test_one_device_run_installs_no_mesh(one):
+    assert tp.ambient_mesh() is None
+    assert all(r["rc"] == 0 for r in one.values())
+    assert np.isfinite(one["ckpt"]["losses"]).all()
