@@ -2,7 +2,8 @@
 """Drive the PyTorch port's stencil main path, its CGRA model with the
 tuner's batched stage 1, its RecurrentGemma-2B serving and training paths,
 the other LM families, its multi-device stencils and its data- and
-tensor-parallel trainer on one NVIDIA GPU (H100).
+tensor-parallel trainer on one NVIDIA GPU (H100), then its multi-pod dry
+run on the host's CPU.
 
     PYTHONPATH=src python3 chip_smoke.py [--device cuda:0] [--seed 0]
 
@@ -213,6 +214,19 @@ tensor-parallel trainer on one NVIDIA GPU (H100).
    through the host; NCCL between cards stays unmeasured on one card
    (``train_parallel_note``).
 
+12. The ``dryrun`` phase (``dryrun_phase``, ~20-40 s on the host's CPU):
+   ``launch.dryrun.run_cell`` in a subprocess with the card hidden, on
+   three cells of the single production mesh (16 x 16 = 256 ranks):
+   tinyllama-1.1b x train_4k, recurrentgemma-2b x prefill_32k and
+   recurrentgemma-2b x train_4k, each run as rank 0 of a fake process
+   group on meta tensors at published width and depth.  Each record's
+   ``ok``, flops, bytes, parameter and collective bytes a device and its
+   roofline step time (the H100's datasheet peaks) go on a ``dryrun``
+   line; the K5/K6 launches that the wrappers counted on meta must equal
+   what the lm phase's prefill (K5 18, K6 8) and one step of the train
+   phase (K5 36, ``conv1d_bwd`` 18, K6 16, each K6-bwd kernel 8) launched
+   on the card, and tinyllama's must be none.
+
 Any build error, launch error, mismatch or kernel that its path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
 one it exits non-zero before doing anything.
@@ -228,6 +242,7 @@ import io
 import json
 import math
 import multiprocessing
+import os
 import re
 import shutil
 import statistics
@@ -264,16 +279,20 @@ from repro_torch.kernels import (causal_conv1d,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv1d.kernel import (conv1d_kernel,  # noqa: E402
                                               launch_plan)
-from repro_torch.kernels.conv1d.kernel import conv1d_bwd  # noqa: E402
+from repro_torch.kernels.conv1d.kernel import (conv1d_bwd,  # noqa: E402
+                                              conv1d_bwd_work, conv1d_work)
 from repro_torch.kernels.conv1d.ref import conv1d_bwd_ref, conv1d_ref  # noqa: E402
 from repro_torch.kernels.simbatch import kernel as k7  # noqa: E402
 from repro_torch.kernels.simbatch.ref import simbatch_plain  # noqa: E402
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref  # noqa: E402
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref  # noqa: E402
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref  # noqa: E402
-from repro_torch.kernels.swa.kernel import (swa_bwd_dkdv_partial,  # noqa: E402
+from repro_torch.kernels.swa.kernel import (band_pairs,  # noqa: E402
+                                            swa_bwd_dkdv_partial,
                                             swa_bwd_dq, swa_bwd_fold,
-                                            swa_bwd_kernel)
+                                            swa_bwd_fold_work,
+                                            swa_bwd_kernel, swa_bwd_work,
+                                            swa_work)
 from repro_torch.kernels.swa.ops import swa_plain  # noqa: E402
 from repro_torch.kernels.swa.ref import (swa_bwd_fold_ref,  # noqa: E402
                                          swa_bwd_ref, swa_ref)
@@ -363,6 +382,10 @@ ARCH = "recurrentgemma-2b"
 PREFILL_BATCH, PREFILL_SEQ = 2, 4096      # cut from prefill_32k's (32, 32768)
 DECODE_LAYERS, DECODE_SEQ = 5, 2112       # one period + the 2-layer tail
 PREFILL_LAUNCHES = {"conv1d": 18, "swa": 8}
+# what the lm and train phases launched on the card: the prefill's
+# launches and one train step's (the dryrun phase holds its meta tally to
+# them)
+ON_CARD: dict[str, dict[str, int]] = {}
 KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
     "stencil1d_vpu": ("cuda", "src/repro_torch/csrc/stencil1d.cu",
                       "src/repro/kernels/stencil1d/kernel.py:147"),
@@ -667,12 +690,6 @@ def stencil1d_lines(dev: torch.device, seed: int, part: str,
             torch.cuda.empty_cache()
 
 
-def band_pairs(seq: int, window: int) -> int:
-    """(query, key) pairs inside the causal band: sum_i min(i + 1, window)."""
-    w = min(window, seq)
-    return w * (w + 1) // 2 + (seq - w) * w
-
-
 def lm_error(case_kernel: str, dtype: torch.dtype, y: torch.Tensor,
              want: torch.Tensor) -> tuple[bool, float, float]:
     """(within the limits, max |y - want|, ||y - want|| / ||want||)."""
@@ -762,17 +779,12 @@ class LMCase:
         """(ms, "bytes" or "operations", the peak the operations' time is
         taken at)."""
         bw, fp32 = PEAKS[part][:2]
-        nbytes = sum(a.numel() * a.element_size() for a in self.args)
-        if self.kernel == "conv1d":
-            x, w = self.args
-            nbytes += x.numel() * x.element_size()           # y
-            t_ops, peak = 2 * w.shape[0] * x.numel() / fp32 * 1e3, "FP32 cores"
+        if self.kernel == "conv1d":        # the wrappers' own counts
+            ops, nbytes = conv1d_work(*self.args)
+            t_ops, peak = ops / fp32 * 1e3, "FP32 cores"
         else:
-            q = self.args[0]
-            b, hq, s, d = q.shape
-            nbytes += q.numel() * q.element_size()           # out
-            t_ops, peak = ops_bound(band_pairs(s, self.window) * b * hq * 4 * d,
-                                    self.dtype, part)
+            ops, nbytes = swa_work(*self.args[:2], self.window)
+            t_ops, peak = ops_bound(ops, self.dtype, part)
         t_bytes = nbytes / bw * 1e3
         if t_bytes >= t_ops:
             return t_bytes, "bytes", peak
@@ -953,6 +965,7 @@ def lm_phase(dev: torch.device, seed: int, part: str,
     logits = prefill(batch)
     torch.cuda.synchronize()
     launches = {k: _build.LAUNCHES.get(k, 0) for k in PREFILL_LAUNCHES}
+    ON_CARD["prefill"] = launches
     want_shape = (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size)
     finite = bool(torch.isfinite(logits).all())
     ok = (launches == PREFILL_LAUNCHES and tuple(logits.shape) == want_shape
@@ -1179,9 +1192,8 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
     backward kernel of ``case``; K5's whole backward also with whether two
     calls gave equal bits."""
     bw, fp32 = PEAKS[part][:2]
-    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
 
-    def bound(nb, flops, dtype=None):
+    def bound(flops, nb, dtype=None):
         """(ms, "bytes" or "operations", the operations' peak): ``dtype``
         for matrix products (``ops_bound``), else FP32 cores."""
         t_ops, peak = (ops_bound(flops, dtype, part) if dtype is not None
@@ -1211,8 +1223,7 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
             plain_ms=med(lambda: conv1d_bwd_ref(x, w, bb, dy), 5, flush),
             library_ms=med(lambda: torch.autograd.grad(
                 lib, leaves, dyt, retain_graph=True), 5, flush),
-            bound=bound(nbytes(x, dy, x, w, w, bb, bb),
-                        (4 * k + 1) * x.numel()),
+            bound=bound(*conv1d_bwd_work(x, w, bb)),
             bit_equal_twice=all(torch.equal(a, b)
                                 for a, b in zip(first, again)),
             # dx keeps the bits of K5 on the time-reversed gradient
@@ -1222,6 +1233,7 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
     q, k, v, do = case.args
     b, hq, s, d = q.shape
     pairs = band_pairs(s, case.window) * b * hq * 2 * d    # flops a product
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     o = sliding_window_attention(q, k, v, window=case.window, backend="cuda")
     _, lse, delta = swa_bwd_dq(q, k, v, o, do, window=case.window)
     i = torch.arange(s, device=q.device)[:, None]
@@ -1239,25 +1251,23 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
         library_bwd_ms=med(lambda: torch.autograd.grad(
             lib, leaves, do, retain_graph=True), 5))
     # swa_bwd_dkdv is timed alone, on partial sums, and its fold apart
-    for name, wrt, fn, nb, products in (
+    for name, wrt, fn in (
             ("swa_bwd_dq", leaves[:1],
-             lambda: swa_bwd_dq(q, k, v, o, do, window=case.window),
-             nbytes(q, k, v, o, do, q, lse, delta), 3),
+             lambda: swa_bwd_dq(q, k, v, o, do, window=case.window)),
             ("swa_bwd_dkdv", leaves[1:],
              lambda: swa_bwd_dkdv_partial(q, k, v, do, lse, delta,
-                                          window=case.window),
-             nbytes(q, k, v, do, lse, delta, k, v), 4)):
+                                          window=case.window))):
         out[name] = dict(
             ms=med(fn, 5),
             plain_ms=med(lambda: torch.autograd.grad(
                 plain, wrt, do, retain_graph=True), 3),
             library_ms=med(lambda: torch.autograd.grad(
                 lib, wrt, do, retain_graph=True), 5),
-            bound=bound(nb, products * pairs, case.dtype),
+            bound=bound(*swa_bwd_work(name, q, k, case.window), case.dtype),
             # the whole backward's own bound: 5 products (QK^T, dO V^T,
             # dP K, dS^T Q, P^T dO); the split without atomics adds two
-            whole_bound_ms=bound(nbytes(q, k, v, o, do, q, k, v),
-                                 5 * pairs, case.dtype)[0], **whole)
+            whole_bound_ms=bound(5 * pairs, nbytes(q, k, v, o, do, q, k, v),
+                                 case.dtype)[0], **whole)
     part = swa_bwd_dkdv_partial(q, k, v, do, lse, delta, window=case.window)
     got, want = swa_bwd_fold(part, k, v), swa_bwd_fold_ref(part, k.dtype)
     err = max((g.float() - w.float()).abs().max().item()
@@ -1267,7 +1277,7 @@ def bwd_timings(case: BwdCase, part: str, flush) -> dict[str, dict]:
         ms=queued_ms(lambda: swa_bwd_fold(part, k, v)),
         plain_ms=queued_ms(lambda: swa_bwd_fold_ref(part, k.dtype)),
         library_ms=None, max_abs_err=err,
-        bound=bound(nbytes(part, k, v), part.numel()), **whole)
+        bound=bound(*swa_bwd_fold_work(part, k)), **whole)
     return out
 
 
@@ -1391,6 +1401,7 @@ def full_training(dev: torch.device, seed: int,
         times.append((time.perf_counter() - t0) * 1e3)
     launches = {k: _build.LAUNCHES.get(k, 0)
                 for k in train_launches(cfg, TRAIN_REMAT)}
+    ON_CARD["train"] = {k: n // TRAIN_STEPS for k, n in launches.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     want = {k: TRAIN_STEPS * n for k, n in
             train_launches(cfg, TRAIN_REMAT).items()}
@@ -2810,6 +2821,76 @@ def train_parallel_phase(seed: int, failures: list[str]) -> None:
                       "s": time.perf_counter() - t0}))
 
 
+# -- the multi-pod dry run (launch/dryrun.py), on the CPU ---------------------
+# Three cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
+# of a fake world on meta tensors in one subprocess with the card hidden;
+# the RecurrentGemma cells' K5/K6 tally is held to what the lm and train
+# phases launched on the card (ON_CARD), and tinyllama's must be empty.
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", None),
+                (ARCH, "prefill_32k", "prefill"), (ARCH, "train_4k", "train"))
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_CODE = """
+import json, sys
+from repro_torch.kernels import _build
+from repro_torch.launch import dryrun
+for arch, shape in json.loads(sys.argv[1]):
+    rec = dryrun.run_cell(arch, shape, "single")
+    print(json.dumps({"record": rec, "launches": {
+        k: w["launches"] for k, w in _build.meta_work().items()}}), flush=True)
+"""
+
+
+def dryrun_phase(failures: list[str]) -> None:
+    """``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` in a CPU subprocess
+    (no card, no jax): each record's ``ok``, flops, parameter and
+    collective bytes a device and roofline step time printed
+    (``dryrun`` lines), its K5/K6 launches on meta beside the card's."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": os.pathsep.join(
+               [str(root / "src")] + [p for p in [os.environ.get(
+                   "PYTHONPATH")] if p])}
+    cells = [[a, s] for a, s, _ in DRYRUN_CELLS]
+    try:
+        proc = subprocess.run([sys.executable, "-c", DRYRUN_CODE,
+                               json.dumps(cells)], cwd=root, env=env,
+                              capture_output=True, text=True,
+                              timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        failures.append(f"dryrun: not done in {DRYRUN_TIMEOUT_S} s")
+        return
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    if proc.returncode != 0 or len(lines) != len(DRYRUN_CELLS):
+        failures.append(f"dryrun: exit {proc.returncode}, {len(lines)} of "
+                        f"{len(DRYRUN_CELLS)} records:\n{proc.stderr[-3000:]}")
+        return
+    for (arch, shape, on_card), out in zip(DRYRUN_CELLS, lines):
+        rec, launches = out["record"], out["launches"]
+        want = ON_CARD[on_card] if on_card else {}
+        ok = (rec["ok"] and rec["flops_per_device"] > 0
+              and rec["param_bytes_per_device"] > 0 and launches == want)
+        if not ok:
+            failures.append(f"dryrun {arch} x {shape}: ok {rec['ok']}, "
+                            f"flops {rec['flops_per_device']}, launches on "
+                            f"meta {launches} (on the card {want})")
+        print(json.dumps({
+            "phase": "dryrun", "arch": arch, "shape": shape,
+            "mesh": rec["mesh"], "chips": rec["chips"], "ok": rec["ok"],
+            "flops_per_device": rec["flops_per_device"],
+            "bytes_per_device": rec["bytes_per_device"],
+            "param_bytes_per_device": rec["param_bytes_per_device"],
+            "collective_bytes_per_device":
+                rec["collective_bytes_per_device"],
+            "roofline_step_time_s": rec["roofline"]["step_time_s"],
+            "roofline_dominant": rec["roofline"]["dominant"],
+            "lower_s": rec["lower_s"], "launches_meta": launches,
+            "launches_card": want, "checks_ok": ok}))
+    print(json.dumps({"phase": "dryrun_wall",
+                      "s": time.perf_counter() - t0}))
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -2921,6 +3002,12 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- the trainer's parallel slice: (2, 1) and (1, 2) on the card -------
     train_parallel_phase(args.seed, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+
+    # -- the multi-pod dry run on the CPU, its tally against the card's ----
+    dryrun_phase(failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1

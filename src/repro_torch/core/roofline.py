@@ -1,7 +1,8 @@
 """Roofline model — paper §VI arithmetic, plus the two H100 parts.
 
 Carried over from ``repro.core.roofline`` as host arithmetic; the H100
-machines take the place of the reference's TPU constants.
+machines take the place of the reference's TPU constants, and the H100
+SXM's peaks are :class:`TpuRooflineTerms`' defaults.
 
 The paper's method: given a stencil's arithmetic intensity AI (flops/byte) and
 a machine (peak bandwidth BW, #MAC PEs, clock f), choose the worker count
@@ -150,3 +151,60 @@ def analyze(spec: StencilSpec, machine: Machine, workers: int | None = None) -> 
         workers_demanded=need,
     )
 
+
+
+# ---------------------------------------------------------------------------
+# Three-term roofline of one step on a mesh (the dry run's, launch/dryrun.py).
+# ---------------------------------------------------------------------------
+# The H100 SXM's datasheet peaks, not measured: dense BF16 tensor-core
+# flop/s, HBM bytes/s (H100_SXM.bw_gbps), and NVLink 4's 900 GB/s counted
+# one direction, a stated constant (this machine has one card, so no link
+# is measured).
+H100_BF16_FLOPS = 989e12
+H100_NVLINK_BYTES = 450e9
+
+
+@dataclasses.dataclass(frozen=True)
+class TpuRooflineTerms:
+    """Seconds spent in each roofline term for one step on a mesh.  The
+    reference's name and fields; its defaults are the H100 SXM's peaks, in
+    place of the TPU's."""
+    flops: float                # total flops (all chips)
+    hbm_bytes: float            # total bytes accessed (all chips)
+    collective_bytes: float     # summed collective payload bytes (all chips)
+    chips: int
+    peak_flops_per_chip: float = H100_BF16_FLOPS
+    hbm_bw_per_chip: float = H100_SXM.bw_gbps * 1e9
+    link_bw_per_chip: float = H100_NVLINK_BYTES
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / (self.chips * self.peak_flops_per_chip)
+
+    @property
+    def memory_s(self) -> float:
+        return self.hbm_bytes / (self.chips * self.hbm_bw_per_chip)
+
+    @property
+    def collective_s(self) -> float:
+        return self.collective_bytes / (self.chips * self.link_bw_per_chip)
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Optimistic (perfect-overlap) step time: max of the three terms."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    def as_dict(self) -> dict:
+        return {
+            "flops": self.flops, "hbm_bytes": self.hbm_bytes,
+            "collective_bytes": self.collective_bytes, "chips": self.chips,
+            "compute_s": self.compute_s, "memory_s": self.memory_s,
+            "collective_s": self.collective_s, "dominant": self.dominant,
+            "step_time_s": self.step_time_s,
+        }

@@ -115,11 +115,16 @@ def wire_device(group, device: torch.device) -> torch.device:
     """Where a payload of a tensor on ``device`` lies while ``group``'s
     backend carries it: NCCL sends CUDA tensors where they are; gloo's send
     and receive read host memory, so a shard on the card is copied to the
-    host and back (gloo ranks may share one card, NCCL ranks may not).
-    Chosen from the backend, never on an error; any other pairing raises."""
+    host and back (gloo ranks may share one card, NCCL ranks may not);
+    torch's ``"fake"`` backend (one process standing for a whole world, as
+    the dry run's) carries nothing, so a payload stays where it is, on the
+    host or on the meta device.  Chosen from the backend, never on an
+    error; any other pairing raises."""
     backend = dist.get_backend(group)
     if backend == "gloo":
         return torch.device("cpu")
+    if backend == "fake" and device.type in ("cpu", "meta"):
+        return device
     if backend == "nccl" and device.type == "cuda":
         return device
     raise ValueError(f"no transport for {device.type} tensors over a "

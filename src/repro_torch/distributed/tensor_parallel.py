@@ -24,8 +24,11 @@ parameter it holds, split or replicated.  Partial products are summed in
 float32 and cast once.
 
 Data parallelism: rank ``(d, m)`` takes rows ``[d·B/D, (d+1)·B/D)`` of each
-global batch; :func:`mean_over_data` averages the gradients (float32, sum
-then ``/ D``), the loss and the aux loss.  Payloads cross the wire as
+global batch, ``d`` its index along the axes the batch is split over
+(:func:`data_axis`: ``data``, or ``pod`` and ``data`` flattened into one
+group on the multi-pod mesh); :func:`mean_over_data` averages the
+gradients (float32, sum then ``/ D``), the loss and the aux loss.
+Payloads cross the wire as
 :func:`repro_torch.distributed.collectives.wire_device` says.
 """
 from __future__ import annotations
@@ -40,6 +43,9 @@ from repro_torch.distributed.collectives import wire_device
 # the tensor-parallel families; the others raise for --model-par > 1
 MODEL_PARALLEL_FAMILIES = ("dense", "hybrid")
 MODEL_PARALLEL_TODO = "ROADMAP.md Queue 1 item 5c"
+# decode of a model split over the model axis (its cache split over
+# cache_seq) is not ported either
+SPLIT_DECODE_TODO = "ROADMAP.md Queue 1 item 5d"
 # the trainer's layout: the rules' model-axis splits, no FSDP over data
 FSDP_OFF = {"fsdp": [()]}
 BUCKET_BYTES = 256 << 20          # data-parallel gradients per all-reduce
@@ -73,10 +79,10 @@ def ambient_mesh():
     return _MESH[0]
 
 
-def mesh_axis(name: str) -> Axis | None:
-    """The ambient mesh's axis ``name``, or None (no mesh, no such axis, or
-    an axis of size 1)."""
-    mesh = _MESH[0]
+def mesh_axis(name: str, mesh=None) -> Axis | None:
+    """The axis ``name`` of ``mesh`` (the ambient one by default), or None
+    (no mesh, no such axis, or an axis of size 1)."""
+    mesh = _MESH[0] if mesh is None else mesh
     if mesh is None or name not in (mesh.mesh_dim_names or ()):
         return None
     size = mesh.size(mesh.mesh_dim_names.index(name))
@@ -89,8 +95,34 @@ def model_axis() -> Axis | None:
     return mesh_axis("model")
 
 
-def data_axis() -> Axis | None:
-    return mesh_axis("data")
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes the batch is split over: the first candidate of
+    ``DEFAULT_RULES["batch"]`` with an axis in ``mesh``, cut to the axes
+    ``mesh`` has (``resolve_spec``'s reading): ("pod", "data") on the
+    multi-pod mesh, ("data",) on a (data, model) mesh."""
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    names = mesh.mesh_dim_names or ()
+    for cand in DEFAULT_RULES["batch"]:
+        axes = tuple(a for a in cand if a in names)
+        if axes:
+            return axes
+    return ()
+
+
+def data_axis(mesh=None) -> Axis | None:
+    """The axis the batch's rows are split over on ``mesh`` (the ambient
+    one by default): :func:`batch_axes`, several of them flattened into one
+    group in the mesh's order (32 ranks on the multi-pod mesh, rank
+    ``pod·16 + data``); None where that is one rank."""
+    mesh = _MESH[0] if mesh is None else mesh
+    axes = () if mesh is None else batch_axes(mesh)
+    if len(axes) < 2:
+        return mesh_axis(axes[0], mesh) if axes else None
+    flat = mesh[axes]._flatten()        # one group per mesh, made once
+    if flat.size() == 1:
+        return None
+    return Axis(flat.mesh_dim_names[0], flat.get_group(),
+                flat.get_local_rank(), flat.size())
 
 
 def split_axis(local: int, whole: int) -> Axis | None:
@@ -374,15 +406,25 @@ def split_names(model) -> frozenset:
                      if tuple(p.shape) != specs[n].shape)
 
 
-def check_model_parallel(cfg, size: int) -> None:
-    """Tensor parallelism is ported for the dense and hybrid families; the
-    others raise rather than quietly replicate."""
+def model_parallel_todo(cfg, size: int) -> str | None:
+    """Why ``cfg`` cannot run split over a model axis of ``size`` ranks,
+    or None where it can: tensor parallelism is ported for the dense and
+    hybrid families."""
     if size > 1 and cfg.family not in MODEL_PARALLEL_FAMILIES:
-        raise SystemExit(
-            f"--model-par {size}: tensor parallelism of the {cfg.family!r} "
-            f"family ({cfg.name}) is not ported ({MODEL_PARALLEL_TODO}); "
-            f"it runs the {'/'.join(MODEL_PARALLEL_FAMILIES)} families, "
-            "and --data-par for every family")
+        return (f"tensor parallelism of the {cfg.family!r} family "
+                f"({cfg.name}) is not ported "
+                f"({MODEL_PARALLEL_TODO}); it runs the "
+                f"{'/'.join(MODEL_PARALLEL_FAMILIES)} families, and data "
+                "parallelism for every family")
+    return None
+
+
+def check_model_parallel(cfg, size: int) -> None:
+    """The trainer's check: :func:`model_parallel_todo` raises rather than
+    quietly replicate."""
+    why = model_parallel_todo(cfg, size)
+    if why is not None:
+        raise SystemExit(f"--model-par {size}: {why}")
 
 
 def check_moe_groups(cfg, batch: int, seq: int, data: int,

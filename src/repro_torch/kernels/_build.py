@@ -14,6 +14,9 @@ its library (:func:`build_log`).
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises if that is not 0 and counts
 the launch in :data:`LAUNCHES`, the only place a launch is counted.
+K5's and K6's wrappers also take meta tensors: they return meta outputs of
+the kernel's shapes, launch nothing and add the work the launch would do
+to :data:`META` (:func:`count_meta`).
 """
 from __future__ import annotations
 
@@ -35,6 +38,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> launches since the last reset (chip_smoke.py zeroes these
 # before it drives the main path and reads them after).
 LAUNCHES: dict[str, int] = {}
+# kernel name -> [calls, operations, bytes] of the wrappers given meta
+# tensors since reset_meta(): the launches those calls stand for and the
+# work each would do, from the formula beside the kernel (the dry run,
+# launch/dryrun.py, reads it).  A meta call launches nothing and is not
+# counted in LAUNCHES.
+META: dict[str, list[int]] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -142,6 +151,30 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def count_meta(kernel: str, ops: int, nbytes: int) -> None:
+    """Count one call of ``kernel``'s wrapper on meta tensors, which stands
+    for a launch doing ``ops`` operations and moving ``nbytes`` bytes."""
+    rec = META.setdefault(kernel, [0, 0, 0])
+    rec[0] += 1
+    rec[1] += ops
+    rec[2] += nbytes
+
+
+def nbytes(*ts) -> int:
+    """Bytes of the tensors ``ts`` (None counts nothing)."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def reset_meta() -> None:
+    META.clear()
+
+
+def meta_work() -> dict[str, dict[str, int]]:
+    """Launches, operations and bytes per kernel since :func:`reset_meta`."""
+    return {k: {"launches": n, "ops": ops, "bytes": nb}
+            for k, (n, ops, nb) in META.items()}
+
+
 def check_backend(backend: str, x: torch.Tensor) -> None:
     """Validate an op's ``backend``: ``"auto"`` hands the tensor to the
     kernel wrapper, which launches on a CUDA tensor and runs the plain
@@ -154,17 +187,19 @@ def check_backend(backend: str, x: torch.Tensor) -> None:
 
 
 def check_grid(x: torch.Tensor, ndim: int, name: str, *,
-               strided: bool = False) -> int:
+               strided: bool = False, meta: bool = False) -> int:
     """Validate a kernel wrapper's input; returns the kernel's dtype code.
     A CUDA tensor must be contiguous unless the kernel takes ``strided``
-    input."""
+    input.  A meta tensor passes only where the wrapper has a ``meta``
+    branch (:func:`count_meta`)."""
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16 (the kernel sums in "
                         f"float32), got {x.dtype}")
     if x.dim() != ndim:
         raise ValueError(f"{name} takes a {ndim}-d tensor, got shape "
                          f"{tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
+    devices = ("cpu", "cuda", "meta") if meta else ("cpu", "cuda")
+    if x.device.type not in devices:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.device.type == "cuda" and not strided and not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous tensor")

@@ -19,6 +19,10 @@ the bits of K5 on the time-reversed gradient, dw and db from f32 partial
 sums added in an order that depends on the shapes alone (:func:`plan_bwd`),
 so the result is deterministic.  Its plain version is
 :func:`conv1d_bwd_ref`.
+
+On meta tensors both wrappers return meta outputs of the kernel's shapes
+and types, launch nothing, and count the launch and its work
+(:func:`conv1d_work`, :func:`conv1d_bwd_work`) in ``_build.META``.
 """
 from __future__ import annotations
 
@@ -92,6 +96,27 @@ def plan(batch: int, seq: int, ch: int, taps: int, itemsize: int, sms: int,
     return Plan(taps, run, THREADS, min(AHEAD, run))
 
 
+def conv1d_work(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor | None = None) -> tuple[int, int]:
+    """(operations, bytes) of one launch of K5: an FMA a tap a point,
+    ``2·K·B·S·C``; x, w and b read once, y written once."""
+    return 2 * w.shape[0] * x.numel(), _build.nbytes(x, w, b, x)
+
+
+def conv1d_bwd_work(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor | None = None, *, need_x: bool = True,
+                    need_wb: bool = True) -> tuple[int, int]:
+    """(operations, bytes) of one launch of K5's backward: an FMA a tap a
+    point for dx, one for dw and an add for db, ``(4·K+1)·x.numel()`` for
+    all three; x, dy, w and the bias counted once each as inputs, dx, dw
+    and db once each as outputs."""
+    k, n = w.shape[0], x.numel()
+    ops = 2 * k * n * need_x + (2 * k + 1) * n * need_wb
+    nbytes = (_build.nbytes(x, x, w) + need_x * _build.nbytes(x)
+              + need_wb * (_build.nbytes(w) + 2 * _build.nbytes(b)))
+    return ops, nbytes
+
+
 def _check_plan(p: Plan, taps: int) -> None:
     if (p.instance not in (0, taps) or p.instance > VEC_TAPS or p.run < 1
             or p.threads < 32 or p.threads > MAX_THREADS or p.threads % 32
@@ -109,7 +134,7 @@ def conv1d_kernel(x: torch.Tensor, w: torch.Tensor,
     K5 on a CUDA tensor, with :func:`plan`'s launch unless ``launch`` gives
     another (the launcher refuses a vector instance the tensors do not
     allow); runs :func:`conv1d_ref` on a CPU one."""
-    dtype_code = _build.check_grid(x, 3, "conv1d")
+    dtype_code = _build.check_grid(x, 3, "conv1d", meta=True)
     if w.dim() != 2 or w.shape[1] != x.shape[2] or w.dtype != x.dtype:
         raise ValueError(f"conv1d takes taps (K, {x.shape[2]}) of type "
                          f"{x.dtype}, got {tuple(w.shape)} {w.dtype}")
@@ -125,6 +150,10 @@ def conv1d_kernel(x: torch.Tensor, w: torch.Tensor,
     kk = w.shape[0]
     if not 1 <= kk <= MAX_TAPS:
         raise ValueError(f"conv1d kernel takes 1 to {MAX_TAPS} taps, got {kk}")
+    if x.device.type == "meta":
+        if x.numel():
+            _build.count_meta("conv1d", *conv1d_work(x, w, b))
+        return torch.empty_like(x)
     w = w.contiguous()
     bias_code, bias_ptr = -1, None
     if b is not None:
@@ -201,7 +230,8 @@ def conv1d_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     Launches K5's backward on CUDA tensors, once, with :func:`plan_bwd`'s
     launch unless ``launch`` gives another; runs :func:`conv1d_bwd_ref` on
     CPU ones."""
-    dtype_code = _build.check_grid(x, 3, "conv1d_bwd", strided=True)
+    dtype_code = _build.check_grid(x, 3, "conv1d_bwd", strided=True,
+                                   meta=True)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"conv1d_bwd: dy {tuple(dy.shape)} {dy.dtype} on "
                          f"{dy.device} must match x {tuple(x.shape)} "
@@ -230,6 +260,11 @@ def conv1d_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     dw = torch.empty_like(w) if need_wb else None
     db = (torch.empty(b.shape, dtype=b.dtype, device=x.device)
           if need_wb and b is not None else None)
+    if x.device.type == "meta":
+        if x.numel():
+            _build.count_meta("conv1d_bwd", *conv1d_bwd_work(
+                x, w, b, need_x=need_x, need_wb=need_wb))
+        return dx, dw, db
     if x.numel() == 0:
         for t in (dw, db):
             if t is not None:

@@ -38,6 +38,11 @@ products summed in f32), which keeps its 1e-5 bar where one TF32 product
 would not.  No atomics: the same inputs give the same bits.  Shared memory
 :func:`bwd_smem_bytes`.  Its plain version is :func:`swa_bwd_ref` (and
 :func:`swa_bwd_fold_ref` the fold's).
+
+On meta tensors every wrapper returns meta outputs of its kernel's shapes
+and types, launches nothing, and counts the launch and its work
+(:func:`swa_work`, :func:`swa_bwd_work`, :func:`swa_bwd_fold_work`) in
+``_build.META``.
 """
 from __future__ import annotations
 
@@ -137,6 +142,51 @@ def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
             + 4 * F32_WARPS * (F32_XCH + 16))
 
 
+def band_pairs(seq: int, window: int) -> int:
+    """(query, key) pairs inside the causal band: sum_i min(i + 1, window)."""
+    w = min(window, seq)
+    return w * (w + 1) // 2 + (seq - w) * w
+
+
+def _product_ops(q: torch.Tensor, window: int) -> int:
+    """Operations of one (S x D) product over the band of every (batch,
+    query head): 2·D a (query, key) pair."""
+    b, hq, s, d = q.shape
+    return band_pairs(s, window) * b * hq * 2 * d
+
+
+def swa_work(q: torch.Tensor, k: torch.Tensor, window: int
+             ) -> tuple[int, int]:
+    """(operations, bytes) of one launch of K6: QKᵀ and P·V over the band,
+    ``band_pairs(S, window)·B·Hq·4·D``; q, k and v read once, the output
+    (q's shape) written once."""
+    return 2 * _product_ops(q, window), _build.nbytes(q, k, k, q)
+
+
+def swa_bwd_work(entry: str, q: torch.Tensor, k: torch.Tensor,
+                 window: int) -> tuple[int, int]:
+    """(operations, bytes) of one launch of ``swa_bwd_dq`` (3 products
+    over the band: S, dP, dQ; reads q, k, v, o, dO, writes dq and the rows'
+    f32 LSE and D) or ``swa_bwd_dkdv`` (4: S, dP, dK, dV; reads q, k, v,
+    dO, LSE and D, dK and dV counted at k's shape and type)."""
+    rows = 2 * q.numel() // q.shape[-1] * 4        # LSE and D, f32 (B, Hq, S)
+    if entry == "swa_bwd_dq":
+        return (3 * _product_ops(q, window),
+                _build.nbytes(q, k, k, q, q, q) + rows)
+    if entry == "swa_bwd_dkdv":
+        return (4 * _product_ops(q, window),
+                _build.nbytes(q, k, k, q, k, k) + rows)
+    raise ValueError(f"unknown backward entry {entry!r}")
+
+
+def swa_bwd_fold_work(partial: torch.Tensor, k: torch.Tensor
+                      ) -> tuple[int, int]:
+    """(operations, bytes) of one launch of ``swa_bwd_fold``: an add an
+    element of the partial sums, which it reads once; dk and dv written
+    once."""
+    return partial.numel(), _build.nbytes(partial, k, k)
+
+
 def _unit_last(t: torch.Tensor) -> torch.Tensor:
     """The kernel takes any (batch, head, position) strides, but a unit
     stride along D."""
@@ -148,7 +198,7 @@ def swa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Hq, S, D), k/v: (B, Hkv, S, D), float32/bfloat16 -> (B, Hq, S, D)
     in q's memory layout.  Launches K6 on a CUDA tensor; runs
     :func:`swa_ref` on a CPU one."""
-    dtype_code = _build.check_grid(q, 4, "swa", strided=True)
+    dtype_code = _build.check_grid(q, 4, "swa", strided=True, meta=True)
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.device != q.device or t.dim() != 4:
             raise ValueError(f"swa: {name} must be a 4-d {q.dtype} tensor on "
@@ -166,6 +216,10 @@ def swa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return swa_ref(q, k, v, window=window)
     if d > MAX_HEAD_DIM:
         raise ValueError(f"swa kernel takes head_dim <= {MAX_HEAD_DIM}, got {d}")
+    if q.device.type == "meta":
+        if q.numel():
+            _build.count_meta("swa", *swa_work(q, k, window))
+        return torch.empty_like(_unit_last(q))
     smem = smem_bytes(d, q.dtype)
     _build.require_smem(f"swa at head_dim {d}", smem, q.device)
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
@@ -189,7 +243,7 @@ def swa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _check_bwd(q, k, v, **like_q) -> int:
     """Validate the backward's inputs; returns the dtype code."""
-    dtype_code = _build.check_grid(q, 4, "swa_bwd", strided=True)
+    dtype_code = _build.check_grid(q, 4, "swa_bwd", strided=True, meta=True)
     b, hq, s, d = q.shape
     hkv = k.shape[1] if k.dim() == 4 else 0
     shapes = {"k": (b, hkv, s, d), "v": (b, hkv, s, d)}
@@ -209,10 +263,14 @@ def _check_bwd(q, k, v, **like_q) -> int:
 def _bwd_launch(entry: str, tensors, lse, delta, dtype_code, q, hkv,
                 window, partial: torch.Tensor | None = None,
                 parts: int = 1) -> None:
+    if q.device.type == "meta":
+        _build.count_meta(entry, *swa_bwd_work(entry, q, tensors[1], window))
+        return
     if q.device.type != "cuda":
         raise ValueError(f"{entry} launches a CUDA kernel and takes CUDA "
-                         f"tensors, got {q.device} (swa_bwd_kernel runs the "
-                         "plain version on CPU ones)")
+                         f"tensors (or meta ones), got {q.device} "
+                         "(swa_bwd_kernel runs the plain version on CPU "
+                         "ones)")
     b, hq, s, d = q.shape
     smem = bwd_smem_bytes(d, q.dtype)[entry]
     _build.require_smem(f"{entry} at head_dim {d}", smem, q.device)
@@ -237,8 +295,9 @@ def _bwd_launch(entry: str, tensors, lse, delta, dtype_code, q, hkv,
 def swa_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                out: torch.Tensor, dout: torch.Tensor, *, window: int
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """CUDA tensors only: launches ``swa_bwd_dq`` -> (dq in q's layout, the
-    rows' log-sum-exp and D = rowsum(dout * out), both (B, Hq, S) f32)."""
+    """CUDA (or meta) tensors only: launches ``swa_bwd_dq`` -> (dq in q's
+    layout, the rows' log-sum-exp and D = rowsum(dout * out), both (B, Hq,
+    S) f32)."""
     dtype_code = _check_bwd(q, k, v, out=out, dout=dout)
     q, k, v, out, dout = (_unit_last(t) for t in (q, k, v, out, dout))
     dq = torch.empty_like(q)
@@ -263,7 +322,7 @@ def _check_dkdv(q, k, v, dout, lse, delta) -> int:
 def swa_bwd_dkdv_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          dout: torch.Tensor, lse: torch.Tensor,
                          delta: torch.Tensor, *, window: int) -> torch.Tensor:
-    """CUDA tensors only: launches ``swa_bwd_dkdv`` with
+    """CUDA (or meta) tensors only: launches ``swa_bwd_dkdv`` with
     :func:`swa_bwd_dq`'s ``lse`` and ``delta`` -> each part's f32 partial
     dK and dV, (2, parts, B, Hkv, S, D) with ``parts`` :func:`bwd_parts`."""
     dtype_code = _check_dkdv(q, k, v, dout, lse, delta)
@@ -276,7 +335,7 @@ def swa_bwd_dkdv_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel():
         _bwd_launch("swa_bwd_dkdv", (q, k, v, None, dout, None, None, None),
                     lse, delta, dtype_code, q, hkv, window, partial, parts)
-    else:
+    elif q.device.type != "meta":
         partial.zero_()
     return partial
 
@@ -300,6 +359,10 @@ def swa_bwd_fold(partial: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if partial.device.type == "cpu":
         return swa_bwd_fold_ref(partial, k.dtype)
     dk, dv = torch.empty_like(_unit_last(k)), torch.empty_like(_unit_last(v))
+    if partial.device.type == "meta":
+        if dk.numel():
+            _build.count_meta("swa_bwd_fold", *swa_bwd_fold_work(partial, k))
+        return dk, dv
     if dk.numel():
         b, hkv, s, d = k.shape
         c_strides = (ctypes.c_int64 * 6)(*dk.stride()[:3], *dv.stride()[:3])
@@ -316,10 +379,10 @@ def swa_bwd_fold(partial: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def swa_bwd_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  *, window: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """CUDA tensors only: launches ``swa_bwd_dkdv`` with :func:`swa_bwd_dq`'s
-    ``lse`` and ``delta`` -> (dk, dv) in k's and v's layouts: the kernel
-    writes partial sums (:func:`swa_bwd_dkdv_partial`) and ``swa_bwd_fold``
-    adds them (:func:`swa_bwd_fold`)."""
+    """CUDA (or meta) tensors only: launches ``swa_bwd_dkdv`` with
+    :func:`swa_bwd_dq`'s ``lse`` and ``delta`` -> (dk, dv) in k's and v's
+    layouts: the kernel writes partial sums (:func:`swa_bwd_dkdv_partial`)
+    and ``swa_bwd_fold`` adds them (:func:`swa_bwd_fold`)."""
     return swa_bwd_fold(swa_bwd_dkdv_partial(q, k, v, dout, lse, delta,
                                              window=window), k, v)
 

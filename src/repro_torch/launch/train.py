@@ -141,7 +141,8 @@ class World:
         from repro_torch.launch.mesh import make_local_mesh
         self.mesh = make_local_mesh(args.data_par, args.model_par,
                                     device=dev.type)
-        self.data = self.mesh.get_local_rank("data")
+        axis = tp.data_axis(self.mesh)
+        self.data = axis.rank if axis is not None else 0
         self.data_size, self.rank = args.data_par, dist.get_rank()
 
     def any(self, flag: bool, dev: torch.device) -> bool:

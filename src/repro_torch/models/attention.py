@@ -192,7 +192,8 @@ def decode_step(p, x: torch.Tensor, cache: KVCache, cfg: ArchConfig, *,
         raise ValueError(f"decode_step takes one token, got {s1}")
     if _head_axis(p, cfg) is not None:
         raise ValueError("decode of a model split over heads is not "
-                         "ported: serving runs the whole model")
+                         f"ported ({tp.SPLIT_DECODE_TODO}): serving runs "
+                         "the whole model")
     q, k_new, v_new = _project(p, x, cfg)
     pos = cache.pos
     pos_arr = (torch.full((b, 1), pos, dtype=torch.int32, device=x.device)

@@ -133,7 +133,8 @@ def rglru_decode(p, x: torch.Tensor, state: RGLRUState,
     """Single-token decode. x: (B, 1, D)."""
     if _width_axis(p, cfg) is not None:
         raise ValueError("decode of a model split over the recurrence's "
-                         "width is not ported: serving runs the whole model")
+                         f"width is not ported ({tp.SPLIT_DECODE_TODO}): "
+                         "serving runs the whole model")
     gelu = activation("gelu")
     branch = (x @ p["w_in"].to(x.dtype))[:, 0]
     gate = (x @ p["w_gate_branch"].to(x.dtype))[:, 0]

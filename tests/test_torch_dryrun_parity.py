@@ -1,0 +1,151 @@
+"""The port's dry run against the reference's (``repro.launch.dryrun``),
+on ``tinyllama-1.1b x train_4k`` on the single production mesh, cut to one
+layer of width 256 (``OVERRIDES``) and without the scan correction (one
+layer has no scan to correct).
+
+The reference runs in a subprocess: its module sets ``XLA_FLAGS`` for 512
+host devices before jax starts, and this process keeps one.  It saves its
+record and the optimized HLO text of its compile.
+
+Equal: ``param_count``, ``param_bytes_per_device``, ``model_flops``, the
+record's keys, ``configs.cells()``, the private copies ``_clone_cfg`` and
+``_wkv_analytic_flops`` on every cell; ``analysis.hlo``'s
+``collective_bytes`` and ``remat_duplication`` on that HLO text;
+``analysis.rooflines``' ``dryrun_table`` and ``roofline_table`` on the
+reference's records.  Not compared: times, memory analysis, bytes and
+collective bytes (XLA's fused counts against the port's op-by-op ones).
+
+Tolerance, set before the first run: ``flops_per_device`` within
+``FLOPS_RTOL`` 0.2, relative to the reference's.  The port counts matrix
+products (``FlopCounterMode``) and K5/K6's own operations; XLA's cost
+analysis also counts every elementwise op and reduction, of which the
+softmax over each head's (4096, 4096) scores is the largest here (a few
+percent of the total at width 256), so the port's count is expected below
+the reference's by that much.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("jax")
+
+from repro.analysis import hlo as ref_hlo  # noqa: E402
+from repro.analysis import rooflines as ref_rooflines  # noqa: E402
+from repro.configs import cells as ref_cells  # noqa: E402
+
+from repro_torch.analysis import hlo, rooflines  # noqa: E402
+from repro_torch.configs import SHAPES, cells, get_config  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+CELL = ("tinyllama-1.1b", "train_4k", "single")
+OVERRIDES = {"num_layers": 1, "d_model": 256, "num_heads": 16,
+             "num_kv_heads": 4, "d_ff": 512, "vocab_size": 1024}
+FLOPS_RTOL = 0.2
+REF_TIMEOUT_S = 300
+
+_REFERENCE = r"""
+import dataclasses, json, sys
+import repro.launch.dryrun as dr
+from repro.configs import SHAPES, cells, get_config
+texts = []
+analyze = dr._analyze
+
+
+def keep_text(compiled, chips):
+    texts.append(compiled.as_text())
+    return analyze(compiled, chips)
+
+
+dr._analyze = keep_text
+cell, overrides, out = json.loads(sys.argv[1])
+rec = dr.run_cell(*cell, correction=False, overrides=overrides)
+with open(out + "/record.json", "w") as f:
+    json.dump(rec, f)
+with open(out + "/hlo.txt", "w") as f:
+    f.write(texts[0])
+helpers = {"clone": [dataclasses.asdict(dr._clone_cfg(get_config(a), p))
+                     for a, _ in cells() for p in (1, 2)],
+           "wkv": [dr._wkv_analytic_flops(get_config(a), SHAPES[s])
+                   for a, s in cells()]}
+with open(out + "/helpers.json", "w") as f:
+    json.dump(helpers, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun_ref")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _REFERENCE,
+         json.dumps([CELL, OVERRIDES, str(out)])], env=env, cwd=REPO,
+        capture_output=True, text=True, timeout=REF_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return (json.loads((out / "record.json").read_text()),
+            (out / "hlo.txt").read_text(),
+            json.loads((out / "helpers.json").read_text()))
+
+
+@pytest.fixture(scope="module")
+def port():
+    return dryrun.run_cell(*CELL, overrides=OVERRIDES)
+
+
+def test_counts_and_keys_equal(ref, port):
+    want = ref[0]
+    assert set(port) == set(want)
+    for key in ("param_count", "param_bytes_per_device", "model_flops",
+                "arch", "shape", "mesh", "kind", "chips", "ok",
+                "scan_correction", "wkv_analytic_flops"):
+        assert port[key] == want[key], key
+
+
+def test_flops_per_device_within_tolerance(ref, port):
+    want = ref[0]["flops_per_device"]
+    got = port["flops_per_device"]
+    print(f"flops_per_device: port {got:.6e}, reference {want:.6e}, "
+          f"port / reference {got / want:.6f}")
+    assert abs(got - want) <= FLOPS_RTOL * want
+
+
+def test_cells_equal():
+    assert cells() == ref_cells()
+
+
+def test_private_copies_equal(ref):
+    """The copies of ``_clone_cfg`` (every cell's config at 1 and 2
+    periods) and ``_wkv_analytic_flops`` (every cell)."""
+    want = ref[2]
+    clone = [dataclasses.asdict(dryrun._clone_cfg(get_config(a), p))
+             for a, _ in cells() for p in (1, 2)]
+    assert json.loads(json.dumps(clone)) == want["clone"]
+    assert [dryrun._wkv_analytic_flops(get_config(a), SHAPES[s])
+            for a, s in cells()] == want["wkv"]
+
+
+def test_hlo_helpers_equal_on_the_reference_hlo(ref):
+    text = ref[1]
+    got = hlo.collective_bytes(text)
+    assert got == ref_hlo.collective_bytes(text)
+    assert got["total_bytes"] > 0
+    assert hlo.remat_duplication(text) == ref_hlo.remat_duplication(text)
+
+
+def test_tables_equal_on_the_reference_records(ref):
+    want = ref[0]
+    failed = {"arch": "qwen2-vl-2b", "shape": "decode_32k", "mesh": "single",
+              "ok": False, "error": "ValueError: not ported", "trace": ""}
+    recs = [want, {**want, "mesh": "multi", "chips": 512}, failed]
+    for mesh in ("single", "multi", None):
+        assert (rooflines.dryrun_table(recs, mesh)
+                == ref_rooflines.dryrun_table(recs, mesh))
+    assert rooflines.roofline_table(recs) == ref_rooflines.roofline_table(
+        recs)
