@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's stencil main path, its CGRA model with the
 tuner's batched stage 1, its RecurrentGemma-2B serving and training paths,
-the other LM families, its multi-device stencils and its data- and
-tensor-parallel trainer on one NVIDIA GPU (H100), then its multi-pod dry
-run on the host's CPU.
+the other LM families, its multi-device stencils, its data- and
+tensor-parallel trainer and its decode of a model split over the model
+axis on one NVIDIA GPU (H100), then its multi-pod dry run on the host's
+CPU.
 
     PYTHONPATH=src python3 chip_smoke.py [--device cuda:0] [--seed 0]
 
@@ -214,18 +215,37 @@ run on the host's CPU.
    through the host; NCCL between cards stays unmeasured on one card
    (``train_parallel_note``).
 
+11a. The ``split_decode`` phase (``split_decode_phase``): decode of a
+   model split over the model axis.  RecurrentGemma-2B at full width, one
+   period (rglru, rglru, local), and tinyllama-1.1b at full width, 2
+   layers, both f32 weights and activations, each decoding
+   ``SPLIT_TOKENS`` (64) seeded tokens a row of a batch of 2 from an empty
+   cache through ``make_decode_step``: in this process (one rank), then on
+   2 gloo ranks sharing the card at (1, 2), each rank's weights and cache
+   (``LM.init_cache`` under ``mesh_context``) its slices by the rules.
+   RecurrentGemma's ring of 2048 slots is split over its positions (1024
+   a rank), its 10 heads 5 a rank, its RG-LRU width 1280 a rank (layout
+   (b)); tinyllama's cache over its 4 KV heads, 2 a rank (layout (a)).
+   Each case's logits, gathered, within ``SPLIT_TOL`` (1e-3) of one
+   rank's at every step, the greedy tokens equal, each rank's cache
+   layout the rules' and no kernel launched; ms a step, one rank against
+   two, and the bytes and calls a step per mesh axis
+   (``tensor_parallel.WIRE``) on ``split_decode`` lines.
+
 12. The ``dryrun`` phase (``dryrun_phase``, ~20-40 s on the host's CPU):
    ``launch.dryrun.run_cell`` in a subprocess with the card hidden, on
-   three cells of the single production mesh (16 x 16 = 256 ranks):
-   tinyllama-1.1b x train_4k, recurrentgemma-2b x prefill_32k and
-   recurrentgemma-2b x train_4k, each run as rank 0 of a fake process
-   group on meta tensors at published width and depth.  Each record's
+   four cells of the single production mesh (16 x 16 = 256 ranks):
+   tinyllama-1.1b x train_4k, recurrentgemma-2b x prefill_32k,
+   recurrentgemma-2b x train_4k and recurrentgemma-2b x decode_32k, each
+   run as rank 0 of a fake process group on meta tensors at published
+   width and depth.  Each record's
    ``ok``, flops, bytes, parameter and collective bytes a device and its
    roofline step time (the H100's datasheet peaks) go on a ``dryrun``
    line; the K5/K6 launches that the wrappers counted on meta must equal
-   what the lm phase's prefill (K5 18, K6 8) and one step of the train
-   phase (K5 36, ``conv1d_bwd`` 18, K6 16, each K6-bwd kernel 8) launched
-   on the card, and tinyllama's must be none.
+   what the lm phase's prefill (K5 18, K6 8), one step of the train
+   phase (K5 36, ``conv1d_bwd`` 18, K6 16, each K6-bwd kernel 8) and the
+   split_decode phase's decode (none) launched on the card, and
+   tinyllama's must be none.
 
 Any build error, launch error, mismatch or kernel that its path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
@@ -316,9 +336,11 @@ from repro_torch.distributed.halo import (distributed_stencil1d,  # noqa: E402
 from repro_torch.distributed.halo import sweep as dist_sweep  # noqa: E402
 from repro_torch.distributed.sharding import (DEFAULT_RULES,  # noqa: E402
                                               PartitionSpec,
-                                              make_mesh_compat, placements,
+                                              make_mesh_compat, mesh_context,
+                                              named_sharding, placements,
                                               resolve_spec, shard_offsets)
-from repro_torch.launch.mesh import run_local_world  # noqa: E402
+from repro_torch.launch.mesh import (make_local_mesh,  # noqa: E402
+                                     run_local_world)
 from repro_torch.telemetry import (Telemetry, bottleneck_table,  # noqa: E402
                                    render_report, validate_trace,
                                    write_trace)
@@ -2821,13 +2843,190 @@ def train_parallel_phase(seed: int, failures: list[str]) -> None:
                       "s": time.perf_counter() - t0}))
 
 
+# -- decode of a model split over the model axis, on the card ----------------
+SPLIT_MESH = (1, 2)                     # (data, model): 2 gloo ranks
+SPLIT_BATCH, SPLIT_TOKENS = 2, 64
+# name -> (arch, layers, cache_len).  RecurrentGemma-2B's one period: its
+# 2048-slot ring split over positions (1024 a rank), 5 of its 10 heads and
+# 1280 of the RG-LRU's 2560 channels a rank, layout (b).  tinyllama-1.1b
+# at 2 layers: its cache split over the 4 KV heads (2 a rank), as wk is,
+# layout (a)
+SPLIT_CASES = {"recurrentgemma-2b": (ARCH, STEP_LAYERS, 2048),
+               "tinyllama-1.1b": ("tinyllama-1.1b", 2, 128)}
+# each step's logits of the split decode against one rank's, absolute,
+# set before the first run on the card: f32 activations at full width,
+# where a split product sums its parts in another order and cuBLAS may
+# tile the halves differently (train_parallel's bar)
+SPLIT_TOL = 1e-3
+SPLIT_TIMEOUT_S = 600
+
+
+def split_layout_want(cfg, cache_len: int, m: int, col: int) -> list:
+    """``cache_layout`` of the rank at ``col`` of a model axis of ``m``
+    under the rules: the KV cache split over KV heads where ``m`` divides
+    them, else over its positions; the RG-LRU state over its channels."""
+    out, b, hd = [], SPLIT_BATCH, cfg.resolved_head_dim
+    for i in range(cfg.num_layers):
+        kind = cfg.kind_of_layer(i)
+        if kind == "rglru":
+            w = cfg.lru_width // m
+            out.append([[b, w], [b, cfg.conv_width - 1, w]])
+            continue
+        slots = min(cache_len, cfg.window) if kind == "local" else cache_len
+        kv = cfg.num_kv_heads
+        out.append([[b, kv // m, slots, hd], 0, 0] if kv % m == 0 else
+                   [[b, kv, slots // m, hd], col * slots // m, slots])
+    return out
+
+
+def cache_layout(cache: list) -> list:
+    """Per layer: a KV cache's (k's shape, start, capacity), an RG-LRU
+    state's (h's shape, conv's shape)."""
+    return [[list(c.k.shape), c.start, c.capacity]
+            if isinstance(c, model_attention.KVCache)
+            else [list(c.h.shape), list(c.conv.shape)] for c in cache]
+
+
+def split_decode_run(seed: int, data: int, model: int) -> dict:
+    """Every SPLIT_CASES case at full width, f32 activations, decoding
+    SPLIT_TOKENS seeded tokens a row from an empty cache through
+    ``make_decode_step``: in this process as one rank at (1, 1), else as a
+    rank of a gloo world at (data, model), its weights and cache
+    (``LM.init_cache`` under ``mesh_context``) its slices.  Per case: each
+    step's host ms (synchronised), one step's bytes and calls per mesh
+    axis (``tensor_parallel.WIRE``, zeroed just before the step), the
+    kernels launched in the decode (counts zeroed just before it), the
+    cache's layout and heads a rank; rank 0 also the logits and tokens,
+    gathered whole, on the host."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_local_mesh(data, model) if data * model > 1 else None
+    rank = dist.get_rank() if mesh is not None else 0
+    out = {}
+    for name, (arch, layers, cache_len) in SPLIT_CASES.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype="float32")
+        mdl = family_model(cfg, dev, seed)
+        if mesh is not None:
+            tp.shard_parameters(mdl, tp.parameter_layout(mdl, mesh), mesh)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        toks = torch.randint(0, cfg.vocab_size, (SPLIT_BATCH, SPLIT_TOKENS),
+                             device=dev, generator=gen)
+        rows = cols = None
+        if mesh is not None:
+            rows = named_sharding(tuple(toks.shape), ("batch", None), mesh)
+            cols = named_sharding((SPLIT_BATCH, SPLIT_TOKENS, cfg.vocab_size),
+                                  ("batch", None, "vocab"), mesh)
+            toks = tp.shard_of(toks, mesh, rows)
+        ms, logits, nxt = [], [], []
+        with (mesh_context(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            step = make_decode_step(mdl, cfg)
+            cache = mdl.init_cache(SPLIT_BATCH, cache_len)
+            layout = cache_layout(cache)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            for t in range(SPLIT_TOKENS):
+                tp.reset_wire()
+                t0 = time.perf_counter()
+                n, lg, cache = step(cache, toks[:, t:t + 1], t)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                wire = tp.wire_bytes()
+                logits.append(lg)
+                nxt.append(n)
+            launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        logits, nxt = torch.cat(logits, 1), torch.cat(nxt, 1)
+        if mesh is not None:
+            logits = tp.whole_of(logits, mesh, cols)
+            nxt = tp.whole_of(nxt, mesh, rows)
+        rec = {"ms": ms, "wire": wire, "launches": launches,
+               "layout": layout, "rank": rank,
+               "heads": [blk.attn["wq"].shape[1] for blk in mdl.layers
+                         if blk.kind in ("attn", "local")][0]}
+        if rank == 0:
+            rec.update(logits=logits.cpu(), tokens=nxt.cpu())
+        out[name] = rec
+        del mdl, cache, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def split_decode_phase(seed: int, failures: list[str]) -> None:
+    """Decode of a model split over the model axis on the one card: each
+    SPLIT_CASES case through ``split_decode_run`` in this process (one
+    rank), then on 2 gloo ranks sharing the card at SPLIT_MESH; each
+    case's logits within SPLIT_TOL of one rank's at every step, its greedy
+    tokens equal, its cache split as the rules place it, no kernel
+    launched (decode's conv and attention are the reference's einsums,
+    ``ON_CARD["decode"]``, which the dry run's decode cell is held to);
+    ms a step and the bytes and calls a step per mesh axis printed."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    one = split_decode_run(seed, 1, 1)
+    torch.cuda.empty_cache()
+    d, m = SPLIT_MESH
+    ranks = run_local_world(split_decode_run, d * m, seed, d, m,
+                            timeout=SPLIT_TIMEOUT_S)
+    torch.cuda.empty_cache()
+    ON_CARD["decode"] = one[ARCH]["launches"]
+    for name, (arch, layers, cache_len) in SPLIT_CASES.items():
+        cfg = get_config(arch)
+        want, got = one[name], ranks[0][name]
+        shape = (SPLIT_BATCH, SPLIT_TOKENS, cfg.vocab_size)
+        err = (got["logits"] - want["logits"]).abs().max().item()
+        same = bool(torch.equal(got["tokens"], want["tokens"]))
+        finite = bool(torch.isfinite(got["logits"]).all())
+        heads = [r[name]["heads"] for r in ranks]
+        layouts = [r[name]["layout"] for r in ranks]
+        lcfg = dataclasses.replace(cfg, num_layers=layers)
+        ok = (err <= SPLIT_TOL and same and finite
+              and tuple(got["logits"].shape) == shape
+              and heads == [cfg.num_heads // m] * m
+              and layouts == [split_layout_want(lcfg, cache_len, m, c)
+                              for c in range(m)]
+              and all(r[name]["launches"] == {} for r in ranks)
+              and want["launches"] == {})
+        if not ok:
+            failures.append(
+                f"split_decode {name} {(d, m)}: max logit difference "
+                f"{err} (tol {SPLIT_TOL}), tokens equal {same}, finite "
+                f"{finite}, shape {tuple(got['logits'].shape)}, heads a "
+                f"rank {heads}, layouts {layouts} against one rank's "
+                f"{want['layout']}, launches "
+                f"{[r[name]['launches'] for r in ranks]} and one rank's "
+                f"{want['launches']} (want none)")
+        print(json.dumps({
+            "phase": "split_decode", "arch": arch, "layers": layers,
+            "d_model": cfg.d_model, "dtype": "float32",
+            "batch": SPLIT_BATCH, "tokens": SPLIT_TOKENS,
+            "cache_len": cache_len, "data": d, "model": m,
+            "ranks": d * m, "backend": "gloo", "heads_per_rank": heads,
+            "cache_layout": layouts, "cache_layout_one_rank":
+                want["layout"],
+            "max_abs_logit_diff": err, "tol": SPLIT_TOL,
+            "tokens_equal": same,
+            "step_ms_one_rank": statistics.median(want["ms"][1:]),
+            "step_ms": [statistics.median(r[name]["ms"][1:])
+                        for r in ranks],
+            "first_step_ms": [want["ms"][0]] + [r[name]["ms"][0]
+                                                for r in ranks],
+            "wire_per_step": [r[name]["wire"] for r in ranks],
+            "launches": [r[name]["launches"] for r in ranks],
+            "ok": ok}))
+    print(json.dumps({"phase": "split_decode_wall",
+                      "s": time.perf_counter() - t0}))
+
+
 # -- the multi-pod dry run (launch/dryrun.py), on the CPU ---------------------
-# Three cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
+# Four cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
 # of a fake world on meta tensors in one subprocess with the card hidden;
-# the RecurrentGemma cells' K5/K6 tally is held to what the lm and train
-# phases launched on the card (ON_CARD), and tinyllama's must be empty.
+# the RecurrentGemma cells' K5/K6 tally is held to what the lm, train and
+# split_decode phases launched on the card (ON_CARD), and tinyllama's must
+# be empty.
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", None),
-                (ARCH, "prefill_32k", "prefill"), (ARCH, "train_4k", "train"))
+                (ARCH, "prefill_32k", "prefill"), (ARCH, "train_4k", "train"),
+                (ARCH, "decode_32k", "decode"))
 DRYRUN_TIMEOUT_S = 300
 DRYRUN_CODE = """
 import json, sys
@@ -3002,6 +3201,12 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- the trainer's parallel slice: (2, 1) and (1, 2) on the card -------
     train_parallel_phase(args.seed, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+
+    # -- decode split over the model axis: one rank, then (1, 2) -----------
+    split_decode_phase(args.seed, failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1

@@ -21,10 +21,12 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
+from torch.utils._pytree import (keystr, tree_flatten_with_path,
+                                 tree_unflatten)
 
 from repro_torch.distributed import tensor_parallel
 
@@ -201,3 +203,48 @@ def tree_shardings(tree_of_shapes, tree_of_logical, mesh,
         return named_sharding(shape, tuple(tree_of_logical), mesh, rules)
     return {k: tree_shardings(tree_of_shapes[k], v, mesh, rules)
             for k, v in tree_of_logical.items()}
+
+
+def cache_logical(name: str, ndim: int, stacked: bool) -> tuple:
+    """The logical axes of a decode-cache tensor, by its path ``name`` (as
+    jax's ``keystr`` writes it) and rank; ``stacked``: a leading layer
+    axis.  A KV cache (B, KV, C, hd) is ("batch", "kv_heads", "cache_seq",
+    None): on a mesh whose ``model`` size does not divide the KV heads,
+    ``cache_seq`` takes ``model`` and the cache is split over its
+    positions."""
+    lead = ("layers",) if stacked else ()
+    n = name.split(".")[-1].strip("'] ").lower()
+    base_nd = ndim - len(lead)
+    if n in ("k", "v") and base_nd == 4:          # KV cache (B, KV, C, hd)
+        return lead + ("batch", "kv_heads", "cache_seq", None)
+    if n in ("cross_k", "cross_v"):               # (L, B, T, KV, hd)
+        return ("layers", "batch", "cache_seq", "kv_heads", None)
+    if n == "pos":
+        return ("layers",) * ndim          # scalar, or (L,) when stacked
+    if n == "h" and base_nd == 2:                 # RG-LRU state (B, W)
+        return lead + ("batch", "mlp")
+    if n == "conv" and base_nd == 3:              # (B, K-1, W)
+        return lead + ("batch", None, "mlp")
+    if n == "s" and base_nd == 4:                 # RWKV state (B, H, n, n)
+        return lead + ("batch", "heads", None, None)
+    if n in ("shift_tm", "shift_cm") and base_nd == 2:
+        return lead + ("batch", None)
+    return (None,) * ndim
+
+
+def cache_placements(mesh, cache, stacked_names=()) -> Any:
+    """The placements on ``mesh`` of every tensor of a decode cache (same
+    structure; any other leaf, a position, kept as it is), by
+    :func:`cache_logical` of its path under the default rules.  No leaf is
+    stacked unless its path names one of ``stacked_names``."""
+    named, treedef = tree_flatten_with_path(cache)
+    out = []
+    for path, leaf in named:
+        if not isinstance(leaf, torch.Tensor):
+            out.append(leaf)
+            continue
+        pstr = keystr(path)
+        stacked = any(f"'{s}'" in pstr for s in stacked_names)
+        logical = cache_logical(pstr, leaf.ndim, stacked)
+        out.append(named_sharding(tuple(leaf.shape), logical, mesh))
+    return tree_unflatten(out, treedef)

@@ -23,6 +23,15 @@ after the backward pass each rank holds the whole gradient of every
 parameter it holds, split or replicated.  Partial products are summed in
 float32 and cast once.
 
+Decode of a split model (``models/attention.decode_step``): where the
+KV cache is split over its positions (``cache_seq``, the rules' choice
+whenever ``model`` does not divide the KV heads), each rank attends every
+query head (:func:`gather_cat` where ``wq`` is split) over its own slots,
+and :func:`merge_softmax` combines the ranks' partials by their maxima;
+the greedy token of logits split over the vocabulary is
+:func:`vocab_parallel_argmax`.  :func:`shard_cache` gives a rank its
+slice of a cache.
+
 Data parallelism: rank ``(d, m)`` takes rows ``[d·B/D, (d+1)·B/D)`` of each
 global batch, ``d`` its index along the axes the batch is split over
 (:func:`data_axis`: ``data``, or ``pod`` and ``data`` flattened into one
@@ -43,15 +52,13 @@ from repro_torch.distributed.collectives import wire_device
 # the tensor-parallel families; the others raise for --model-par > 1
 MODEL_PARALLEL_FAMILIES = ("dense", "hybrid")
 MODEL_PARALLEL_TODO = "ROADMAP.md Queue 1 item 5c"
-# decode of a model split over the model axis (its cache split over
-# cache_seq) is not ported either
-SPLIT_DECODE_TODO = "ROADMAP.md Queue 1 item 5d"
 # the trainer's layout: the rules' model-axis splits, no FSDP over data
 FSDP_OFF = {"fsdp": [()]}
 BUCKET_BYTES = 256 << 20          # data-parallel gradients per all-reduce
 
 _MESH: list = [None]              # the ambient DeviceMesh (mesh_context)
-# bytes and calls all-reduced over each mesh axis since reset_wire()
+# bytes and calls over each mesh axis since reset_wire(): an all-reduce's
+# payload, an all-gather's gathered whole
 WIRE: dict[str, list[int]] = {}
 
 
@@ -146,17 +153,21 @@ def reset_wire() -> None:
 
 
 def wire_bytes() -> dict[str, dict[str, int]]:
-    """Bytes and calls all-reduced per mesh axis since :func:`reset_wire`."""
+    """Bytes and calls per mesh axis since :func:`reset_wire`."""
     return {a: {"bytes": b, "calls": c} for a, (b, c) in WIRE.items()}
+
+
+def _count(axis: Axis, nbytes: int) -> None:
+    rec = WIRE.setdefault(axis.name, [0, 0])
+    rec[0] += nbytes
+    rec[1] += 1
 
 
 def _reduce(x: torch.Tensor, axis: Axis,
             op=dist.ReduceOp.SUM) -> torch.Tensor:
     """All-reduce of a copy of ``x`` over ``axis`` (never in place: the
     input may be held for the backward pass), counted in :data:`WIRE`."""
-    rec = WIRE.setdefault(axis.name, [0, 0])
-    rec[0] += x.numel() * x.element_size()
-    rec[1] += 1
+    _count(axis, x.numel() * x.element_size())
     wire = x.detach().to(wire_device(axis.group, x.device), copy=True)
     dist.all_reduce(wire, op=op, group=axis.group)
     return wire.to(x.device)
@@ -330,11 +341,72 @@ def max_over(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 def gather_over(x: torch.Tensor, axis: Axis) -> list[torch.Tensor]:
     """Every rank's ``x`` (all of one shape) along ``axis``, in rank order,
-    on x's device."""
+    on x's device (not counted in :data:`WIRE`: the checkpoint's gather)."""
     wire = x.detach().to(wire_device(axis.group, x.device), copy=True)
     parts = [torch.empty_like(wire) for _ in range(axis.size)]
     dist.all_gather(parts, wire, group=axis.group)
     return [t.to(x.device) for t in parts]
+
+
+def gather_cat(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` (all of one shape) concatenated along ``dim`` in
+    rank order: an all-gather, counted in :data:`WIRE` by the bytes
+    gathered."""
+    _count(axis, x.numel() * x.element_size() * axis.size)
+    return torch.cat(gather_over(x, axis), dim=dim)
+
+
+def merge_softmax(m: torch.Tensor, s: torch.Tensor, o: torch.Tensor,
+                  axis: Axis) -> torch.Tensor:
+    """The softmax-weighted sum over every rank's slots, from each rank's
+    partial over its own (float32): ``m`` (...,) the slots' largest logit,
+    ``s`` (...,) the sum of ``exp(logit - m)``, ``o`` (..., d) the sum of
+    ``exp(logit - m)·v``.  The ranks' maxima are reduced first, then each
+    rank's ``s`` and ``o`` rescaled by ``exp(m - max)`` and summed in one
+    all-reduce; the division is the last step.  A rank whose slots are all
+    masked (logits ``NEG_INF``, finite) gets weight 0."""
+    top = _reduce(m, axis, dist.ReduceOp.MAX)
+    w = torch.exp(m - top)
+    both = _reduce(torch.cat([(o * w[..., None]).reshape(-1),
+                              (s * w).reshape(-1)]), axis)
+    o_sum, s_sum = both.split([o.numel(), s.numel()])
+    return o_sum.view(o.shape) / s_sum.view(s.shape)[..., None]
+
+
+def vocab_parallel_argmax(logits: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The argmax over the last dim of logits split over the vocabulary
+    (each rank its ``V / M`` columns), as a global index: each rank's
+    first largest column, the ranks' largest value (a max), then the
+    lowest global index holding it (a min).  Ties go to the lowest
+    index, as ``torch.argmax`` and ``jnp.argmax`` break them."""
+    n = logits.shape[-1]
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.take_along_dim(logits, idx[..., None], dim=-1)[..., 0]
+    top = _reduce(val, axis, dist.ReduceOp.MAX)
+    cand = torch.where(val == top, idx + axis.rank * n, n * axis.size)
+    return _reduce(cand, axis, dist.ReduceOp.MIN)
+
+
+def shard_cache(cache: list, mesh) -> list:
+    """This rank's slice of a whole decode cache (one state a layer), each
+    tensor placed by ``sharding.cache_placements`` (the reference's
+    ``cache_shardings`` rule).  A KV cache split over its positions
+    records its place: ``start``, the first slot it holds, and
+    ``capacity``, the whole cache's slots."""
+    from repro_torch.distributed.sharding import (cache_placements,
+                                                  shard_offsets)
+    out = []
+    for state, place in zip(cache, cache_placements(mesh, cache)):
+        new = state._replace(**{
+            f: shard_of(t, mesh, p) for f, t, p in zip(state._fields, state,
+                                                       place)
+            if isinstance(t, torch.Tensor)})
+        if "capacity" in state._fields and new.k.shape[2] != state.k.shape[2]:
+            start = shard_offsets(new.k.shape, mesh, place.k,
+                                  mesh.get_coordinate())[2]
+            new = new._replace(start=start, capacity=state.k.shape[2])
+        out.append(new)
+    return out
 
 
 def parameter_layout(model, mesh) -> dict[str, tuple]:

@@ -34,9 +34,13 @@ What differs from the reference, by design:
     ``param_bytes_per_device`` (computed as the reference does, with the
     rules' FSDP);
   * a cell of the moe, ssm, audio or vlm family waits for tensor
-    parallelism of its family (item 5c), and every decode cell for decode
-    of a split model (item 5d): ``run_cell`` raises, and ``main`` writes
-    the cell as failed, as the reference writes a cell that raises.
+    parallelism of its family (item 5c): ``run_cell`` raises, and ``main``
+    writes the cell as failed, as the reference writes a cell that raises;
+  * a decode cell's logits stay split over the vocabulary and its greedy
+    token comes from ``tensor_parallel.vocab_parallel_argmax``; the KV
+    cache is split as the rules place it (over its positions on both
+    meshes), and the collectives are the port's hand-placed ones
+    (``models/attention.decode_step``), not GSPMD's.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \
@@ -60,10 +64,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import Shard
-from torch.distributed.tensor.placement_types import Placement
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import (keystr, tree_flatten, tree_flatten_with_path,
-                                 tree_unflatten)
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import (SHAPES, ArchConfig, ShapeSpec, cells,
@@ -71,6 +72,7 @@ from repro_torch.configs import (SHAPES, ArchConfig, ShapeSpec, cells,
 from repro_torch.core.roofline import TpuRooflineTerms
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import (DEFAULT_RULES, INFERENCE_RULES,
+                                              cache_logical, cache_placements,
                                               mesh_context, mesh_sizes,
                                               named_sharding, tree_shardings)
 from repro_torch.kernels import _build
@@ -119,42 +121,17 @@ def batch_shardings(mesh, structs: dict) -> dict:
 
 
 def cache_logical_for(name: str, ndim: int, stacked: bool) -> tuple:
-    lead = ("layers",) if stacked else ()
-    n = name.split(".")[-1].strip("'] ").lower()
-    base_nd = ndim - len(lead)
-    if n in ("k", "v") and base_nd == 4:          # KV cache (B, KV, C, hd)
-        return lead + ("batch", "kv_heads", "cache_seq", None)
-    if n in ("cross_k", "cross_v"):               # (L, B, T, KV, hd)
-        return ("layers", "batch", "cache_seq", "kv_heads", None)
-    if n == "pos":
-        return ("layers",) * ndim          # scalar, or (L,) when stacked
-    if n == "h" and base_nd == 2:                 # RG-LRU state (B, W)
-        return lead + ("batch", "mlp")
-    if n == "conv" and base_nd == 3:              # (B, K-1, W)
-        return lead + ("batch", None, "mlp")
-    if n == "s" and base_nd == 4:                 # RWKV state (B, H, n, n)
-        return lead + ("batch", "heads", None, None)
-    if n in ("shift_tm", "shift_cm") and base_nd == 2:
-        return lead + ("batch", None)
-    return (None,) * ndim
+    """``sharding.cache_logical``: the rule serving shares."""
+    return cache_logical(name, ndim, stacked)
 
 
 def cache_shardings(mesh, cache_structs, stacked_names=()) -> Any:
     """The placements of every tensor of a decode cache (same structure;
     any other leaf, a position, kept as it is), each named by its path as
-    jax's ``keystr`` writes it.  The port keeps one cache a layer (a list),
-    so no leaf is stacked unless its path names one of ``stacked_names``."""
-    named, treedef = tree_flatten_with_path(cache_structs)
-    out = []
-    for path, leaf in named:
-        if not isinstance(leaf, torch.Tensor):
-            out.append(leaf)
-            continue
-        pstr = keystr(path)
-        stacked = any(f"'{s}'" in pstr for s in stacked_names)
-        logical = cache_logical_for(pstr, leaf.ndim, stacked)
-        out.append(_shard(mesh, leaf.shape, logical))
-    return tree_unflatten(out, treedef)
+    jax's ``keystr`` writes it (``sharding.cache_placements``).  The port
+    keeps one cache a layer (a list), so no leaf is stacked unless its
+    path names one of ``stacked_names``."""
+    return cache_placements(mesh, cache_structs, stacked_names)
 
 
 def param_bytes_per_device(structs, shardings, mesh) -> int:
@@ -268,12 +245,6 @@ class StepCounter(TorchDispatchMode):
                 "counts": dict(self.coll_counts)}
 
 
-def _is_place(x) -> bool:
-    """A tensor's placements (a leaf of :func:`cache_shardings`' tree)."""
-    return (isinstance(x, tuple) and bool(x)
-            and all(isinstance(p, Placement) for p in x))
-
-
 def _step(cfg: ArchConfig, shape: ShapeSpec, mesh, model, remat: str):
     """The cell's step on this rank's meta slices; returns (the callable,
     model_flops)."""
@@ -300,12 +271,9 @@ def _step(cfg: ArchConfig, shape: ShapeSpec, mesh, model, remat: str):
             return model(batch["tokens"], positions=batch.get("positions"),
                          patches=batch.get("patches"))[0]
         return prefill, model_flops
-    # the whole cache of this rank's rows, then its slice as placed
-    cache = model.init_cache(batch["tokens"].shape[0], shape.seq_len)
-    leaves, treedef = tree_flatten(cache)
-    places = tree_flatten(cache_shardings(mesh, cache), is_leaf=_is_place)[0]
-    cache = tree_unflatten([tp.shard_of(t, mesh, p) if _is_place(p) else t
-                            for t, p in zip(leaves, places)], treedef)
+    # under mesh_context: this rank's slice of the whole batch's cache, as
+    # cache_shardings places it
+    cache = model.init_cache(shape.global_batch, shape.seq_len)
     step_fn = make_decode_step(model, cfg)
     return (lambda: step_fn(cache, batch["tokens"], 0)), model_flops
 
@@ -325,7 +293,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     chips = 512 if multi else 256
     with fake_world(chips):
         mesh = make_production_mesh(multi_pod=multi, device="cpu")
-        # a decode cell raises in the model's decode (ROADMAP item 5d)
         why = tp.model_parallel_todo(cfg, mesh_sizes(mesh)["model"])
         if why is not None:
             raise NotImplementedError(

@@ -11,7 +11,9 @@ time) and mask each slot by the absolute position it holds.
 
 Under ``mesh_context`` with ``wq`` split over heads (the model axis), the
 prefill runs this rank's query heads alone, column-parallel, and ``wo``
-row-parallel (``distributed/tensor_parallel.py``).
+row-parallel (``distributed/tensor_parallel.py``).  Decode also takes a
+cache split over its positions, the rules' placement where ``model`` does
+not divide the KV heads (:func:`decode_step`).
 """
 from __future__ import annotations
 
@@ -52,10 +54,15 @@ def attention_specs(cfg: ArchConfig, *,
 class KVCache(NamedTuple):
     """k/v: (B, Hkv, C, hd); C = the full sequence for global layers, the
     window for local ones.  ``pos``: the next absolute write position (a
-    Python int, shared by the batch)."""
+    Python int, shared by the batch).  A rank's slice of a cache split
+    over its positions (``tensor_parallel.shard_cache``) records its
+    place: ``start``, the first slot of the whole cache it holds, and
+    ``capacity``, the whole cache's slots (0: this cache is whole)."""
     k: torch.Tensor
     v: torch.Tensor
     pos: int
+    start: int = 0
+    capacity: int = 0
 
     @staticmethod
     def init(batch: int, kv_heads: int, capacity: int, head_dim: int,
@@ -175,6 +182,28 @@ def attend_local(p, x: torch.Tensor, cfg: ArchConfig, *,
     return _out(p, out.transpose(1, 2), axis)
 
 
+def _decode_attend(q, k, v, bias, axis=None) -> torch.Tensor:
+    """One token's attention, q (B,1,H,hd) over k/v (B,KV,C,hd) with the
+    additive ``bias`` (C,): f32 logits and softmax, GQA by grouping the
+    query heads of each KV head.  With ``axis`` (the cache split over its
+    positions along it), this rank's slots' partial, merged over the axis
+    (``tensor_parallel.merge_softmax``).  Returns (B,1,H,hd) in f32."""
+    b, _, h, hd = q.shape
+    kv = k.shape[1]
+    scale = torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    qg = (q.float() / scale.to(q.device)).reshape(b, 1, kv, h // kv, hd)
+    logits = torch.einsum("bskgd,bktd->bkgst", qg, k.float()) + bias
+    if axis is None:
+        pr = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bkgst,bktd->bskgd", pr, v.float())
+        return out.reshape(b, 1, h, hd)
+    m = logits.amax(-1)                                     # (B,KV,G,1)
+    e = torch.exp(logits - m[..., None])
+    o = torch.einsum("bkgst,bktd->bkgsd", e, v.float())
+    out = tp.merge_softmax(m, e.sum(-1), o, axis)           # (B,KV,G,1,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
+
+
 def decode_step(p, x: torch.Tensor, cache: KVCache, cfg: ArchConfig, *,
                 window: int = 0, positions=None
                 ) -> tuple[torch.Tensor, KVCache]:
@@ -186,27 +215,50 @@ def decode_step(p, x: torch.Tensor, cache: KVCache, cfg: ArchConfig, *,
     ``pos``.  The slot is clamped to the capacity, as
     ``jax.lax.dynamic_update_slice`` clamps it.  The cache's k/v are updated
     in place (the returned cache holds the same tensors) to spare a copy of
-    the cache per token."""
+    the cache per token.
+
+    Under ``mesh_context``, the layout follows the cache's recorded place
+    and the split of ``wq``/``wk`` (``tensor_parallel.shard_cache`` places
+    the cache by the rules):
+    (a) the cache split over KV heads, as ``wk`` is: this rank's query
+        heads over its KV heads' whole cache, ``wo`` row-parallel;
+    (b) the cache split over its positions, ``wq`` split over heads: every
+        head's query gathered, k/v of every KV head written by the slot's
+        owner alone, each rank's slots attended by every head and the
+        partials merged, then this rank's heads through ``wo``
+        row-parallel;
+    (c) the cache split over its positions, ``wq`` whole: as (b) with no
+        gather and ``wo`` whole.
+    A whole cache with ``wq`` split reads the KV heads this rank's queries
+    read (``tensor_parallel.kv_select``)."""
     b, s1, _ = x.shape
     if s1 != 1:
         raise ValueError(f"decode_step takes one token, got {s1}")
-    if _head_axis(p, cfg) is not None:
-        raise ValueError("decode of a model split over heads is not "
-                         f"ported ({tp.SPLIT_DECODE_TODO}): serving runs "
-                         "the whole model")
+    heads = _head_axis(p, cfg)
     q, k_new, v_new = _project(p, x, cfg)
     pos = cache.pos
     pos_arr = (torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
                if positions is None else positions)
     q, k_new = _rope_qk(q, k_new, cfg, pos_arr)
 
-    cap = cache.k.shape[2]
-    slot = min(pos % window if window else pos, cap - 1)
     k, v = cache.k, cache.v
-    k[:, :, slot] = k_new[:, 0]
-    v[:, :, slot] = v_new[:, 0]
+    kv, cap = k.shape[1], k.shape[2]
+    whole = cache.capacity or cap
+    slots = tp.split_axis(cap, whole)      # the cache split over positions
+    if k_new.shape[2] != kv or (slots is not None
+                                and kv != cfg.num_kv_heads):
+        raise ValueError(
+            f"a cache of {kv} KV heads and {cap} of {whole} slots does not "
+            f"fit wk's {k_new.shape[2]} KV heads of {cfg.num_kv_heads}: "
+            "place it with tensor_parallel.shard_cache (LM.init_cache "
+            "under mesh_context)")
+    # the slot in the whole cache; only the rank that holds it writes
+    slot = min(pos % window if window else pos, whole - 1) - cache.start
+    if 0 <= slot < cap:
+        k[:, :, slot] = k_new[:, 0]
+        v[:, :, slot] = v_new[:, 0]
 
-    idx = torch.arange(cap, device=x.device)
+    idx = cache.start + torch.arange(cap, device=x.device)
     if window:
         # absolute position held by ring slot i = the latest write time t
         # with t <= pos and t % window == i; negative -> never written.
@@ -215,12 +267,18 @@ def decode_step(p, x: torch.Tensor, cache: KVCache, cfg: ArchConfig, *,
         visible = idx <= pos
     bias = torch.where(visible, 0.0, NEG_INF)                  # (C,)
 
-    kv = k.shape[1]
-    group = q.shape[2] // kv
-    scale = torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32))
-    qg = (q.float() / scale.to(x.device)).reshape(b, 1, kv, group, -1)
-    logits = torch.einsum("bskgd,bktd->bkgst", qg, k.float()) + bias
-    pr = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,bktd->bskgd", pr, v.float())
-    out = out.reshape(b, 1, q.shape[2], q.shape[3]).to(x.dtype)
-    return _out(p, out), KVCache(k, v, pos + 1)
+    new = cache._replace(k=k, v=v, pos=pos + 1)
+    if slots is None:
+        if heads is not None and kv == cfg.num_kv_heads:
+            sel, _ = tp.kv_select(q.shape[2], kv, cfg.q_per_kv, heads)
+            if sel != list(range(kv)):
+                k, v = k[:, sel], v[:, sel]
+        out = _decode_attend(q, k, v, bias)
+        return _out(p, out.to(x.dtype), heads), new
+    h = q.shape[2]
+    if heads is not None:
+        q = tp.gather_cat(q, heads, dim=2)
+    out = _decode_attend(q, k, v, bias, slots).to(x.dtype)
+    if heads is not None:
+        out = out.narrow(2, heads.rank * h, h)
+    return _out(p, out, heads), new

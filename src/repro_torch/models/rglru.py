@@ -20,6 +20,8 @@ Under ``mesh_context`` with the width split over ``mlp`` (the model axis):
 ``W / M`` channels), the gate products row-parallel partial sums reduced
 and sliced back to this rank's channels (``wa``/``wx`` split on their
 input dim only), ``ba``/``bx``/``lam`` sliced, ``w_out`` row-parallel.
+Decode runs the same split, its state (h and the conv's trailing inputs)
+this rank's channels.
 """
 from __future__ import annotations
 
@@ -130,12 +132,15 @@ def _width_axis(p, cfg: ArchConfig) -> tp.Axis | None:
 
 def rglru_decode(p, x: torch.Tensor, state: RGLRUState,
                  cfg: ArchConfig) -> tuple[torch.Tensor, RGLRUState]:
-    """Single-token decode. x: (B, 1, D)."""
-    if _width_axis(p, cfg) is not None:
-        raise ValueError("decode of a model split over the recurrence's "
-                         f"width is not ported ({tp.SPLIT_DECODE_TODO}): "
-                         "serving runs the whole model")
+    """Single-token decode. x: (B, 1, D).  With the width split over the
+    model axis, as :func:`rglru_block` runs it: ``state`` holds this
+    rank's channels ((B, W/M) and (B, K-1, W/M),
+    ``tensor_parallel.shard_cache``), and ``w_out`` runs row-parallel."""
     gelu = activation("gelu")
+    axis = _width_axis(p, cfg)
+    if axis is not None:
+        x = tp.copy_in(x, axis)
+        p = tp.enter(p, rglru_specs(cfg), axis)
     branch = (x @ p["w_in"].to(x.dtype))[:, 0]
     gate = (x @ p["w_gate_branch"].to(x.dtype))[:, 0]
     win = torch.cat([state.conv, branch[:, None, :]], dim=1)      # (B, K, W)
@@ -144,7 +149,10 @@ def rglru_decode(p, x: torch.Tensor, state: RGLRUState,
     log_a, b = _gates(p, xc)
     h = torch.exp(log_a) * state.h.float() + b
     y = h.to(x.dtype) * gelu(gate.float()).to(x.dtype)
-    out = (y @ p["w_out"].to(x.dtype))[:, None, :]
+    if axis is not None:
+        out = tp.row_parallel(y, p["w_out"], axis)[:, None, :]
+    else:
+        out = (y @ p["w_out"].to(x.dtype))[:, None, :]
     return out, RGLRUState(h=h.to(state.h.dtype), conv=win[:, 1:, :])
 
 

@@ -21,7 +21,10 @@ on it.
 Under ``mesh_context`` with the table split over ``vocab`` (the model
 axis), the embedding is vocabulary-parallel (a masked lookup, then a sum
 over the ranks) and the logits stay split over the vocabulary: the train
-step's cross entropy takes them so (``tensor_parallel.vocab_parallel_xent``).
+step's cross entropy takes them so (``tensor_parallel.vocab_parallel_xent``),
+and so does decode's greedy token (``tensor_parallel.vocab_parallel_argmax``).
+``init_cache`` under ``mesh_context`` gives this rank's slice of the cache
+as the rules place it (``tensor_parallel.shard_cache``).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils._pytree import tree_map
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -301,9 +305,9 @@ class LM(nn.Module):
 
     # ----- serving ----------------------------------------------------------
     def _cache_for(self, kind: str, batch: int, cache_len: int,
-                   dtype: torch.dtype):
+                   dtype: torch.dtype, dev):
         cfg = self.cfg
-        hd, dev = cfg.resolved_head_dim, self.embed.device
+        hd = cfg.resolved_head_dim
         if kind == "attn":
             return KVCache.init(batch, cfg.num_kv_heads, cache_len, hd, dtype,
                                 dev)
@@ -319,10 +323,20 @@ class LM(nn.Module):
     def init_cache(self, batch: int, cache_len: int) -> list:
         """One state per layer: a KVCache of ``cache_len`` slots for global
         attention, a ring buffer of ``min(cache_len, window)`` for local
-        attention, an RGLRUState or an RWKVState for recurrent layers."""
+        attention, an RGLRUState or an RWKVState for recurrent layers.
+        Under ``mesh_context``: this rank's slice of the cache of ``batch``
+        rows (``tensor_parallel.shard_cache``), made without the whole."""
         dtype = getattr(torch, self.cfg.dtype)
-        return [self._cache_for(layer.kind, batch, cache_len, dtype)
-                for layer in self.layers]
+        mesh = tp.ambient_mesh()
+        dev = self.embed.device if mesh is None else "meta"
+        cache = [self._cache_for(layer.kind, batch, cache_len, dtype, dev)
+                 for layer in self.layers]
+        if mesh is None:
+            return cache
+        dev = self.embed.device
+        return tree_map(lambda t: torch.zeros_like(t, device=dev)
+                        if isinstance(t, torch.Tensor) else t,
+                        tp.shard_cache(cache, mesh))
 
     def decode(self, cache: list, tokens: torch.Tensor, *, positions=None
                ) -> tuple[torch.Tensor, list]:

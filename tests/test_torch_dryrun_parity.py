@@ -22,6 +22,28 @@ analysis also counts every elementwise op and reduction, of which the
 softmax over each head's (4096, 4096) scores is the largest here (a few
 percent of the total at width 256), so the port's count is expected below
 the reference's by that much.
+
+The decode cell ``tinyllama-1.1b x decode_32k`` on the single mesh at the
+same ``OVERRIDES`` (16 heads, 4 KV heads, head_dim 16): equal
+``param_count``, ``param_bytes_per_device`` (27,648), ``model_flops``
+(2.76824064e8) and keys.  Its ``flops_per_device`` and collective bytes
+are printed beside the reference's (2.994448e7; 270,880 B, of which
+208,384 B the FSDP gathers the port does not place, item 5b) and held,
+set before the first run, to the counts worked out from the shapes.  A
+rank holds 8 of the 128 rows, 1 of the 16 query heads, all 4 KV heads
+(4 does not split 16 ways), 2,048 of the cache's 32,768 slots, 32 of the
+512 MLP columns and 64 of the 1,024 vocabulary rows; activations bf16:
+- products (``DECODE_FLOPS``, 2·M·N·K each): wq 2·8·256·16 = 65,536; wk
+  and wv 2·8·256·64 each, 524,288; every head's scores and weighted sum
+  over the rank's slots, 2·(8·4·4)·2,048·16 each, 16,777,216; wo
+  2·8·16·256 = 65,536; the MLP's three 2·8·256·32, 393,216; the logits
+  2·8·256·64 = 262,144; in all 18,087,936;
+- collectives (``DECODE_COLLECTIVES``, per device, f32 unless named):
+  all-reduces of the embedding's rows 8·256·4 = 8,192 B, the softmax
+  maxima 8·16·4 = 512, the rescaled outputs and sums (8·16·16 + 8·16)·4
+  = 8,704, wo's and the MLP's partial sums 8,192 each, the greedy token's
+  max (8·4 = 32) and min (int64, 8·8 = 64): 33,888 B in 7 calls; the
+  all-gather of the query heads, 16 ranks' 8·16 bf16, 4,096 B in 1 call.
 """
 import dataclasses
 import json
@@ -44,9 +66,13 @@ from repro_torch.launch import dryrun  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 CELL = ("tinyllama-1.1b", "train_4k", "single")
+DECODE_CELL = ("tinyllama-1.1b", "decode_32k", "single")
 OVERRIDES = {"num_layers": 1, "d_model": 256, "num_heads": 16,
              "num_kv_heads": 4, "d_ff": 512, "vocab_size": 1024}
 FLOPS_RTOL = 0.2
+DECODE_FLOPS = 18_087_936
+DECODE_COLLECTIVES = {"by_op": {"all-reduce": 33_888, "all-gather": 4_096},
+                      "counts": {"all-reduce": 7, "all-gather": 1}}
 REF_TIMEOUT_S = 300
 
 _REFERENCE = r"""
@@ -78,15 +104,13 @@ with open(out + "/helpers.json", "w") as f:
 """
 
 
-@pytest.fixture(scope="module")
-def ref(tmp_path_factory):
-    out = tmp_path_factory.mktemp("dryrun_ref")
+def _run_reference(out, cell):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
                JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run(
         [sys.executable, "-c", _REFERENCE,
-         json.dumps([CELL, OVERRIDES, str(out)])], env=env, cwd=REPO,
+         json.dumps([cell, OVERRIDES, str(out)])], env=env, cwd=REPO,
         capture_output=True, text=True, timeout=REF_TIMEOUT_S)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return (json.loads((out / "record.json").read_text()),
@@ -95,8 +119,24 @@ def ref(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    return _run_reference(tmp_path_factory.mktemp("dryrun_ref"), CELL)
+
+
+@pytest.fixture(scope="module")
+def ref_decode(tmp_path_factory):
+    return _run_reference(tmp_path_factory.mktemp("dryrun_ref_decode"),
+                          DECODE_CELL)[0]
+
+
+@pytest.fixture(scope="module")
 def port():
     return dryrun.run_cell(*CELL, overrides=OVERRIDES)
+
+
+@pytest.fixture(scope="module")
+def port_decode():
+    return dryrun.run_cell(*DECODE_CELL, overrides=OVERRIDES)
 
 
 def test_counts_and_keys_equal(ref, port):
@@ -114,6 +154,32 @@ def test_flops_per_device_within_tolerance(ref, port):
     print(f"flops_per_device: port {got:.6e}, reference {want:.6e}, "
           f"port / reference {got / want:.6f}")
     assert abs(got - want) <= FLOPS_RTOL * want
+
+
+def test_decode_counts_and_keys_equal(ref_decode, port_decode):
+    assert set(port_decode) == set(ref_decode)
+    for key in ("param_count", "param_bytes_per_device", "model_flops",
+                "arch", "shape", "mesh", "kind", "chips", "ok",
+                "scan_correction", "wkv_analytic_flops"):
+        assert port_decode[key] == ref_decode[key], key
+    assert port_decode["param_bytes_per_device"] == 27_648
+    assert port_decode["model_flops"] == 2.76824064e8
+
+
+def test_decode_flops_and_collectives_from_the_shapes(ref_decode,
+                                                      port_decode):
+    got, want = port_decode, ref_decode
+    print(f"decode flops_per_device: port {got['flops_per_device']:.6e}, "
+          f"reference {want['flops_per_device']:.6e}; collective bytes: "
+          f"port {got['collective_bytes_per_device']} "
+          f"{got['collective_by_op']}, reference "
+          f"{want['collective_bytes_per_device']} "
+          f"{want['collective_by_op']}")
+    assert got["flops_per_device"] == DECODE_FLOPS
+    assert got["collective_by_op"] == DECODE_COLLECTIVES["by_op"]
+    assert got["collective_counts"] == DECODE_COLLECTIVES["counts"]
+    assert got["collective_bytes_per_device"] == sum(
+        DECODE_COLLECTIVES["by_op"].values())
 
 
 def test_cells_equal():

@@ -100,6 +100,12 @@ DIFFERENCES = {
     "kernels.stencil2d.ops.plan_2d_blocks": Diff(
         PLANNER, dropped=("bytes_per_elem", "vmem_budget"),
         added=("smem_budget",)),
+    "models.attention.KVCache": Diff(
+        "a rank's slice of a cache split over its positions records its "
+        "place: start, the first slot of the whole cache it holds, and "
+        "capacity, the whole cache's slots (0: whole); both default, so "
+        "KVCache(k, v, pos) builds a whole cache", added=("start",
+                                                          "capacity")),
     "models.attention.KVCache.init": Diff(DEVICE, added=("device",)),
     "models.common.sinusoidal_positions": Diff(DEVICE, added=("device",)),
     "models.rglru.rglru_init_state": Diff(DEVICE, added=("device",)),
@@ -148,8 +154,10 @@ DIFFERENCES = {
         "every layer counted); FSDP over data not ported (ROADMAP item "
         "5b): the step's placement is the model-axis splits, training's "
         "and serving's alike, param_bytes_per_device counts the rules' "
-        "FSDP; a moe/ssm/audio/vlm cell raises (item 5c), a decode cell "
-        "raises in the split model's decode (item 5d)", contract=True),
+        "FSDP; a moe/ssm/audio/vlm cell raises (item 5c); a decode cell "
+        "decodes on the rank's slice of the cache its placements give, "
+        "its logits split over the vocabulary and its token their "
+        "vocabulary-parallel argmax", contract=True),
     "launch.dryrun.main": Diff(
         "writes results/dryrun_torch/ (the reference: results/dryrun/); "
         "an ok cell's line also names the K5/K6 launches counted on meta",
@@ -259,6 +267,29 @@ def test_signatures_match_the_reference(module):
         ref_params = [(n, k, defaults.get(n, d))
                       for n, k, d in _params(want[name], diff.dropped)]
         assert _params(got[name], diff.added) == ref_params, key
+
+
+def test_record_fields_match_the_reference():
+    """Every public NamedTuple of a shared module has the reference's
+    fields in its order, with its defaults, and only the fields its
+    ``DIFFERENCES`` record adds, after them."""
+    seen = 0
+    for module in SHARED:
+        ref = _reference(module)
+        port = importlib.import_module(f"repro_torch.{module}")
+        for name, obj in vars(ref).items():
+            if (name.startswith("_") or not inspect.isclass(obj)
+                    or obj.__module__ != ref.__name__
+                    or not hasattr(obj, "_fields")):
+                continue
+            seen += 1
+            got = getattr(port, name)
+            added = DIFFERENCES.get(f"{module}.{name}", Diff("")).added
+            assert got._fields == obj._fields + tuple(added), name
+            assert {k: _default(v) for k, v in got._field_defaults.items()
+                    if k not in added} == {
+                k: _default(v) for k, v in obj._field_defaults.items()}, name
+    assert seen >= 5
 
 
 def test_every_recorded_difference_is_of_a_shared_function():

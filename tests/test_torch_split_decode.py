@@ -1,0 +1,272 @@
+"""Decode of a model split over the ``model`` axis, on the CPU, no jax: gloo
+worlds from ``run_local_world``, each rank holding its slice of the
+weights (``tensor_parallel.shard_parameters``) and of the cache
+(``LM.init_cache`` under ``mesh_context``, placed by the reference's
+``cache_shardings`` rule), decoding the same tokens from an empty cache
+through ``make_decode_step``; held to the whole model's decode in this
+process.
+
+The layouts (reduced configs, float32 activations):
+- tinyllama-1.1b (4 heads, 2 KV heads) at (1, 2): the cache split over
+  KV heads, as ``wk`` is: layout (a); at (2, 2) the same with the batch
+  split over ``data``;
+- tinyllama at (1, 4): 2 KV heads do not split 4 ways, so the cache is
+  split over its positions, ``wq`` over heads: layout (b); 20 tokens in
+  48 slots leave ranks 2 and 3 without a visible slot;
+- recurrentgemma-2b (2 heads, 1 KV head, window 32) at (1, 2) and (2, 2):
+  its ring buffer split over positions, heads split: (b) on the ring;
+- recurrentgemma-2b at (1, 4): 2 heads do not split 4 ways, ``wq`` whole:
+  layout (c), the RG-LRU width (64) split 4 ways.
+Every recurrentgemma case decodes 40 tokens, past the window, so the ring
+wraps from the last rank's slots to the first's.
+
+Tolerances, set before the runs: every step's logits, gathered over the
+vocabulary and the batch, within ``LOGITS_TOL`` 1e-5 of the whole model's
+(float32; a split product sums its parts in another order and the
+softmax is merged from the ranks' partials); every greedy token equal.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_reduced_config
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import mesh_context, named_sharding
+from repro_torch.launch.mesh import make_local_mesh, run_local_world
+from repro_torch.models.attention import KVCache, decode_step
+from repro_torch.models.registry import build_model
+from repro_torch.serving.serve_step import make_decode_step
+
+WORLD_TIMEOUT_S = 300
+LOGITS_TOL = 1e-5
+SEED = 0
+TL, RG = "tinyllama-1.1b", "recurrentgemma-2b"
+# name -> (arch, data, model, batch, tokens decoded, cache_len, layout)
+CASES = {
+    "tl_1x2": (TL, 1, 2, 2, 12, 48, "a"),
+    "tl_2x2": (TL, 2, 2, 4, 12, 48, "a"),
+    "tl_1x4": (TL, 1, 4, 2, 20, 48, "b"),
+    "rg_1x2": (RG, 1, 2, 2, 40, 64, "b"),
+    "rg_2x2": (RG, 2, 2, 4, 40, 64, "b"),
+    "rg_1x4": (RG, 1, 4, 2, 40, 64, "c"),
+}
+# planted ties for the vocabulary-parallel argmax: 4 rows of 8 columns,
+# split 4 ways (2 columns a rank)
+TIES = [[1, 5, 5, 0, 5, 2, 5, 1],       # a tie inside rank 0 and across
+        [0, 0, 0, 0, 0, 0, 0, 0],       # every column
+        [0, 1, 2, 3, 4, 9, 9, 9],       # rank 2's second and rank 3's
+        [7, 1, 1, 1, 1, 1, 1, 7]]       # the first and last columns
+
+
+def _model(arch: str):
+    cfg = get_reduced_config(arch)
+    model = build_model(cfg, device="cpu")
+    model.init(torch.Generator().manual_seed(SEED))
+    return cfg, model
+
+
+def _tokens(cfg, batch: int, steps: int) -> torch.Tensor:
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, steps)))
+
+
+def _decode(model, cfg, tokens: torch.Tensor, batch: int, cache_len: int):
+    """Each step's logits and greedy token of ``tokens`` (this rank's rows
+    of ``batch``), with the cache's layout after the first step: per
+    layer, (k's shape, start, capacity) or the RG-LRU state's shapes."""
+    step = make_decode_step(model, cfg)
+    cache = model.init_cache(batch, cache_len)
+    logits, nxt, layout = [], [], None
+    for t in range(tokens.shape[1]):
+        n, lg, cache = step(cache, tokens[:, t:t + 1], t)
+        logits.append(lg)
+        nxt.append(n)
+        if layout is None:
+            layout = [(tuple(c.k.shape), c.start, c.capacity)
+                      if isinstance(c, KVCache)
+                      else (tuple(c.h.shape), tuple(c.conv.shape))
+                      for c in cache]
+    return torch.cat(logits, 1), torch.cat(nxt, 1), layout
+
+
+def rank_decode(cases: dict) -> dict:
+    """Every case of one world in this rank: the gathered logits and
+    tokens, the cache layout, the local query heads; in the 4-rank world
+    also the planted ties' argmax and :func:`rank_slice`."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, (arch, d, m, batch, steps, cache_len, _) in cases.items():
+        cfg, model = _model(arch)
+        mesh = make_local_mesh(d, m, device="cpu")
+        tp.shard_parameters(model, tp.parameter_layout(model, mesh), mesh)
+        tokens = _tokens(cfg, batch, steps)
+        rows = named_sharding(tuple(tokens.shape), ("batch", None), mesh)
+        with mesh_context(mesh), torch.inference_mode():
+            logits, nxt, layout = _decode(model, cfg,
+                                          tp.shard_of(tokens, mesh, rows),
+                                          batch, cache_len)
+        cols = named_sharding((batch, steps, cfg.vocab_size),
+                              ("batch", None, "vocab"), mesh)
+        out[name] = {"logits": tp.whole_of(logits, mesh, cols),
+                     "tokens": tp.whole_of(nxt, mesh, rows),
+                     "layout": layout,
+                     "heads": [blk.attn["wq"].shape[1]
+                               for blk in model.layers
+                               if blk.kind in ("attn", "local")][0]}
+        if (d, m) == (1, 4):
+            axis = tp.mesh_axis("model", mesh)
+            ties = torch.tensor(TIES, dtype=torch.float32)
+            out["argmax"] = tp.vocab_parallel_argmax(
+                tp.local_slice(ties, axis), axis)
+            out["slice"] = rank_slice()
+    return out
+
+
+def rank_slice() -> dict:
+    """One local-attention layer of reduced recurrentgemma-2b (``wq``
+    whole) decoded on this rank's slice of its ring at (1, 4): the
+    outputs of 40 tokens."""
+    cfg, model = _model(RG)
+    mesh = make_local_mesh(1, 4, device="cpu")
+    tp.shard_parameters(model, tp.parameter_layout(model, mesh), mesh)
+    blk = [b for b in model.layers if b.kind == "local"][0]
+    x = _layer_inputs(cfg)
+    outs = []
+    with mesh_context(mesh), torch.inference_mode():
+        cache = tp.shard_cache([KVCache.init(1, 1, cfg.window,
+                                             cfg.resolved_head_dim,
+                                             torch.float32)], mesh)[0]
+        for t in range(x.shape[1]):
+            y, cache = decode_step(blk.attn, x[:, t:t + 1], cache, cfg,
+                                   window=cfg.window)
+            outs.append(y)
+    return {"out": torch.cat(outs, 1), "k": tuple(cache.k.shape),
+            "start": cache.start, "capacity": cache.capacity}
+
+
+def _layer_inputs(cfg) -> torch.Tensor:
+    rng = np.random.default_rng(SEED + 1)
+    return torch.from_numpy(rng.standard_normal(
+        (1, 40, cfg.d_model)).astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def worlds():
+    torch.set_num_threads(2)
+    two = {n: c for n, c in CASES.items() if c[1] * c[2] == 2}
+    four = {n: c for n, c in CASES.items() if c[1] * c[2] == 4}
+    return {2: run_local_world(rank_decode, 2, two,
+                               timeout=WORLD_TIMEOUT_S),
+            4: run_local_world(rank_decode, 4, four,
+                               timeout=WORLD_TIMEOUT_S)}
+
+
+@pytest.fixture(scope="module")
+def whole():
+    """The whole model's decode of every case's tokens, in this process."""
+    out = {}
+    for name, (arch, _, _, batch, steps, cache_len, _) in CASES.items():
+        cfg, model = _model(arch)
+        with torch.inference_mode():
+            out[name] = _decode(model, cfg, _tokens(cfg, batch, steps),
+                                batch, cache_len)
+    return out
+
+
+def _ranks(name, worlds):
+    _, d, m = CASES[name][:3]
+    return worlds[d * m]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_split_decode_matches_the_whole_model(name, worlds, whole):
+    want_logits, want_tokens, _ = whole[name]
+    for rank in _ranks(name, worlds):
+        got = rank[name]
+        assert got["logits"].shape == want_logits.shape
+        err = (got["logits"] - want_logits).abs().max().item()
+        assert err <= LOGITS_TOL, (name, err)
+        assert torch.equal(got["tokens"], want_tokens), name
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_split_decode_layout_is_the_rules(name, worlds):
+    """The cache each rank decodes on is the rules' slice: layout (a)
+    splits the KV heads, (b) and (c) the positions (start and capacity
+    recorded); (c) keeps every query head; the RG-LRU state holds the
+    rank's channels."""
+    arch, d, m, batch, _, cache_len, layout = CASES[name]
+    cfg = get_reduced_config(arch)
+    rows = batch // d
+    heads_split = cfg.num_heads % m == 0
+    for r, rank in enumerate(_ranks(name, worlds)):
+        got = rank[name]
+        assert got["heads"] == (cfg.num_heads // m if heads_split
+                                else cfg.num_heads)
+        assert (layout == "c") == (not heads_split)
+        col = r % m
+        for kind, state in zip([cfg.kind_of_layer(i)
+                                for i in range(cfg.num_layers)],
+                               got["layout"]):
+            if kind == "rglru":
+                w = cfg.lru_width // m
+                assert state == ((rows, w), (rows, cfg.conv_width - 1, w))
+                continue
+            slots = min(cache_len, cfg.window) if kind == "local" \
+                else cache_len
+            hd = cfg.resolved_head_dim
+            if layout == "a":
+                assert state == ((rows, cfg.num_kv_heads // m, slots, hd),
+                                 0, 0)
+            else:
+                assert state == ((rows, cfg.num_kv_heads, slots // m, hd),
+                                 col * slots // m, slots)
+
+
+def test_vocab_parallel_argmax_breaks_ties_low(worlds):
+    want = torch.argmax(torch.tensor(TIES, dtype=torch.float32), dim=-1)
+    assert want.tolist() == [1, 0, 5, 0]
+    for rank in worlds[4]:
+        assert torch.equal(rank["argmax"], want)
+
+
+def test_local_attention_on_a_position_slice(worlds):
+    """recurrentgemma's local attention (``wq`` whole: 2 heads over 4
+    ranks) decoded on each rank's quarter of its 32-slot ring, 40 tokens
+    (past the window), equals the whole layer's decode: each rank masks
+    its slots by their global indices and the partials are merged.  Given
+    the slice as if it were a whole ring of 8 slots, a decode would attend
+    the wrong positions and return a wrong answer with no error."""
+    cfg, model = _model(RG)
+    blk = [b for b in model.layers if b.kind == "local"][0]
+    x = _layer_inputs(cfg)
+    cache = KVCache.init(1, 1, cfg.window, cfg.resolved_head_dim,
+                         torch.float32)
+    want = []
+    with torch.inference_mode():
+        for t in range(x.shape[1]):
+            y, cache = decode_step(blk.attn, x[:, t:t + 1], cache, cfg,
+                                   window=cfg.window)
+            want.append(y)
+    want = torch.cat(want, 1)
+    for r, rank in enumerate(worlds[4]):
+        got = rank["slice"]
+        assert (got["k"], got["start"], got["capacity"]) == (
+            (1, 1, 8, cfg.resolved_head_dim), 8 * r, cfg.window)
+        err = (got["out"] - want).abs().max().item()
+        assert err <= LOGITS_TOL, (r, err)
+
+
+def test_a_slice_outside_its_mesh_raises():
+    """A cache that records a place (a quarter of 32 slots) cannot decode
+    outside a mesh of that split: the slice is never taken for a whole
+    ring of 8."""
+    cfg, model = _model(RG)
+    blk = [b for b in model.layers if b.kind == "local"][0]
+    whole = KVCache.init(1, 1, cfg.window, cfg.resolved_head_dim,
+                         torch.float32)
+    part = whole._replace(k=whole.k[:, :, 8:16], v=whole.v[:, :, 8:16],
+                          start=8, capacity=cfg.window)
+    x = _layer_inputs(cfg)[:, :1]
+    with pytest.raises(ValueError, match="model axis"):
+        decode_step(blk.attn, x, part, cfg, window=cfg.window)
