@@ -211,21 +211,27 @@ CPU.
    read just after) equal to ``train_launches`` for 3 layers, its
    parameter elements equal to ``resolve_spec``'s split, step ms, peak
    memory and the bytes all-reduced per step over the data and the model
-   group (``tensor_parallel.wire_bytes``).  Gloo carries every collective
-   through the host; NCCL between cards stays unmeasured on one card
-   (``train_parallel_note``).
+   group (``tensor_parallel.wire_bytes``).  Then Granite-MoE-3B-A800M at
+   full width (d_model 1536, 40 experts top-8 of d_ff 512, 24/8 heads,
+   vocab 49,155), 2 layers, the same types and remat, on (2, 2048): one
+   rank, then 2 gloo ranks at (1, 2) (20 experts and 12 heads a rank, the
+   vocabulary whole), held the same way, no kernel launched
+   (``PAR_CASES``).  Gloo carries every collective through the host; NCCL
+   between cards stays unmeasured on one card (``train_parallel_note``).
 
 11a. The ``split_decode`` phase (``split_decode_phase``): decode of a
    model split over the model axis.  RecurrentGemma-2B at full width, one
-   period (rglru, rglru, local), and tinyllama-1.1b at full width, 2
-   layers, both f32 weights and activations, each decoding
+   period (rglru, rglru, local), tinyllama-1.1b and Granite-MoE-3B-A800M
+   at full width, 2 layers, all f32 weights and activations, each decoding
    ``SPLIT_TOKENS`` (64) seeded tokens a row of a batch of 2 from an empty
    cache through ``make_decode_step``: in this process (one rank), then on
    2 gloo ranks sharing the card at (1, 2), each rank's weights and cache
    (``LM.init_cache`` under ``mesh_context``) its slices by the rules.
    RecurrentGemma's ring of 2048 slots is split over its positions (1024
    a rank), its 10 heads 5 a rank, its RG-LRU width 1280 a rank (layout
-   (b)); tinyllama's cache over its 4 KV heads, 2 a rank (layout (a)).
+   (b)); tinyllama's cache over its 4 KV heads, 2 a rank (layout (a));
+   Granite's over its 8 KV heads, 4 a rank (layout (a)), 20 of its 40
+   experts a rank.
    Each case's logits, gathered, within ``SPLIT_TOL`` (1e-3) of one
    rank's at every step, the greedy tokens equal, each rank's cache
    layout the rules' and no kernel launched; ms a step, one rank against
@@ -234,9 +240,11 @@ CPU.
 
 12. The ``dryrun`` phase (``dryrun_phase``, ~20-40 s on the host's CPU):
    ``launch.dryrun.run_cell`` in a subprocess with the card hidden, on
-   four cells of the single production mesh (16 x 16 = 256 ranks):
+   five cells of the single production mesh (16 x 16 = 256 ranks):
    tinyllama-1.1b x train_4k, recurrentgemma-2b x prefill_32k,
-   recurrentgemma-2b x train_4k and recurrentgemma-2b x decode_32k, each
+   recurrentgemma-2b x train_4k, recurrentgemma-2b x decode_32k and
+   granite-moe-3b-a800m x train_4k (40 experts over 16 ranks: each
+   expert whole with 32 of its 512 d_ff columns), each
    run as rank 0 of a fake process group on meta tensors at published
    width and depth.  Each record's
    ``ok``, flops, bytes, parameter and collective bytes a device and its
@@ -245,7 +253,7 @@ CPU.
    what the lm phase's prefill (K5 18, K6 8), one step of the train
    phase (K5 36, ``conv1d_bwd`` 18, K6 16, each K6-bwd kernel 8) and the
    split_decode phase's decode (none) launched on the card, and
-   tinyllama's must be none.
+   tinyllama's and granite's must be none.
 
 Any build error, launch error, mismatch or kernel that its path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
@@ -2704,8 +2712,15 @@ def distributed_phase(seed: int, failures: list[str]) -> None:
 
 
 # -- the trainer's parallel slice: data and tensor parallel on the card -------
-PAR_LAYOUTS = ((2, 1), (1, 2))          # (data, model): 2 gloo ranks each
-PAR_BATCH, PAR_SEQ, PAR_STEPS = 2, 4096, 3
+PAR_STEPS = 3
+MOE_ARCH = "granite-moe-3b-a800m"
+# name -> (arch, layers, (batch, seq), layouts (data, model) of 2 gloo
+# ranks).  RecurrentGemma-2B's one period through K5, K6 and their
+# backward; Granite-MoE-3B-A800M's 2 layers at (1, 2): 20 of its 40
+# experts (EP) and 12 of its 24 heads a rank, its 49,155-row vocabulary
+# (odd) whole, no kernel on its path
+PAR_CASES = {ARCH: (ARCH, STEP_LAYERS, (2, 4096), ((2, 1), (1, 2))),
+             MOE_ARCH: (MOE_ARCH, 2, (2, 2048), ((1, 2),))}
 PAR_TIMEOUT_S = 600
 # each step's loss of a layout against the one-rank run's, relative, set
 # before the first run on the card: bf16 activations at full width, where
@@ -2715,14 +2730,20 @@ PAR_TIMEOUT_S = 600
 PAR_LOSS_RTOL = 1e-3
 
 
-def par_argv(seed: int, data: int, model: int) -> list[str]:
-    """launch.train's command for one period (3 layers) of
-    RecurrentGemma-2B at full width, f32 weights, bf16 activations."""
-    return ["--arch", ARCH, "--override", f"num_layers={STEP_LAYERS}",
-            "--steps", str(PAR_STEPS), "--batch", str(PAR_BATCH), "--seq",
-            str(PAR_SEQ), "--remat", TRAIN_REMAT, "--data-pattern", "markov",
+def par_argv(name: str, seed: int, data: int, model: int) -> list[str]:
+    """launch.train's command for PAR_CASES[name] at full width, cut in
+    depth, f32 weights, bf16 activations."""
+    arch, layers, (batch, seq), _ = PAR_CASES[name]
+    return ["--arch", arch, "--override", f"num_layers={layers}",
+            "--steps", str(PAR_STEPS), "--batch", str(batch), "--seq",
+            str(seq), "--remat", TRAIN_REMAT, "--data-pattern", "markov",
             "--seed", str(seed), "--log-every", "1", "--ckpt-every", "0",
             "--data-par", str(data), "--model-par", str(model)]
+
+
+def par_config(name: str):
+    arch, layers = PAR_CASES[name][:2]
+    return dataclasses.replace(get_config(arch), num_layers=layers)
 
 
 def predicted_elements(mdl, data: int, model: int) -> int:
@@ -2741,15 +2762,15 @@ def predicted_elements(mdl, data: int, model: int) -> int:
     return total
 
 
-def par_run(seed: int, data: int, model: int) -> dict:
-    """One rank of launch.train at (data, model), instrumented around each
-    step: the kernels' launches, the bytes all-reduced per mesh axis (the
-    counts zeroed just before the step and read just after), the step's
-    host ms (it ends in the loss's read, which synchronises) and peak
-    memory; the rank's parameter elements against ``resolve_spec``'s."""
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=STEP_LAYERS)
-    rec = {"launches": [], "ms": [], "wire": [], "peak_gb": [],
-           "aux": []}
+def par_run(name: str, seed: int, data: int, model: int) -> dict:
+    """One rank of launch.train on PAR_CASES[name] at (data, model),
+    instrumented around each step: the kernels' launches, the bytes
+    all-reduced per mesh axis (the counts zeroed just before the step and
+    read just after), the step's host ms (it ends in the loss's read,
+    which synchronises) and peak memory; the rank's parameter elements
+    against ``resolve_spec``'s."""
+    cfg = par_config(name)
+    rec = {"launches": [], "ms": [], "wire": [], "peak_gb": [], "aux": []}
 
     def before(step):
         torch.cuda.synchronize()
@@ -2759,8 +2780,8 @@ def par_run(seed: int, data: int, model: int) -> dict:
 
     def after(step, info):
         torch.cuda.synchronize()
-        rec["launches"].append({k: _build.LAUNCHES.get(k, 0)
-                                for k in train_launches(cfg, TRAIN_REMAT)})
+        rec["launches"].append({k: n for k, n in _build.LAUNCHES.items()
+                                if n})
         rec["wire"].append(tp.wire_bytes())
         rec["ms"].append(info["seconds"] * 1e3)
         rec["aux"].append(info["aux"])
@@ -2769,7 +2790,7 @@ def par_run(seed: int, data: int, model: int) -> dict:
             rec["elements"] = sum(p.numel()
                                   for p in info["model"].parameters())
             rec["predicted"] = predicted_elements(info["model"], data, model)
-    rc, losses = train_cli.run(par_argv(seed, data, model),
+    rc, losses = train_cli.run(par_argv(name, seed, data, model),
                                before_step=before, after_step=after)
     rec.update(rc=rc, losses=losses,
                rank=dist.get_rank() if dist.is_initialized() else 0)
@@ -2777,63 +2798,73 @@ def par_run(seed: int, data: int, model: int) -> dict:
 
 
 def train_parallel_phase(seed: int, failures: list[str]) -> None:
-    """The trainer's parallel slice on the one card: one period of
-    RecurrentGemma-2B at full width trained PAR_STEPS steps through
-    ``launch.train.run`` in this process (one rank), then in a 2-rank gloo
-    world sharing the card at each of PAR_LAYOUTS; each layout's losses
-    against the one-rank run's, its launches, elements, step ms, peak
+    """The trainer's parallel slice on the one card: each PAR_CASES case at
+    full width trained PAR_STEPS steps through ``launch.train.run`` in
+    this process (one rank), then in a 2-rank gloo world sharing the card
+    at each of its layouts; each layout's losses against the one-rank
+    run's, its launches (``train_launches``: RecurrentGemma's K5, K6 and
+    their backward; none on the MoE's path), elements, step ms, peak
     memory and bytes all-reduced on every rank."""
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=STEP_LAYERS)
-    want = train_launches(cfg, TRAIN_REMAT)
     t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    runs = {(1, 1): [par_run(seed, 1, 1)]}
-    torch.cuda.empty_cache()
-    for d, m in PAR_LAYOUTS:
-        runs[(d, m)] = run_local_world(par_run, d * m, seed, d, m,
-                                       timeout=PAR_TIMEOUT_S)
+    for name, (arch, layers, (batch, seq), layouts) in PAR_CASES.items():
+        t_case = time.perf_counter()
+        cfg = par_config(name)
+        want = {k: n for k, n in train_launches(cfg, TRAIN_REMAT).items()
+                if n}
         torch.cuda.empty_cache()
-    one = runs[(1, 1)][0]["losses"]
-    for (d, m), ranks in runs.items():
-        rels = [max(abs(a - b) / abs(b) for a, b in zip(r["losses"], one))
-                for r in ranks]
-        launched = all(step == want for r in ranks for step in r["launches"])
-        elements_ok = all(r["elements"] == r["predicted"] for r in ranks)
-        same = all(r["losses"] == ranks[0]["losses"] for r in ranks)
-        ok = (all(r["rc"] == 0 and len(r["losses"]) == PAR_STEPS
-                  and np.isfinite(r["losses"]).all() for r in ranks)
-              and max(rels) <= PAR_LOSS_RTOL and launched and elements_ok
-              and same and all(n > 0 for n in want.values()))
-        if not ok:
-            failures.append(
-                f"train_parallel {(d, m)}: losses "
-                f"{[r['losses'] for r in ranks]} against one rank's {one} "
-                f"(rel {rels}, tol {PAR_LOSS_RTOL}), launches "
-                f"{[r['launches'] for r in ranks]} (want {want} a step), "
-                f"elements {[(r['elements'], r['predicted']) for r in ranks]}")
-        wire = [{a: [w.get(a, {}).get("bytes", 0) for w in r["wire"]]
-                 for a in ("data", "model")} for r in ranks]
-        print(json.dumps({
-            "phase": "train_parallel", "arch": ARCH, "layers": STEP_LAYERS,
-            "d_model": cfg.d_model, "param_dtype": cfg.param_dtype,
-            "dtype": cfg.dtype, "tokens": [PAR_BATCH, PAR_SEQ],
-            "remat": TRAIN_REMAT, "data": d, "model": m, "ranks": d * m,
-            "backend": "gloo" if d * m > 1 else None,
-            "losses": ranks[0]["losses"], "losses_one_rank": one,
-            "loss_rel": max(rels), "loss_rtol": PAR_LOSS_RTOL,
-            "aux": ranks[0]["aux"],
-            "launches_per_step": [r["launches"] for r in ranks],
-            "launches_want": want,
-            "elements": [r["elements"] for r in ranks],
-            "elements_predicted": [r["predicted"] for r in ranks],
-            "step_ms": [r["ms"] for r in ranks],
-            "step_ms_median_after_first": [statistics.median(r["ms"][1:])
-                                           for r in ranks],
-            "peak_gb": [max(r["peak_gb"]) for r in ranks],
-            "wire_bytes_per_step": wire,
-            "wire_calls_per_step": [[{a: c["calls"] for a, c in w.items()}
-                                     for w in r["wire"]] for r in ranks],
-            "ok": ok}))
+        runs = {(1, 1): [par_run(name, seed, 1, 1)]}
+        torch.cuda.empty_cache()
+        for d, m in layouts:
+            runs[(d, m)] = run_local_world(par_run, d * m, name, seed, d, m,
+                                           timeout=PAR_TIMEOUT_S)
+            torch.cuda.empty_cache()
+        one = runs[(1, 1)][0]["losses"]
+        for (d, m), ranks in runs.items():
+            rels = [max(abs(a - b) / abs(b)
+                        for a, b in zip(r["losses"], one)) for r in ranks]
+            launched = all(step == want for r in ranks
+                           for step in r["launches"])
+            elements_ok = all(r["elements"] == r["predicted"]
+                              for r in ranks)
+            same = all(r["losses"] == ranks[0]["losses"] for r in ranks)
+            ok = (all(r["rc"] == 0 and len(r["losses"]) == PAR_STEPS
+                      and np.isfinite(r["losses"]).all() for r in ranks)
+                  and max(rels) <= PAR_LOSS_RTOL and launched and elements_ok
+                  and same)
+            if not ok:
+                failures.append(
+                    f"train_parallel {name} {(d, m)}: losses "
+                    f"{[r['losses'] for r in ranks]} against one rank's "
+                    f"{one} (rel {rels}, tol {PAR_LOSS_RTOL}), launches "
+                    f"{[r['launches'] for r in ranks]} (want {want} a "
+                    "step), elements "
+                    f"{[(r['elements'], r['predicted']) for r in ranks]}")
+            wire = [{a: [w.get(a, {}).get("bytes", 0) for w in r["wire"]]
+                     for a in ("data", "model")} for r in ranks]
+            print(json.dumps({
+                "phase": "train_parallel", "arch": arch, "layers": layers,
+                "d_model": cfg.d_model, "param_dtype": cfg.param_dtype,
+                "dtype": cfg.dtype, "tokens": [batch, seq],
+                "remat": TRAIN_REMAT, "data": d, "model": m, "ranks": d * m,
+                "backend": "gloo" if d * m > 1 else None,
+                "losses": ranks[0]["losses"], "losses_one_rank": one,
+                "loss_rel": max(rels), "loss_rtol": PAR_LOSS_RTOL,
+                "aux": ranks[0]["aux"],
+                "launches_per_step": [r["launches"] for r in ranks],
+                "launches_want": want,
+                "elements": [r["elements"] for r in ranks],
+                "elements_predicted": [r["predicted"] for r in ranks],
+                "step_ms": [r["ms"] for r in ranks],
+                "step_ms_median_after_first": [
+                    statistics.median(r["ms"][1:]) for r in ranks],
+                "peak_gb": [max(r["peak_gb"]) for r in ranks],
+                "wire_bytes_per_step": wire,
+                "wire_calls_per_step": [[{a: c["calls"]
+                                          for a, c in w.items()}
+                                         for w in r["wire"]] for r in ranks],
+                "ok": ok}))
+        print(json.dumps({"phase": "train_parallel_case_wall", "arch": arch,
+                          "s": time.perf_counter() - t_case}))
     print(json.dumps({
         "phase": "train_parallel_note",
         "note": "gloo ranks share the one card and all-reduce through the "
@@ -2850,9 +2881,12 @@ SPLIT_BATCH, SPLIT_TOKENS = 2, 64
 # 2048-slot ring split over positions (1024 a rank), 5 of its 10 heads and
 # 1280 of the RG-LRU's 2560 channels a rank, layout (b).  tinyllama-1.1b
 # at 2 layers: its cache split over the 4 KV heads (2 a rank), as wk is,
-# layout (a)
+# layout (a); Granite-MoE-3B-A800M at 2 layers: its cache over its 8 KV
+# heads (4 a rank), 12 of its 24 heads and 20 of its 40 experts a rank
+# (EP), its vocabulary whole, layout (a)
 SPLIT_CASES = {"recurrentgemma-2b": (ARCH, STEP_LAYERS, 2048),
-               "tinyllama-1.1b": ("tinyllama-1.1b", 2, 128)}
+               "tinyllama-1.1b": ("tinyllama-1.1b", 2, 128),
+               MOE_ARCH: (MOE_ARCH, 2, 128)}
 # each step's logits of the split decode against one rank's, absolute,
 # set before the first run on the card: f32 activations at full width,
 # where a split product sums its parts in another order and cuBLAS may
@@ -2943,7 +2977,9 @@ def split_decode_run(seed: int, data: int, model: int) -> dict:
         rec = {"ms": ms, "wire": wire, "launches": launches,
                "layout": layout, "rank": rank,
                "heads": [blk.attn["wq"].shape[1] for blk in mdl.layers
-                         if blk.kind in ("attn", "local")][0]}
+                         if blk.kind in ("attn", "local")][0],
+               "experts": (list(mdl.layers[0].mlp["wi_gate"].shape)
+                           if cfg.num_experts else None)}
         if rank == 0:
             rec.update(logits=logits.cpu(), tokens=nxt.cpu())
         out[name] = rec
@@ -2979,10 +3015,16 @@ def split_decode_phase(seed: int, failures: list[str]) -> None:
         finite = bool(torch.isfinite(got["logits"]).all())
         heads = [r[name]["heads"] for r in ranks]
         layouts = [r[name]["layout"] for r in ranks]
+        experts = [r[name]["experts"] for r in ranks]
+        e, f = cfg.num_experts, cfg.d_ff
+        # the rules: the experts split where m divides them (EP), else d_ff
+        experts_want = [None if not e else [e // m, cfg.d_model, f]
+                        if e % m == 0 else [e, cfg.d_model, f // m]] * m
         lcfg = dataclasses.replace(cfg, num_layers=layers)
         ok = (err <= SPLIT_TOL and same and finite
               and tuple(got["logits"].shape) == shape
               and heads == [cfg.num_heads // m] * m
+              and experts == experts_want
               and layouts == [split_layout_want(lcfg, cache_len, m, c)
                               for c in range(m)]
               and all(r[name]["launches"] == {} for r in ranks)
@@ -2992,7 +3034,8 @@ def split_decode_phase(seed: int, failures: list[str]) -> None:
                 f"split_decode {name} {(d, m)}: max logit difference "
                 f"{err} (tol {SPLIT_TOL}), tokens equal {same}, finite "
                 f"{finite}, shape {tuple(got['logits'].shape)}, heads a "
-                f"rank {heads}, layouts {layouts} against one rank's "
+                f"rank {heads}, experts a rank {experts} (want "
+                f"{experts_want}), layouts {layouts} against one rank's "
                 f"{want['layout']}, launches "
                 f"{[r[name]['launches'] for r in ranks]} and one rank's "
                 f"{want['launches']} (want none)")
@@ -3002,6 +3045,7 @@ def split_decode_phase(seed: int, failures: list[str]) -> None:
             "batch": SPLIT_BATCH, "tokens": SPLIT_TOKENS,
             "cache_len": cache_len, "data": d, "model": m,
             "ranks": d * m, "backend": "gloo", "heads_per_rank": heads,
+            "experts_per_rank": experts,
             "cache_layout": layouts, "cache_layout_one_rank":
                 want["layout"],
             "max_abs_logit_diff": err, "tol": SPLIT_TOL,
@@ -3019,14 +3063,15 @@ def split_decode_phase(seed: int, failures: list[str]) -> None:
 
 
 # -- the multi-pod dry run (launch/dryrun.py), on the CPU ---------------------
-# Four cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
+# Five cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
 # of a fake world on meta tensors in one subprocess with the card hidden;
 # the RecurrentGemma cells' K5/K6 tally is held to what the lm, train and
-# split_decode phases launched on the card (ON_CARD), and tinyllama's must
-# be empty.
+# split_decode phases launched on the card (ON_CARD), and tinyllama's and
+# granite's must be empty.
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", None),
                 (ARCH, "prefill_32k", "prefill"), (ARCH, "train_4k", "train"),
-                (ARCH, "decode_32k", "decode"))
+                (ARCH, "decode_32k", "decode"),
+                (MOE_ARCH, "train_4k", None))      # FF: 40 experts over 16
 DRYRUN_TIMEOUT_S = 300
 DRYRUN_CODE = """
 import json, sys

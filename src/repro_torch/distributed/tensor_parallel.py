@@ -23,6 +23,15 @@ after the backward pass each rank holds the whole gradient of every
 parameter it holds, split or replicated.  Partial products are summed in
 float32 and cast once.
 
+The MoE (``models/mlp.moe``) runs its routing replicated: a router split
+over the experts is gathered whole (:func:`gather_weight`, whose backward
+takes the rank's slice), so every rank's top-k is one device's; the
+token activations and the gates enter the experts' region through
+:func:`copy_in`, and the rank's partial output, over its experts (EP) or
+its experts' ``d_ff`` columns (FF), leaves it through :func:`reduce_out`
+after the combine.  The aux loss stays on the replicated path, so its
+gradient is counted once.
+
 Decode of a split model (``models/attention.decode_step``): where the
 KV cache is split over its positions (``cache_seq``, the rules' choice
 whenever ``model`` does not divide the KV heads), each rank attends every
@@ -50,7 +59,7 @@ import torch.distributed as dist
 from repro_torch.distributed.collectives import wire_device
 
 # the tensor-parallel families; the others raise for --model-par > 1
-MODEL_PARALLEL_FAMILIES = ("dense", "hybrid")
+MODEL_PARALLEL_FAMILIES = ("dense", "hybrid", "moe")
 MODEL_PARALLEL_TODO = "ROADMAP.md Queue 1 item 5c"
 # the trainer's layout: the rules' model-axis splits, no FSDP over data
 FSDP_OFF = {"fsdp": [()]}
@@ -202,6 +211,20 @@ class _ReduceOut(torch.autograd.Function):
         return g, None
 
 
+class _GatherWeight(torch.autograd.Function):
+    """All-gather of a weight split over the model axis; the gradient, the
+    whole one on every rank, sliced back to this rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        return gather_cat(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.rank * ctx.n, ctx.n), None, None
+
+
 def copy_in(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``x`` entering the split region (a column-parallel input)."""
     return _CopyIn.apply(x, axis)
@@ -211,6 +234,15 @@ def reduce_out(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """The sum over the model axis of partial sums ``x`` (a row-parallel
     output), in x's type, summed in float32."""
     return _ReduceOut.apply(x, axis)
+
+
+def gather_weight(w: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """The whole of a weight split over the model axis along ``dim``, for a
+    product every rank runs replicated (the MoE's router): an all-gather,
+    counted in :data:`WIRE`.  Its backward takes this rank's slice of the
+    gradient, which the replicated computation gives whole on every
+    rank."""
+    return _GatherWeight.apply(w, axis, dim)
 
 
 def enter(p, specs: dict, axis: Axis) -> dict[str, torch.Tensor]:
@@ -480,8 +512,8 @@ def split_names(model) -> frozenset:
 
 def model_parallel_todo(cfg, size: int) -> str | None:
     """Why ``cfg`` cannot run split over a model axis of ``size`` ranks,
-    or None where it can: tensor parallelism is ported for the dense and
-    hybrid families."""
+    or None where it can: tensor parallelism is ported for the
+    :data:`MODEL_PARALLEL_FAMILIES`."""
     if size > 1 and cfg.family not in MODEL_PARALLEL_FAMILIES:
         return (f"tensor parallelism of the {cfg.family!r} family "
                 f"({cfg.name}) is not ported "

@@ -33,9 +33,16 @@ What differs from the reference, by design:
     serving's placement alike, so ``--infer-layout`` changes only
     ``param_bytes_per_device`` (computed as the reference does, with the
     rules' FSDP);
-  * a cell of the moe, ssm, audio or vlm family waits for tensor
-    parallelism of its family (item 5c): ``run_cell`` raises, and ``main``
-    writes the cell as failed, as the reference writes a cell that raises;
+  * a cell of the ssm, audio or vlm family waits for tensor parallelism
+    of its family (item 5c): ``run_cell`` raises, and ``main`` writes the
+    cell as failed, as the reference writes a cell that raises;
+  * the MoE places no ``expert_cap`` split of the activations: where the
+    experts do not divide the model axis (granite-moe-3b-a800m's 40 over
+    16), the reference's GSPMD splits the dispatched tokens' capacity; the
+    port splits each expert's ``d_ff``, where the parameter rules put
+    ``model``, and sums the ranks' partial outputs once a layer, after the
+    combine (``models/mlp.moe``); a router split over the experts is
+    gathered whole, so every rank routes as one device;
   * a decode cell's logits stay split over the vocabulary and its greedy
     token comes from ``tensor_parallel.vocab_parallel_argmax``; the KV
     cache is split as the rules place it (over its positions on both

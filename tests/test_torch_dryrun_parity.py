@@ -44,6 +44,48 @@ rank holds 8 of the 128 rows, 1 of the 16 query heads, all 4 KV heads
   = 8,704, wo's and the MLP's partial sums 8,192 each, the greedy token's
   max (8·4 = 32) and min (int64, 8·8 = 64): 33,888 B in 7 calls; the
   all-gather of the query heads, 16 ranks' 8·16 bf16, 4,096 B in 1 call.
+
+The MoE cells ``granite-moe-1b-a400m x prefill_32k`` (32 experts: EP, 2 a
+rank, the router split) and ``granite-moe-3b-a800m x prefill_32k`` (40
+experts, which 16 does not divide: FF, every expert whole with 4 of its
+64 ``d_ff`` columns, the router whole) on the single mesh at
+``MOE_OVERRIDES`` (one layer, width 256, 16 heads, 8 KV heads, d_ff 64,
+vocabulary 1,024): equal ``param_count``, ``param_bytes_per_device``,
+``model_flops`` and keys (the reference's 2,040,576 / 50,304 /
+1.80388626432e12 and 2,435,840 / 58,880 / 1.808181231616e12).  Their
+``flops_per_device`` is held to the count worked out from the shapes
+below (``MOE_FLOPS``; worked out after the port's first run, which gave
+it to the flop), and the EP cell's also within ``FLOPS_RTOL`` of the
+reference's 1.91715868672e11.  The FF cell's is 2.6x the reference's
+1.93332363264e11 by design: GSPMD splits the dispatched tokens' capacity
+over ``model`` (``expert_cap``), while every rank of the port dispatches
+and combines every token and splits the experts' ``d_ff``.  Collective
+bytes are printed beside the reference's (GSPMD all-gathers the
+dispatched tokens; the port sums one partial output a layer) and held to
+``MOE_COLLECTIVES``.  A rank holds 2 rows of 32,768 tokens: 128 groups
+of g = 512, capacity C = int(512·8/E·1.25), 160 (E 32) or 128 (E 40);
+activations bf16, the router and logits f32; 1 of the 16 query heads, wk
+and wv whole (8 KV heads; the rank's head picks one); 64 of the 1,024
+vocabulary rows.  Products (2·M·N·K each; T = 65,536 tokens):
+- both cells: wq and wo 2·T·256·16 each, 1,073,741,824; wk and wv
+  2·T·256·128 each, 8,589,934,592; the logits 2·T·256·64 = 2,147,483,648;
+  the rank's head's scores and weighted sum 2·(2·1)·32,768²·16 each,
+  137,438,953,472;
+- EP (E_r = 2 experts of 32, C 160): the router, gathered,
+  2·T·256·32 = 1,073,741,824; the narrowed one-hot dispatch
+  2·128·512·8·2·160 = 335,544,320; ``xe`` and the combine
+  2·128·512·2·160·256 each, 21,474,836,480; the experts' three
+  2·2·(128·160)·256·64 each, 4,026,531,840; in all 176,160,768,000;
+- FF (40 experts, 4 d_ff columns, C 128): the router 2·T·256·40 =
+  1,342,177,280; the one-hot dispatch 2·128·512·8·40·128 =
+  5,368,709,120; ``xe`` and the combine 2·128·512·40·128·256 each,
+  343,597,383,680; the experts' three 2·40·(128·128)·256·4 each,
+  4,026,531,840; in all 503,584,915,456.
+Collectives (f32): all-reduces of the embedding's rows, wo's partial sums
+and the MoE's partial output, T·256·4 = 67,108,864 B each, and the routed
+fractions' mean over ``data`` (E·4 B): 201,326,720 (EP) and 201,326,752
+(FF) in 4 calls; EP's all-gather of the router, 256·32·4 = 32,768 B in 1
+call.
 """
 import dataclasses
 import json
@@ -74,6 +116,20 @@ DECODE_FLOPS = 18_087_936
 DECODE_COLLECTIVES = {"by_op": {"all-reduce": 33_888, "all-gather": 4_096},
                       "counts": {"all-reduce": 7, "all-gather": 1}}
 REF_TIMEOUT_S = 300
+MOE_OVERRIDES = {"num_layers": 1, "d_model": 256, "num_heads": 16,
+                 "num_kv_heads": 8, "d_ff": 64, "vocab_size": 1024}
+# cell -> (layout, param_count, param_bytes_per_device, model_flops,
+# flops_per_device from the shapes, collective bytes and calls)
+MOE_CELLS = {
+    ("granite-moe-1b-a400m", "prefill_32k", "single"): (
+        "EP", 2_040_576, 50_304, 1.80388626432e12, 176_160_768_000,
+        {"by_op": {"all-reduce": 201_326_720, "all-gather": 32_768},
+         "counts": {"all-reduce": 4, "all-gather": 1}}),
+    ("granite-moe-3b-a800m", "prefill_32k", "single"): (
+        "FF", 2_435_840, 58_880, 1.808181231616e12, 503_584_915_456,
+        {"by_op": {"all-reduce": 201_326_752},
+         "counts": {"all-reduce": 4}}),
+}
 
 _REFERENCE = r"""
 import dataclasses, json, sys
@@ -104,13 +160,14 @@ with open(out + "/helpers.json", "w") as f:
 """
 
 
-def _run_reference(out, cell):
+def _run_reference(out, cell, overrides=None):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
                JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run(
         [sys.executable, "-c", _REFERENCE,
-         json.dumps([cell, OVERRIDES, str(out)])], env=env, cwd=REPO,
+         json.dumps([cell, overrides or OVERRIDES, str(out)])], env=env,
+        cwd=REPO,
         capture_output=True, text=True, timeout=REF_TIMEOUT_S)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return (json.loads((out / "record.json").read_text()),
@@ -137,6 +194,50 @@ def port():
 @pytest.fixture(scope="module")
 def port_decode():
     return dryrun.run_cell(*DECODE_CELL, overrides=OVERRIDES)
+
+
+@pytest.fixture(scope="module", params=list(MOE_CELLS), ids="__".join)
+def moe_cell(request, tmp_path_factory):
+    """(the cell, the reference's record, the port's) at MOE_OVERRIDES."""
+    cell = request.param
+    want = _run_reference(tmp_path_factory.mktemp("dryrun_ref_moe"), cell,
+                          MOE_OVERRIDES)[0]
+    return cell, want, dryrun.run_cell(*cell, correction=False,
+                                       overrides=MOE_OVERRIDES)
+
+
+def test_moe_counts_and_keys_equal(moe_cell):
+    cell, want, got = moe_cell
+    _, count, pbytes, model_flops = MOE_CELLS[cell][:4]
+    assert got["ok"] and want["ok"]
+    assert set(got) == set(want)
+    for key in ("param_count", "param_bytes_per_device", "model_flops",
+                "arch", "shape", "mesh", "kind", "chips", "ok",
+                "scan_correction", "wkv_analytic_flops"):
+        assert got[key] == want[key], key
+    assert (got["param_count"], got["param_bytes_per_device"],
+            got["model_flops"]) == (count, pbytes, model_flops)
+
+
+def test_moe_flops_and_collectives_from_the_shapes(moe_cell):
+    cell, want, got = moe_cell
+    layout, flops, coll = MOE_CELLS[cell][0], MOE_CELLS[cell][4], \
+        MOE_CELLS[cell][5]
+    print(f"{cell[0]} ({layout}) flops_per_device: port "
+          f"{got['flops_per_device']:.6e}, reference "
+          f"{want['flops_per_device']:.6e}, port / reference "
+          f"{got['flops_per_device'] / want['flops_per_device']:.6f}; "
+          f"collective bytes: port {got['collective_bytes_per_device']} "
+          f"{got['collective_by_op']}, reference "
+          f"{want['collective_bytes_per_device']} "
+          f"{want['collective_by_op']}")
+    assert got["flops_per_device"] == flops
+    if layout == "EP":
+        assert abs(flops - want["flops_per_device"]) <= \
+            FLOPS_RTOL * want["flops_per_device"]
+    assert got["collective_by_op"] == coll["by_op"]
+    assert got["collective_counts"] == coll["counts"]
+    assert got["collective_bytes_per_device"] == sum(coll["by_op"].values())
 
 
 def test_counts_and_keys_equal(ref, port):

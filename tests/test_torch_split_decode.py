@@ -19,12 +19,19 @@ The layouts (reduced configs, float32 activations):
   layout (c), the RG-LRU width (64) split 4 ways.
 Every recurrentgemma case decodes 40 tokens, past the window, so the ring
 wraps from the last rank's slots to the first's.
+- granite-moe-1b-a400m (4 heads, 2 KV heads, 4 experts top-2) at (1, 2):
+  layout (a), 2 experts a rank (EP); at (1, 4): layout (b), 1 expert a
+  rank; with 5 experts at (1, 2) (``OVERRIDES``): layout (a), every expert
+  whole with half its d_ff (FF).  A step's group is its batch's tokens,
+  dropless, so each rank routes as the whole model does.
 
 Tolerances, set before the runs: every step's logits, gathered over the
 vocabulary and the batch, within ``LOGITS_TOL`` 1e-5 of the whole model's
 (float32; a split product sums its parts in another order and the
 softmax is merged from the ranks' partials); every greedy token equal.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -40,7 +47,7 @@ from repro_torch.serving.serve_step import make_decode_step
 WORLD_TIMEOUT_S = 300
 LOGITS_TOL = 1e-5
 SEED = 0
-TL, RG = "tinyllama-1.1b", "recurrentgemma-2b"
+TL, RG, MOE = "tinyllama-1.1b", "recurrentgemma-2b", "granite-moe-1b-a400m"
 # name -> (arch, data, model, batch, tokens decoded, cache_len, layout)
 CASES = {
     "tl_1x2": (TL, 1, 2, 2, 12, 48, "a"),
@@ -49,7 +56,12 @@ CASES = {
     "rg_1x2": (RG, 1, 2, 2, 40, 64, "b"),
     "rg_2x2": (RG, 2, 2, 4, 40, 64, "b"),
     "rg_1x4": (RG, 1, 4, 2, 40, 64, "c"),
+    "moe_1x2": (MOE, 1, 2, 2, 12, 48, "a"),
+    "moe_1x4": (MOE, 1, 4, 2, 20, 48, "b"),
+    "moe_ff_1x2": (MOE, 1, 2, 2, 12, 48, "a"),
 }
+# name -> config overrides
+OVERRIDES = {"moe_ff_1x2": {"num_experts": 5}}
 # planted ties for the vocabulary-parallel argmax: 4 rows of 8 columns,
 # split 4 ways (2 columns a rank)
 TIES = [[1, 5, 5, 0, 5, 2, 5, 1],       # a tie inside rank 0 and across
@@ -58,8 +70,8 @@ TIES = [[1, 5, 5, 0, 5, 2, 5, 1],       # a tie inside rank 0 and across
         [7, 1, 1, 1, 1, 1, 1, 7]]       # the first and last columns
 
 
-def _model(arch: str):
-    cfg = get_reduced_config(arch)
+def _model(arch: str, overrides: dict | None = None):
+    cfg = dataclasses.replace(get_reduced_config(arch), **(overrides or {}))
     model = build_model(cfg, device="cpu")
     model.init(torch.Generator().manual_seed(SEED))
     return cfg, model
@@ -96,7 +108,7 @@ def rank_decode(cases: dict) -> dict:
     torch.set_num_threads(1)
     out = {}
     for name, (arch, d, m, batch, steps, cache_len, _) in cases.items():
-        cfg, model = _model(arch)
+        cfg, model = _model(arch, OVERRIDES.get(name))
         mesh = make_local_mesh(d, m, device="cpu")
         tp.shard_parameters(model, tp.parameter_layout(model, mesh), mesh)
         tokens = _tokens(cfg, batch, steps)
@@ -112,7 +124,9 @@ def rank_decode(cases: dict) -> dict:
                      "layout": layout,
                      "heads": [blk.attn["wq"].shape[1]
                                for blk in model.layers
-                               if blk.kind in ("attn", "local")][0]}
+                               if blk.kind in ("attn", "local")][0],
+                     "experts": (tuple(model.layers[0].mlp["wi_gate"].shape)
+                                 if cfg.num_experts else None)}
         if (d, m) == (1, 4):
             axis = tp.mesh_axis("model", mesh)
             ties = torch.tensor(TIES, dtype=torch.float32)
@@ -166,7 +180,7 @@ def whole():
     """The whole model's decode of every case's tokens, in this process."""
     out = {}
     for name, (arch, _, _, batch, steps, cache_len, _) in CASES.items():
-        cfg, model = _model(arch)
+        cfg, model = _model(arch, OVERRIDES.get(name))
         with torch.inference_mode():
             out[name] = _decode(model, cfg, _tokens(cfg, batch, steps),
                                 batch, cache_len)
@@ -194,15 +208,21 @@ def test_split_decode_layout_is_the_rules(name, worlds):
     """The cache each rank decodes on is the rules' slice: layout (a)
     splits the KV heads, (b) and (c) the positions (start and capacity
     recorded); (c) keeps every query head; the RG-LRU state holds the
-    rank's channels."""
+    rank's channels; the MoE's experts are split where ``m`` divides them,
+    else their d_ff."""
     arch, d, m, batch, _, cache_len, layout = CASES[name]
-    cfg = get_reduced_config(arch)
+    cfg = dataclasses.replace(get_reduced_config(arch),
+                              **OVERRIDES.get(name, {}))
     rows = batch // d
+    e, f = cfg.num_experts, cfg.d_ff
+    experts = (None if not e else (e // m, cfg.d_model, f) if e % m == 0
+               else (e, cfg.d_model, f // m))
     heads_split = cfg.num_heads % m == 0
     for r, rank in enumerate(_ranks(name, worlds)):
         got = rank[name]
         assert got["heads"] == (cfg.num_heads // m if heads_split
                                 else cfg.num_heads)
+        assert got["experts"] == experts
         assert (layout == "c") == (not heads_split)
         col = r % m
         for kind, state in zip([cfg.kind_of_layer(i)

@@ -51,6 +51,16 @@ JOBS = {
                                    "--microbatches", "2")),
     "tl_2x2_topk": (TL, 2, 2, ("--compression", "topk")),
     "moe_2x1": (MOE, 2, 1, ("--seq", "256")),   # 512 tokens a rank: a group
+    # the MoE split over model: its 4 experts 2 and 1 a rank (EP, the
+    # router gathered), under remat "dots" at (1, 2); at (2, 2) a data
+    # rank's 512 tokens are a whole group; 5 experts, which 2 does not
+    # divide: each expert whole with half its d_ff (FF); a vocabulary of
+    # 515, which 2 does not divide: the tied embedding and the logits whole
+    "moe_1x2": (MOE, 1, 2, ("--remat", "dots")),
+    "moe_1x4": (MOE, 1, 4, ()),
+    "moe_2x2": (MOE, 2, 2, ("--seq", "256")),
+    "moe_ff_1x2": (MOE, 1, 2, ("--override", "num_experts=5")),
+    "moe_vocab_1x2": (MOE, 1, 2, ("--override", "vocab_size=515")),
     # the other dense configs: qk-norm scales (replicated) inside the split
     # heads; q/k/v biases with the 2 kv heads replicated at M 4; 6 heads
     # that 4 does not divide (attention whole, the MLP split)
@@ -161,8 +171,8 @@ def test_layout_parameters_match_one_device(name, one, tmp, worlds):
 @pytest.mark.parametrize("name", list(JOBS))
 def test_local_shapes_follow_resolve_spec(name, world4, world2):
     """At M = 2 a rank holds the split leaves' half, never a replica."""
-    arch, d, m, _ = JOBS[name]
-    cfg = get_reduced_config(arch)
+    arch, d, m, extra = JOBS[name]
+    cfg = train._config(train.parse_args(argv_of(arch, d, m, extra, "")))
     specs = build_model(cfg, device="meta").specs()
     mesh = SimpleNamespace(shape={"data": d, "model": m})
     rules = {**DEFAULT_RULES, "fsdp": [()]}
@@ -195,6 +205,22 @@ def test_embedding_and_heads_split_at_two(world2):
         assert shapes["layers.0.attn.wk"] == (64, 1, 16)
         assert shapes["layers.0.mlp.wi_gate"] == (64, 80)
         assert shapes["layers.0.ln1"] == full["layers.0.ln1"].shape
+
+
+def test_moe_layouts_at_two(world2):
+    """granite-moe at (1, 2): 2 of the 4 experts and the router's columns
+    a rank (EP); with 5 experts every expert whole and 32 of its 64 d_ff
+    columns (FF), the router whole; with a vocabulary of 515 the tied
+    embedding whole on each rank."""
+    for r in world2:
+        ep, ff = r["moe_1x2"]["shapes"], r["moe_ff_1x2"]["shapes"]
+        assert ep["layers.0.mlp.wi_gate"] == (2, 64, 64)
+        assert ep["layers.0.mlp.wo"] == (2, 64, 64)
+        assert ep["layers.0.mlp.router"] == (64, 2)
+        assert ff["layers.0.mlp.wi_gate"] == (5, 64, 32)
+        assert ff["layers.0.mlp.wo"] == (5, 32, 64)
+        assert ff["layers.0.mlp.router"] == (64, 5)
+        assert r["moe_vocab_1x2"]["shapes"]["embed"] == (515, 64)
 
 
 def test_checkpoint_from_2x2_resumes_at_1x2(worlds):
@@ -242,8 +268,7 @@ def test_world_of_the_wrong_size_raises(world2):
         assert "4 ranks" in msg and "world has 2" in msg, r["wrong_world"]
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-tiny", "qwen2-vl-2b",
-                                  MOE])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-tiny", "qwen2-vl-2b"])
 def test_model_par_on_other_families_raises(arch):
     """No world is needed: the family check comes first."""
     with pytest.raises(SystemExit, match="Queue 1 item 5c"):

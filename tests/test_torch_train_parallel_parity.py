@@ -1,8 +1,10 @@
 """The port's parallel trainer against the JAX package's, on the CPU.
 
-The reference's ``repro.launch.train`` runs reduced tinyllama-1.1b and
-recurrentgemma-2b at ``--data-par 2 --model-par 2`` (batch 4, seq 32, 3
-steps) in a subprocess on 4 fake host devices, its step's losses recorded.
+The reference's ``repro.launch.train`` runs reduced tinyllama-1.1b,
+recurrentgemma-2b and granite-moe-1b-a400m at ``--data-par 2 --model-par
+2`` (batch 4, seq 32, 3 steps; granite seq 256, so that a data rank holds a
+whole 512-token routing group, and its 4 experts split 2 a rank) in a
+subprocess on 4 fake host devices, its step's losses recorded.
 The port starts from the same weights (the reference's init, carried
 across with ``convert.from_jax_params`` into a step-0 checkpoint that the
 run resumes) and trains the same command in a 4-rank gloo world: each
@@ -32,7 +34,10 @@ from torch_train_cases import STEPS, argv_of, rank_jobs  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD_TIMEOUT_S = 300
 LOSS_RTOL = 1e-5
-ARCHS = ("tinyllama-1.1b", "recurrentgemma-2b")
+# arch -> the sequence length of its run
+SEQ = {"tinyllama-1.1b": 32, "recurrentgemma-2b": 32,
+       "granite-moe-1b-a400m": 256}
+ARCHS = tuple(SEQ)
 
 # the reference's trainer on 4 fake host devices; jax.jit is wrapped so
 # that each step's loss is recorded as the step returns it
@@ -54,11 +59,11 @@ def jit(f, *a, **k):
 
 jax.jit = jit
 out = {}
-for arch in sys.argv[2:]:
+for arch, seq in json.loads(sys.argv[2]).items():
     losses.clear()
     assert T.main(["--arch", arch, "--reduced", "--steps", "%d", "--batch",
-                   "4", "--seq", "32", "--data-par", "2", "--model-par", "2",
-                   "--log-every", "100"]) == 0
+                   "4", "--seq", str(seq), "--data-par", "2", "--model-par",
+                   "2", "--log-every", "100"]) == 0
     out[arch] = list(losses)
 json.dump(out, open(sys.argv[1], "w"))
 """ % STEPS
@@ -88,7 +93,8 @@ def reference(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    subprocess.run([sys.executable, "-c", _REFERENCE, str(out), *ARCHS],
+    subprocess.run([sys.executable, "-c", _REFERENCE, str(out),
+                    json.dumps(SEQ)],
                    env=env, check=True, capture_output=True, timeout=600)
     return json.loads(out.read_text())
 
@@ -100,7 +106,8 @@ def port(tmp_path_factory):
     for arch in ARCHS:
         ck = str(tmp / arch)
         step0_checkpoint(arch, ck)
-        jobs.append((arch, argv_of(arch, 2, 2, ("--resume",), ck)))
+        jobs.append((arch, argv_of(arch, 2, 2, ("--resume", "--seq",
+                                                str(SEQ[arch])), ck)))
     return run_local_world(rank_jobs, 4, jobs, timeout=WORLD_TIMEOUT_S)
 
 
