@@ -216,8 +216,13 @@ CPU.
    vocab 49,155), 2 layers, the same types and remat, on (2, 2048): one
    rank, then 2 gloo ranks at (1, 2) (20 experts and 12 heads a rank, the
    vocabulary whole), held the same way, no kernel launched
-   (``PAR_CASES``).  Gloo carries every collective through the host; NCCL
-   between cards stays unmeasured on one card (``train_parallel_note``).
+   (``PAR_CASES``).  Then RWKV-6-7B at full width (d_model 4096, 64 WKV
+   heads of 64, d_ff 14,336, vocab 65,536), 2 layers, the same types and
+   remat, on (2, 1024): one rank, then 2 gloo ranks at (1, 2) (32 heads,
+   7,168 d_ff columns and 32,768 vocabulary rows a rank), held the same
+   way, no kernel launched.  Gloo carries every collective through the
+   host; NCCL between cards stays unmeasured on one card
+   (``train_parallel_note``).
 
 11a. The ``split_decode`` phase (``split_decode_phase``): decode of a
    model split over the model axis.  RecurrentGemma-2B at full width, one
@@ -231,7 +236,8 @@ CPU.
    a rank), its 10 heads 5 a rank, its RG-LRU width 1280 a rank (layout
    (b)); tinyllama's cache over its 4 KV heads, 2 a rank (layout (a));
    Granite's over its 8 KV heads, 4 a rank (layout (a)), 20 of its 40
-   experts a rank.
+   experts a rank.  RWKV-6-7B at full width, 2 layers: its WKV state
+   ``s`` over its 64 heads, 32 a rank, the token-shift states whole.
    Each case's logits, gathered, within ``SPLIT_TOL`` (1e-3) of one
    rank's at every step, the greedy tokens equal, each rank's cache
    layout the rules' and no kernel launched; ms a step, one rank against
@@ -240,11 +246,13 @@ CPU.
 
 12. The ``dryrun`` phase (``dryrun_phase``, ~20-40 s on the host's CPU):
    ``launch.dryrun.run_cell`` in a subprocess with the card hidden, on
-   five cells of the single production mesh (16 x 16 = 256 ranks):
+   six cells of the single production mesh (16 x 16 = 256 ranks):
    tinyllama-1.1b x train_4k, recurrentgemma-2b x prefill_32k,
-   recurrentgemma-2b x train_4k, recurrentgemma-2b x decode_32k and
+   recurrentgemma-2b x train_4k, recurrentgemma-2b x decode_32k,
    granite-moe-3b-a800m x train_4k (40 experts over 16 ranks: each
-   expert whole with 32 of its 512 d_ff columns), each
+   expert whole with 32 of its 512 d_ff columns) and rwkv6-7b x train_4k
+   (4 WKV heads a rank; its counts must equal ``DRYRUN_COUNTS``, the
+   CPU record the repo's tests run on), each
    run as rank 0 of a fake process group on meta tensors at published
    width and depth.  Each record's
    ``ok``, flops, bytes, parameter and collective bytes a device and its
@@ -253,7 +261,7 @@ CPU.
    what the lm phase's prefill (K5 18, K6 8), one step of the train
    phase (K5 36, ``conv1d_bwd`` 18, K6 16, each K6-bwd kernel 8) and the
    split_decode phase's decode (none) launched on the card, and
-   tinyllama's and granite's must be none.
+   tinyllama's, granite's and rwkv6's must be none.
 
 Any build error, launch error, mismatch or kernel that its path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
@@ -2714,13 +2722,17 @@ def distributed_phase(seed: int, failures: list[str]) -> None:
 # -- the trainer's parallel slice: data and tensor parallel on the card -------
 PAR_STEPS = 3
 MOE_ARCH = "granite-moe-3b-a800m"
+RWKV_ARCH = "rwkv6-7b"
 # name -> (arch, layers, (batch, seq), layouts (data, model) of 2 gloo
 # ranks).  RecurrentGemma-2B's one period through K5, K6 and their
 # backward; Granite-MoE-3B-A800M's 2 layers at (1, 2): 20 of its 40
 # experts (EP) and 12 of its 24 heads a rank, its 49,155-row vocabulary
-# (odd) whole, no kernel on its path
+# (odd) whole, no kernel on its path; RWKV-6-7B's 2 layers at (1, 2): 32
+# of its 64 WKV heads a rank, no kernel on its path, at seq 1024 (the WKV
+# loop keeps ~6 MB of f32 state a step for the backward of a layer)
 PAR_CASES = {ARCH: (ARCH, STEP_LAYERS, (2, 4096), ((2, 1), (1, 2))),
-             MOE_ARCH: (MOE_ARCH, 2, (2, 2048), ((1, 2),))}
+             MOE_ARCH: (MOE_ARCH, 2, (2, 2048), ((1, 2),)),
+             RWKV_ARCH: (RWKV_ARCH, 2, (2, 1024), ((1, 2),))}
 PAR_TIMEOUT_S = 600
 # each step's loss of a layout against the one-rank run's, relative, set
 # before the first run on the card: bf16 activations at full width, where
@@ -2883,10 +2895,12 @@ SPLIT_BATCH, SPLIT_TOKENS = 2, 64
 # at 2 layers: its cache split over the 4 KV heads (2 a rank), as wk is,
 # layout (a); Granite-MoE-3B-A800M at 2 layers: its cache over its 8 KV
 # heads (4 a rank), 12 of its 24 heads and 20 of its 40 experts a rank
-# (EP), its vocabulary whole, layout (a)
+# (EP), its vocabulary whole, layout (a); RWKV-6-7B at 2 layers: its WKV
+# state over its 64 heads (32 a rank), no KV cache (cache_len unused)
 SPLIT_CASES = {"recurrentgemma-2b": (ARCH, STEP_LAYERS, 2048),
                "tinyllama-1.1b": ("tinyllama-1.1b", 2, 128),
-               MOE_ARCH: (MOE_ARCH, 2, 128)}
+               MOE_ARCH: (MOE_ARCH, 2, 128),
+               RWKV_ARCH: (RWKV_ARCH, 2, 128)}
 # each step's logits of the split decode against one rank's, absolute,
 # set before the first run on the card: f32 activations at full width,
 # where a split product sums its parts in another order and cuBLAS may
@@ -2898,10 +2912,15 @@ SPLIT_TIMEOUT_S = 600
 def split_layout_want(cfg, cache_len: int, m: int, col: int) -> list:
     """``cache_layout`` of the rank at ``col`` of a model axis of ``m``
     under the rules: the KV cache split over KV heads where ``m`` divides
-    them, else over its positions; the RG-LRU state over its channels."""
+    them, else over its positions; the RG-LRU state over its channels;
+    the RWKV state over its heads, the token-shift states whole."""
     out, b, hd = [], SPLIT_BATCH, cfg.resolved_head_dim
     for i in range(cfg.num_layers):
         kind = cfg.kind_of_layer(i)
+        if kind == "rwkv":
+            d, h = cfg.d_model, cfg.num_heads
+            out.append([[b, d], [b, d], [b, h // m, hd, hd]])
+            continue
         if kind == "rglru":
             w = cfg.lru_width // m
             out.append([[b, w], [b, cfg.conv_width - 1, w]])
@@ -2915,10 +2934,19 @@ def split_layout_want(cfg, cache_len: int, m: int, col: int) -> list:
 
 def cache_layout(cache: list) -> list:
     """Per layer: a KV cache's (k's shape, start, capacity), an RG-LRU
-    state's (h's shape, conv's shape)."""
+    state's (h's shape, conv's shape) or an RWKV state's (shift_tm's,
+    shift_cm's and s's shapes)."""
     return [[list(c.k.shape), c.start, c.capacity]
             if isinstance(c, model_attention.KVCache)
-            else [list(c.h.shape), list(c.conv.shape)] for c in cache]
+            else [list(t.shape) for t in c] for c in cache]
+
+
+def heads_of(mdl) -> int:
+    """The query heads (WKV heads for RWKV) that the first layer with
+    heads holds on this rank."""
+    blk = [b for b in mdl.layers if b.kind in ("attn", "local", "rwkv")][0]
+    return (blk.rwkv["u"].shape[0] if blk.kind == "rwkv"
+            else blk.attn["wq"].shape[1])
 
 
 def split_decode_run(seed: int, data: int, model: int) -> dict:
@@ -2976,8 +3004,7 @@ def split_decode_run(seed: int, data: int, model: int) -> dict:
             nxt = tp.whole_of(nxt, mesh, rows)
         rec = {"ms": ms, "wire": wire, "launches": launches,
                "layout": layout, "rank": rank,
-               "heads": [blk.attn["wq"].shape[1] for blk in mdl.layers
-                         if blk.kind in ("attn", "local")][0],
+               "heads": heads_of(mdl),
                "experts": (list(mdl.layers[0].mlp["wi_gate"].shape)
                            if cfg.num_experts else None)}
         if rank == 0:
@@ -3063,15 +3090,24 @@ def split_decode_phase(seed: int, failures: list[str]) -> None:
 
 
 # -- the multi-pod dry run (launch/dryrun.py), on the CPU ---------------------
-# Five cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
+# Six cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
 # of a fake world on meta tensors in one subprocess with the card hidden;
 # the RecurrentGemma cells' K5/K6 tally is held to what the lm, train and
-# split_decode phases launched on the card (ON_CARD), and tinyllama's and
-# granite's must be empty.
+# split_decode phases launched on the card (ON_CARD), and tinyllama's,
+# granite's and rwkv6's must be empty.
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", None),
                 (ARCH, "prefill_32k", "prefill"), (ARCH, "train_4k", "train"),
                 (ARCH, "decode_32k", "decode"),
-                (MOE_ARCH, "train_4k", None))      # FF: 40 experts over 16
+                (MOE_ARCH, "train_4k", None),      # FF: 40 experts over 16
+                (RWKV_ARCH, "train_4k", None))     # 4 WKV heads a rank
+# cell -> the counts its record must give, as the CPU of the repo's tests
+# gives them (``python -m repro_torch.launch.dryrun --arch rwkv6-7b
+# --shape train_4k``, torch 2.13)
+DRYRUN_COUNTS = {(RWKV_ARCH, "train_4k"): {
+    "flops_per_device": 200_867_097_608_192.0,
+    "bytes_per_device": 18_421_810_562_116.0,
+    "collective_bytes_per_device": 313_745_260_364,
+    "wkv_analytic_flops": 184_672_856_309_760.0}}
 DRYRUN_TIMEOUT_S = 300
 DRYRUN_CODE = """
 import json, sys
@@ -3113,12 +3149,16 @@ def dryrun_phase(failures: list[str]) -> None:
     for (arch, shape, on_card), out in zip(DRYRUN_CELLS, lines):
         rec, launches = out["record"], out["launches"]
         want = ON_CARD[on_card] if on_card else {}
+        counts = DRYRUN_COUNTS.get((arch, shape), {})
+        got_counts = {k: rec.get(k) for k in counts}
         ok = (rec["ok"] and rec["flops_per_device"] > 0
-              and rec["param_bytes_per_device"] > 0 and launches == want)
+              and rec["param_bytes_per_device"] > 0 and launches == want
+              and got_counts == counts)
         if not ok:
             failures.append(f"dryrun {arch} x {shape}: ok {rec['ok']}, "
                             f"flops {rec['flops_per_device']}, launches on "
-                            f"meta {launches} (on the card {want})")
+                            f"meta {launches} (on the card {want}), counts "
+                            f"{got_counts} (want {counts})")
         print(json.dumps({
             "phase": "dryrun", "arch": arch, "shape": shape,
             "mesh": rec["mesh"], "chips": rec["chips"], "ok": rec["ok"],
@@ -3127,10 +3167,12 @@ def dryrun_phase(failures: list[str]) -> None:
             "param_bytes_per_device": rec["param_bytes_per_device"],
             "collective_bytes_per_device":
                 rec["collective_bytes_per_device"],
+            "wkv_analytic_flops": rec["wkv_analytic_flops"],
             "roofline_step_time_s": rec["roofline"]["step_time_s"],
             "roofline_dominant": rec["roofline"]["dominant"],
             "lower_s": rec["lower_s"], "launches_meta": launches,
-            "launches_card": want, "checks_ok": ok}))
+            "launches_card": want, "counts_want": counts or None,
+            "checks_ok": ok}))
     print(json.dumps({"phase": "dryrun_wall",
                       "s": time.perf_counter() - t0}))
 

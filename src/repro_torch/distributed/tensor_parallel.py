@@ -32,6 +32,15 @@ its experts' ``d_ff`` columns (FF), leaves it through :func:`reduce_out`
 after the combine.  The aux loss stays on the replicated path, so its
 gradient is counted once.
 
+RWKV-6 (``models/rwkv6``) runs its time mix on the rank's whole heads
+(``wr``'s columns and ``u``'s heads split; a split that cuts heads
+raises), the recurrence on its heads' slice of the state, ``wo``
+row-parallel.  Its channel mix splits the value half over ``d_ff`` (the
+output summed by :func:`reduce_out`) and the receptance over d_model,
+gathered whole by :func:`gather_weight` for the product with the value;
+each half's mixed input enters its split region alone, so a half held
+whole stays on the replicated path.
+
 Decode of a split model (``models/attention.decode_step``): where the
 KV cache is split over its positions (``cache_seq``, the rules' choice
 whenever ``model`` does not divide the KV heads), each rank attends every
@@ -59,7 +68,7 @@ import torch.distributed as dist
 from repro_torch.distributed.collectives import wire_device
 
 # the tensor-parallel families; the others raise for --model-par > 1
-MODEL_PARALLEL_FAMILIES = ("dense", "hybrid", "moe")
+MODEL_PARALLEL_FAMILIES = ("dense", "hybrid", "moe", "ssm")
 MODEL_PARALLEL_TODO = "ROADMAP.md Queue 1 item 5c"
 # the trainer's layout: the rules' model-axis splits, no FSDP over data
 FSDP_OFF = {"fsdp": [()]}
@@ -212,7 +221,7 @@ class _ReduceOut(torch.autograd.Function):
 
 
 class _GatherWeight(torch.autograd.Function):
-    """All-gather of a weight split over the model axis; the gradient, the
+    """All-gather of a tensor split over the model axis; the gradient, the
     whole one on every rank, sliced back to this rank's part."""
 
     @staticmethod
@@ -237,11 +246,12 @@ def reduce_out(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 
 def gather_weight(w: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
-    """The whole of a weight split over the model axis along ``dim``, for a
-    product every rank runs replicated (the MoE's router): an all-gather,
-    counted in :data:`WIRE`.  Its backward takes this rank's slice of the
-    gradient, which the replicated computation gives whole on every
-    rank."""
+    """The whole of a tensor split over the model axis along ``dim``, for
+    a computation every rank runs replicated: a weight (the MoE's router)
+    or an activation leaving a split region (RWKV's receptance): an
+    all-gather, counted in :data:`WIRE`.  Its backward takes this rank's
+    slice of the gradient, which the replicated computation gives whole on
+    every rank."""
     return _GatherWeight.apply(w, axis, dim)
 
 

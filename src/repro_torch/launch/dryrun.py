@@ -28,13 +28,18 @@ What differs from the reference, by design:
     ops dispatched and ``remat_duplication`` None;
   * the port has no layer scan and counts every layer as it runs:
     ``scan_correction`` is ``{"applied": False}``;
+  * RWKV's WKV recurrence, a loop over the sequence, runs its first step
+    alone on meta (``models/rwkv6._wkv_scan``), as XLA's cost analysis
+    counts a ``lax.scan`` body once; the record then adds the other
+    S - 1 steps analytically (``_wkv_analytic_flops``), as the
+    reference's does, so the recurrence is counted once, not twice;
   * FSDP over ``data`` is not ported (ROADMAP.md Queue 1 item 5b): the step
     runs on the rules' model-axis splits alone, which are training's and
     serving's placement alike, so ``--infer-layout`` changes only
     ``param_bytes_per_device`` (computed as the reference does, with the
     rules' FSDP);
-  * a cell of the ssm, audio or vlm family waits for tensor parallelism
-    of its family (item 5c): ``run_cell`` raises, and ``main`` writes the
+  * a cell of the audio or vlm family waits for tensor parallelism of
+    its family (item 5c): ``run_cell`` raises, and ``main`` writes the
     cell as failed, as the reference writes a cell that raises;
   * the MoE places no ``expert_cap`` split of the activations: where the
     experts do not divide the model axis (granite-moe-3b-a800m's 40 over

@@ -167,7 +167,7 @@ class Block(nn.Module):
             y, _ = rwkv_time_mix(self.rwkv, hn, cfg)
             h = h + y
             hn = rmsnorm(self.ln2, h, cfg.norm_eps)
-            y, _ = rwkv_channel_mix(self.rwkv, hn)
+            y, _ = rwkv_channel_mix(self.rwkv, hn, cfg)
             return h + y, None
         if self.kind == "attn":
             h = h + attend_full(self.attn, hn, cfg, positions=positions)
@@ -185,7 +185,7 @@ class Block(nn.Module):
                 self.rwkv, hn, cfg, shift=cache.shift_tm, s0=cache.s)
             h = h + y
             hn = rmsnorm(self.ln2, h, cfg.norm_eps)
-            y, cm_shift = rwkv_channel_mix(self.rwkv, hn,
+            y, cm_shift = rwkv_channel_mix(self.rwkv, hn, cfg,
                                            shift=cache.shift_cm)
             return h + y, RWKVState(shift_tm=tm_shift, shift_cm=cm_shift,
                                     s=s_fin)

@@ -86,6 +86,44 @@ and the MoE's partial output, T·256·4 = 67,108,864 B each, and the routed
 fractions' mean over ``data`` (E·4 B): 201,326,720 (EP) and 201,326,752
 (FF) in 4 calls; EP's all-gather of the router, 256·32·4 = 32,768 B in 1
 call.
+The RWKV cell ``rwkv6-7b x train_4k`` on the single mesh at
+``RWKV_OVERRIDES`` (one layer, width 256, 16 WKV heads of 16, d_ff 512,
+vocabulary 1,024): equal keys, ``param_count``,
+``param_bytes_per_device``, ``model_flops`` and ``wkv_analytic_flops``.
+Its ``flops_per_device`` and collective bytes are printed beside the
+reference's and held to the counts worked out from the shapes before the
+port's first run of this cell (``RWKV_FLOPS``, ``RWKV_COLLECTIVES``).
+XLA's cost analysis counts its fused program, the ddlerp's elementwise
+work included, and the port its products op by op, the recomputed ones
+too, so the reference's flops are no bar here (the port's came out 1.10x
+them).  A rank holds 16 of the 256 rows (T =
+65,536 tokens), 1 of the 16 heads (16 of wr/wk/wv/wg's columns and of
+wo's rows), 32 of d_ff's 512 columns, 16 of cm_wr's 256 and 64 of the
+1,024 vocabulary rows; the step runs under remat "dots", which keeps the
+matrix products' outputs and recomputes the batched ones.  Products
+(2·M·N·K each), per token: ``tm_w1`` 2·256·160 = 81,920, ``tm_w2`` (a
+batched product over the 5 streams) 2·5·32·256 = 81,920, ``w_lora1``
+2·256·64 = 32,768, the rank's columns of ``w_lora2`` 2·64·16 = 2,048,
+wr/wk/wv/wg 4·2·256·16 = 32,768, wo 2·16·256 = 8,192, ``cm_wk`` and
+``cm_wv`` 2·256·32 each, 32,768, ``cm_wr`` 2·256·16 = 8,192, the logits
+2·256·64 = 32,768: 313,344 a token forward, twice that backward, and
+``tm_w2``'s 81,920 again in the recompute; the WKV step once (its other
+4,095 steps are ``wkv_analytic_flops``), 2·16·16·16 = 8,192 forward,
+twice that backward, once more recomputed: 65,536·1,021,952 + 32,768 =
+66,974,679,040.  (The first run gave 62,411,276,288 and 3 all-reduces,
+132,096 B, fewer: the meta step's output did not read the decay, so the
+decay's LoRA had no backward, 2·(32,768 + 2,048) a token, and ``w0``,
+``w_lora1`` and ``w_lora2`` no gradient to sum; ``rwkv6._wkv_scan`` now
+reads the meta step's output from the state it updated.)  Collectives (f32): all-reduces of the embedding's rows,
+wo's and the value half's partial sums (each twice: forward and
+recompute), the gradients of the logits' input, of the time mix's input
+and of the channel mix's two mixed inputs, T·256·4 = 67,108,864 B each
+(9); the cross entropy's max, sum and target logit, 16·4,095·4 = 262,080
+each (3); the time mix's 8 replicated parameters' gradients, 466,944 (8);
+the global norm's 4 (1); over ``data`` the rank's 191,760 gradient
+elements, 767,040, the loss and the aux loss, 4 each (3):
+606,000,012 B in 24 calls; the receptance's all-gathers, forward and
+recompute, 67,108,864 each: 134,217,728 B in 2 calls.
 """
 import dataclasses
 import json
@@ -130,6 +168,14 @@ MOE_CELLS = {
         {"by_op": {"all-reduce": 201_326_752},
          "counts": {"all-reduce": 4}}),
 }
+
+RWKV_CELL = ("rwkv6-7b", "train_4k", "single")
+RWKV_OVERRIDES = {"num_layers": 1, "d_model": 256, "num_heads": 16,
+                  "head_dim": 16, "d_ff": 512, "vocab_size": 1024}
+RWKV_FLOPS = 66_974_679_040
+RWKV_COLLECTIVES = {"by_op": {"all-reduce": 606_000_012,
+                              "all-gather": 134_217_728},
+                    "counts": {"all-reduce": 24, "all-gather": 2}}
 
 _REFERENCE = r"""
 import dataclasses, json, sys
@@ -204,6 +250,41 @@ def moe_cell(request, tmp_path_factory):
                           MOE_OVERRIDES)[0]
     return cell, want, dryrun.run_cell(*cell, correction=False,
                                        overrides=MOE_OVERRIDES)
+
+
+@pytest.fixture(scope="module")
+def rwkv_cell(tmp_path_factory):
+    """(the reference's record, the port's) at RWKV_OVERRIDES."""
+    want = _run_reference(tmp_path_factory.mktemp("dryrun_ref_rwkv"),
+                          RWKV_CELL, RWKV_OVERRIDES)[0]
+    return want, dryrun.run_cell(*RWKV_CELL, overrides=RWKV_OVERRIDES)
+
+
+def test_rwkv_counts_and_keys_equal(rwkv_cell):
+    want, got = rwkv_cell
+    assert got["ok"] and want["ok"]
+    assert set(got) == set(want)
+    for key in ("param_count", "param_bytes_per_device", "model_flops",
+                "arch", "shape", "mesh", "kind", "chips", "ok",
+                "wkv_analytic_flops"):
+        assert got[key] == want[key], key
+    assert got["wkv_analytic_flops"] > 0
+
+
+def test_rwkv_flops_and_collectives_from_the_shapes(rwkv_cell):
+    want, got = rwkv_cell
+    print(f"rwkv6 flops_per_device: port {got['flops_per_device']:.6e}, "
+          f"reference {want['flops_per_device']:.6e}; wkv_analytic_flops "
+          f"{got['wkv_analytic_flops']:.6e}; collective bytes: port "
+          f"{got['collective_bytes_per_device']} {got['collective_by_op']} "
+          f"{got['collective_counts']}, reference "
+          f"{want['collective_bytes_per_device']} {want['collective_by_op']}"
+          f" {want['collective_counts']}")
+    assert got["flops_per_device"] == RWKV_FLOPS
+    assert got["collective_by_op"] == RWKV_COLLECTIVES["by_op"]
+    assert got["collective_counts"] == RWKV_COLLECTIVES["counts"]
+    assert got["collective_bytes_per_device"] == sum(
+        RWKV_COLLECTIVES["by_op"].values())
 
 
 def test_moe_counts_and_keys_equal(moe_cell):

@@ -375,7 +375,7 @@ def test_rwkv_mixes_match_jax_and_carry_across_a_split(rwkv):
     _close(s, js, TOL["float32"])
     _close(last, jlast, 0.0)
     jc, _ = jrwkv.rwkv_channel_mix(jp, jnp.asarray(x))
-    c, _ = trwkv.rwkv_channel_mix(tp, tx)
+    c, _ = trwkv.rwkv_channel_mix(tp, tx, cfg)
     _close(c, jc, TOL["float32"])
 
     y1, (shift, s1) = trwkv.rwkv_time_mix(tp, tx[:, :5], cfg)
@@ -386,8 +386,9 @@ def test_rwkv_mixes_match_jax_and_carry_across_a_split(rwkv):
                                  shift=jnp.asarray(shift.numpy()),
                                  s0=jnp.asarray(s1.numpy()))
     _close(y2, jy2, TOL["float32"])
-    c1, cshift = trwkv.rwkv_channel_mix(tp, tx[:, :5])
-    c2, _ = trwkv.rwkv_channel_mix(tp, tx[:, 5:], shift=cshift)
+    c1, cshift = trwkv.rwkv_channel_mix(tp, tx[:, :5], cfg)
+    c2, _ = trwkv.rwkv_channel_mix(tp, tx[:, 5:], cfg,
+                                      shift=cshift)
     _close(torch.cat([c1, c2], 1), c, SPLIT_TOL)
     jc2, _ = jrwkv.rwkv_channel_mix(jp, jnp.asarray(x[:, 5:]),
                                     shift=jnp.asarray(cshift.numpy()))

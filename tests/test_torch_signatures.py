@@ -107,6 +107,10 @@ DIFFERENCES = {
         "KVCache(k, v, pos) builds a whole cache", added=("start",
                                                           "capacity")),
     "models.attention.KVCache.init": Diff(DEVICE, added=("device",)),
+    "models.rwkv6.rwkv_channel_mix": Diff(
+        "cfg gives the whole d_ff, against which a split of the value "
+        "half over the model axis is read from its weights' shapes",
+        added=("cfg",)),
     "models.common.sinusoidal_positions": Diff(DEVICE, added=("device",)),
     "models.rglru.rglru_init_state": Diff(DEVICE, added=("device",)),
     "models.rwkv6.rwkv_init_state": Diff(DEVICE, added=("device",)),

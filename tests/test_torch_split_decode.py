@@ -24,11 +24,23 @@ wraps from the last rank's slots to the first's.
   rank; with 5 experts at (1, 2) (``OVERRIDES``): layout (a), every expert
   whole with half its d_ff (FF).  A step's group is its batch's tokens,
   dropless, so each rank routes as the whole model does.
+- rwkv6-7b (4 WKV heads of 16) at (1, 2), (2, 2) and (1, 4): layout (h),
+  each rank's WKV state ``s`` its 2 or 1 heads (as ``u`` is split), the
+  token-shift states whole, the channel mix split over ``d_ff`` and
+  d_model, its 512-row untied vocabulary split.
 
 Tolerances, set before the runs: every step's logits, gathered over the
 vocabulary and the batch, within ``LOGITS_TOL`` 1e-5 of the whole model's
 (float32; a split product sums its parts in another order and the
 softmax is merged from the ranks' partials); every greedy token equal.
+The rwkv cases' logits within 1e-5 or ``FLOOR_FACTOR`` (3) times reduced
+rwkv6's float32 floor at the case's M, where that is larger: its whole
+model's decode in this process with every product's contraction summed
+in M parts (``torch_rwkv_cases.products_in_parts``, the ``floors``
+fixture).  First held to 1e-5, rwkv_2x2 differed by 2.9e-5, and that
+floor is of the same size (2.8e-5 and 3.2e-5 on the training forward,
+``tests/test_torch_rwkv_parallel.py``), so 1e-5 cannot be met there in
+float32.
 """
 import dataclasses
 
@@ -43,11 +55,13 @@ from repro_torch.launch.mesh import make_local_mesh, run_local_world
 from repro_torch.models.attention import KVCache, decode_step
 from repro_torch.models.registry import build_model
 from repro_torch.serving.serve_step import make_decode_step
+from torch_rwkv_cases import bar, products_in_parts
 
 WORLD_TIMEOUT_S = 300
 LOGITS_TOL = 1e-5
 SEED = 0
 TL, RG, MOE = "tinyllama-1.1b", "recurrentgemma-2b", "granite-moe-1b-a400m"
+RWKV = "rwkv6-7b"
 # name -> (arch, data, model, batch, tokens decoded, cache_len, layout)
 CASES = {
     "tl_1x2": (TL, 1, 2, 2, 12, 48, "a"),
@@ -59,6 +73,9 @@ CASES = {
     "moe_1x2": (MOE, 1, 2, 2, 12, 48, "a"),
     "moe_1x4": (MOE, 1, 4, 2, 20, 48, "b"),
     "moe_ff_1x2": (MOE, 1, 2, 2, 12, 48, "a"),
+    "rwkv_1x2": (RWKV, 1, 2, 2, 12, 48, "h"),
+    "rwkv_2x2": (RWKV, 2, 2, 4, 12, 48, "h"),
+    "rwkv_1x4": (RWKV, 1, 4, 2, 20, 48, "h"),
 }
 # name -> config overrides
 OVERRIDES = {"moe_ff_1x2": {"num_experts": 5}}
@@ -85,7 +102,8 @@ def _tokens(cfg, batch: int, steps: int) -> torch.Tensor:
 def _decode(model, cfg, tokens: torch.Tensor, batch: int, cache_len: int):
     """Each step's logits and greedy token of ``tokens`` (this rank's rows
     of ``batch``), with the cache's layout after the first step: per
-    layer, (k's shape, start, capacity) or the RG-LRU state's shapes."""
+    layer, (k's shape, start, capacity), the RG-LRU state's shapes or the
+    RWKV state's."""
     step = make_decode_step(model, cfg)
     cache = model.init_cache(batch, cache_len)
     logits, nxt, layout = [], [], None
@@ -96,7 +114,7 @@ def _decode(model, cfg, tokens: torch.Tensor, batch: int, cache_len: int):
         if layout is None:
             layout = [(tuple(c.k.shape), c.start, c.capacity)
                       if isinstance(c, KVCache)
-                      else (tuple(c.h.shape), tuple(c.conv.shape))
+                      else tuple(tuple(t.shape) for t in c)
                       for c in cache]
     return torch.cat(logits, 1), torch.cat(nxt, 1), layout
 
@@ -122,9 +140,7 @@ def rank_decode(cases: dict) -> dict:
         out[name] = {"logits": tp.whole_of(logits, mesh, cols),
                      "tokens": tp.whole_of(nxt, mesh, rows),
                      "layout": layout,
-                     "heads": [blk.attn["wq"].shape[1]
-                               for blk in model.layers
-                               if blk.kind in ("attn", "local")][0],
+                     "heads": _heads(model),
                      "experts": (tuple(model.layers[0].mlp["wi_gate"].shape)
                                  if cfg.num_experts else None)}
         if (d, m) == (1, 4):
@@ -134,6 +150,14 @@ def rank_decode(cases: dict) -> dict:
                 tp.local_slice(ties, axis), axis)
             out["slice"] = rank_slice()
     return out
+
+
+def _heads(model) -> int:
+    """The query heads (WKV heads for RWKV) of the first layer that has
+    them, as this rank holds them."""
+    blk = [b for b in model.layers if b.kind in ("attn", "local", "rwkv")][0]
+    return (blk.rwkv["u"].shape[0] if blk.kind == "rwkv"
+            else blk.attn["wq"].shape[1])
 
 
 def rank_slice() -> dict:
@@ -187,19 +211,37 @@ def whole():
     return out
 
 
+@pytest.fixture(scope="module")
+def floors(whole):
+    """Each rwkv case's float32 floor: how far the whole model's decoded
+    logits move with every product summed in the case's M parts."""
+    out = {}
+    for name, (arch, _, m, batch, steps, cache_len, _) in CASES.items():
+        if arch != RWKV:
+            continue
+        cfg, model = _model(arch, OVERRIDES.get(name))
+        with products_in_parts(m), torch.inference_mode():
+            logits = _decode(model, cfg, _tokens(cfg, batch, steps), batch,
+                             cache_len)[0]
+        out[name] = (logits - whole[name][0]).abs().max().item()
+    return out
+
+
 def _ranks(name, worlds):
     _, d, m = CASES[name][:3]
     return worlds[d * m]
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_split_decode_matches_the_whole_model(name, worlds, whole):
+def test_split_decode_matches_the_whole_model(name, worlds, whole, floors):
     want_logits, want_tokens, _ = whole[name]
+    tol = bar(LOGITS_TOL, floors[name]) if name in floors else LOGITS_TOL
     for rank in _ranks(name, worlds):
         got = rank[name]
         assert got["logits"].shape == want_logits.shape
         err = (got["logits"] - want_logits).abs().max().item()
-        assert err <= LOGITS_TOL, (name, err)
+        print(f"{name}: logits {err:.3e} (bar {tol:.3e})")
+        assert err <= tol, (name, err, tol)
         assert torch.equal(got["tokens"], want_tokens), name
 
 
@@ -209,7 +251,8 @@ def test_split_decode_layout_is_the_rules(name, worlds):
     splits the KV heads, (b) and (c) the positions (start and capacity
     recorded); (c) keeps every query head; the RG-LRU state holds the
     rank's channels; the MoE's experts are split where ``m`` divides them,
-    else their d_ff."""
+    else their d_ff; (h) holds the rank's WKV heads of ``s`` and the
+    token-shift states whole."""
     arch, d, m, batch, _, cache_len, layout = CASES[name]
     cfg = dataclasses.replace(get_reduced_config(arch),
                               **OVERRIDES.get(name, {}))
@@ -228,6 +271,11 @@ def test_split_decode_layout_is_the_rules(name, worlds):
         for kind, state in zip([cfg.kind_of_layer(i)
                                 for i in range(cfg.num_layers)],
                                got["layout"]):
+            if kind == "rwkv":
+                d, h, n = (cfg.d_model, cfg.num_heads,
+                           cfg.resolved_head_dim)
+                assert state == ((rows, d), (rows, d), (rows, h // m, n, n))
+                continue
             if kind == "rglru":
                 w = cfg.lru_width // m
                 assert state == ((rows, w), (rows, cfg.conv_width - 1, w))

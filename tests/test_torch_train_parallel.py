@@ -38,6 +38,7 @@ from torch_train_cases import (BASE, STEPS, argv_of, final_params,
 WORLD_TIMEOUT_S = 300
 LOSS_RTOL = 1e-5
 RG, TL, MOE = "recurrentgemma-2b", "tinyllama-1.1b", "granite-moe-1b-a400m"
+RWKV = "rwkv6-7b"
 # name -> (arch, data, model, extra arguments)
 JOBS = {
     "rg_2x1": (RG, 2, 1, ()),
@@ -67,6 +68,11 @@ JOBS = {
     "qwen3_1x2": ("qwen3-32b", 1, 2, ()),
     "qwen25_1x4": ("qwen2.5-3b", 1, 4, ()),
     "cr_1x4": ("command-r-plus-104b", 1, 4, ()),
+    # rwkv6: its 4 WKV heads 2 and 1 a rank, the channel mix over d_ff
+    # and d_model, under remat "dots" at (1, 2)
+    "rwkv_1x2": (RWKV, 1, 2, ("--remat", "dots")),
+    "rwkv_2x2": (RWKV, 2, 2, ()),
+    "rwkv_1x4": (RWKV, 1, 4, ()),
 }
 # a checkpoint at step 2 of 4, resumed on another mesh
 RESUME_STEPS, RESUME_AT = 4, 2
@@ -268,7 +274,7 @@ def test_world_of_the_wrong_size_raises(world2):
         assert "4 ranks" in msg and "world has 2" in msg, r["wrong_world"]
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-tiny", "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-2b"])
 def test_model_par_on_other_families_raises(arch):
     """No world is needed: the family check comes first."""
     with pytest.raises(SystemExit, match="Queue 1 item 5c"):
