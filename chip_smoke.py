@@ -220,7 +220,12 @@ CPU.
    heads of 64, d_ff 14,336, vocab 65,536), 2 layers, the same types and
    remat, on (2, 1024): one rank, then 2 gloo ranks at (1, 2) (32 heads,
    7,168 d_ff columns and 32,768 vocabulary rows a rank), held the same
-   way, no kernel launched.  Gloo carries every collective through the
+   way, no kernel launched.  Then whisper-tiny whole (4 encoder and 4
+   decoder layers, d_model 384, 6 heads of 64, d_ff 1,536, vocab 51,865,
+   1,500 frames a row), the same types and remat, on (2, 4096): one rank,
+   then 2 gloo ranks at (1, 2) (3 heads of every attention, the cross
+   K/V's too, and 768 d_ff columns a rank, the vocabulary whole), held
+   the same way, no kernel launched.  Gloo carries every collective through the
    host; NCCL between cards stays unmeasured on one card
    (``train_parallel_note``).
 
@@ -238,7 +243,12 @@ CPU.
    Granite's over its 8 KV heads, 4 a rank (layout (a)), 20 of its 40
    experts a rank.  RWKV-6-7B at full width, 2 layers: its WKV state
    ``s`` over its 64 heads, 32 a rank, the token-shift states whole.
-   Each case's logits, gathered, within ``SPLIT_TOL`` (1e-3) of one
+   whisper-tiny whole (4 decoder layers, f32): its self caches over the 6
+   KV heads, 3 a rank (layout (a)), its cross K/V primed from the whole
+   model's ``_cross_kv`` of seeded frames and placed by
+   ``tensor_parallel.shard_cache`` over the 1,500 frames, 750 a rank,
+   with 3 of the 6 heads a rank (layout (b): the queries gathered, the
+   partials merged by log-sum-exp).  Each case's logits, gathered, within ``SPLIT_TOL`` (1e-3) of one
    rank's at every step, the greedy tokens equal, each rank's cache
    layout the rules' and no kernel launched; ms a step, one rank against
    two, and the bytes and calls a step per mesh axis
@@ -246,13 +256,15 @@ CPU.
 
 12. The ``dryrun`` phase (``dryrun_phase``, ~20-40 s on the host's CPU):
    ``launch.dryrun.run_cell`` in a subprocess with the card hidden, on
-   six cells of the single production mesh (16 x 16 = 256 ranks):
+   seven cells of the single production mesh (16 x 16 = 256 ranks):
    tinyllama-1.1b x train_4k, recurrentgemma-2b x prefill_32k,
    recurrentgemma-2b x train_4k, recurrentgemma-2b x decode_32k,
    granite-moe-3b-a800m x train_4k (40 experts over 16 ranks: each
    expert whole with 32 of its 512 d_ff columns) and rwkv6-7b x train_4k
-   (4 WKV heads a rank; its counts must equal ``DRYRUN_COUNTS``, the
-   CPU record the repo's tests run on), each
+   (4 WKV heads a rank) and whisper-tiny x train_4k (96 of its 1,536
+   d_ff columns a rank, its 6 heads, 1,500 frames and 51,865 rows whole;
+   the last two's counts must equal ``DRYRUN_COUNTS``, the CPU records
+   the repo's tests run on), each
    run as rank 0 of a fake process group on meta tensors at published
    width and depth.  Each record's
    ``ok``, flops, bytes, parameter and collective bytes a device and its
@@ -261,7 +273,7 @@ CPU.
    what the lm phase's prefill (K5 18, K6 8), one step of the train
    phase (K5 36, ``conv1d_bwd`` 18, K6 16, each K6-bwd kernel 8) and the
    split_decode phase's decode (none) launched on the card, and
-   tinyllama's, granite's and rwkv6's must be none.
+   tinyllama's, granite's, rwkv6's and whisper's must be none.
 
 Any build error, launch error, mismatch or kernel that its path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
@@ -2723,16 +2735,22 @@ def distributed_phase(seed: int, failures: list[str]) -> None:
 PAR_STEPS = 3
 MOE_ARCH = "granite-moe-3b-a800m"
 RWKV_ARCH = "rwkv6-7b"
+WHISPER_ARCH = "whisper-tiny"
 # name -> (arch, layers, (batch, seq), layouts (data, model) of 2 gloo
 # ranks).  RecurrentGemma-2B's one period through K5, K6 and their
 # backward; Granite-MoE-3B-A800M's 2 layers at (1, 2): 20 of its 40
 # experts (EP) and 12 of its 24 heads a rank, its 49,155-row vocabulary
 # (odd) whole, no kernel on its path; RWKV-6-7B's 2 layers at (1, 2): 32
 # of its 64 WKV heads a rank, no kernel on its path, at seq 1024 (the WKV
-# loop keeps ~6 MB of f32 state a step for the backward of a layer)
+# loop keeps ~6 MB of f32 state a step for the backward of a layer);
+# whisper-tiny whole (4 + 4 layers) at (1, 2): 3 of its 6 heads a rank in
+# every attention, the cross K/V made from the rank's heads, 768 of its
+# 1,536 d_ff columns, its 51,865-row vocabulary (odd) whole, 1,500 frames
+# a row, no kernel on its path
 PAR_CASES = {ARCH: (ARCH, STEP_LAYERS, (2, 4096), ((2, 1), (1, 2))),
              MOE_ARCH: (MOE_ARCH, 2, (2, 2048), ((1, 2),)),
-             RWKV_ARCH: (RWKV_ARCH, 2, (2, 1024), ((1, 2),))}
+             RWKV_ARCH: (RWKV_ARCH, 2, (2, 1024), ((1, 2),)),
+             WHISPER_ARCH: (WHISPER_ARCH, 4, (2, 4096), ((1, 2),))}
 PAR_TIMEOUT_S = 600
 # each step's loss of a layout against the one-rank run's, relative, set
 # before the first run on the card: bf16 activations at full width, where
@@ -2896,11 +2914,17 @@ SPLIT_BATCH, SPLIT_TOKENS = 2, 64
 # layout (a); Granite-MoE-3B-A800M at 2 layers: its cache over its 8 KV
 # heads (4 a rank), 12 of its 24 heads and 20 of its 40 experts a rank
 # (EP), its vocabulary whole, layout (a); RWKV-6-7B at 2 layers: its WKV
-# state over its 64 heads (32 a rank), no KV cache (cache_len unused)
+# state over its 64 heads (32 a rank), no KV cache (cache_len unused);
+# whisper-tiny whole (4 decoder layers): its self caches over the 6 KV
+# heads (3 a rank), layout (a), its cross K/V, primed from the whole
+# model's ``_cross_kv`` of seeded frames and placed by ``shard_cache``,
+# over the 1,500 frames (750 a rank) with 3 of its 6 heads a rank, layout
+# (b)
 SPLIT_CASES = {"recurrentgemma-2b": (ARCH, STEP_LAYERS, 2048),
                "tinyllama-1.1b": ("tinyllama-1.1b", 2, 128),
                MOE_ARCH: (MOE_ARCH, 2, 128),
-               RWKV_ARCH: (RWKV_ARCH, 2, 128)}
+               RWKV_ARCH: (RWKV_ARCH, 2, 128),
+               WHISPER_ARCH: (WHISPER_ARCH, 4, 128)}
 # each step's logits of the split decode against one rank's, absolute,
 # set before the first run on the card: f32 activations at full width,
 # where a split product sums its parts in another order and cuBLAS may
@@ -2913,7 +2937,9 @@ def split_layout_want(cfg, cache_len: int, m: int, col: int) -> list:
     """``cache_layout`` of the rank at ``col`` of a model axis of ``m``
     under the rules: the KV cache split over KV heads where ``m`` divides
     them, else over its positions; the RG-LRU state over its channels;
-    the RWKV state over its heads, the token-shift states whole."""
+    the RWKV state over its heads, the token-shift states whole; the
+    encoder-decoder's cross K (L, B, T, KV, hd) over the frames where
+    ``m`` divides them, else over the KV heads, else whole."""
     out, b, hd = [], SPLIT_BATCH, cfg.resolved_head_dim
     for i in range(cfg.num_layers):
         kind = cfg.kind_of_layer(i)
@@ -2929,24 +2955,53 @@ def split_layout_want(cfg, cache_len: int, m: int, col: int) -> list:
         kv = cfg.num_kv_heads
         out.append([[b, kv // m, slots, hd], 0, 0] if kv % m == 0 else
                    [[b, kv, slots // m, hd], col * slots // m, slots])
+    if cfg.family == "audio":
+        t, kv = cfg.encoder_seq, cfg.num_kv_heads
+        out.append([cfg.num_layers, b, *((t // m, kv) if t % m == 0 else
+                                         (t, kv // m) if kv % m == 0 else
+                                         (t, kv)), hd])
     return out
 
 
-def cache_layout(cache: list) -> list:
+def cache_layout(cache) -> list:
     """Per layer: a KV cache's (k's shape, start, capacity), an RG-LRU
     state's (h's shape, conv's shape) or an RWKV state's (shift_tm's,
-    shift_cm's and s's shapes)."""
-    return [[list(c.k.shape), c.start, c.capacity]
-            if isinstance(c, model_attention.KVCache)
-            else [list(t.shape) for t in c] for c in cache]
+    shift_cm's and s's shapes); the encoder-decoder's dict: its self
+    caches', then the cross K's shape."""
+    states = cache["self"] if isinstance(cache, dict) else cache
+    out = [[list(c.k.shape), c.start, c.capacity]
+           if isinstance(c, model_attention.KVCache)
+           else [list(t.shape) for t in c] for c in states]
+    if isinstance(cache, dict):
+        out.append(list(cache["cross_k"].shape))
+    return out
 
 
 def heads_of(mdl) -> int:
     """The query heads (WKV heads for RWKV) that the first layer with
     heads holds on this rank."""
+    if not hasattr(mdl, "layers"):                      # encoder-decoder
+        return mdl.dec[0].self["wq"].shape[1]
     blk = [b for b in mdl.layers if b.kind in ("attn", "local", "rwkv")][0]
     return (blk.rwkv["u"].shape[0] if blk.kind == "rwkv"
             else blk.attn["wq"].shape[1])
+
+
+def primed_cache(mdl, cfg, seed: int, cache_len: int) -> dict:
+    """The encoder-decoder's whole cache of SPLIT_BATCH rows: the self
+    caches empty, the cross K/V the whole model's ``_cross_kv`` of seeded
+    frames on the card."""
+    dev = mdl.embed.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    frames = torch.randn((SPLIT_BATCH, cfg.encoder_seq, cfg.d_model),
+                         device=dev, generator=gen)
+    with torch.inference_mode():
+        cache = mdl.init_cache(SPLIT_BATCH, cache_len)
+        enc = mdl.encode(frames)
+        kv = [mdl._cross_kv(bp, enc) for bp in mdl.dec]
+        cache["cross_k"] = torch.stack([k for k, _ in kv])
+        cache["cross_v"] = torch.stack([v for _, v in kv])
+    return cache
 
 
 def split_decode_run(seed: int, data: int, model: int) -> dict:
@@ -2959,7 +3014,8 @@ def split_decode_run(seed: int, data: int, model: int) -> dict:
     axis (``tensor_parallel.WIRE``, zeroed just before the step), the
     kernels launched in the decode (counts zeroed just before it), the
     cache's layout and heads a rank; rank 0 also the logits and tokens,
-    gathered whole, on the host."""
+    gathered whole, on the host.  The encoder-decoder's cache is
+    :func:`primed_cache`, placed by ``tensor_parallel.shard_cache``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_local_mesh(data, model) if data * model > 1 else None
@@ -2969,7 +3025,11 @@ def split_decode_run(seed: int, data: int, model: int) -> dict:
         cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                                   dtype="float32")
         mdl = family_model(cfg, dev, seed)
+        primed = (primed_cache(mdl, cfg, seed, cache_len)
+                  if cfg.family == "audio" else None)
         if mesh is not None:
+            if primed is not None:
+                primed = tp.shard_cache(primed, mesh)
             tp.shard_parameters(mdl, tp.parameter_layout(mdl, mesh), mesh)
         gen = torch.Generator(device=dev).manual_seed(seed + 1)
         toks = torch.randint(0, cfg.vocab_size, (SPLIT_BATCH, SPLIT_TOKENS),
@@ -2984,7 +3044,8 @@ def split_decode_run(seed: int, data: int, model: int) -> dict:
         with (mesh_context(mesh) if mesh is not None
               else contextlib.nullcontext()):
             step = make_decode_step(mdl, cfg)
-            cache = mdl.init_cache(SPLIT_BATCH, cache_len)
+            cache = (mdl.init_cache(SPLIT_BATCH, cache_len)
+                     if primed is None else primed)
             layout = cache_layout(cache)
             torch.cuda.synchronize()
             _build.reset_launches()
@@ -3010,7 +3071,7 @@ def split_decode_run(seed: int, data: int, model: int) -> dict:
         if rank == 0:
             rec.update(logits=logits.cpu(), tokens=nxt.cpu())
         out[name] = rec
-        del mdl, cache, logits
+        del mdl, cache, logits, primed
         torch.cuda.empty_cache()
     return out
 
@@ -3090,24 +3151,30 @@ def split_decode_phase(seed: int, failures: list[str]) -> None:
 
 
 # -- the multi-pod dry run (launch/dryrun.py), on the CPU ---------------------
-# Six cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
+# Seven cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
 # of a fake world on meta tensors in one subprocess with the card hidden;
 # the RecurrentGemma cells' K5/K6 tally is held to what the lm, train and
 # split_decode phases launched on the card (ON_CARD), and tinyllama's,
-# granite's and rwkv6's must be empty.
+# granite's, rwkv6's and whisper's must be empty.
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", None),
                 (ARCH, "prefill_32k", "prefill"), (ARCH, "train_4k", "train"),
                 (ARCH, "decode_32k", "decode"),
                 (MOE_ARCH, "train_4k", None),      # FF: 40 experts over 16
-                (RWKV_ARCH, "train_4k", None))     # 4 WKV heads a rank
+                (RWKV_ARCH, "train_4k", None),     # 4 WKV heads a rank
+                (WHISPER_ARCH, "train_4k", None))  # d_ff over 16, the rest
+                                                   # whole
 # cell -> the counts its record must give, as the CPU of the repo's tests
 # gives them (``python -m repro_torch.launch.dryrun --arch rwkv6-7b
-# --shape train_4k``, torch 2.13)
+# --shape train_4k``, torch 2.13; whisper-tiny's the same way)
 DRYRUN_COUNTS = {(RWKV_ARCH, "train_4k"): {
     "flops_per_device": 200_867_097_608_192.0,
     "bytes_per_device": 18_421_810_562_116.0,
     "collective_bytes_per_device": 313_745_260_364,
-    "wkv_analytic_flops": 184_672_856_309_760.0}}
+    "wkv_analytic_flops": 184_672_856_309_760.0},
+    (WHISPER_ARCH, "train_4k"): {
+    "flops_per_device": 19_646_718_148_608.0,
+    "bytes_per_device": 1_526_521_246_172.0,
+    "collective_bytes_per_device": 1_211_767_308}}
 DRYRUN_TIMEOUT_S = 300
 DRYRUN_CODE = """
 import json, sys

@@ -211,9 +211,13 @@ def cache_logical(name: str, ndim: int, stacked: bool) -> tuple:
     axis.  A KV cache (B, KV, C, hd) is ("batch", "kv_heads", "cache_seq",
     None): on a mesh whose ``model`` size does not divide the KV heads,
     ``cache_seq`` takes ``model`` and the cache is split over its
-    positions."""
+    positions.  The name is the path's last key, an attribute (``.k``)
+    or an item (``['cross_k']``): the reference strips only an item's
+    close, so it reads ``['cross_k']`` as ``['cross_k`` and leaves the
+    cross K/V replicated, their batch too; the port places them by the
+    cross rule, the batch over ``data`` as decode's tokens are."""
     lead = ("layers",) if stacked else ()
-    n = name.split(".")[-1].strip("'] ").lower()
+    n = name.replace("[", ".").split(".")[-1].strip("'] ").lower()
     base_nd = ndim - len(lead)
     if n in ("k", "v") and base_nd == 4:          # KV cache (B, KV, C, hd)
         return lead + ("batch", "kv_heads", "cache_seq", None)

@@ -41,6 +41,19 @@ gathered whole by :func:`gather_weight` for the product with the value;
 each half's mixed input enters its split region alone, so a half held
 whole stays on the replicated path.
 
+The encoder-decoder (``models/encdec``, whisper) splits its encoder's
+and decoder's attention over heads and their MLPs over ``d_ff`` as the
+decoder-only stack does.  Its cross-attention takes the rank's heads of
+``wq`` and ``wo`` and the K/V that the rank's heads of ``wk``/``wv`` make
+from the encoder output, which enters the split region through one
+:func:`copy_in` before the decoder stack: every layer's partial gradient
+of it adds up on the rank before the one all-reduce.  Decode's cross K/V
+cache is placed by the rules' cross rule, over the encoder's frames
+where ``model`` divides them (``cache_seq`` comes first), else over its
+KV heads, else whole; over frames, each rank attends every query head
+over its frames and :func:`merge_softmax` combines the partials, as a
+KV cache split over its positions is attended.
+
 Decode of a split model (``models/attention.decode_step``): where the
 KV cache is split over its positions (``cache_seq``, the rules' choice
 whenever ``model`` does not divide the KV heads), each rank attends every
@@ -68,7 +81,7 @@ import torch.distributed as dist
 from repro_torch.distributed.collectives import wire_device
 
 # the tensor-parallel families; the others raise for --model-par > 1
-MODEL_PARALLEL_FAMILIES = ("dense", "hybrid", "moe", "ssm")
+MODEL_PARALLEL_FAMILIES = ("dense", "hybrid", "moe", "ssm", "audio")
 MODEL_PARALLEL_TODO = "ROADMAP.md Queue 1 item 5c"
 # the trainer's layout: the rules' model-axis splits, no FSDP over data
 FSDP_OFF = {"fsdp": [()]}
@@ -429,14 +442,20 @@ def vocab_parallel_argmax(logits: torch.Tensor, axis: Axis) -> torch.Tensor:
     return _reduce(cand, axis, dist.ReduceOp.MIN)
 
 
-def shard_cache(cache: list, mesh) -> list:
-    """This rank's slice of a whole decode cache (one state a layer), each
-    tensor placed by ``sharding.cache_placements`` (the reference's
-    ``cache_shardings`` rule).  A KV cache split over its positions
-    records its place: ``start``, the first slot it holds, and
-    ``capacity``, the whole cache's slots."""
+def shard_cache(cache, mesh):
+    """This rank's slice of a whole decode cache, each tensor placed by
+    ``sharding.cache_placements`` (the reference's ``cache_shardings``
+    rule): a list (one state a layer), or the encoder-decoder's dict
+    (``self``, such a list of KV caches, and ``cross_k``/``cross_v``
+    (L, B, T, KV, hd), placed by the cross rule).  A KV cache split over
+    its positions records its place: ``start``, the first slot it holds,
+    and ``capacity``, the whole cache's slots."""
     from repro_torch.distributed.sharding import (cache_placements,
                                                   shard_offsets)
+    if isinstance(cache, dict):
+        place = cache_placements(mesh, cache)
+        return {k: shard_cache(v, mesh) if k == "self"
+                else shard_of(v, mesh, place[k]) for k, v in cache.items()}
     out = []
     for state, place in zip(cache, cache_placements(mesh, cache)):
         new = state._replace(**{

@@ -38,9 +38,9 @@ What differs from the reference, by design:
     serving's placement alike, so ``--infer-layout`` changes only
     ``param_bytes_per_device`` (computed as the reference does, with the
     rules' FSDP);
-  * a cell of the audio or vlm family waits for tensor parallelism of
-    its family (item 5c): ``run_cell`` raises, and ``main`` writes the
-    cell as failed, as the reference writes a cell that raises;
+  * a cell of the vlm family waits for tensor parallelism of its
+    family (item 5c): ``run_cell`` raises, and ``main`` writes the cell
+    as failed, as the reference writes a cell that raises;
   * the MoE places no ``expert_cap`` split of the activations: where the
     experts do not divide the model axis (granite-moe-3b-a800m's 40 over
     16), the reference's GSPMD splits the dispatched tokens' capacity; the
@@ -52,7 +52,16 @@ What differs from the reference, by design:
     token comes from ``tensor_parallel.vocab_parallel_argmax``; the KV
     cache is split as the rules place it (over its positions on both
     meshes), and the collectives are the port's hand-placed ones
-    (``models/attention.decode_step``), not GSPMD's.
+    (``models/attention.decode_step``), not GSPMD's;
+  * whisper's cross K/V cache is placed by the cross rule, its batch
+    over ``data`` (and its frames over ``model`` where they divide):
+    the reference's rule reads the path ``['cross_k']`` as the name
+    ``['cross_k`` and leaves the cross K/V replicated
+    (``sharding.cache_logical``).  On the production meshes its 1,500
+    frames and 6 KV heads do not divide 16, so a rank holds its rows'
+    whole cross K/V; the decode cell's self cache is split over its
+    positions with ``wq`` whole (``attention.decode_step``'s layout (c))
+    and the MLP over ``d_ff``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \

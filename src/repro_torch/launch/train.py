@@ -16,10 +16,12 @@
     sharding rules split over ``model`` (FSDP off, as the reference's
     trainer places nothing by "fsdp"); the step runs under
     ``mesh_context`` (``distributed/tensor_parallel.py``).  Tensor
-    parallelism covers the dense, hybrid, MoE and ssm families (the MoE's
-    experts split over ``model``, or each expert's ``d_ff`` where the
-    experts do not divide it; RWKV-6's WKV heads split over ``model``);
-    data parallelism every family.  The world
+    parallelism covers the dense, hybrid, MoE, ssm and audio families
+    (the MoE's experts split over ``model``, or each expert's ``d_ff``
+    where the experts do not divide it; RWKV-6's WKV heads split over
+    ``model``; whisper's encoder, decoder and cross-attention heads, each
+    model rank of a data rank taking the same rows of the frames); data
+    parallelism every family.  The world
     is the default process group when one is initialized
     (``launch.mesh.run_local_world``, a test), else torchrun's
     environment (NCCL for ``--device cuda``, gloo for ``cpu``); rank 0

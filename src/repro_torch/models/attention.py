@@ -13,7 +13,8 @@ Under ``mesh_context`` with ``wq`` split over heads (the model axis), the
 prefill runs this rank's query heads alone, column-parallel, and ``wo``
 row-parallel (``distributed/tensor_parallel.py``).  Decode also takes a
 cache split over its positions, the rules' placement where ``model`` does
-not divide the KV heads (:func:`decode_step`).
+not divide the KV heads (:func:`decode_step`), and cross-attention K/V
+split over the encoder's frames (:func:`attend_full` with ``frames``).
 """
 from __future__ import annotations
 
@@ -147,11 +148,19 @@ def _sdpa(q, k, v, mask: Optional[torch.Tensor], group: int) -> torch.Tensor:
 
 def attend_full(p, x: torch.Tensor, cfg: ArchConfig, *, positions,
                 causal: bool = True,
-                cross_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                cross_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+                frames: int = 0) -> torch.Tensor:
     """Prefill attention without a cache.  ``cross_kv`` supplies encoder K/V
     (B, T, KV, hd) for cross-attention: q is then ``wq`` alone, with no
-    bias, no norm and no rope."""
+    bias, no norm and no rope.  ``frames``: the encoder's whole frame
+    count where ``cross_kv`` may be a rank's slice of it (decode's cross
+    cache, :func:`_cross_over_frames`); 0: ``cross_kv`` holds every
+    frame.
+
+    With ``wq`` split over heads, cross-attention runs the rank's query
+    heads over the given K/V, the rank's KV heads (made by its heads of
+    ``wk``/``wv``) or, where they are whole, those its queries read
+    (``tensor_parallel.kv_select``), and ``wo`` row-parallel."""
     s = x.shape[1]
     axis = _head_axis(p, cfg)
     if cross_kv is None:
@@ -160,13 +169,40 @@ def attend_full(p, x: torch.Tensor, cfg: ArchConfig, *, positions,
         mask = (torch.ones(s, s, dtype=torch.bool, device=x.device)
                 .tril()[None, None] if causal else None)
     else:
-        if axis is not None:
-            raise ValueError("cross-attention split over heads is not "
-                             "ported")
-        q = _heads(x, p["wq"])
         k, v = cross_kv
+        slots = tp.split_axis(k.shape[1], frames) if frames else None
+        if slots is not None:
+            return _cross_over_frames(p, x, k, v, axis, slots)
+        if axis is not None:
+            x = tp.copy_in(x, axis)
+        q = _heads(x, p["wq"])
+        if axis is not None and k.shape[2] == cfg.num_kv_heads:
+            idx, _ = tp.kv_select(q.shape[2], cfg.num_kv_heads,
+                                  cfg.q_per_kv, axis)
+            if idx != list(range(cfg.num_kv_heads)):
+                k, v = k[:, :, idx], v[:, :, idx]
         mask = None
     return _out(p, _sdpa(q, k, v, mask, q.shape[2] // k.shape[2]), axis)
+
+
+def _cross_over_frames(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       heads, slots: tp.Axis) -> torch.Tensor:
+    """Cross-attention over K/V (B, T/M, KV, hd) split over the encoder's
+    frames along ``slots``, as :func:`decode_step` attends a cache split
+    over its positions: every head's query (gathered where ``wq`` is split
+    over ``heads``, layout (b); the rank's own where it is whole, (c)),
+    each rank's frames attended unmasked and the partials merged
+    (``tensor_parallel.merge_softmax``), then the rank's heads through
+    ``wo``, row-parallel where it is split."""
+    q = _heads(x, p["wq"])
+    h = q.shape[2]
+    if heads is not None:
+        q = tp.gather_cat(q, heads, dim=2)
+    out = _attend_partial(q, k.transpose(1, 2), v.transpose(1, 2), 0.0,
+                          slots).to(x.dtype)
+    if heads is not None:
+        out = out.narrow(2, heads.rank * h, h)
+    return _out(p, out, heads)
 
 
 def attend_local(p, x: torch.Tensor, cfg: ArchConfig, *,
@@ -182,26 +218,26 @@ def attend_local(p, x: torch.Tensor, cfg: ArchConfig, *,
     return _out(p, out.transpose(1, 2), axis)
 
 
-def _decode_attend(q, k, v, bias, axis=None) -> torch.Tensor:
-    """One token's attention, q (B,1,H,hd) over k/v (B,KV,C,hd) with the
-    additive ``bias`` (C,): f32 logits and softmax, GQA by grouping the
-    query heads of each KV head.  With ``axis`` (the cache split over its
-    positions along it), this rank's slots' partial, merged over the axis
-    (``tensor_parallel.merge_softmax``).  Returns (B,1,H,hd) in f32."""
-    b, _, h, hd = q.shape
+def _attend_partial(q, k, v, bias, axis=None) -> torch.Tensor:
+    """q (B,S,H,hd) over k/v (B,KV,C,hd) with the additive ``bias`` (C,)
+    or a scalar: f32 logits and softmax, GQA by grouping the query heads
+    of each KV head.  With ``axis`` (k/v split over C along it), this
+    rank's partial, merged over the axis
+    (``tensor_parallel.merge_softmax``).  Returns (B,S,H,hd) in f32."""
+    b, s, h, hd = q.shape
     kv = k.shape[1]
     scale = torch.sqrt(torch.tensor(hd, dtype=torch.float32))
-    qg = (q.float() / scale.to(q.device)).reshape(b, 1, kv, h // kv, hd)
+    qg = (q.float() / scale.to(q.device)).reshape(b, s, kv, h // kv, hd)
     logits = torch.einsum("bskgd,bktd->bkgst", qg, k.float()) + bias
     if axis is None:
         pr = torch.softmax(logits, dim=-1)
         out = torch.einsum("bkgst,bktd->bskgd", pr, v.float())
-        return out.reshape(b, 1, h, hd)
-    m = logits.amax(-1)                                     # (B,KV,G,1)
+        return out.reshape(b, s, h, hd)
+    m = logits.amax(-1)                                     # (B,KV,G,S)
     e = torch.exp(logits - m[..., None])
     o = torch.einsum("bkgst,bktd->bkgsd", e, v.float())
-    out = tp.merge_softmax(m, e.sum(-1), o, axis)           # (B,KV,G,1,hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
+    out = tp.merge_softmax(m, e.sum(-1), o, axis)           # (B,KV,G,S,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
 
 
 def decode_step(p, x: torch.Tensor, cache: KVCache, cfg: ArchConfig, *,
@@ -273,12 +309,12 @@ def decode_step(p, x: torch.Tensor, cache: KVCache, cfg: ArchConfig, *,
             sel, _ = tp.kv_select(q.shape[2], kv, cfg.q_per_kv, heads)
             if sel != list(range(kv)):
                 k, v = k[:, sel], v[:, sel]
-        out = _decode_attend(q, k, v, bias)
+        out = _attend_partial(q, k, v, bias)
         return _out(p, out.to(x.dtype), heads), new
     h = q.shape[2]
     if heads is not None:
         q = tp.gather_cat(q, heads, dim=2)
-    out = _decode_attend(q, k, v, bias, slots).to(x.dtype)
+    out = _attend_partial(q, k, v, bias, slots).to(x.dtype)
     if heads is not None:
         out = out.narrow(2, heads.rank * h, h)
     return _out(p, out, heads), new

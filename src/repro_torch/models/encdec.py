@@ -8,6 +8,16 @@ sinusoidal positions.  Decoder: causal self-attention, cross-attention and
 MLP, sinusoidal positions.  Each stack is a list of blocks, named
 ``enc.{i}`` and ``dec.{i}`` (``convert.from_jax_params`` unstacks the JAX
 package's ``enc``/``dec`` trees onto them).
+
+Under ``mesh_context`` with parameters split over the model axis
+(``distributed/tensor_parallel.py``), each attention runs its rank's
+heads and each MLP its ``d_ff`` columns, as the decoder-only stack does;
+the encoder output enters the decoder's split cross-attention through one
+``copy_in`` before the decoder stack; a table split over the vocabulary
+is looked up vocabulary-parallel and the tied logits stay split over it.
+``init_cache`` under ``mesh_context`` gives this rank's slice of the
+cache, the cross K/V placed by the rules' cross rule, which decode
+attends as it finds them (``attention.attend_full`` with ``frames``).
 """
 from __future__ import annotations
 
@@ -16,8 +26,10 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils._pytree import tree_map
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import params as pr
 from repro_torch.models.attention import (KVCache, attend_full,
                                           attention_specs,
@@ -106,11 +118,48 @@ class EncDecLM(nn.Module):
     def _cross_kv(self, bp: nn.Module, enc_out: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
         """A decoder block's cross-attention K/V (B, T, KV, hd) of the
-        encoder output."""
-        d, kv, hd = bp.cross["wk"].shape
-        k = (enc_out @ bp.cross["wk"].to(enc_out.dtype).reshape(d, kv * hd))
-        v = (enc_out @ bp.cross["wv"].to(enc_out.dtype).reshape(d, kv * hd))
+        encoder output: the rank's KV heads where ``wk``/``wv`` are split
+        over them.  Where the cross-attention is split over heads and
+        ``wk``/``wv`` are whole, they enter its split region
+        (``tensor_parallel.enter``); the encoder output has entered it
+        before the stack (:meth:`_enter_cross`)."""
+        p = {"wk": bp.cross["wk"], "wv": bp.cross["wv"]}
+        axis = tp.split_axis(bp.cross["wq"].shape[1], self.cfg.num_heads)
+        if axis is not None:
+            p = tp.enter(p, attention_specs(self.cfg), axis)
+        d, kv, hd = p["wk"].shape
+        k = (enc_out @ p["wk"].to(enc_out.dtype).reshape(d, kv * hd))
+        v = (enc_out @ p["wv"].to(enc_out.dtype).reshape(d, kv * hd))
         return k.unflatten(-1, (kv, hd)), v.unflatten(-1, (kv, hd))
+
+    def _enter_cross(self, enc_out: torch.Tensor) -> torch.Tensor:
+        """The encoder output as the decoder's cross K/V read it: through
+        one ``copy_in`` where the cross-attention is split over heads, so
+        the layers' partial gradients add up on the rank before a single
+        all-reduce."""
+        axis = tp.split_axis(self.dec[0].cross["wq"].shape[1],
+                             self.cfg.num_heads)
+        return enc_out if axis is None else tp.copy_in(enc_out, axis)
+
+    def _embed(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """Token embeddings plus the sinusoidal positions ``pos``;
+        vocabulary-parallel where the table is split over the vocabulary."""
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        axis = tp.split_axis(self.embed.shape[0], cfg.vocab_size)
+        h = (embed(self.embed, tokens, dtype) if axis is None
+             else tp.vocab_parallel_embed(self.embed, tokens, dtype, axis))
+        return h + pos.to(dtype)[None]
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """f32 tied logits; this rank's columns of the vocabulary where the
+        table is split over it (the input through ``copy_in``)."""
+        cfg = self.cfg
+        h = rmsnorm(self.final_norm, h, cfg.norm_eps)
+        axis = tp.split_axis(self.embed.shape[0], cfg.vocab_size)
+        if axis is not None:
+            h = tp.copy_in(h, axis)
+        return unembed(self.embed, h, tied=True)
 
     # ----- decoder (teacher-forced / prefill logits) -------------------------
     def _dec_block(self, bp: nn.Module, h: torch.Tensor,
@@ -139,46 +188,49 @@ class EncDecLM(nn.Module):
         ``remat`` recomputes each decoder block in the backward pass, as
         the JAX package checkpoints its decoder scan
         (``transformer.remat_call``)."""
-        cfg = self.cfg
-        dtype = getattr(torch, cfg.dtype)
-        enc_out = self.encode(frames)
-        pos = sinusoidal_positions(tokens.shape[1], cfg.d_model,
-                                   device=tokens.device)
-        h = embed(self.embed, tokens, dtype) + pos.to(dtype)[None]
+        enc_out = self._enter_cross(self.encode(frames))
+        h = self._embed(tokens, sinusoidal_positions(
+            tokens.shape[1], self.cfg.d_model, device=tokens.device))
         for bp in self.dec:
             h = remat_call(functools.partial(self._dec_block, bp), remat, h,
                            enc_out)
-        h = rmsnorm(self.final_norm, h, cfg.norm_eps)
-        logits = unembed(self.embed, h, tied=True)
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=tokens.device)
+        return self._logits(h), torch.zeros((), dtype=torch.float32,
+                                            device=tokens.device)
 
     # ----- decode -----------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int) -> dict[str, Any]:
         """``self``: one KVCache per decoder layer; ``cross_k``/``cross_v``:
         (layers, B, encoder_seq, KV, hd) zeros, to be filled once a request
-        from its encoder output (``_cross_kv``)."""
+        from its encoder output (``_cross_kv``).  Under ``mesh_context``:
+        this rank's slice of the cache of ``batch`` rows
+        (``tensor_parallel.shard_cache``), made without the whole."""
         cfg = self.cfg
         dtype, dev = getattr(torch, cfg.dtype), self.embed.device
+        mesh = tp.ambient_mesh()
+        make = dev if mesh is None else "meta"
         hd = cfg.resolved_head_dim
         xk = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads, hd)
-        return {"self": [KVCache.init(batch, cfg.num_kv_heads, cache_len, hd,
-                                      dtype, dev)
-                         for _ in range(cfg.num_layers)],
-                "cross_k": torch.zeros(xk, dtype=dtype, device=dev),
-                "cross_v": torch.zeros(xk, dtype=dtype, device=dev)}
+        cache = {"self": [KVCache.init(batch, cfg.num_kv_heads, cache_len, hd,
+                                       dtype, make)
+                          for _ in range(cfg.num_layers)],
+                 "cross_k": torch.zeros(xk, dtype=dtype, device=make),
+                 "cross_v": torch.zeros(xk, dtype=dtype, device=make)}
+        if mesh is None:
+            return cache
+        return tree_map(lambda t: torch.zeros_like(t, device=dev)
+                        if isinstance(t, torch.Tensor) else t,
+                        tp.shard_cache(cache, mesh))
 
     def decode(self, cache: dict[str, Any], tokens: torch.Tensor, *,
                positions=None) -> tuple[torch.Tensor, dict[str, Any]]:
         """One-token decode. tokens: (B, 1).  The position is layer 0's
-        cache position."""
+        cache position.  The cross K/V are attended as the cache holds
+        them: whole, a rank's KV heads, or a rank's slice of the
+        ``encoder_seq`` frames."""
         cfg = self.cfg
-        dtype = getattr(torch, cfg.dtype)
         pos = cache["self"][0].pos
-        h = embed(self.embed, tokens, dtype)
-        ptab = sinusoidal_positions(1, cfg.d_model, offset=pos,
-                                    device=tokens.device)
-        h = h + ptab.to(dtype)[None]
+        h = self._embed(tokens, sinusoidal_positions(
+            1, cfg.d_model, offset=pos, device=tokens.device))
         new_self = []
         for i, (bp, kv_cache) in enumerate(zip(self.dec, cache["self"])):
             hn = rmsnorm(bp.ln1, h, cfg.norm_eps)
@@ -188,11 +240,11 @@ class EncDecLM(nn.Module):
             hn = rmsnorm(bp.lnx, h, cfg.norm_eps)
             h = h + attend_full(bp.cross, hn, cfg, positions=None,
                                 cross_kv=(cache["cross_k"][i],
-                                          cache["cross_v"][i]))
+                                          cache["cross_v"][i]),
+                                frames=cfg.encoder_seq)
             hn = rmsnorm(bp.ln2, h, cfg.norm_eps)
             h = h + mlp(bp.mlp, hn, cfg)
             new_self.append(kv_cache)
-        h = rmsnorm(self.final_norm, h, cfg.norm_eps)
-        logits = unembed(self.embed, h, tied=True)
-        return logits, {"self": new_self, "cross_k": cache["cross_k"],
-                        "cross_v": cache["cross_v"]}
+        return self._logits(h), {"self": new_self,
+                                 "cross_k": cache["cross_k"],
+                                 "cross_v": cache["cross_v"]}

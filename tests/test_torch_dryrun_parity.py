@@ -124,6 +124,44 @@ the global norm's 4 (1); over ``data`` the rank's 191,760 gradient
 elements, 767,040, the loss and the aux loss, 4 each (3):
 606,000,012 B in 24 calls; the receptance's all-gathers, forward and
 recompute, 67,108,864 each: 134,217,728 B in 2 calls.
+
+The whisper cell ``whisper-tiny x train_4k`` on the single mesh at full
+width, cut to one encoder and one decoder layer (``WHISPER_OVERRIDES``):
+equal keys, ``param_count``, ``param_bytes_per_device``, ``model_flops``
+and ``wkv_analytic_flops``.  Its ``flops_per_device`` and collective
+bytes are printed beside the reference's and held to the counts worked
+out from the shapes (``WHISPER_FLOPS``, ``WHISPER_COLLECTIVES``).  On the
+16-way model axis a rank holds 16 of the 256 rows (N = 65,536 decoder
+tokens, F = 24,000 encoder frames), every attention whole (6 heads, which
+16 does not divide), the cross K/V whole (6 KV heads), 96 of the MLPs'
+1,536 ``d_ff`` columns and the whole 51,865-row tied vocabulary; the
+decoder block runs under remat "dots" (the encoder is not
+checkpointed, as the reference's is not), which keeps the matrix
+products' outputs and recomputes the batched ones.  Products (2·M·N·K
+each), forward:
+- the encoder layer: wq, wk, wv and wo 2·F·384·384 each, 28,311,552,000;
+  the scores and the weighted sum, 2·(16·6)·1,500²·64 each,
+  55,296,000,000; the MLP's three 2·F·384·96, 5,308,416,000: in all
+  88,915,968,000;
+- the decoder layer: the self attention's wq, wk, wv and wo and the cross
+  attention's wq and wo, 2·N·384·384 each, 115,964,116,992; the self
+  scores and weighted sum, 2·(16·6)·4,096²·64 each, 412,316,860,416; the
+  cross K/V, 2·F·384·384 each, 14,155,776,000; the cross scores and
+  weighted sum, 2·(16·6)·4,096·1,500·64 each, 150,994,944,000; the MLP's
+  three 2·N·384·96, 14,495,514,624: in all 707,927,212,032;
+- the tied logits 2·N·384·51,865 = 2,610,450,923,520;
+every product twice more in the backward, and the decoder's batched
+ones once more in the recompute: 3·(88,915,968,000 + 707,927,212,032 +
+2,610,450,923,520) + 563,311,804,416 = 10,785,194,115,072.  Collectives
+(f32, all-reduces): the MLPs' partial sums and their inputs' gradients,
+the encoder's F·384·4 = 36,864,000 B and the decoder's N·384·4 =
+100,663,296 B, each twice; the global norm's 4; over ``data`` the rank's
+21,909,504 gradient elements, 87,638,016, the loss and the aux loss, 4
+each: 362,692,620 B in 8 calls.  (Worked out first as 9 calls and
+463,355,916 B, with the decoder MLP's sum counted again in the
+recompute: the checkpoint's recompute stops once it has remade the
+tensors the backward saved, and no saved tensor follows the block's last
+sum, so it is never rerun.)
 """
 import dataclasses
 import json
@@ -173,6 +211,11 @@ RWKV_CELL = ("rwkv6-7b", "train_4k", "single")
 RWKV_OVERRIDES = {"num_layers": 1, "d_model": 256, "num_heads": 16,
                   "head_dim": 16, "d_ff": 512, "vocab_size": 1024}
 RWKV_FLOPS = 66_974_679_040
+WHISPER_CELL = ("whisper-tiny", "train_4k", "single")
+WHISPER_OVERRIDES = {"num_layers": 1, "encoder_layers": 1}
+WHISPER_FLOPS = 10_785_194_115_072
+WHISPER_COLLECTIVES = {"by_op": {"all-reduce": 362_692_620},
+                       "counts": {"all-reduce": 8}}
 RWKV_COLLECTIVES = {"by_op": {"all-reduce": 606_000_012,
                               "all-gather": 134_217_728},
                     "counts": {"all-reduce": 24, "all-gather": 2}}
@@ -258,6 +301,39 @@ def rwkv_cell(tmp_path_factory):
     want = _run_reference(tmp_path_factory.mktemp("dryrun_ref_rwkv"),
                           RWKV_CELL, RWKV_OVERRIDES)[0]
     return want, dryrun.run_cell(*RWKV_CELL, overrides=RWKV_OVERRIDES)
+
+
+@pytest.fixture(scope="module")
+def whisper_cell(tmp_path_factory):
+    """(the reference's record, the port's) at WHISPER_OVERRIDES."""
+    want = _run_reference(tmp_path_factory.mktemp("dryrun_ref_whisper"),
+                          WHISPER_CELL, WHISPER_OVERRIDES)[0]
+    return want, dryrun.run_cell(*WHISPER_CELL, overrides=WHISPER_OVERRIDES)
+
+
+def test_whisper_counts_and_keys_equal(whisper_cell):
+    want, got = whisper_cell
+    assert got["ok"] and want["ok"]
+    assert set(got) == set(want)
+    for key in ("param_count", "param_bytes_per_device", "model_flops",
+                "arch", "shape", "mesh", "kind", "chips", "ok",
+                "wkv_analytic_flops"):
+        assert got[key] == want[key], key
+
+
+def test_whisper_flops_and_collectives_from_the_shapes(whisper_cell):
+    want, got = whisper_cell
+    print(f"whisper flops_per_device: port {got['flops_per_device']:.6e}, "
+          f"reference {want['flops_per_device']:.6e}; collective bytes: "
+          f"port {got['collective_bytes_per_device']} "
+          f"{got['collective_by_op']} {got['collective_counts']}, "
+          f"reference {want['collective_bytes_per_device']} "
+          f"{want['collective_by_op']} {want['collective_counts']}")
+    assert got["flops_per_device"] == WHISPER_FLOPS
+    assert got["collective_by_op"] == WHISPER_COLLECTIVES["by_op"]
+    assert got["collective_counts"] == WHISPER_COLLECTIVES["counts"]
+    assert got["collective_bytes_per_device"] == sum(
+        WHISPER_COLLECTIVES["by_op"].values())
 
 
 def test_rwkv_counts_and_keys_equal(rwkv_cell):

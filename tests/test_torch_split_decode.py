@@ -28,6 +28,19 @@ wraps from the last rank's slots to the first's.
   each rank's WKV state ``s`` its 2 or 1 heads (as ``u`` is split), the
   token-shift states whole, the channel mix split over ``d_ff`` and
   d_model, its 512-row untied vocabulary split.
+- whisper-tiny (4 heads, MHA, 32 frames), its cross K/V cache primed from
+  the whole model's ``_cross_kv`` on seeded frames and placed by
+  ``tensor_parallel.shard_cache`` (the rules' cross rule, ``cache_seq``
+  first), its self cache from ``init_cache`` as the others' (the layout
+  names self/cross): at (1, 2) and (2, 2) the self cache over KV heads
+  (a) and the cross K/V over the frames, 16 a rank, ``wq`` split (b);
+  with 3 heads of 16 at (1, 4) (``num_heads=3, num_kv_heads=3,
+  head_dim=16``) the self cache over positions and the cross K/V over
+  the frames, 8 a rank, ``wq`` whole (c/c); with ``encoder_seq=30`` at
+  (1, 4), which 4 does not divide, the cross K/V over the KV heads, 1 a
+  rank (a/kv); with 3 heads, 31 frames and 515 rows at (1, 2) the cross
+  K/V, the attention and the vocabulary whole, the self cache over
+  positions (c/whole).
 
 Tolerances, set before the runs: every step's logits, gathered over the
 vocabulary and the batch, within ``LOGITS_TOL`` 1e-5 of the whole model's
@@ -43,6 +56,7 @@ floor is of the same size (2.8e-5 and 3.2e-5 on the training forward,
 float32.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -50,7 +64,10 @@ import torch
 
 from repro_torch.configs import get_reduced_config
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.distributed.sharding import mesh_context, named_sharding
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.distributed.sharding import (cache_placements, mesh_context,
+                                              named_sharding)
 from repro_torch.launch.mesh import make_local_mesh, run_local_world
 from repro_torch.models.attention import KVCache, decode_step
 from repro_torch.models.registry import build_model
@@ -61,8 +78,9 @@ WORLD_TIMEOUT_S = 300
 LOGITS_TOL = 1e-5
 SEED = 0
 TL, RG, MOE = "tinyllama-1.1b", "recurrentgemma-2b", "granite-moe-1b-a400m"
-RWKV = "rwkv6-7b"
-# name -> (arch, data, model, batch, tokens decoded, cache_len, layout)
+RWKV, WH = "rwkv6-7b", "whisper-tiny"
+# name -> (arch, data, model, batch, tokens decoded, cache_len, layout;
+# whisper's: self/cross)
 CASES = {
     "tl_1x2": (TL, 1, 2, 2, 12, 48, "a"),
     "tl_2x2": (TL, 2, 2, 4, 12, 48, "a"),
@@ -76,9 +94,19 @@ CASES = {
     "rwkv_1x2": (RWKV, 1, 2, 2, 12, 48, "h"),
     "rwkv_2x2": (RWKV, 2, 2, 4, 12, 48, "h"),
     "rwkv_1x4": (RWKV, 1, 4, 2, 20, 48, "h"),
+    "wh_1x2": (WH, 1, 2, 2, 12, 48, "a/b"),
+    "wh_2x2": (WH, 2, 2, 4, 12, 48, "a/b"),
+    "wh_heads3_1x4": (WH, 1, 4, 2, 20, 48, "c/c"),
+    "wh_seq30_1x4": (WH, 1, 4, 2, 12, 48, "a/kv"),
+    "wh_whole_1x2": (WH, 1, 2, 2, 12, 48, "c/whole"),
 }
+HEADS3 = {"num_heads": 3, "num_kv_heads": 3, "head_dim": 16}
 # name -> config overrides
-OVERRIDES = {"moe_ff_1x2": {"num_experts": 5}}
+OVERRIDES = {"moe_ff_1x2": {"num_experts": 5},
+             "wh_heads3_1x4": HEADS3,
+             "wh_seq30_1x4": {"encoder_seq": 30},
+             "wh_whole_1x2": {**HEADS3, "encoder_seq": 31,
+                              "vocab_size": 515}}
 # planted ties for the vocabulary-parallel argmax: 4 rows of 8 columns,
 # split 4 ways (2 columns a rank)
 TIES = [[1, 5, 5, 0, 5, 2, 5, 1],       # a tie inside rank 0 and across
@@ -99,23 +127,44 @@ def _tokens(cfg, batch: int, steps: int) -> torch.Tensor:
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, steps)))
 
 
-def _decode(model, cfg, tokens: torch.Tensor, batch: int, cache_len: int):
+def _primed_cache(model, cfg, batch: int, cache_len: int) -> dict:
+    """whisper's whole cache: the self caches empty, the cross K/V the
+    whole model's ``_cross_kv`` of seeded frames."""
+    rng = np.random.default_rng(SEED + 2)
+    frames = torch.from_numpy(rng.standard_normal(
+        (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    with torch.inference_mode():
+        cache = model.init_cache(batch, cache_len)
+        enc = model.encode(frames)
+        kv = [model._cross_kv(bp, enc) for bp in model.dec]
+    cache["cross_k"] = torch.stack([k for k, _ in kv])
+    cache["cross_v"] = torch.stack([v for _, v in kv])
+    return cache
+
+
+def _decode(model, cfg, tokens: torch.Tensor, batch: int, cache_len: int,
+            cache=None):
     """Each step's logits and greedy token of ``tokens`` (this rank's rows
-    of ``batch``), with the cache's layout after the first step: per
-    layer, (k's shape, start, capacity), the RG-LRU state's shapes or the
-    RWKV state's."""
+    of ``batch``) from ``cache`` (``init_cache``'s where None), with the
+    cache's layout after the first step: per layer, (k's shape, start,
+    capacity), the RG-LRU state's shapes or the RWKV state's; whisper's
+    self caches', then the cross K's shape."""
     step = make_decode_step(model, cfg)
-    cache = model.init_cache(batch, cache_len)
+    if cache is None:
+        cache = model.init_cache(batch, cache_len)
     logits, nxt, layout = [], [], None
     for t in range(tokens.shape[1]):
         n, lg, cache = step(cache, tokens[:, t:t + 1], t)
         logits.append(lg)
         nxt.append(n)
         if layout is None:
+            states = cache["self"] if isinstance(cache, dict) else cache
             layout = [(tuple(c.k.shape), c.start, c.capacity)
                       if isinstance(c, KVCache)
                       else tuple(tuple(t.shape) for t in c)
-                      for c in cache]
+                      for c in states]
+            if isinstance(cache, dict):
+                layout.append(tuple(cache["cross_k"].shape))
     return torch.cat(logits, 1), torch.cat(nxt, 1), layout
 
 
@@ -128,13 +177,15 @@ def rank_decode(cases: dict) -> dict:
     for name, (arch, d, m, batch, steps, cache_len, _) in cases.items():
         cfg, model = _model(arch, OVERRIDES.get(name))
         mesh = make_local_mesh(d, m, device="cpu")
+        cache = (tp.shard_cache(_primed_cache(model, cfg, batch, cache_len),
+                                mesh) if arch == WH else None)
         tp.shard_parameters(model, tp.parameter_layout(model, mesh), mesh)
         tokens = _tokens(cfg, batch, steps)
         rows = named_sharding(tuple(tokens.shape), ("batch", None), mesh)
         with mesh_context(mesh), torch.inference_mode():
             logits, nxt, layout = _decode(model, cfg,
                                           tp.shard_of(tokens, mesh, rows),
-                                          batch, cache_len)
+                                          batch, cache_len, cache)
         cols = named_sharding((batch, steps, cfg.vocab_size),
                               ("batch", None, "vocab"), mesh)
         out[name] = {"logits": tp.whole_of(logits, mesh, cols),
@@ -155,6 +206,8 @@ def rank_decode(cases: dict) -> dict:
 def _heads(model) -> int:
     """The query heads (WKV heads for RWKV) of the first layer that has
     them, as this rank holds them."""
+    if not hasattr(model, "layers"):                    # whisper
+        return model.dec[0].self["wq"].shape[1]
     blk = [b for b in model.layers if b.kind in ("attn", "local", "rwkv")][0]
     return (blk.rwkv["u"].shape[0] if blk.kind == "rwkv"
             else blk.attn["wq"].shape[1])
@@ -205,9 +258,11 @@ def whole():
     out = {}
     for name, (arch, _, _, batch, steps, cache_len, _) in CASES.items():
         cfg, model = _model(arch, OVERRIDES.get(name))
+        cache = (_primed_cache(model, cfg, batch, cache_len) if arch == WH
+                 else None)
         with torch.inference_mode():
             out[name] = _decode(model, cfg, _tokens(cfg, batch, steps),
-                                batch, cache_len)
+                                batch, cache_len, cache)
     return out
 
 
@@ -261,6 +316,9 @@ def test_split_decode_layout_is_the_rules(name, worlds):
     experts = (None if not e else (e // m, cfg.d_model, f) if e % m == 0
                else (e, cfg.d_model, f // m))
     heads_split = cfg.num_heads % m == 0
+    if arch == WH:
+        _whisper_layout_is_the_rules(name, cfg, worlds)
+        return
     for r, rank in enumerate(_ranks(name, worlds)):
         got = rank[name]
         assert got["heads"] == (cfg.num_heads // m if heads_split
@@ -289,6 +347,31 @@ def test_split_decode_layout_is_the_rules(name, worlds):
             else:
                 assert state == ((rows, cfg.num_kv_heads, slots // m, hd),
                                  col * slots // m, slots)
+
+
+def _whisper_layout_is_the_rules(name, cfg, worlds):
+    """whisper's self caches over KV heads (a) or positions (c), its
+    cross K/V (L, B, T, KV, hd) over the frames (b, c), the KV heads (kv)
+    or whole, each rank's query heads split where ``m`` divides them."""
+    _, d, m, batch, _, cache_len, layout = CASES[name]
+    own, cross = layout.split("/")
+    rows, hd = batch // d, cfg.resolved_head_dim
+    kv, t, heads = cfg.num_kv_heads, cfg.encoder_seq, cfg.num_heads
+    assert (own == "a") == (kv % m == 0)
+    assert {"b": heads % m == 0 and t % m == 0,
+            "c": heads % m != 0 and t % m == 0,
+            "kv": t % m != 0 and kv % m == 0,
+            "whole": t % m != 0 and kv % m != 0}[cross]
+    xk = {"b": (t // m, kv), "c": (t // m, kv), "kv": (t, kv // m),
+          "whole": (t, kv)}[cross]
+    for r, rank in enumerate(_ranks(name, worlds)):
+        got = rank[name]
+        assert got["heads"] == (heads // m if heads % m == 0 else heads)
+        col = r % m
+        want = [((rows, kv // m, cache_len, hd), 0, 0) if own == "a" else
+                ((rows, kv, cache_len // m, hd), col * cache_len // m,
+                 cache_len)] * cfg.num_layers
+        assert got["layout"] == want + [(cfg.num_layers, rows, *xk, hd)]
 
 
 def test_vocab_parallel_argmax_breaks_ties_low(worlds):
@@ -338,3 +421,23 @@ def test_a_slice_outside_its_mesh_raises():
     x = _layer_inputs(cfg)[:, :1]
     with pytest.raises(ValueError, match="model axis"):
         decode_step(blk.attn, x, part, cfg, window=cfg.window)
+
+
+@pytest.mark.parametrize("frames,kv,want", [
+    (32, 4, (Shard(1), Shard(2))),        # the frames over model
+    (31, 4, (Shard(1), Shard(3))),        # 31 frames do not split: KV heads
+    (31, 3, (Shard(1), Replicate())),     # neither splits: whole
+])
+def test_cross_cache_placed_by_the_cross_rule(frames, kv, want):
+    """whisper's cache dict on a (data=2, model=2) mesh: the cross K/V
+    (L, B, T, KV, hd), written ``['cross_k']`` as a path, by the cross
+    rule (the batch over data, then the frames or the KV heads over
+    model); the self caches by the KV rule."""
+    cache = {"self": [KVCache.init(4, kv, 8, 16, torch.float32, "meta")],
+             "cross_k": torch.empty((2, 4, frames, kv, 16), device="meta"),
+             "cross_v": torch.empty((2, 4, frames, kv, 16), device="meta")}
+    place = cache_placements(SimpleNamespace(shape={"data": 2, "model": 2}),
+                             cache)
+    assert place["cross_k"] == place["cross_v"] == want
+    assert place["self"][0].k == (Shard(0), Shard(1) if kv % 2 == 0
+                                  else Shard(2))

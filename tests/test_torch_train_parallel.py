@@ -38,7 +38,7 @@ from torch_train_cases import (BASE, STEPS, argv_of, final_params,
 WORLD_TIMEOUT_S = 300
 LOSS_RTOL = 1e-5
 RG, TL, MOE = "recurrentgemma-2b", "tinyllama-1.1b", "granite-moe-1b-a400m"
-RWKV = "rwkv6-7b"
+RWKV, WH = "rwkv6-7b", "whisper-tiny"
 # name -> (arch, data, model, extra arguments)
 JOBS = {
     "rg_2x1": (RG, 2, 1, ()),
@@ -73,6 +73,14 @@ JOBS = {
     "rwkv_1x2": (RWKV, 1, 2, ("--remat", "dots")),
     "rwkv_2x2": (RWKV, 2, 2, ()),
     "rwkv_1x4": (RWKV, 1, 4, ()),
+    # whisper: its encoder's, decoder's and cross-attention's 4 heads 2
+    # and 1 a rank (each rank makes its heads' cross K/V from the encoder
+    # output), the MLPs over d_ff, the tied vocabulary split, under remat
+    # "dots" at (1, 2); every model rank of a data rank takes the same
+    # rows of the frames
+    "wh_1x2": (WH, 1, 2, ("--remat", "dots")),
+    "wh_2x2": (WH, 2, 2, ()),
+    "wh_1x4": (WH, 1, 4, ()),
 }
 # a checkpoint at step 2 of 4, resumed on another mesh
 RESUME_STEPS, RESUME_AT = 4, 2
@@ -274,7 +282,23 @@ def test_world_of_the_wrong_size_raises(world2):
         assert "4 ranks" in msg and "world has 2" in msg, r["wrong_world"]
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-2b"])
+def test_whisper_layouts_at_two(world2):
+    """whisper at (1, 2): the encoder's, the decoder's self and cross
+    attention's heads 2 a rank, the MLPs' d_ff 64, the tied embedding's
+    256 rows; the norms whole."""
+    for r in world2:
+        shapes = r["wh_1x2"]["shapes"]
+        assert shapes["embed"] == (256, 64)
+        for blk in ("enc.0.attn", "dec.1.self", "dec.1.cross"):
+            assert shapes[f"{blk}.wq"] == (64, 2, 16)
+            assert shapes[f"{blk}.wk"] == (64, 2, 16)
+            assert shapes[f"{blk}.wo"] == (2, 16, 64)
+        assert shapes["enc.1.mlp.wi_up"] == (64, 64)
+        assert shapes["dec.0.mlp.wo"] == (64, 64)
+        assert shapes["dec.0.lnx"] == shapes["enc_norm"] == (64,)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b"])
 def test_model_par_on_other_families_raises(arch):
     """No world is needed: the family check comes first."""
     with pytest.raises(SystemExit, match="Queue 1 item 5c"):

@@ -1,11 +1,13 @@
 """The port's parallel trainer against the JAX package's, on the CPU.
 
 The reference's ``repro.launch.train`` runs reduced tinyllama-1.1b,
-recurrentgemma-2b, granite-moe-1b-a400m and rwkv6-7b at ``--data-par 2
---model-par 2`` (batch 4, seq 32, 3 steps; granite seq 256, so that a data
-rank holds a whole 512-token routing group, and its 4 experts split 2 a
-rank; rwkv6's 4 WKV heads 2 a rank) in a subprocess on 4 fake host
-devices, its step's losses recorded.
+recurrentgemma-2b, granite-moe-1b-a400m, rwkv6-7b and whisper-tiny at
+``--data-par 2 --model-par 2`` (batch 4, seq 32, 3 steps; granite seq
+256, so that a data rank holds a whole 512-token routing group, and its 4
+experts split 2 a rank; rwkv6's 4 WKV heads 2 a rank; whisper's 4 heads,
+its cross-attention's too, 2 a rank, each step's frames seeded by the
+step) in a subprocess on 4 fake host devices, its step's losses
+recorded.
 The port starts from the same weights (the reference's init, carried
 across with ``convert.from_jax_params`` into a step-0 checkpoint that the
 run resumes) and trains the same command in a 4-rank gloo world: each
@@ -37,7 +39,7 @@ WORLD_TIMEOUT_S = 300
 LOSS_RTOL = 1e-5
 # arch -> the sequence length of its run
 SEQ = {"tinyllama-1.1b": 32, "recurrentgemma-2b": 32,
-       "granite-moe-1b-a400m": 256, "rwkv6-7b": 32}
+       "granite-moe-1b-a400m": 256, "rwkv6-7b": 32, "whisper-tiny": 32}
 ARCHS = tuple(SEQ)
 
 # the reference's trainer on 4 fake host devices; jax.jit is wrapped so
