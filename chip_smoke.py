@@ -225,7 +225,13 @@ CPU.
    1,500 frames a row), the same types and remat, on (2, 4096): one rank,
    then 2 gloo ranks at (1, 2) (3 heads of every attention, the cross
    K/V's too, and 768 d_ff columns a rank, the vocabulary whole), held
-   the same way, no kernel launched.  Gloo carries every collective through the
+   the same way, no kernel launched.  Then qwen2-vl-2b at full width
+   (d_model 1536, 12/2 heads of 128 with q/k/v biases, M-RoPE, d_ff
+   8,960, vocab 151,936 tied), 2 layers, the same types and remat, on
+   (2, 4096) tokens alone (text-only M-RoPE positions, as the trainer
+   feeds them): one rank, then 2 gloo ranks at (1, 2) (6 heads, 1 KV
+   head, 4,480 d_ff columns and 75,968 vocabulary rows a rank), held the
+   same way, no kernel launched.  Gloo carries every collective through the
    host; NCCL between cards stays unmeasured on one card
    (``train_parallel_note``).
 
@@ -248,7 +254,11 @@ CPU.
    model's ``_cross_kv`` of seeded frames and placed by
    ``tensor_parallel.shard_cache`` over the 1,500 frames, 750 a rank,
    with 3 of the 6 heads a rank (layout (b): the queries gathered, the
-   partials merged by log-sum-exp).  Each case's logits, gathered, within ``SPLIT_TOL`` (1e-3) of one
+   partials merged by log-sum-exp).  qwen2-vl-2b at full width, 2
+   layers, f32, its M-RoPE positions (3, B, 1) from ``make_decode_step``:
+   its cache over its 2 KV heads, 1 a rank, as ``wk`` and ``bk`` are
+   (layout (a)), 6 of its 12 heads a rank, the greedy token from
+   ``vocab_parallel_argmax`` over 75,968 rows a rank.  Each case's logits, gathered, within ``SPLIT_TOL`` (1e-3) of one
    rank's at every step, the greedy tokens equal, each rank's cache
    layout the rules' and no kernel launched; ms a step, one rank against
    two, and the bytes and calls a step per mesh axis
@@ -256,15 +266,17 @@ CPU.
 
 12. The ``dryrun`` phase (``dryrun_phase``, ~20-40 s on the host's CPU):
    ``launch.dryrun.run_cell`` in a subprocess with the card hidden, on
-   seven cells of the single production mesh (16 x 16 = 256 ranks):
+   eight cells of the single production mesh (16 x 16 = 256 ranks):
    tinyllama-1.1b x train_4k, recurrentgemma-2b x prefill_32k,
    recurrentgemma-2b x train_4k, recurrentgemma-2b x decode_32k,
    granite-moe-3b-a800m x train_4k (40 experts over 16 ranks: each
    expert whole with 32 of its 512 d_ff columns) and rwkv6-7b x train_4k
    (4 WKV heads a rank) and whisper-tiny x train_4k (96 of its 1,536
-   d_ff columns a rank, its 6 heads, 1,500 frames and 51,865 rows whole;
-   the last two's counts must equal ``DRYRUN_COUNTS``, the CPU records
-   the repo's tests run on), each
+   d_ff columns a rank, its 6 heads, 1,500 frames and 51,865 rows whole)
+   and qwen2-vl-2b x train_4k (its 12 heads and 2 KV heads whole, 560 of
+   the MLP's 8,960 columns and 9,496 of the 151,936 vocabulary rows a
+   rank; the last three's counts must equal ``DRYRUN_COUNTS``, the CPU
+   records the repo's tests run on), each
    run as rank 0 of a fake process group on meta tensors at published
    width and depth.  Each record's
    ``ok``, flops, bytes, parameter and collective bytes a device and its
@@ -273,7 +285,8 @@ CPU.
    what the lm phase's prefill (K5 18, K6 8), one step of the train
    phase (K5 36, ``conv1d_bwd`` 18, K6 16, each K6-bwd kernel 8) and the
    split_decode phase's decode (none) launched on the card, and
-   tinyllama's, granite's, rwkv6's and whisper's must be none.
+   tinyllama's, granite's, rwkv6's, whisper's and qwen2-vl's must be
+   none.
 
 Any build error, launch error, mismatch or kernel that its path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
@@ -2736,6 +2749,7 @@ PAR_STEPS = 3
 MOE_ARCH = "granite-moe-3b-a800m"
 RWKV_ARCH = "rwkv6-7b"
 WHISPER_ARCH = "whisper-tiny"
+VLM_ARCH = "qwen2-vl-2b"
 # name -> (arch, layers, (batch, seq), layouts (data, model) of 2 gloo
 # ranks).  RecurrentGemma-2B's one period through K5, K6 and their
 # backward; Granite-MoE-3B-A800M's 2 layers at (1, 2): 20 of its 40
@@ -2746,11 +2760,15 @@ WHISPER_ARCH = "whisper-tiny"
 # whisper-tiny whole (4 + 4 layers) at (1, 2): 3 of its 6 heads a rank in
 # every attention, the cross K/V made from the rank's heads, 768 of its
 # 1,536 d_ff columns, its 51,865-row vocabulary (odd) whole, 1,500 frames
-# a row, no kernel on its path
+# a row, no kernel on its path; qwen2-vl-2b's 2 layers at (1, 2): 6 of
+# its 12 heads, 1 of its 2 KV heads, 4,480 of its 8,960 d_ff columns and
+# 75,968 of its 151,936 vocabulary rows a rank, tokens alone (text-only
+# M-RoPE positions), no kernel on its path
 PAR_CASES = {ARCH: (ARCH, STEP_LAYERS, (2, 4096), ((2, 1), (1, 2))),
              MOE_ARCH: (MOE_ARCH, 2, (2, 2048), ((1, 2),)),
              RWKV_ARCH: (RWKV_ARCH, 2, (2, 1024), ((1, 2),)),
-             WHISPER_ARCH: (WHISPER_ARCH, 4, (2, 4096), ((1, 2),))}
+             WHISPER_ARCH: (WHISPER_ARCH, 4, (2, 4096), ((1, 2),)),
+             VLM_ARCH: (VLM_ARCH, 2, (2, 4096), ((1, 2),))}
 PAR_TIMEOUT_S = 600
 # each step's loss of a layout against the one-rank run's, relative, set
 # before the first run on the card: bf16 activations at full width, where
@@ -2919,12 +2937,15 @@ SPLIT_BATCH, SPLIT_TOKENS = 2, 64
 # heads (3 a rank), layout (a), its cross K/V, primed from the whole
 # model's ``_cross_kv`` of seeded frames and placed by ``shard_cache``,
 # over the 1,500 frames (750 a rank) with 3 of its 6 heads a rank, layout
-# (b)
+# (b); qwen2-vl-2b at 2 layers: its cache over its 2 KV heads (1 a
+# rank), 6 of its 12 heads a rank, M-RoPE positions (3, B, 1) from
+# make_decode_step, layout (a)
 SPLIT_CASES = {"recurrentgemma-2b": (ARCH, STEP_LAYERS, 2048),
                "tinyllama-1.1b": ("tinyllama-1.1b", 2, 128),
                MOE_ARCH: (MOE_ARCH, 2, 128),
                RWKV_ARCH: (RWKV_ARCH, 2, 128),
-               WHISPER_ARCH: (WHISPER_ARCH, 4, 128)}
+               WHISPER_ARCH: (WHISPER_ARCH, 4, 128),
+               VLM_ARCH: (VLM_ARCH, 2, 128)}
 # each step's logits of the split decode against one rank's, absolute,
 # set before the first run on the card: f32 activations at full width,
 # where a split product sums its parts in another order and cuBLAS may
@@ -3151,21 +3172,24 @@ def split_decode_phase(seed: int, failures: list[str]) -> None:
 
 
 # -- the multi-pod dry run (launch/dryrun.py), on the CPU ---------------------
-# Seven cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
+# Eight cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
 # of a fake world on meta tensors in one subprocess with the card hidden;
 # the RecurrentGemma cells' K5/K6 tally is held to what the lm, train and
 # split_decode phases launched on the card (ON_CARD), and tinyllama's,
-# granite's, rwkv6's and whisper's must be empty.
+# granite's, rwkv6's, whisper's and qwen2-vl's must be empty.
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", None),
                 (ARCH, "prefill_32k", "prefill"), (ARCH, "train_4k", "train"),
                 (ARCH, "decode_32k", "decode"),
                 (MOE_ARCH, "train_4k", None),      # FF: 40 experts over 16
                 (RWKV_ARCH, "train_4k", None),     # 4 WKV heads a rank
-                (WHISPER_ARCH, "train_4k", None))  # d_ff over 16, the rest
+                (WHISPER_ARCH, "train_4k", None),  # d_ff over 16, the rest
                                                    # whole
+                (VLM_ARCH, "train_4k", None))      # d_ff and the vocab
+                                                   # over 16, heads whole
 # cell -> the counts its record must give, as the CPU of the repo's tests
 # gives them (``python -m repro_torch.launch.dryrun --arch rwkv6-7b
-# --shape train_4k``, torch 2.13; whisper-tiny's the same way)
+# --shape train_4k``, torch 2.13; whisper-tiny's and qwen2-vl-2b's the
+# same way)
 DRYRUN_COUNTS = {(RWKV_ARCH, "train_4k"): {
     "flops_per_device": 200_867_097_608_192.0,
     "bytes_per_device": 18_421_810_562_116.0,
@@ -3174,7 +3198,11 @@ DRYRUN_COUNTS = {(RWKV_ARCH, "train_4k"): {
     (WHISPER_ARCH, "train_4k"): {
     "flops_per_device": 19_646_718_148_608.0,
     "bytes_per_device": 1_526_521_246_172.0,
-    "collective_bytes_per_device": 1_211_767_308}}
+    "collective_bytes_per_device": 1_211_767_308},
+    (VLM_ARCH, "train_4k"): {
+    "flops_per_device": 279_475_132_563_456.0,
+    "bytes_per_device": 18_148_875_079_444.0,
+    "collective_bytes_per_device": 24_319_170_380}}
 DRYRUN_TIMEOUT_S = 300
 DRYRUN_CODE = """
 import json, sys

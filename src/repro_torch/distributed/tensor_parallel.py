@@ -54,6 +54,15 @@ KV heads, else whole; over frames, each rank attends every query head
 over its frames and :func:`merge_softmax` combines the partials, as a
 KV cache split over its positions is attended.
 
+The VLM (qwen2-vl) is the decoder-only stack: its patches replace the
+first positions after the (vocabulary-parallel) embedding, an input
+replicated over ``model`` as the M-RoPE positions (3, B, S) are; every
+head's rotation by its three position components is local to the head,
+so a head split needs nothing more, and the q/k/v biases, split with
+their heads or, held whole, entering the split region as the other
+replicated parameters do (:func:`enter`).  A split that cannot be made
+(RWKV-6's heads cut mid-head) raises in the layer.
+
 Decode of a split model (``models/attention.decode_step``): where the
 KV cache is split over its positions (``cache_seq``, the rules' choice
 whenever ``model`` does not divide the KV heads), each rank attends every
@@ -80,9 +89,6 @@ import torch.distributed as dist
 
 from repro_torch.distributed.collectives import wire_device
 
-# the tensor-parallel families; the others raise for --model-par > 1
-MODEL_PARALLEL_FAMILIES = ("dense", "hybrid", "moe", "ssm", "audio")
-MODEL_PARALLEL_TODO = "ROADMAP.md Queue 1 item 5c"
 # the trainer's layout: the rules' model-axis splits, no FSDP over data
 FSDP_OFF = {"fsdp": [()]}
 BUCKET_BYTES = 256 << 20          # data-parallel gradients per all-reduce
@@ -449,13 +455,18 @@ def shard_cache(cache, mesh):
     (``self``, such a list of KV caches, and ``cross_k``/``cross_v``
     (L, B, T, KV, hd), placed by the cross rule).  A KV cache split over
     its positions records its place: ``start``, the first slot it holds,
-    and ``capacity``, the whole cache's slots."""
+    and ``capacity``, the whole cache's slots; cross K/V split over the
+    frames record the whole frame count as ``cross_frames``."""
     from repro_torch.distributed.sharding import (cache_placements,
                                                   shard_offsets)
     if isinstance(cache, dict):
         place = cache_placements(mesh, cache)
-        return {k: shard_cache(v, mesh) if k == "self"
-                else shard_of(v, mesh, place[k]) for k, v in cache.items()}
+        out = {k: shard_cache(v, mesh) if k == "self"
+               else shard_of(v, mesh, place[k]) for k, v in cache.items()}
+        frames = cache["cross_k"].shape[2]
+        if out["cross_k"].shape[2] != frames:
+            out["cross_frames"] = frames
+        return out
     out = []
     for state, place in zip(cache, cache_placements(mesh, cache)):
         new = state._replace(**{
@@ -537,27 +548,6 @@ def split_names(model) -> frozenset:
     specs = model.specs()
     return frozenset(n for n, p in model.named_parameters()
                      if tuple(p.shape) != specs[n].shape)
-
-
-def model_parallel_todo(cfg, size: int) -> str | None:
-    """Why ``cfg`` cannot run split over a model axis of ``size`` ranks,
-    or None where it can: tensor parallelism is ported for the
-    :data:`MODEL_PARALLEL_FAMILIES`."""
-    if size > 1 and cfg.family not in MODEL_PARALLEL_FAMILIES:
-        return (f"tensor parallelism of the {cfg.family!r} family "
-                f"({cfg.name}) is not ported "
-                f"({MODEL_PARALLEL_TODO}); it runs the "
-                f"{'/'.join(MODEL_PARALLEL_FAMILIES)} families, and data "
-                "parallelism for every family")
-    return None
-
-
-def check_model_parallel(cfg, size: int) -> None:
-    """The trainer's check: :func:`model_parallel_todo` raises rather than
-    quietly replicate."""
-    why = model_parallel_todo(cfg, size)
-    if why is not None:
-        raise SystemExit(f"--model-par {size}: {why}")
 
 
 def check_moe_groups(cfg, batch: int, seq: int, data: int,

@@ -38,9 +38,6 @@ What differs from the reference, by design:
     serving's placement alike, so ``--infer-layout`` changes only
     ``param_bytes_per_device`` (computed as the reference does, with the
     rules' FSDP);
-  * a cell of the vlm family waits for tensor parallelism of its
-    family (item 5c): ``run_cell`` raises, and ``main`` writes the cell
-    as failed, as the reference writes a cell that raises;
   * the MoE places no ``expert_cap`` split of the activations: where the
     experts do not divide the model axis (granite-moe-3b-a800m's 40 over
     16), the reference's GSPMD splits the dispatched tokens' capacity; the
@@ -314,10 +311,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     chips = 512 if multi else 256
     with fake_world(chips):
         mesh = make_production_mesh(multi_pod=multi, device="cpu")
-        why = tp.model_parallel_todo(cfg, mesh_sizes(mesh)["model"])
-        if why is not None:
-            raise NotImplementedError(
-                f"{arch} x {shape_name} on the {mesh_kind} mesh: {why}")
         with mesh_context(mesh):
             model = build_model(cfg, device="meta")
             specs = model.specs()

@@ -16,12 +16,12 @@
     sharding rules split over ``model`` (FSDP off, as the reference's
     trainer places nothing by "fsdp"); the step runs under
     ``mesh_context`` (``distributed/tensor_parallel.py``).  Tensor
-    parallelism covers the dense, hybrid, MoE, ssm and audio families
-    (the MoE's experts split over ``model``, or each expert's ``d_ff``
-    where the experts do not divide it; RWKV-6's WKV heads split over
-    ``model``; whisper's encoder, decoder and cross-attention heads, each
-    model rank of a data rank taking the same rows of the frames); data
-    parallelism every family.  The world
+    and data parallelism cover every family (the MoE's experts split
+    over ``model``, or each expert's ``d_ff`` where the experts do not
+    divide it; RWKV-6's WKV heads split over ``model``; whisper's
+    encoder, decoder and cross-attention heads, each model rank of a
+    data rank taking the same rows of the frames; qwen2-vl's heads, its
+    tokens alone fed, as the reference's trainer feeds them).  The world
     is the default process group when one is initialized
     (``launch.mesh.run_local_world``, a test), else torchrun's
     environment (NCCL for ``--device cuda``, gloo for ``cpu``); rank 0
@@ -195,7 +195,6 @@ def run(argv=None, *, before_step: Callable | None = None,
                          "(torch.cuda.is_available() is False); pass "
                          "--device cpu to run on the CPU")
     cfg = _config(args)
-    tp.check_model_parallel(cfg, args.model_par)
     if args.batch % (args.data_par * args.microbatches):
         raise SystemExit(f"--batch {args.batch} does not split into "
                          f"--data-par {args.data_par} x --microbatches "

@@ -153,9 +153,10 @@ def attend_full(p, x: torch.Tensor, cfg: ArchConfig, *, positions,
     """Prefill attention without a cache.  ``cross_kv`` supplies encoder K/V
     (B, T, KV, hd) for cross-attention: q is then ``wq`` alone, with no
     bias, no norm and no rope.  ``frames``: the encoder's whole frame
-    count where ``cross_kv`` may be a rank's slice of it (decode's cross
-    cache, :func:`_cross_over_frames`); 0: ``cross_kv`` holds every
-    frame.
+    count where ``cross_kv`` is a rank's slice of it (decode's cross
+    cache split over the frames, which records the count,
+    :func:`_cross_over_frames`); 0: ``cross_kv`` holds every frame, of
+    any count.
 
     With ``wq`` split over heads, cross-attention runs the rank's query
     heads over the given K/V, the rank's KV heads (made by its heads of

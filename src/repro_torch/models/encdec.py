@@ -17,7 +17,8 @@ the encoder output enters the decoder's split cross-attention through one
 is looked up vocabulary-parallel and the tied logits stay split over it.
 ``init_cache`` under ``mesh_context`` gives this rank's slice of the
 cache, the cross K/V placed by the rules' cross rule, which decode
-attends as it finds them (``attention.attend_full`` with ``frames``).
+attends as it finds them (``attention.attend_full`` with ``frames``, the
+whole frame count that a cache split over the frames records).
 """
 from __future__ import annotations
 
@@ -225,8 +226,9 @@ class EncDecLM(nn.Module):
                positions=None) -> tuple[torch.Tensor, dict[str, Any]]:
         """One-token decode. tokens: (B, 1).  The position is layer 0's
         cache position.  The cross K/V are attended as the cache holds
-        them: whole, a rank's KV heads, or a rank's slice of the
-        ``encoder_seq`` frames."""
+        them: whole, of any frame count, a rank's KV heads, or a rank's
+        slice of the frames, whose whole count the cache records as
+        ``cross_frames`` (``tensor_parallel.shard_cache``)."""
         cfg = self.cfg
         pos = cache["self"][0].pos
         h = self._embed(tokens, sinusoidal_positions(
@@ -241,10 +243,8 @@ class EncDecLM(nn.Module):
             h = h + attend_full(bp.cross, hn, cfg, positions=None,
                                 cross_kv=(cache["cross_k"][i],
                                           cache["cross_v"][i]),
-                                frames=cfg.encoder_seq)
+                                frames=cache.get("cross_frames", 0))
             hn = rmsnorm(bp.ln2, h, cfg.norm_eps)
             h = h + mlp(bp.mlp, hn, cfg)
             new_self.append(kv_cache)
-        return self._logits(h), {"self": new_self,
-                                 "cross_k": cache["cross_k"],
-                                 "cross_v": cache["cross_v"]}
+        return self._logits(h), {**cache, "self": new_self}

@@ -291,11 +291,16 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor, *, positions=None, patches=None,
                 remat: str = "none") -> tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S) -> (logits (B,S,V) fp32, aux loss scalar: the sum
-        of the MoE layers').  ``remat``: see :func:`remat_call`."""
+        of the MoE layers').  ``remat``: see :func:`remat_call`.  With no
+        ``positions``, the token index; under M-RoPE, the text-only
+        positions (3, B, S), every component the token index (the
+        reference's (1, S) default raises under M-RoPE)."""
         h = self.embed_inputs(tokens, patches)
         if positions is None:
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]
+            if self.cfg.mrope_sections is not None:
+                positions = positions.expand(3, tokens.shape[0], -1)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for layer in self.layers:
             h, a = remat_call(layer, remat, h, positions)

@@ -162,6 +162,33 @@ each: 362,692,620 B in 8 calls.  (Worked out first as 9 calls and
 recompute: the checkpoint's recompute stops once it has remade the
 tensors the backward saved, and no saved tensor follows the block's last
 sum, so it is never rerun.)
+
+The VLM cell ``qwen2-vl-2b x train_4k`` on the single mesh at full width,
+cut to one layer (``VLM_OVERRIDES``): equal keys, ``param_count``,
+``param_bytes_per_device``, ``model_flops`` and ``wkv_analytic_flops``.
+Its ``flops_per_device`` and collective bytes are printed beside the
+reference's and held to the counts worked out from the shapes before the
+port's first run of this cell (``VLM_FLOPS``, ``VLM_COLLECTIVES``).  On
+the 16-way model axis a rank holds 16 of the 256 rows (T = 65,536
+tokens, the first 256 of each row the patches), the attention whole (12
+heads and 2 KV heads, which 16 divides neither, their q/k/v biases too),
+560 of the MLP's 8,960 ``d_ff`` columns and 9,496 of the tied
+vocabulary's 151,936 rows; the block runs under remat "dots".  Products
+(2·M·N·K each), forward: wq and wo 2·T·1,536·1,536 each,
+309,237,645,312; wk and wv 2·T·1,536·256 each, 51,539,607,552; the
+scores and the weighted sum, 2·(16·12)·4,096²·128 each,
+824,633,720,832; the MLP's three 2·T·1,536·560, 112,742,891,520 each:
+the layer 2,709,050,621,952; the tied logits 2·T·1,536·9,496 =
+1,911,797,317,632; every product twice more in the backward and the
+batched ones once more in the recompute: 3·4,620,847,939,584 +
+1,649,267,441,664 = 15,511,811,260,416.  Collectives (f32, all-reduces):
+the embedding's rows, the MLP's partial sum, and the gradients of the
+logits' input and of the MLP's input, T·1,536·4 = 402,653,184 B each
+(the MLP's sum, the block's last, is not rerun in the recompute); the
+cross entropy's max, sum and target logit, 16·4,095·4 = 262,080 each;
+the global norm's 4; over ``data`` the rank's 22,678,016 gradient
+elements, 90,712,064, the loss and the aux loss, 4 each:
+1,702,111,052 B in 11 calls.
 """
 import dataclasses
 import json
@@ -216,6 +243,11 @@ WHISPER_OVERRIDES = {"num_layers": 1, "encoder_layers": 1}
 WHISPER_FLOPS = 10_785_194_115_072
 WHISPER_COLLECTIVES = {"by_op": {"all-reduce": 362_692_620},
                        "counts": {"all-reduce": 8}}
+VLM_CELL = ("qwen2-vl-2b", "train_4k", "single")
+VLM_OVERRIDES = {"num_layers": 1}
+VLM_FLOPS = 15_511_811_260_416
+VLM_COLLECTIVES = {"by_op": {"all-reduce": 1_702_111_052},
+                   "counts": {"all-reduce": 11}}
 RWKV_COLLECTIVES = {"by_op": {"all-reduce": 606_000_012,
                               "all-gather": 134_217_728},
                     "counts": {"all-reduce": 24, "all-gather": 2}}
@@ -309,6 +341,39 @@ def whisper_cell(tmp_path_factory):
     want = _run_reference(tmp_path_factory.mktemp("dryrun_ref_whisper"),
                           WHISPER_CELL, WHISPER_OVERRIDES)[0]
     return want, dryrun.run_cell(*WHISPER_CELL, overrides=WHISPER_OVERRIDES)
+
+
+@pytest.fixture(scope="module")
+def vlm_cell(tmp_path_factory):
+    """(the reference's record, the port's) at VLM_OVERRIDES."""
+    want = _run_reference(tmp_path_factory.mktemp("dryrun_ref_vlm"),
+                          VLM_CELL, VLM_OVERRIDES)[0]
+    return want, dryrun.run_cell(*VLM_CELL, overrides=VLM_OVERRIDES)
+
+
+def test_vlm_counts_and_keys_equal(vlm_cell):
+    want, got = vlm_cell
+    assert got["ok"] and want["ok"]
+    assert set(got) == set(want)
+    for key in ("param_count", "param_bytes_per_device", "model_flops",
+                "arch", "shape", "mesh", "kind", "chips", "ok",
+                "wkv_analytic_flops"):
+        assert got[key] == want[key], key
+
+
+def test_vlm_flops_and_collectives_from_the_shapes(vlm_cell):
+    want, got = vlm_cell
+    print(f"qwen2-vl flops_per_device: port {got['flops_per_device']:.6e}, "
+          f"reference {want['flops_per_device']:.6e}; collective bytes: "
+          f"port {got['collective_bytes_per_device']} "
+          f"{got['collective_by_op']} {got['collective_counts']}, "
+          f"reference {want['collective_bytes_per_device']} "
+          f"{want['collective_by_op']} {want['collective_counts']}")
+    assert got["flops_per_device"] == VLM_FLOPS
+    assert got["collective_by_op"] == VLM_COLLECTIVES["by_op"]
+    assert got["collective_counts"] == VLM_COLLECTIVES["counts"]
+    assert got["collective_bytes_per_device"] == sum(
+        VLM_COLLECTIVES["by_op"].values())
 
 
 def test_whisper_counts_and_keys_equal(whisper_cell):

@@ -243,6 +243,34 @@ def test_whisper_decode_matches_forward_and_jax_decode():
     assert tcache["self"][0].pos == 8
 
 
+def test_whisper_decode_of_a_shorter_encoder_output_matches_jax():
+    """A cross K/V of 24 frames (``encoder_seq`` 32), whole, with no mesh:
+    each decoded token's logits equal the reference's decode on the same
+    cache, which attends a cross K/V of any frame count."""
+    jcfg, cfg, jm, jp, tm = _built("whisper-tiny")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, size=(2, 6))
+    frames = (rng.normal(size=(2, 24, cfg.d_model)) * 0.02).astype(
+        np.float32)
+    jenc = jm.encode(jp, jnp.asarray(frames))
+
+    def xkv(bp):
+        return (jnp.einsum("btd,dhk->bthk", jenc, bp["cross"]["wk"]),
+                jnp.einsum("btd,dhk->bthk", jenc, bp["cross"]["wv"]))
+
+    jcache = jm.init_cache(2, 6)
+    jcache["cross_k"], jcache["cross_v"] = jax.vmap(xkv)(jp["dec"])
+    with torch.inference_mode():
+        tcache = tm.init_cache(2, 6)
+        tcache["cross_k"] = torch.from_numpy(np.asarray(jcache["cross_k"]))
+        tcache["cross_v"] = torch.from_numpy(np.asarray(jcache["cross_v"]))
+        for t in range(6):
+            tl, tcache = tm.decode(tcache, torch.as_tensor(toks[:, t:t + 1]))
+            jl, jcache = jm.decode(jp, jcache,
+                                   jnp.asarray(toks[:, t:t + 1], jnp.int32))
+            _close(tl, jl, MODEL_TOL)
+
+
 def test_vlm_patch_merge_matches_jax():
     """tests/test_models.py's case: a changed patch changes the prefix
     logits, in both packages alike."""

@@ -108,10 +108,11 @@ DIFFERENCES = {
                                                           "capacity")),
     "models.attention.KVCache.init": Diff(DEVICE, added=("device",)),
     "models.attention.attend_full": Diff(
-        "frames=: the encoder's whole frame count where cross_kv may be "
-        "a rank's slice of the frames (decode's cross cache split over "
-        "them by the rules), merged over the model axis; 0 (the "
-        "default): cross_kv holds every frame", added=("frames",)),
+        "frames=: the encoder's whole frame count where cross_kv is a "
+        "rank's slice of the frames (decode's cross cache split over "
+        "them by the rules, which records the count as cross_frames), "
+        "merged over the model axis; 0 (the default): cross_kv holds "
+        "every frame, of any count", added=("frames",)),
     "models.rwkv6.rwkv_channel_mix": Diff(
         "cfg gives the whole d_ff, against which a split of the value "
         "half over the model axis is read from its weights' shapes",
@@ -163,7 +164,7 @@ DIFFERENCES = {
         "every layer counted); FSDP over data not ported (ROADMAP item "
         "5b): the step's placement is the model-axis splits, training's "
         "and serving's alike, param_bytes_per_device counts the rules' "
-        "FSDP; a vlm cell raises (item 5c); a decode cell "
+        "FSDP; a decode cell "
         "decodes on the rank's slice of the cache its placements give, "
         "its logits split over the vocabulary and its token their "
         "vocabulary-parallel argmax", contract=True),

@@ -41,6 +41,11 @@ wraps from the last rank's slots to the first's.
   rank (a/kv); with 3 heads, 31 frames and 515 rows at (1, 2) the cross
   K/V, the attention and the vocabulary whole, the self cache over
   positions (c/whole).
+- qwen2-vl-2b (4 heads, 2 KV heads, q/k/v biases, M-RoPE), each step's
+  positions (3, B, 1) from ``make_decode_step``: at (1, 2) and (2, 2)
+  the cache over its KV heads, 1 a rank, as ``wk`` and ``bk`` are:
+  layout (a); at (1, 4) the cache over its positions, 12 of 48 slots a
+  rank, ``wq`` over the heads: layout (b).
 
 Tolerances, set before the runs: every step's logits, gathered over the
 vocabulary and the batch, within ``LOGITS_TOL`` 1e-5 of the whole model's
@@ -78,7 +83,7 @@ WORLD_TIMEOUT_S = 300
 LOGITS_TOL = 1e-5
 SEED = 0
 TL, RG, MOE = "tinyllama-1.1b", "recurrentgemma-2b", "granite-moe-1b-a400m"
-RWKV, WH = "rwkv6-7b", "whisper-tiny"
+RWKV, WH, VL = "rwkv6-7b", "whisper-tiny", "qwen2-vl-2b"
 # name -> (arch, data, model, batch, tokens decoded, cache_len, layout;
 # whisper's: self/cross)
 CASES = {
@@ -99,6 +104,9 @@ CASES = {
     "wh_heads3_1x4": (WH, 1, 4, 2, 20, 48, "c/c"),
     "wh_seq30_1x4": (WH, 1, 4, 2, 12, 48, "a/kv"),
     "wh_whole_1x2": (WH, 1, 2, 2, 12, 48, "c/whole"),
+    "vl_1x2": (VL, 1, 2, 2, 12, 48, "a"),
+    "vl_2x2": (VL, 2, 2, 4, 12, 48, "a"),
+    "vl_1x4": (VL, 1, 4, 2, 20, 48, "b"),
 }
 HEADS3 = {"num_heads": 3, "num_kv_heads": 3, "head_dim": 16}
 # name -> config overrides

@@ -25,11 +25,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_reduced_config
+from repro_torch.configs import get_reduced_config, list_archs
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import DEFAULT_RULES, resolve_spec
 from repro_torch.launch import train
-from repro_torch.launch.mesh import run_local_world
+from repro_torch.launch.dryrun import fake_world
+from repro_torch.launch.mesh import make_local_mesh, run_local_world
 from repro_torch.models.registry import build_model
 from repro_torch.train.optim import OptConfig, schedule
 from torch_train_cases import (BASE, STEPS, argv_of, final_params,
@@ -38,7 +39,7 @@ from torch_train_cases import (BASE, STEPS, argv_of, final_params,
 WORLD_TIMEOUT_S = 300
 LOSS_RTOL = 1e-5
 RG, TL, MOE = "recurrentgemma-2b", "tinyllama-1.1b", "granite-moe-1b-a400m"
-RWKV, WH = "rwkv6-7b", "whisper-tiny"
+RWKV, WH, VL = "rwkv6-7b", "whisper-tiny", "qwen2-vl-2b"
 # name -> (arch, data, model, extra arguments)
 JOBS = {
     "rg_2x1": (RG, 2, 1, ()),
@@ -81,6 +82,14 @@ JOBS = {
     "wh_1x2": (WH, 1, 2, ("--remat", "dots")),
     "wh_2x2": (WH, 2, 2, ()),
     "wh_1x4": (WH, 1, 4, ()),
+    # qwen2-vl: its 4 heads 2 and 1 a rank with their q biases, its 2 KV
+    # heads 1 a rank at M 2 and whole at M 4 (their biases entering the
+    # split region), the MLP over d_ff, the tied vocabulary split, under
+    # remat "dots" at (1, 2); tokens alone, as the reference's trainer
+    # feeds them (text-only M-RoPE positions)
+    "vl_1x2": (VL, 1, 2, ("--remat", "dots")),
+    "vl_2x2": (VL, 2, 2, ()),
+    "vl_1x4": (VL, 1, 4, ()),
 }
 # a checkpoint at step 2 of 4, resumed on another mesh
 RESUME_STEPS, RESUME_AT = 4, 2
@@ -298,12 +307,51 @@ def test_whisper_layouts_at_two(world2):
         assert shapes["dec.0.lnx"] == shapes["enc_norm"] == (64,)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-2b"])
-def test_model_par_on_other_families_raises(arch):
-    """No world is needed: the family check comes first."""
-    with pytest.raises(SystemExit, match="Queue 1 item 5c"):
-        train.run(["--arch", arch, *BASE, "--steps", "1", "--model-par",
-                   "2"])
+def test_vlm_layouts_at_two(world2):
+    """qwen2-vl at (1, 2): 2 heads (with bq) and 1 KV head (with bk, bv)
+    a rank, the MLP's d_ff 80, the tied embedding's 256 rows; the norms
+    whole."""
+    for r in world2:
+        shapes = r["vl_1x2"]["shapes"]
+        assert shapes["embed"] == (256, 64)
+        assert shapes["layers.1.attn.wq"] == (64, 2, 16)
+        assert shapes["layers.1.attn.bq"] == (2, 16)
+        assert shapes["layers.1.attn.wk"] == (64, 1, 16)
+        assert shapes["layers.1.attn.bv"] == (1, 16)
+        assert shapes["layers.1.attn.wo"] == (2, 16, 64)
+        assert shapes["layers.0.mlp.wi_up"] == (64, 80)
+        assert shapes["layers.0.ln1"] == shapes["final_norm"] == (64,)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_model_par_lays_out_every_family(arch):
+    """No family is refused a model axis: every registered architecture,
+    reduced, laid out on meta tensors at model = 2 as rank 0 of a fake
+    world of 2 (``dryrun.fake_world``) by ``parameter_layout`` and
+    ``shard_parameters``, holds each parameter's ``resolve_spec`` split
+    under the trainer's rules, and at least one parameter split."""
+    cfg = get_reduced_config(arch)
+    rules = {**DEFAULT_RULES, **tp.FSDP_OFF}
+    with fake_world(2):
+        mesh = make_local_mesh(1, 2, device="cpu")
+        model = build_model(cfg, device="meta")
+        specs = model.specs()
+        tp.shard_parameters(model, tp.parameter_layout(model, mesh), mesh)
+        got = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    assert set(got) == set(specs)
+    for n, spec in specs.items():
+        ps = resolve_spec(spec.shape, spec.logical,
+                          SimpleNamespace(shape={"data": 1, "model": 2}),
+                          rules)
+        want = list(spec.shape)
+        for dim, part in enumerate(ps):
+            if part == "model":
+                want[dim] //= 2
+            else:
+                assert part is None, (n, ps)
+        want = tuple(want)
+        assert got[n] == want, (n, got[n], want)
+    assert got != {n: s.shape for n, s in specs.items()}
 
 
 def test_moe_groups_that_a_rank_would_split_raise():

@@ -1,13 +1,19 @@
 """The port's parallel trainer against the JAX package's, on the CPU.
 
 The reference's ``repro.launch.train`` runs reduced tinyllama-1.1b,
-recurrentgemma-2b, granite-moe-1b-a400m, rwkv6-7b and whisper-tiny at
-``--data-par 2 --model-par 2`` (batch 4, seq 32, 3 steps; granite seq
-256, so that a data rank holds a whole 512-token routing group, and its 4
-experts split 2 a rank; rwkv6's 4 WKV heads 2 a rank; whisper's 4 heads,
-its cross-attention's too, 2 a rank, each step's frames seeded by the
-step) in a subprocess on 4 fake host devices, its step's losses
-recorded.
+recurrentgemma-2b, granite-moe-1b-a400m, rwkv6-7b, whisper-tiny and
+qwen2-vl-2b at ``--data-par 2 --model-par 2`` (batch 4, seq 32, 3 steps;
+granite seq 256, so that a data rank holds a whole 512-token routing
+group, and its 4 experts split 2 a rank; rwkv6's 4 WKV heads 2 a rank;
+whisper's 4 heads, its cross-attention's too, 2 a rank, each step's
+frames seeded by the step; qwen2-vl's 4 heads and 2 KV heads 2 and 1 a
+rank) in a subprocess on 4 fake host devices, its step's losses
+recorded.  Both trainers feed qwen2-vl tokens alone.  The reference's
+forward then rotates by its default positions (1, S), which its M-RoPE
+cannot take (``apply_rope`` raises on the (S, hd/2) angles), so here its
+step is given the text-only positions (3, B, S), every component the
+token index, made inside the jitted step: what the port's forward takes
+when it is given none (``transformer.LM.forward``).
 The port starts from the same weights (the reference's init, carried
 across with ``convert.from_jax_params`` into a step-0 checkpoint that the
 run resumes) and trains the same command in a 4-rank gloo world: each
@@ -39,17 +45,35 @@ WORLD_TIMEOUT_S = 300
 LOSS_RTOL = 1e-5
 # arch -> the sequence length of its run
 SEQ = {"tinyllama-1.1b": 32, "recurrentgemma-2b": 32,
-       "granite-moe-1b-a400m": 256, "rwkv6-7b": 32, "whisper-tiny": 32}
+       "granite-moe-1b-a400m": 256, "rwkv6-7b": 32, "whisper-tiny": 32,
+       "qwen2-vl-2b": 32}
 ARCHS = tuple(SEQ)
 
 # the reference's trainer on 4 fake host devices; jax.jit is wrapped so
-# that each step's loss is recorded as the step returns it
+# that each step's loss is recorded as the step returns it, and an M-RoPE
+# config's step takes the text-only positions (3, B, S)
 _REFERENCE = r"""
 import json, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax
+import jax.numpy as jnp
 import repro.launch.train as T
-losses, real_jit = [], jax.jit
+losses, real_jit, real_step = [], jax.jit, T.make_train_step
+
+
+def make_train_step(model, cfg, *a, **k):
+    step = real_step(model, cfg, *a, **k)
+    if cfg.mrope_sections is None:
+        return step
+
+    def with_positions(params, opt_state, batch):
+        b, s = batch["tokens"].shape
+        pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32), (3, b, s))
+        return step(params, opt_state, {**batch, "positions": pos})
+    return with_positions
+
+
+T.make_train_step = make_train_step
 
 def jit(f, *a, **k):
     g = real_jit(f, *a, **k)

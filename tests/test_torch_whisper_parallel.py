@@ -54,8 +54,12 @@ counted by its payload:
   gradients backward, the same: 2·(2·15,872 + 2·8,192) = 96,256 B in 8
   calls; the cross entropy runs whole (515 columns on each rank).
 
-A cross K/V cache holding a slice of the encoder's frames, decoded
-outside a mesh of that split, raises.
+A cross K/V cache holding a slice of the encoder's frames, as
+``tensor_parallel.shard_cache`` records it, decoded outside a mesh of
+that split, raises.  A whole cross K/V of fewer frames than
+``encoder_seq`` (24 of 32), decoded with no mesh, gives the forward's
+logits within ``DECODE_TOL`` 5e-4 (the decode bar of
+``tests/test_torch_families.py``).
 """
 import dataclasses
 
@@ -74,6 +78,7 @@ WORLD_TIMEOUT_S = 300
 LOGITS_TOL = 1e-5
 LOSS_TOL = 1e-5
 GRAD_RTOL = 1e-5
+DECODE_TOL = 5e-4
 SEED = 0
 ARCH = "whisper-tiny"
 BATCH, SEQ = 2, 16
@@ -225,12 +230,36 @@ def test_split_whisper_step_wire_is_the_shapes(name, worlds):
 
 
 def test_a_cross_frame_slice_outside_its_mesh_raises():
-    """The cross K/V cache holding 16 of the 32 frames, as a rank of a
-    2-way split holds them, decoded with no mesh: the layer cannot merge
-    its partial softmax, so it refuses."""
+    """The cross K/V cache holding 16 of the 32 frames and recording the
+    whole 32, as a rank of a 2-way split holds them, decoded with no
+    mesh: the layer cannot merge its partial softmax, so it refuses."""
     cfg, model = _model({})
     cache = model.init_cache(1, 4)
     cache["cross_k"] = cache["cross_k"].narrow(2, 0, cfg.encoder_seq // 2)
     cache["cross_v"] = cache["cross_v"].narrow(2, 0, cfg.encoder_seq // 2)
+    cache["cross_frames"] = cfg.encoder_seq
     with torch.no_grad(), pytest.raises(ValueError, match="model axis"):
         model.decode(cache, torch.zeros((1, 1), dtype=torch.long))
+
+
+def test_a_shorter_whole_cross_cache_decodes_as_the_forward():
+    """The cross K/V of an encoder output of 24 frames (``encoder_seq``
+    is 32), whole, with no mesh: every decoded token's logits are the
+    forward's on those frames, as the reference attends a cross K/V of
+    any frame count."""
+    cfg, model = _model({})
+    batch = _inputs(cfg)
+    tokens, frames = batch["tokens"], batch["frames"][:, :24]
+    with torch.inference_mode():
+        want, _ = model(tokens, frames)
+        enc = model.encode(frames)
+        kv = [model._cross_kv(bp, enc) for bp in model.dec]
+        cache = model.init_cache(BATCH, SEQ)
+        cache["cross_k"] = torch.stack([k for k, _ in kv])
+        cache["cross_v"] = torch.stack([v for _, v in kv])
+        got = []
+        for t in range(SEQ):
+            logits, cache = model.decode(cache, tokens[:, t:t + 1])
+            got.append(logits)
+    err = (torch.cat(got, 1) - want).abs().max().item()
+    assert err <= DECODE_TOL, err
