@@ -2,9 +2,9 @@
 """Drive the PyTorch port's stencil main path, its CGRA model with the
 tuner's batched stage 1, its RecurrentGemma-2B serving and training paths,
 the other LM families, its multi-device stencils, its data- and
-tensor-parallel trainer and its decode of a model split over the model
-axis on one NVIDIA GPU (H100), then its multi-pod dry run on the host's
-CPU.
+tensor-parallel trainer, its FSDP over the data axis and its decode of a
+model split over the model axis on one NVIDIA GPU (H100), then its
+multi-pod dry run on the host's CPU.
 
     PYTHONPATH=src python3 chip_smoke.py [--device cuda:0] [--seed 0]
 
@@ -263,6 +263,27 @@ CPU.
    layout the rules' and no kernel launched; ms a step, one rank against
    two, and the bytes and calls a step per mesh axis
    (``tensor_parallel.WIRE``) on ``split_decode`` lines.
+
+11b. The ``fsdp`` phase (``fsdp_phase``): FSDP over ``data``, parameters
+   and AdamW moments laid out by ``DEFAULT_RULES`` (each ``"fsdp"`` dim
+   over ``data``), gathered a layer at a time, gradients
+   reduce-scattered.  One period of RecurrentGemma-2B at full width (f32
+   weights, bf16 activations, remat "dots", (2, 4096) tokens) on 2 gloo
+   ranks sharing the card at (2, 1), then whisper-tiny whole on 4 at
+   (2, 2) (FSDP with the model split): in each rank one
+   ``make_train_step`` from the same seeded weights and batch with FSDP
+   off (the trainer's rules) and on.  The FSDP loss must equal FSDP-off's
+   bit for bit, every updated parameter lie within ``FSDP_RTOL`` (1e-5)
+   of FSDP-off's same slice relative to the leaf's largest element, each
+   rank launch K5, K6 and their backward ``train_launches`` times (none
+   for whisper), carry over ``data`` the bytes and calls
+   ``fsdp_wire_want`` works out from the shapes and over ``model``
+   FSDP-off's, and hold the parameter and moment bytes that
+   ``resolve_spec`` places under ``DEFAULT_RULES``; whisper's decode
+   (f32, ``FSDP_DECODE_TOKENS`` greedy steps from a primed cache) with
+   FSDP on and off gives equal tokens and logits within 1e-5.  Step ms
+   both ways on ``fsdp`` lines (FSDP off first, after an untimed pass of
+   the loss's gradients).
 
 12. The ``dryrun`` phase (``dryrun_phase``, ~20-40 s on the host's CPU):
    ``launch.dryrun.run_cell`` in a subprocess with the card hidden, on
@@ -2794,12 +2815,12 @@ def par_config(name: str):
     return dataclasses.replace(get_config(arch), num_layers=layers)
 
 
-def predicted_elements(mdl, data: int, model: int) -> int:
+def predicted_elements(mdl, data: int, model: int, rules=None) -> int:
     """Parameter elements a rank holds at (data, model): each spec divided
-    by the mesh axes that ``resolve_spec`` splits it over under the
-    trainer's rules (FSDP off)."""
+    by the mesh axes that ``resolve_spec`` splits it over under ``rules``
+    (by default the trainer's, FSDP off)."""
     sizes = {"data": data, "model": model}
-    rules = {**DEFAULT_RULES, **tp.FSDP_OFF}
+    rules = rules or {**DEFAULT_RULES, **tp.FSDP_OFF}
     total = 0
     for spec in mdl.specs().values():
         parts = resolve_spec(spec.shape, spec.logical,
@@ -3171,6 +3192,284 @@ def split_decode_phase(seed: int, failures: list[str]) -> None:
                       "s": time.perf_counter() - t0}))
 
 
+# -- FSDP over data on the card -----------------------------------------------
+# name -> (arch, layers, (batch, seq), (data, model)).  RecurrentGemma-2B's
+# one period at full width through K5, K6 and their backward at (2, 1):
+# every weight's "fsdp" dim (d_model) split over the 2 data ranks, its
+# tied 256,000 x 2,560 f32 table too (1.3 GB a rank, gathered whole twice
+# a step through the host); whisper-tiny whole at (2, 2): FSDP with the
+# model split (3 of its 6 heads, 768 of its 1,536 d_ff columns a rank),
+# encoder, decoder and cross-attention, no kernel on its path
+FSDP_CASES = {ARCH: (ARCH, STEP_LAYERS, (2, 4096), (2, 1)),
+              WHISPER_ARCH: (WHISPER_ARCH, 4, (2, 4096), (2, 2))}
+FSDP_DECODE_TOKENS = 4          # whisper's greedy steps, f32 activations
+FSDP_CACHE_LEN = 128
+# bars, set before the first run: the forward does not change, so each
+# step's loss equals FSDP-off's bit for bit at D = 2; after the update
+# every parameter within FSDP_RTOL of FSDP-off's, relative to the leaf's
+# largest element (the clipping norm sums in another order); decoded
+# tokens equal, logits within FSDP_LOGITS_TOL
+FSDP_RTOL = 1e-5
+FSDP_LOGITS_TOL = 1e-5
+FSDP_TIMEOUT_S = 600
+
+
+def fsdp_wire_want(mdl, cfg, data: int, model: int) -> dict:
+    """Bytes and calls over ``data`` of one FSDP training step under remat,
+    worked out from the shapes: every weight that ``DEFAULT_RULES`` split
+    over ``data`` gathered whole in f32 (its model slice) once a forward,
+    again where remat reruns its layer (every layer but whisper's
+    encoder's), the tied table twice (the lookup and the logits); each
+    forward gather's gradient reduce-scattered in f32; the other leaves'
+    gradients all-reduced in buckets of at most ``BUCKET_BYTES``, the loss
+    and the aux loss (4 B each); the clipping norm's sum over ``data``, 4 B
+    for each group of leaves split over the same axes that ``data``
+    splits."""
+    sizes = {"data": data, "model": model}
+    moved = calls = 0
+    rest, groups = [], set()
+    for name, spec in mdl.specs().items():
+        parts = resolve_spec(spec.shape, spec.logical,
+                             SimpleNamespace(shape=sizes), DEFAULT_RULES)
+        axes = frozenset(a for part in parts if part
+                         for a in ((part,) if isinstance(part, str) else part)
+                         if sizes[a] > 1)
+        local = math.prod(spec.shape) // math.prod(sizes[a] for a in axes)
+        groups.add(axes)
+        if "data" not in axes:
+            rest.append(4 * local)
+            continue
+        uses = 2 if name == "embed" and cfg.tie_embeddings else 1
+        again = 1 if name.startswith("enc.") or name in ("embed",
+                                                         "unembed") else 2
+        moved += 4 * local * data * uses * (again + 1)
+        calls += uses * (again + 1)
+    buckets, size = 0, None
+    for b in rest:
+        if size is None or size + b > tp.BUCKET_BYTES:
+            buckets, size = buckets + 1, b
+        else:
+            size += b
+    norm = sum(1 for g in groups if "data" in g)
+    return {"bytes": moved + sum(rest) + 8 + 4 * norm,
+            "calls": calls + buckets + 2 + norm}
+
+
+def fsdp_step(name: str, seed: int, rules, whole: dict, mesh, dev,
+              warm: bool = False) -> dict:
+    """One make_train_step of FSDP_CASES[name] from the weights ``whole``
+    laid out by ``rules`` on ``mesh``: the loss, the step's host ms (it
+    ends in the loss's read), the kernels launched and the bytes and calls
+    a mesh axis (counts zeroed just before the step and read just after),
+    the rank's parameters after the update, parameter and moment bytes,
+    the step's peak device memory.  ``warm``: first the loss's gradients once, untimed, so that the
+    step's time holds none of the process's first-call costs (the
+    kernels' loading, cuBLAS, the allocator's first blocks)."""
+    arch, layers, (batch, seq), _ = FSDP_CASES[name]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    mdl = build_model(cfg, device=dev)
+    mdl.load_state_dict(whole)
+    tp.shard_parameters(mdl, tp.parameter_layout(mdl, mesh, rules), mesh)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    glob = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                    device=dev, generator=gen)}
+    if cfg.family == "audio":
+        glob["frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                     device=dev, generator=gen) * 0.02
+    step_in = {k: tp.shard_of(v, mesh, named_sharding(
+        tuple(v.shape), ("batch",) + (None,) * (v.dim() - 1), mesh))
+        for k, v in glob.items()}
+    params = dict(mdl.named_parameters())
+    opt_cfg = OptConfig(warmup_steps=1, total_steps=2)
+    with mesh_context(mesh):
+        if warm:
+            total = make_loss_fn(mdl, cfg, TRAIN_REMAT)(step_in)[0]
+            torch.autograd.grad(total, list(params.values()))
+            del total
+        opt = init_opt_state(params, opt_cfg)
+        fn = make_train_step(mdl, cfg, opt_cfg, remat=TRAIN_REMAT)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        tp.reset_wire()
+        t0 = time.perf_counter()
+        opt, met = fn(opt, step_in)
+        loss = float(met["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        wire = tp.wire_bytes()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    return {"loss": loss, "ms": ms, "launches": launches, "wire": wire,
+            "peak_gb": peak,
+            "params": {n: p.detach() for n, p in params.items()},
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in params.values()),
+            "moment_bytes": sum(t.numel() * t.element_size()
+                                for t in [*opt.m.values(), *opt.v.values()]),
+            "model": mdl}
+
+
+def fsdp_decode(name: str, seed: int, rules, whole: dict, primed, mesh,
+                dev) -> tuple:
+    """FSDP_DECODE_TOKENS greedy steps of whisper-tiny (f32 activations)
+    from the whole model's primed cache placed on ``mesh``, its weights
+    laid out by ``rules``: (logits, tokens), gathered whole."""
+    arch, layers = FSDP_CASES[name][:2]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              dtype="float32")
+    mdl = build_model(cfg, device=dev)
+    mdl.load_state_dict(whole)
+    tp.shard_parameters(mdl, tp.parameter_layout(mdl, mesh, rules), mesh)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    toks = torch.randint(0, cfg.vocab_size, (SPLIT_BATCH, FSDP_DECODE_TOKENS),
+                         device=dev, generator=gen)
+    rows = named_sharding(tuple(toks.shape), ("batch", None), mesh)
+    cols = named_sharding((SPLIT_BATCH, FSDP_DECODE_TOKENS, cfg.vocab_size),
+                          ("batch", None, "vocab"), mesh)
+    toks = tp.shard_of(toks, mesh, rows)
+    logits, nxt = [], []
+    with mesh_context(mesh), torch.inference_mode():
+        step = make_decode_step(mdl, cfg)
+        cache = tp.shard_cache(primed, mesh)
+        for t in range(FSDP_DECODE_TOKENS):
+            n, lg, cache = step(cache, toks[:, t:t + 1], t)
+            logits.append(lg)
+            nxt.append(n)
+    return (tp.whole_of(torch.cat(logits, 1), mesh, cols),
+            tp.whole_of(torch.cat(nxt, 1), mesh, rows))
+
+
+def fsdp_run(name: str, seed: int) -> dict:
+    """One rank of FSDP_CASES[name]: the same training step from the same
+    weights with FSDP off (the trainer's rules) and on (DEFAULT_RULES);
+    each parameter of this rank after the update against FSDP-off's same
+    slice, relative to that leaf's largest element; whisper's decode both
+    ways.  The whole weights and FSDP-off's updated ones wait on the host,
+    so that a rank's device holds one layout at a time."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    arch, layers, _, (d, m) = FSDP_CASES[name]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    mesh = make_local_mesh(d, m)
+    src = family_model(cfg, dev, seed)
+    whole = {k: v.detach().cpu() for k, v in src.state_dict().items()}
+    primed = None
+    if cfg.family == "audio":
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        src32 = build_model(f32, device=dev)
+        src32.load_state_dict(whole)
+        primed = primed_cache(src32, f32, seed, FSDP_CACHE_LEN)
+        del src32
+    del src
+    torch.cuda.empty_cache()
+    rec = {"rank": dist.get_rank()}
+    off = fsdp_step(name, seed, None, whole, mesh, dev, warm=True)
+    off_params = {n: p.cpu() for n, p in off.pop("params").items()}
+    del off["model"]
+    torch.cuda.empty_cache()
+    on = fsdp_step(name, seed, DEFAULT_RULES, whole, mesh, dev)
+    specs, data = on["model"].specs(), tp.mesh_axis("data", mesh)
+    worst = 0.0
+    for n, p in on.pop("params").items():
+        want = off_params.pop(n).to(dev)
+        scale = want.abs().max().item() or 1.0
+        if p.shape != want.shape:                # this rank's data slice
+            dim = tp.fsdp_dim(specs[n])
+            want = want.narrow(dim, data.rank * p.shape[dim], p.shape[dim])
+        worst = max(worst, (p - want).abs().max().item() / scale)
+        del want
+    rec["elements_predicted"] = predicted_elements(on["model"], d, m,
+                                                   DEFAULT_RULES)
+    rec["wire_want"] = fsdp_wire_want(on["model"], cfg, d, m)
+    del on["model"], off_params
+    torch.cuda.empty_cache()
+    rec.update(off=off, on=on, param_rel=worst)
+    if primed is not None:
+        lo, to = fsdp_decode(name, seed, None, whole, primed, mesh, dev)
+        lf, tf = fsdp_decode(name, seed, DEFAULT_RULES, whole, primed, mesh,
+                             dev)
+        rec["decode_err"] = (lf - lo).abs().max().item()
+        rec["decode_tokens_equal"] = bool(torch.equal(tf, to))
+        rec["decode_finite"] = bool(torch.isfinite(lf).all())
+    return rec
+
+
+def fsdp_phase(seed: int, failures: list[str]) -> None:
+    """FSDP over ``data`` on the one card: each FSDP_CASES case on gloo
+    ranks sharing the card (``fsdp_run``); each rank's FSDP step against
+    its FSDP-off step from the same weights (the loss bit for bit, the
+    updated parameters within FSDP_RTOL), the kernels each launched (K5, K6
+    and their backward: ``train_launches``), the bytes and calls over
+    ``data`` against ``fsdp_wire_want``, over ``model`` equal to
+    FSDP-off's, the parameter and moment bytes against ``resolve_spec``
+    under DEFAULT_RULES; whisper's decode both ways (tokens equal, logits
+    within FSDP_LOGITS_TOL)."""
+    t0 = time.perf_counter()
+    for name, (arch, layers, (batch, seq), (d, m)) in FSDP_CASES.items():
+        t_case = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        want = {k: n for k, n in train_launches(cfg, TRAIN_REMAT).items()
+                if n}
+        torch.cuda.empty_cache()
+        ranks = run_local_world(fsdp_run, d * m, name, seed,
+                                timeout=FSDP_TIMEOUT_S)
+        torch.cuda.empty_cache()
+        checks = []
+        for r in ranks:
+            on, off = r["on"], r["off"]
+            model_on = {k: v for k, v in on["wire"].items() if k != "data"}
+            model_off = {k: v for k, v in off["wire"].items()
+                         if k != "data"}
+            checks.append({
+                "loss_equal": on["loss"] == off["loss"]
+                and math.isfinite(on["loss"]),
+                "params": r["param_rel"] <= FSDP_RTOL,
+                "launches": on["launches"] == want == off["launches"],
+                "wire_data": on["wire"].get("data") == r["wire_want"],
+                "wire_model": model_on == model_off,
+                "param_bytes": on["param_bytes"]
+                == 4 * r["elements_predicted"],
+                "moment_bytes": on["moment_bytes"]
+                == 8 * r["elements_predicted"],
+                "decode": "decode_err" not in r or (
+                    r["decode_err"] <= FSDP_LOGITS_TOL
+                    and r["decode_tokens_equal"] and r["decode_finite"])})
+        ok = all(all(c.values()) for c in checks)
+        if not ok:
+            failures.append(f"fsdp {name} {(d, m)}: checks {checks}, ranks "
+                            f"{[{k: v for k, v in r.items()} for r in ranks]}")
+        print(json.dumps({
+            "phase": "fsdp", "arch": arch, "layers": layers,
+            "d_model": cfg.d_model, "param_dtype": cfg.param_dtype,
+            "dtype": cfg.dtype, "tokens": [batch, seq], "remat": TRAIN_REMAT,
+            "data": d, "model": m, "ranks": d * m, "backend": "gloo",
+            "loss": [r["on"]["loss"] for r in ranks],
+            "loss_fsdp_off": [r["off"]["loss"] for r in ranks],
+            "param_rel": [r["param_rel"] for r in ranks],
+            "param_rtol": FSDP_RTOL,
+            "step_ms": [r["on"]["ms"] for r in ranks],
+            "step_ms_fsdp_off": [r["off"]["ms"] for r in ranks],
+            "peak_gb": [r["on"]["peak_gb"] for r in ranks],
+            "peak_gb_fsdp_off": [r["off"]["peak_gb"] for r in ranks],
+            "launches": [r["on"]["launches"] for r in ranks],
+            "launches_want": want,
+            "wire": [r["on"]["wire"] for r in ranks],
+            "wire_fsdp_off": [r["off"]["wire"] for r in ranks],
+            "wire_data_want": ranks[0]["wire_want"],
+            "param_bytes": [r["on"]["param_bytes"] for r in ranks],
+            "param_bytes_fsdp_off": [r["off"]["param_bytes"] for r in ranks],
+            "moment_bytes": [r["on"]["moment_bytes"] for r in ranks],
+            "elements_predicted": [r["elements_predicted"] for r in ranks],
+            "decode_max_abs_logit_diff": [r.get("decode_err")
+                                          for r in ranks],
+            "decode_tokens_equal": [r.get("decode_tokens_equal")
+                                    for r in ranks],
+            "logits_tol": FSDP_LOGITS_TOL, "checks": checks, "ok": ok}))
+        print(json.dumps({"phase": "fsdp_case_wall", "arch": arch,
+                          "s": time.perf_counter() - t_case}))
+    print(json.dumps({"phase": "fsdp_wall", "s": time.perf_counter() - t0}))
+
+
 # -- the multi-pod dry run (launch/dryrun.py), on the CPU ---------------------
 # Eight cells of the single mesh (16 x 16 = 256 ranks), each run as rank 0
 # of a fake world on meta tensors in one subprocess with the card hidden;
@@ -3189,20 +3488,27 @@ DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", None),
 # cell -> the counts its record must give, as the CPU of the repo's tests
 # gives them (``python -m repro_torch.launch.dryrun --arch rwkv6-7b
 # --shape train_4k``, torch 2.13; whisper-tiny's and qwen2-vl-2b's the
-# same way)
+# same way), laid out by DEFAULT_RULES (FSDP over data).  The collective
+# bytes were worked out from the shapes before that run: FSDP-off's, plus
+# each FSDP weight's model slice gathered in f32 (twice where remat reruns
+# its layer; the tied table twice) and its gradient reduce-scattered once
+# a forward gather, less the all-reduce of those gradients over data, plus
+# 4 B a further sum of the clipping norm (rwkv6 4,093,640,704 +
+# 2,113,929,216 - 2,113,929,204; whisper 211,823,616 + 191,179,776 -
+# 111,515,128; qwen2-vl 1,927,839,744 + 1,022,263,296 - 963,919,864)
 DRYRUN_COUNTS = {(RWKV_ARCH, "train_4k"): {
     "flops_per_device": 200_867_097_608_192.0,
-    "bytes_per_device": 18_421_810_562_116.0,
-    "collective_bytes_per_device": 313_745_260_364,
+    "bytes_per_device": 18_334_812_308_620.0,
+    "collective_bytes_per_device": 317_838_901_080,
     "wkv_analytic_flops": 184_672_856_309_760.0},
     (WHISPER_ARCH, "train_4k"): {
     "flops_per_device": 19_646_718_148_608.0,
-    "bytes_per_device": 1_526_521_246_172.0,
-    "collective_bytes_per_device": 1_211_767_308},
+    "bytes_per_device": 1_521_966_770_636.0,
+    "collective_bytes_per_device": 1_503_255_572},
     (VLM_ARCH, "train_4k"): {
     "flops_per_device": 279_475_132_563_456.0,
-    "bytes_per_device": 18_148_875_079_444.0,
-    "collective_bytes_per_device": 24_319_170_380}}
+    "bytes_per_device": 18_109_421_279_044.0,
+    "collective_bytes_per_device": 26_305_353_556}}
 DRYRUN_TIMEOUT_S = 300
 DRYRUN_CODE = """
 import json, sys
@@ -3389,6 +3695,12 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- decode split over the model axis: one rank, then (1, 2) -----------
     split_decode_phase(args.seed, failures)
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+
+    # -- FSDP over data: RecurrentGemma-2B at (2, 1), whisper at (2, 2) -----
+    fsdp_phase(args.seed, failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1

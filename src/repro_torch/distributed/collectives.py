@@ -15,6 +15,7 @@ carries decides where the payload lies (:func:`wire_device`).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -53,19 +54,20 @@ def _topk_mask(x: torch.Tensor, frac: float,
 
 
 def _topk_threshold(xs: list[torch.Tensor], frac: float,
-                    axis=None) -> torch.Tensor:
+                    axes=()) -> torch.Tensor:
     """The k-th largest magnitude of the leaf made of ``xs``, k = max(1,
-    int(size * frac)).  With ``axis``, each of ``xs`` is this rank's equal
-    slice of a leaf split over it: k counts the whole leaf, and the
-    threshold is the k-th largest of the ranks' own k largest."""
+    int(size * frac)).  With ``axes``, each of ``xs`` is this rank's equal
+    slice of a leaf split over them: k counts the whole leaf, and the
+    threshold is the k-th largest of every split rank's own k largest
+    (gathered over each axis in turn, the k largest kept at each)."""
     flat = torch.cat([x.abs().reshape(-1) for x in xs])
-    k = max(1, int(flat.numel() * (axis.size if axis else 1) * frac))
-    if axis is None:
-        return torch.topk(flat, k).values[-1]
+    k = max(1, int(flat.numel() * math.prod(a.size for a in axes) * frac))
+    top = torch.topk(flat, min(k, flat.numel())).values
     from repro_torch.distributed import tensor_parallel
-    mine = torch.topk(flat, min(k, flat.numel())).values
-    return torch.topk(torch.cat(tensor_parallel.gather_over(mine, axis)),
-                      k).values[-1]
+    for axis in axes:
+        both = torch.cat(tensor_parallel.gather_over(top, axis))
+        top = torch.topk(both, min(k, both.numel())).values
+    return top[-1]
 
 
 def compress_decompress(grads: dict[str, torch.Tensor],
@@ -80,10 +82,11 @@ def compress_decompress(grads: dict[str, torch.Tensor],
     "topk" (keep the top ``topk_frac`` magnitudes of a leaf) or "none"
     (identity).  ``groups``: lists of names compressed as one leaf (the JAX
     package's leaf that stacks those layers: one scale, one threshold over
-    all of them); by default each name alone.  ``shards``
-    (``tensor_parallel.Sharded``): the names held as this rank's slice of
-    a leaf split over its model axis; their scale and threshold are the
-    whole leaf's."""
+    all of them); by default each name alone.  ``shards``: each name held
+    as this rank's slice of a leaf -> the mesh axes that split it
+    (``model``, ``data`` or both: ``tensor_parallel.split_axes``); its
+    scale and threshold are the whole leaf's."""
+    from repro_torch.distributed import tensor_parallel
     if method == "none":
         return grads, ef_state
     if method not in ("int8", "topk"):
@@ -92,18 +95,16 @@ def compress_decompress(grads: dict[str, torch.Tensor],
     for names in groups or [[n] for n in grads]:
         corrected = [grads[n].float() + ef_state[n].error.float()
                      for n in names]
-        axis = (shards.axis if shards is not None
-                and names[0] in shards.names else None)
+        axes = (shards or {}).get(names[0], ())
         if method == "int8":
             amax = torch.stack([c.abs().max() for c in corrected]).max()
-            if axis is not None:
-                from repro_torch.distributed import tensor_parallel
+            for axis in axes:
                 amax = tensor_parallel.max_over(amax, axis)
             scale = torch.clamp(amax, min=1e-12) / 127.0
             sent = [_dequantize_int8(_quantize_int8(c, scale)[0], scale)
                     for c in corrected]
         else:
-            thresh = _topk_threshold(corrected, topk_frac, axis)
+            thresh = _topk_threshold(corrected, topk_frac, axes)
             sent = [c * _topk_mask(c, topk_frac, thresh) for c in corrected]
         for n, c, snt in zip(names, corrected, sent):
             effective[n] = snt.to(grads[n].dtype)

@@ -7,11 +7,23 @@ reference's trainer runs its step under ``mesh_context`` too).  With no
 mesh, or an axis of size 1, every function here leaves the one-device
 computation as it is.
 
-Layout: a parameter is split over ``model`` where the sharding rules split
-it (:func:`shard_parameters`, ``tree_shardings`` under
-``{**DEFAULT_RULES, "fsdp": [()]}``); a rank holds its slice as a plain
-tensor.  A layer sees that a parameter is split from its shape
+Layout: a parameter is split as the sharding rules place it
+(:func:`parameter_layout`, :func:`shard_parameters`); a rank holds its
+slice as a plain tensor.  The trainer's rules (:data:`FSDP_OFF`, as the
+reference's trainer places nothing by ``"fsdp"``) split parameters over
+``model`` alone; ``DEFAULT_RULES`` also split each parameter's ``"fsdp"``
+dim over ``data`` (FSDP), as the dry run lays them out.  A layer sees
+that a parameter is split over ``model`` from its shape
 (:func:`split_axis`): the layout is never chosen here.
+
+FSDP: a module's parameters are gathered whole over ``data`` a layer at a
+time, in their own dtype, just before the layer runs (:func:`unshard`,
+inside the layer's remat region, so remat gathers them again in the
+backward pass rather than keep them), and each gathered weight's
+gradient leaves the backward pass reduce-scattered over ``data`` (summed
+in float32): the rank's slice of the data ranks' sum.  A layer after
+:func:`unshard` sees exactly the model-axis shapes of the trainer's
+layout.
 
 The residual stream is replicated over ``model``.  A layer whose
 parameters are split runs in the Megatron pattern (Shoeybi et al., 2019):
@@ -75,8 +87,10 @@ slice of a cache.
 Data parallelism: rank ``(d, m)`` takes rows ``[d·B/D, (d+1)·B/D)`` of each
 global batch, ``d`` its index along the axes the batch is split over
 (:func:`data_axis`: ``data``, or ``pod`` and ``data`` flattened into one
-group on the multi-pod mesh); :func:`mean_over_data` averages the
-gradients (float32, sum then ``/ D``), the loss and the aux loss.
+group on the multi-pod mesh); :func:`mean_grads_over_data` averages the
+gradients (float32, sum then ``/ D``) and :func:`mean_over_data` the loss
+and the aux loss.  A gradient that FSDP reduce-scattered over ``data`` is
+summed over ``pod`` alone, then divided by the whole ``D``.
 Payloads cross the wire as
 :func:`repro_torch.distributed.collectives.wire_device` says.
 """
@@ -106,13 +120,6 @@ class Axis(NamedTuple):
     group: object
     rank: int
     size: int
-
-
-class Sharded(NamedTuple):
-    """The optimizer's view of a split layout: the model axis, and the
-    names of the parameters split over it (every other one replicated)."""
-    axis: Axis
-    names: frozenset
 
 
 def set_mesh(mesh) -> None:
@@ -214,6 +221,23 @@ def _sum_f32(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return _reduce(x.float(), axis).to(x.dtype)
 
 
+def reduce_scatter(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of ``x`` over ``axis``
+    (equal slices in rank order), summed in float32 and cast back to x's
+    type: a reduce-scatter, counted in :data:`WIRE` by the bytes it
+    reduces (x's, in float32)."""
+    whole = x.float().movedim(dim, 0).contiguous()
+    _count(axis, whole.numel() * whole.element_size())
+    wire = whole.to(wire_device(axis.group, x.device))
+    out = wire.new_empty((wire.shape[0] // axis.size, *wire.shape[1:]))
+    # the op's newer name where this torch has it (reduce_scatter_tensor,
+    # which torch 2.11 has, warns that it is deprecated in 2.13)
+    op = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    op(out, wire, group=axis.group)
+    return out.to(x.device).movedim(0, dim).contiguous().to(x.dtype)
+
+
 class _CopyIn(torch.autograd.Function):
     """Identity forward; the gradient all-reduced over the model axis."""
 
@@ -253,6 +277,21 @@ class _GatherWeight(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.axis.rank * ctx.n, ctx.n), None, None
 
 
+class _GatherData(torch.autograd.Function):
+    """All-gather of a parameter split over the data axis (FSDP); its
+    gradient, each data rank's own, reduce-scattered back to this rank's
+    slice of their sum."""
+
+    @staticmethod
+    def forward(ctx, w, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return gather_cat(w, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.axis, ctx.dim), None, None
+
+
 def copy_in(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``x`` entering the split region (a column-parallel input)."""
     return _CopyIn.apply(x, axis)
@@ -272,6 +311,45 @@ def gather_weight(w: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     slice of the gradient, which the replicated computation gives whole on
     every rank."""
     return _GatherWeight.apply(w, axis, dim)
+
+
+def fsdp_dim(spec) -> int | None:
+    """The dim of a parameter spec whose logical name is ``"fsdp"`` (the
+    one the rules may split over ``data``), or None."""
+    return spec.logical.index("fsdp") if "fsdp" in spec.logical else None
+
+
+def gather_fsdp(w: torch.Tensor, spec) -> torch.Tensor:
+    """Parameter ``w`` whole along its spec's ``"fsdp"`` dim: gathered over
+    the data axis of the ambient mesh where it is held there as ``whole /
+    D``, in its own dtype (:class:`_GatherData`: the backward pass
+    reduce-scatters its gradient); as it is where that dim is whole.  Any
+    other size raises, as :func:`split_axis` does: outside a mesh with
+    that data axis the layer cannot gather it."""
+    dim = fsdp_dim(spec)
+    if dim is None or w.shape[dim] == spec.shape[dim]:
+        return w
+    axis = mesh_axis("data")
+    if axis is None or w.shape[dim] * axis.size != spec.shape[dim]:
+        need = spec.shape[dim] // max(w.shape[dim], 1)
+        raise ValueError(f"a parameter of {tuple(spec.shape)} held as "
+                         f"{tuple(w.shape)} along its fsdp dim {dim} needs "
+                         f"a data axis of {need} ranks in mesh_context; the "
+                         f"ambient mesh has {axis.size if axis else 1}")
+    return _GatherData.apply(w, axis, dim)
+
+
+def unshard(module) -> dict:
+    """``module``'s own parameters, nested as its ``param_specs`` (a dict
+    for each ``ParameterDict``), with every FSDP dim gathered whole
+    (:func:`gather_fsdp`): what a layer runs on, at exactly the model-axis
+    shapes of the trainer's layout.  Called where the layer runs, inside
+    its remat region, so that the gathered weights live for one layer."""
+    def walk(held, specs: dict) -> dict:
+        return {k: walk(getattr(held, k), s) if isinstance(s, dict)
+                else gather_fsdp(getattr(held, k), s)
+                for k, s in specs.items()}
+    return walk(module, module.param_specs)
 
 
 def enter(p, specs: dict, axis: Axis) -> dict[str, torch.Tensor]:
@@ -359,23 +437,24 @@ def mean_over_data(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return _reduce(x.float(), axis) / axis.size
 
 
-def mean_grads_over_data(grads: dict[str, torch.Tensor],
-                         axis: Axis) -> dict[str, torch.Tensor]:
-    """Each gradient's mean over the data axis (float32 sum, then ``/ D``,
-    cast back), the leaves packed into all-reduces of at most
-    :data:`BUCKET_BYTES`."""
-    names = list(grads)
+def _mean_buckets(grads: dict[str, torch.Tensor], names: list[str],
+                  axis: Axis | None, size: int) -> dict[str, torch.Tensor]:
+    """``names``' gradients summed over ``axis`` (none: as they are) and
+    divided by ``size`` in float32, cast back; the leaves packed into
+    all-reduces of at most :data:`BUCKET_BYTES`."""
     out: dict[str, torch.Tensor] = {}
     start = 0
     while start < len(names):
-        end, size = start, 0
-        while end < len(names) and (end == start or size + 4 * grads[
+        end, nbytes = start, 0
+        while end < len(names) and (end == start or nbytes + 4 * grads[
                 names[end]].numel() <= BUCKET_BYTES):
-            size += 4 * grads[names[end]].numel()
+            nbytes += 4 * grads[names[end]].numel()
             end += 1
         chunk = names[start:end]
         flat = torch.cat([grads[n].float().reshape(-1) for n in chunk])
-        flat = _reduce(flat, axis) / axis.size
+        if axis is not None:
+            flat = _reduce(flat, axis)
+        flat = flat / size
         for n, part in zip(chunk, flat.split([grads[n].numel()
                                               for n in chunk])):
             out[n] = part.view(grads[n].shape).to(grads[n].dtype)
@@ -384,16 +463,45 @@ def mean_grads_over_data(grads: dict[str, torch.Tensor],
     return out
 
 
-def sq_norm(tree: dict[str, torch.Tensor], shards: Sharded) -> torch.Tensor:
-    """The squared global norm of a tree laid out as ``shards`` says: the
-    split leaves' local sums added over the model axis, the replicated
-    leaves counted once."""
-    def part(names):
-        return sum((torch.sum(torch.square(tree[n].float())) for n in names),
-                   torch.zeros((), device=next(iter(tree.values())).device))
-    split = [n for n in tree if n in shards.names]
-    rest = [n for n in tree if n not in shards.names]
-    return _reduce(part(split), shards.axis) + part(rest)
+def mean_grads_over_data(grads: dict[str, torch.Tensor], axis: Axis,
+                         summed=frozenset()) -> dict[str, torch.Tensor]:
+    """Each gradient's mean over the data axis ``axis`` (float32 sum, then
+    ``/ D``, cast back), the leaves packed into all-reduces of at most
+    :data:`BUCKET_BYTES`.  ``summed``: the leaves whose gradient FSDP has
+    already reduce-scattered over ``data`` (:func:`gather_fsdp`); those
+    are summed over the batch's other axis alone (``pod`` on the multi-pod
+    mesh, none on a (data, model) mesh), then divided by the same D."""
+    # the batch rule's axes are ("pod", "data") or ("data",)
+    others = [a for a in batch_axes(_MESH[0]) if a != "data"] if summed \
+        else []
+    outer = mesh_axis(others[0]) if others else None
+    out = _mean_buckets(grads, [n for n in grads if n not in summed], axis,
+                        axis.size)
+    out |= _mean_buckets(grads, [n for n in grads if n in summed], outer,
+                         axis.size)
+    return {n: out[n] for n in grads}
+
+
+def sq_norm(tree: dict[str, torch.Tensor],
+            shards: dict[str, tuple[Axis, ...]]) -> torch.Tensor:
+    """The squared global norm of a tree laid out as ``shards`` says (each
+    leaf held as a slice -> the axes that split it, :func:`split_axes`):
+    the local sums of squares of the leaves split over the same axes added
+    together, then over each of those axes; the replicated leaves counted
+    once."""
+    dev = next(iter(tree.values())).device
+    groups: dict[tuple, list[str]] = {}
+    for n in tree:
+        groups.setdefault(tuple(a.name for a in shards.get(n, ())),
+                          []).append(n)
+    total = torch.zeros((), device=dev)
+    for names in groups.values():
+        part = sum((torch.sum(torch.square(tree[n].float())) for n in names),
+                   torch.zeros((), device=dev))
+        for axis in shards.get(names[0], ()):
+            part = _reduce(part, axis)
+        total = total + part
+    return total
 
 
 def max_over(x: torch.Tensor, axis: Axis) -> torch.Tensor:
@@ -481,15 +589,16 @@ def shard_cache(cache, mesh):
     return out
 
 
-def parameter_layout(model, mesh) -> dict[str, tuple]:
+def parameter_layout(model, mesh, rules=None) -> dict[str, tuple]:
     """Each parameter's placements on ``mesh``: ``tree_shardings`` over the
-    model's ``shape_tree`` and ``logical_tree`` under the rules with FSDP
-    off (model-axis splits only)."""
+    model's ``shape_tree`` and ``logical_tree`` under ``rules``; by default
+    the trainer's, the rules with FSDP off (model-axis splits only).
+    ``DEFAULT_RULES`` also split each ``"fsdp"`` dim over ``data``."""
     from repro_torch.distributed.sharding import DEFAULT_RULES, tree_shardings
     from repro_torch.models import params as pr
     specs = model.specs()
     return tree_shardings(pr.shape_tree(specs), pr.logical_tree(specs), mesh,
-                          {**DEFAULT_RULES, **FSDP_OFF})
+                          rules or {**DEFAULT_RULES, **FSDP_OFF})
 
 
 def shard_of(x: torch.Tensor, mesh, place: tuple) -> torch.Tensor:
@@ -542,12 +651,27 @@ def shard_parameters(model, layout: dict[str, tuple], mesh) -> None:
                 setattr(mod, leaf, new)
 
 
-def split_names(model) -> frozenset:
-    """The parameters held as a slice (their shape differs from their
-    spec's)."""
+def split_axes(model) -> dict[str, tuple[Axis, ...]]:
+    """Each parameter held as a slice (its shape differs from its spec's)
+    -> the axes of the ambient mesh that split it, ``model`` before
+    ``data``: ``data`` where its ``"fsdp"`` dim is held split (FSDP),
+    ``model`` where any other dim is."""
     specs = model.specs()
-    return frozenset(n for n, p in model.named_parameters()
-                     if tuple(p.shape) != specs[n].shape)
+    out = {}
+    for n, p in model.named_parameters():
+        spec = specs[n]
+        fsdp = {spec.logical[d] == "fsdp"
+                for d, (a, b) in enumerate(zip(p.shape, spec.shape))
+                if a != b}
+        axes = ((model_axis(),) if False in fsdp else ()) + (
+            (mesh_axis("data"),) if True in fsdp else ())
+        if None in axes:
+            raise ValueError(f"{n} is held as {tuple(p.shape)} of "
+                             f"{spec.shape}: the ambient mesh does not "
+                             "split it so")
+        if axes:
+            out[n] = axes
+    return out
 
 
 def check_moe_groups(cfg, batch: int, seq: int, data: int,

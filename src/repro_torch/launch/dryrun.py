@@ -9,7 +9,11 @@ that many ranks, in one CPU process with no card and no allocation:
     (``distributed.collectives.wire_device``);
   * parameters, optimizer moments, inputs and activations are meta tensors,
     each the rank's slice (``tensor_parallel.shard_parameters``; the inputs
-    by ``BATCH_LOGICAL``);
+    by ``BATCH_LOGICAL``); parameters and moments are laid out by
+    ``DEFAULT_RULES`` (each ``"fsdp"`` dim over ``data``, as the
+    reference's dry run places them), or ``INFERENCE_RULES`` under
+    ``--infer-layout`` (no FSDP), and a rank holds exactly the record's
+    ``param_bytes_per_device``;
   * K5 and K6 on meta launch nothing and count the work their launch would
     do (``kernels._build.META``).
 Then record, per device:
@@ -33,11 +37,18 @@ What differs from the reference, by design:
     counts a ``lax.scan`` body once; the record then adds the other
     S - 1 steps analytically (``_wkv_analytic_flops``), as the
     reference's does, so the recurrence is counted once, not twice;
-  * FSDP over ``data`` is not ported (ROADMAP.md Queue 1 item 5b): the step
-    runs on the rules' model-axis splits alone, which are training's and
-    serving's placement alike, so ``--infer-layout`` changes only
-    ``param_bytes_per_device`` (computed as the reference does, with the
-    rules' FSDP);
+  * FSDP's collectives are placed by hand, not by GSPMD: each layer
+    gathers every one of its parameters whole over ``data`` as it runs,
+    in the dtype it is held in (f32), where XLA may keep a weight split
+    and move activations instead (it looks tokens up in the rank's slice
+    of the table, and multiplies by the rank's d_model slice of a K/V
+    projection); the decoder-only stack's and whisper's decoder's layers
+    run under remat, so their weights are gathered again in the backward
+    pass; the tied embedding is gathered twice a step (the lookup and the
+    logits); each gathered weight's gradient is reduce-scattered over
+    ``data`` once a gather (in f32), and only the other leaves' gradients
+    are all-reduced over the batch axes (on the multi-pod mesh the FSDP
+    gradients then over ``pod`` alone);
   * the MoE places no ``expert_cap`` split of the activations: where the
     experts do not divide the model axis (granite-moe-3b-a800m's 40 over
     16), the reference's GSPMD splits the dispatched tokens' capacity; the
@@ -309,13 +320,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     shape = SHAPES[shape_name]
     multi = mesh_kind == "multi"
     chips = 512 if multi else 256
+    rules = INFERENCE_RULES if infer_layout else DEFAULT_RULES
     with fake_world(chips):
         mesh = make_production_mesh(multi_pod=multi, device="cpu")
         with mesh_context(mesh):
             model = build_model(cfg, device="meta")
             specs = model.specs()
-            tp.shard_parameters(model, tp.parameter_layout(model, mesh),
-                                mesh)
+            tp.shard_parameters(model, tp.parameter_layout(model, mesh,
+                                                           rules), mesh)
+            held = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
             step, model_flops = _step(cfg, shape, mesh, model, remat)
             _build.reset_meta()
             counter = StepCounter()
@@ -324,11 +338,13 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                 step()
             lower_s = time.time() - t0
         kernels = _build.meta_work()
-        rules = INFERENCE_RULES if infer_layout else DEFAULT_RULES
         structs = pr.shape_tree(specs, cfg.param_dtype)
         pbytes = param_bytes_per_device(
             structs, tree_shardings(structs, pr.logical_tree(specs), mesh,
                                     rules), mesh)
+    if held != pbytes:
+        raise RuntimeError(f"a rank holds {held} B of parameters, not the "
+                           f"{pbytes} B the rules place on it")
 
     flops_dev = float(flops.get_total_flops()
                       + sum(k["ops"] for k in kernels.values()))
@@ -374,7 +390,9 @@ def main() -> None:
     ap.add_argument("--remat", default="dots")
     ap.add_argument("--tag", default="")
     ap.add_argument("--infer-layout", action="store_true",
-                    help="serving param layout: TP-resident, no FSDP gathers")
+                    help="lay parameters out by INFERENCE_RULES (split "
+                         "over model alone, no FSDP gathers) in place of "
+                         "DEFAULT_RULES")
     ap.add_argument("--cfg-override", action="append", default=[],
                     help="e.g. --cfg-override num_heads=16")
     ap.add_argument("--out", default=RESULTS_DIR)

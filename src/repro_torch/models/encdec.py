@@ -18,7 +18,11 @@ is looked up vocabulary-parallel and the tied logits stay split over it.
 ``init_cache`` under ``mesh_context`` gives this rank's slice of the
 cache, the cross K/V placed by the rules' cross rule, which decode
 attends as it finds them (``attention.attend_full`` with ``frames``, the
-whole frame count that a cache split over the frames records).
+whole frame count that a cache split over the frames records).  Where
+the rules also split parameters over ``data`` (FSDP), each block gathers
+its own whole as it runs, the decoder's inside its remat region, and the
+embedding and the logits the table where they use it
+(``tensor_parallel.unshard``, ``gather_fsdp``).
 """
 from __future__ import annotations
 
@@ -108,24 +112,27 @@ class EncDecLM(nn.Module):
         pos = sinusoidal_positions(frames.shape[1], cfg.d_model,
                                    device=frames.device)
         h = frames.to(dtype) + pos.to(dtype)[None]
-        for bp in self.enc:
-            hn = rmsnorm(bp.ln1, h, cfg.norm_eps)
-            h = h + attend_full(bp.attn, hn, cfg, positions=None,
+        for block in self.enc:
+            bp = tp.unshard(block)
+            hn = rmsnorm(bp["ln1"], h, cfg.norm_eps)
+            h = h + attend_full(bp["attn"], hn, cfg, positions=None,
                                 causal=False)
-            hn = rmsnorm(bp.ln2, h, cfg.norm_eps)
-            h = h + mlp(bp.mlp, hn, cfg)
+            hn = rmsnorm(bp["ln2"], h, cfg.norm_eps)
+            h = h + mlp(bp["mlp"], hn, cfg)
         return rmsnorm(self.enc_norm, h, cfg.norm_eps)
 
-    def _cross_kv(self, bp: nn.Module, enc_out: torch.Tensor
+    def _cross_kv(self, bp, enc_out: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
         """A decoder block's cross-attention K/V (B, T, KV, hd) of the
         encoder output: the rank's KV heads where ``wk``/``wv`` are split
-        over them.  Where the cross-attention is split over heads and
-        ``wk``/``wv`` are whole, they enter its split region
-        (``tensor_parallel.enter``); the encoder output has entered it
-        before the stack (:meth:`_enter_cross`)."""
-        p = {"wk": bp.cross["wk"], "wv": bp.cross["wv"]}
-        axis = tp.split_axis(bp.cross["wq"].shape[1], self.cfg.num_heads)
+        over them.  ``bp``: the block, or its parameters as
+        ``tensor_parallel.unshard`` gives them.  Where the cross-attention
+        is split over heads and ``wk``/``wv`` are whole, they enter its
+        split region (``tensor_parallel.enter``); the encoder output has
+        entered it before the stack (:meth:`_enter_cross`)."""
+        cross = (tp.unshard(bp) if isinstance(bp, nn.Module) else bp)["cross"]
+        p = {"wk": cross["wk"], "wv": cross["wv"]}
+        axis = tp.split_axis(cross["wq"].shape[1], self.cfg.num_heads)
         if axis is not None:
             p = tp.enter(p, attention_specs(self.cfg), axis)
         d, kv, hd = p["wk"].shape
@@ -147,9 +154,10 @@ class EncDecLM(nn.Module):
         vocabulary-parallel where the table is split over the vocabulary."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
-        axis = tp.split_axis(self.embed.shape[0], cfg.vocab_size)
-        h = (embed(self.embed, tokens, dtype) if axis is None
-             else tp.vocab_parallel_embed(self.embed, tokens, dtype, axis))
+        table = tp.gather_fsdp(self.embed, self.param_specs["embed"])
+        axis = tp.split_axis(table.shape[0], cfg.vocab_size)
+        h = (embed(table, tokens, dtype) if axis is None
+             else tp.vocab_parallel_embed(table, tokens, dtype, axis))
         return h + pos.to(dtype)[None]
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -157,22 +165,24 @@ class EncDecLM(nn.Module):
         table is split over it (the input through ``copy_in``)."""
         cfg = self.cfg
         h = rmsnorm(self.final_norm, h, cfg.norm_eps)
-        axis = tp.split_axis(self.embed.shape[0], cfg.vocab_size)
+        table = tp.gather_fsdp(self.embed, self.param_specs["embed"])
+        axis = tp.split_axis(table.shape[0], cfg.vocab_size)
         if axis is not None:
             h = tp.copy_in(h, axis)
-        return unembed(self.embed, h, tied=True)
+        return unembed(table, h, tied=True)
 
     # ----- decoder (teacher-forced / prefill logits) -------------------------
-    def _dec_block(self, bp: nn.Module, h: torch.Tensor,
+    def _dec_block(self, block: nn.Module, h: torch.Tensor,
                    enc_out: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        hn = rmsnorm(bp.ln1, h, cfg.norm_eps)
-        h = h + attend_full(bp.self, hn, cfg, positions=None, causal=True)
-        hn = rmsnorm(bp.lnx, h, cfg.norm_eps)
-        h = h + attend_full(bp.cross, hn, cfg, positions=None,
+        bp = tp.unshard(block)
+        hn = rmsnorm(bp["ln1"], h, cfg.norm_eps)
+        h = h + attend_full(bp["self"], hn, cfg, positions=None, causal=True)
+        hn = rmsnorm(bp["lnx"], h, cfg.norm_eps)
+        h = h + attend_full(bp["cross"], hn, cfg, positions=None,
                             cross_kv=self._cross_kv(bp, enc_out))
-        hn = rmsnorm(bp.ln2, h, cfg.norm_eps)
-        return h + mlp(bp.mlp, hn, cfg)
+        hn = rmsnorm(bp["ln2"], h, cfg.norm_eps)
+        return h + mlp(bp["mlp"], hn, cfg)
 
     def reference_leaf(self, name: str) -> str:
         """The JAX package's leaf that holds parameter ``name``: the
@@ -234,17 +244,18 @@ class EncDecLM(nn.Module):
         h = self._embed(tokens, sinusoidal_positions(
             1, cfg.d_model, offset=pos, device=tokens.device))
         new_self = []
-        for i, (bp, kv_cache) in enumerate(zip(self.dec, cache["self"])):
-            hn = rmsnorm(bp.ln1, h, cfg.norm_eps)
-            y, kv_cache = attn_decode(bp.self, hn, kv_cache, cfg,
+        for i, (block, kv_cache) in enumerate(zip(self.dec, cache["self"])):
+            bp = tp.unshard(block)
+            hn = rmsnorm(bp["ln1"], h, cfg.norm_eps)
+            y, kv_cache = attn_decode(bp["self"], hn, kv_cache, cfg,
                                       positions=None)
             h = h + y
-            hn = rmsnorm(bp.lnx, h, cfg.norm_eps)
-            h = h + attend_full(bp.cross, hn, cfg, positions=None,
+            hn = rmsnorm(bp["lnx"], h, cfg.norm_eps)
+            h = h + attend_full(bp["cross"], hn, cfg, positions=None,
                                 cross_kv=(cache["cross_k"][i],
                                           cache["cross_v"][i]),
                                 frames=cache.get("cross_frames", 0))
-            hn = rmsnorm(bp.ln2, h, cfg.norm_eps)
-            h = h + mlp(bp.mlp, hn, cfg)
+            hn = rmsnorm(bp["ln2"], h, cfg.norm_eps)
+            h = h + mlp(bp["mlp"], hn, cfg)
             new_self.append(kv_cache)
         return self._logits(h), {**cache, "self": new_self}

@@ -24,7 +24,11 @@ over the ranks) and the logits stay split over the vocabulary: the train
 step's cross entropy takes them so (``tensor_parallel.vocab_parallel_xent``),
 and so does decode's greedy token (``tensor_parallel.vocab_parallel_argmax``).
 ``init_cache`` under ``mesh_context`` gives this rank's slice of the cache
-as the rules place it (``tensor_parallel.shard_cache``).
+as the rules place it (``tensor_parallel.shard_cache``).  Where the rules
+also split parameters over ``data`` (FSDP, ``DEFAULT_RULES``), each layer
+gathers its own whole as it runs, inside its remat region, and the
+embedding and the logits gather their table where they use it
+(``tensor_parallel.unshard``, ``gather_fsdp``).
 """
 from __future__ import annotations
 
@@ -118,7 +122,9 @@ def _empty(spec: pr.Spec, default_dtype: str, device) -> nn.Parameter:
 def add_params(module: nn.Module, specs: dict[str, Any], default_dtype: str,
                device) -> None:
     """Give ``module`` an uninitialised parameter per Spec of ``specs`` (a
-    ``ParameterDict`` per nested dict), named as in the JAX tree."""
+    ``ParameterDict`` per nested dict), named as in the JAX tree; its
+    ``param_specs`` keep them (``tensor_parallel.unshard`` reads them)."""
+    module.param_specs = {**getattr(module, "param_specs", {}), **specs}
     for name, spec in specs.items():
         if pr.is_spec(spec):
             setattr(module, name, _empty(spec, default_dtype, device))
@@ -142,61 +148,66 @@ def flat_specs(prefix: str, specs: dict[str, Any]) -> dict[str, pr.Spec]:
 class Block(nn.Module):
     """One layer: a pre-norm mixer (attention, RG-LRU or RWKV time-mix) and
     a pre-norm MLP (dense, MoE or RWKV channel-mix), each with a residual.
-    Parameters are named as in the JAX tree."""
+    Parameters are named as in the JAX tree.  Each call runs on the
+    layer's parameters gathered whole over ``data`` where FSDP splits them
+    (``tensor_parallel.unshard``)."""
 
     def __init__(self, cfg: ArchConfig, kind: str, device=None):
         super().__init__()
         self.cfg, self.kind = cfg, kind
         add_params(self, block_specs(cfg, kind), cfg.param_dtype, device)
 
-    def _ffn(self, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    def _ffn(self, p: dict, h: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The MLP half: (h + mlp(ln2(h)), the MoE's aux loss or None)."""
         cfg = self.cfg
-        hn = rmsnorm(self.ln2, h, cfg.norm_eps)
+        hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
         if cfg.num_experts:
-            y, aux = moe(self.mlp, hn, cfg)
+            y, aux = moe(p["mlp"], hn, cfg)
             return h + y, aux
-        return h + mlp(self.mlp, hn, cfg), None
+        return h + mlp(p["mlp"], hn, cfg), None
 
     def forward(self, h: torch.Tensor, positions
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """Returns (h, the MoE's aux loss or None)."""
         cfg = self.cfg
-        hn = rmsnorm(self.ln1, h, cfg.norm_eps)
+        p = tp.unshard(self)
+        hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
         if self.kind == "rwkv":
-            y, _ = rwkv_time_mix(self.rwkv, hn, cfg)
+            y, _ = rwkv_time_mix(p["rwkv"], hn, cfg)
             h = h + y
-            hn = rmsnorm(self.ln2, h, cfg.norm_eps)
-            y, _ = rwkv_channel_mix(self.rwkv, hn, cfg)
+            hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
+            y, _ = rwkv_channel_mix(p["rwkv"], hn, cfg)
             return h + y, None
         if self.kind == "attn":
-            h = h + attend_full(self.attn, hn, cfg, positions=positions)
+            h = h + attend_full(p["attn"], hn, cfg, positions=positions)
         elif self.kind == "local":
-            h = h + attend_local(self.attn, hn, cfg, positions=positions)
+            h = h + attend_local(p["attn"], hn, cfg, positions=positions)
         else:
-            h = h + rglru_block(self.rec, hn, cfg)
-        return self._ffn(h)
+            h = h + rglru_block(p["rec"], hn, cfg)
+        return self._ffn(p, h)
 
     def decode(self, h: torch.Tensor, cache, positions):
         cfg = self.cfg
-        hn = rmsnorm(self.ln1, h, cfg.norm_eps)
+        p = tp.unshard(self)
+        hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
         if self.kind == "rwkv":
             y, (tm_shift, s_fin) = rwkv_time_mix(
-                self.rwkv, hn, cfg, shift=cache.shift_tm, s0=cache.s)
+                p["rwkv"], hn, cfg, shift=cache.shift_tm, s0=cache.s)
             h = h + y
-            hn = rmsnorm(self.ln2, h, cfg.norm_eps)
-            y, cm_shift = rwkv_channel_mix(self.rwkv, hn, cfg,
+            hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
+            y, cm_shift = rwkv_channel_mix(p["rwkv"], hn, cfg,
                                            shift=cache.shift_cm)
             return h + y, RWKVState(shift_tm=tm_shift, shift_cm=cm_shift,
                                     s=s_fin)
         if self.kind in ("attn", "local"):
             y, cache = attn_decode(
-                self.attn, hn, cache, cfg,
+                p["attn"], hn, cache, cfg,
                 window=cfg.window if self.kind == "local" else 0,
                 positions=positions)
         else:
-            y, cache = rglru_decode(self.rec, hn, cache, cfg)
-        h, _ = self._ffn(h + y)
+            y, cache = rglru_decode(p["rec"], hn, cache, cfg)
+        h, _ = self._ffn(p, h + y)
         return h, cache
 
 
@@ -249,12 +260,13 @@ class LM(nn.Module):
         """Token embeddings; ``patches`` (vlm: (B, Tv, D)) replace the first
         Tv positions."""
         cfg = self.cfg
-        axis = tp.split_axis(self.embed.shape[0], cfg.vocab_size)
+        table = tp.gather_fsdp(self.embed, self.param_specs["embed"])
+        axis = tp.split_axis(table.shape[0], cfg.vocab_size)
         if axis is not None:
-            h = tp.vocab_parallel_embed(self.embed, tokens,
+            h = tp.vocab_parallel_embed(table, tokens,
                                         getattr(torch, cfg.dtype), axis)
         else:
-            h = embed(self.embed, tokens, getattr(torch, cfg.dtype))
+            h = embed(table, tokens, getattr(torch, cfg.dtype))
         if cfg.family == "hybrid":                      # gemma lineage scales
             # by sqrt(d_model) rounded to the activation type first
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
@@ -268,7 +280,8 @@ class LM(nn.Module):
         table is split over it."""
         cfg = self.cfg
         h = rmsnorm(self.final_norm, h, cfg.norm_eps)
-        w = self.embed if cfg.tie_embeddings else self.unembed
+        name = "embed" if cfg.tie_embeddings else "unembed"
+        w = tp.gather_fsdp(getattr(self, name), self.param_specs[name])
         axis = tp.split_axis(w.shape[0 if cfg.tie_embeddings else 1],
                              cfg.vocab_size)
         if axis is not None:

@@ -84,7 +84,7 @@ def apply_updates(params: dict[str, torch.Tensor],
                   grads: dict[str, torch.Tensor], state: AdamWState,
                   cfg: OptConfig, decay: dict[str, bool] | None = None,
                   groups: list[list[str]] | None = None,
-                  shards: tensor_parallel.Sharded | None = None
+                  shards: dict[str, tuple] | None = None
                   ) -> AdamWState:
     """One AdamW step, in place on ``params`` and the moments (compression
     with error feedback first, as a compressed all-reduce would deliver the
@@ -93,9 +93,10 @@ def apply_updates(params: dict[str, torch.Tensor],
     stacked layer's norm scales and biases are rank 2:
     ``train_step.decay_mask`` gives a model's).  ``groups``: the names
     compressed as one leaf (``train_step.reference_leaves``).
-    ``shards``: the names held as this rank's slice of a leaf split over a
-    model axis; the clipping norm and the compression take their
-    statistics over the whole leaves."""
+    ``shards``: each name held as this rank's slice of a leaf -> the mesh
+    axes that split it (``model``, ``data`` or both:
+    ``tensor_parallel.split_axes``); the clipping norm and the compression
+    take their statistics over the whole leaves."""
     ef = state.ef
     if cfg.compression != "none":
         grads, ef = compress_decompress(grads, ef, method=cfg.compression,

@@ -8,9 +8,10 @@ does; ``remat`` is the model's (``transformer.remat_call``).
 
 Under ``mesh_context`` (the reference's trainer jits its step under it
 too): the batch is this data rank's rows; the gradients, the loss and the
-aux loss are averaged over the data axis before the update, and the
-optimizer takes the norm and the compression statistics of the parameters
-split over the model axis over the whole leaves
+aux loss are averaged over the data axis before the update (a gradient
+that FSDP reduce-scattered over ``data`` is not summed over it again),
+and the optimizer takes the norm and the compression statistics of the
+parameters split over ``model``, ``data`` or both over the whole leaves
 (``distributed/tensor_parallel.py``).
 """
 from __future__ import annotations
@@ -85,9 +86,10 @@ def make_train_step(model, cfg: ArchConfig, opt_cfg: OptConfig, *,
     loss_fn = make_loss_fn(model, cfg, remat)
     params = dict(model.named_parameters())
     decay, groups = decay_mask(model), reference_leaves(model)
-    data, model_ax = tp.data_axis(), tp.model_axis()
-    shards = (tp.Sharded(model_ax, tp.split_names(model))
-              if model_ax is not None else None)
+    data, shards = tp.data_axis(), tp.split_axes(model) or None
+    # gradients that leave the backward pass summed over data (FSDP)
+    summed = frozenset(n for n, axes in (shards or {}).items()
+                       if "data" in [a.name for a in axes])
 
     def grads_of(batch):
         total, (loss, aux) = loss_fn(batch)
@@ -117,7 +119,7 @@ def make_train_step(model, cfg: ArchConfig, opt_cfg: OptConfig, *,
                 g.div_(microbatches)
             loss, aux = loss / microbatches, aux / microbatches
         if data is not None:
-            grads = tp.mean_grads_over_data(grads, data)
+            grads = tp.mean_grads_over_data(grads, data, summed)
             loss = tp.mean_over_data(loss, data)
             aux = tp.mean_over_data(aux, data)
         with torch.profiler.record_function(OPTIMIZER_RANGE):

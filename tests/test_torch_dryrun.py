@@ -29,7 +29,8 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.core.roofline import TpuRooflineTerms
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.collectives import wire_device
-from repro_torch.distributed.sharding import make_mesh_compat, mesh_context
+from repro_torch.distributed.sharding import (DEFAULT_RULES, make_mesh_compat,
+                                              mesh_context)
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv1d.kernel import (conv1d_bwd, conv1d_bwd_work,
                                               conv1d_kernel, conv1d_work)
@@ -179,6 +180,32 @@ def test_fake_backend_transport():
     assert not dist.is_initialized()
 
 
+@pytest.mark.parametrize("cell", [c for c in CLI_CELLS if c[1] == "train_4k"],
+                         ids="__".join)
+def test_train_cells_carry_the_fsdp_collectives(cli, cell):
+    """Laid out by ``DEFAULT_RULES``, a train cell gathers its weights over
+    ``data`` and reduce-scatters their gradients."""
+    rec = cli[0][cell]
+    assert rec["collective_counts"]["all-gather"] > 0
+    assert rec["collective_counts"]["reduce-scatter"] > 0
+
+
+def test_infer_layout_places_no_fsdp_gather():
+    """Under ``--infer-layout`` (``INFERENCE_RULES``: no FSDP) a train cell
+    gathers no weight and reduce-scatters nothing, and a rank holds more
+    parameter bytes than under ``DEFAULT_RULES``."""
+    small = {"num_layers": 1, "d_model": 256, "num_heads": 16,
+             "num_kv_heads": 16, "d_ff": 512, "vocab_size": 1024}
+    fsdp = dryrun.run_cell(TL, "train_4k", "single", overrides=small)
+    infer = dryrun.run_cell(TL, "train_4k", "single", overrides=small,
+                            infer_layout=True)
+    assert fsdp["ok"] and infer["ok"]
+    assert fsdp["collective_counts"]["all-gather"] > 0
+    assert "all-gather" not in infer["collective_counts"]
+    assert "reduce-scatter" not in infer["collective_counts"]
+    assert infer["param_bytes_per_device"] > fsdp["param_bytes_per_device"]
+
+
 def test_data_axis_follows_the_batch_rule():
     """The batch's group: "data" on (16, 16); "pod" and "data" flattened
     into 32 ranks on (2, 16, 16); the trainer's 2-axis meshes unchanged."""
@@ -238,6 +265,52 @@ def test_pod_and_data_average_the_gradients():
     for r, got in enumerate(out):
         pod, data, _ = got["coord"]
         assert got["axis"] == ("pod_data", 2 * pod + data, 4)
+        assert abs(got["loss"] - loss) <= LOSS_RTOL * abs(loss)
+        for n, want in m.items():
+            scale = want.abs().max().item()
+            assert (got["m"][n] - want).abs().max().item() <= 1e-5 * scale, n
+
+
+def pod_fsdp_rank(seed: int) -> dict:
+    """:func:`pod_rank` with the parameters and moments laid out by
+    ``DEFAULT_RULES`` (FSDP over ``data`` alone): the loss and the first
+    moments, gathered whole."""
+    torch.set_num_threads(1)
+    cfg = get_reduced_config(TL)
+    mesh = make_mesh_compat((2, 2, 1), ("pod", "data", "model"), "cpu")
+    model = build_model(cfg, device="cpu")
+    model.init(torch.Generator().manual_seed(seed))
+    layout = tp.parameter_layout(model, mesh, DEFAULT_RULES)
+    tp.shard_parameters(model, layout, mesh)
+    batch = _pod_batch(cfg)
+    with mesh_context(mesh):
+        axis = tp.data_axis()
+        rows = batch["tokens"].shape[0] // axis.size
+        local = {k: v[axis.rank * rows:(axis.rank + 1) * rows]
+                 for k, v in batch.items()}
+        tp.reset_wire()
+        loss, m = _step(model, cfg, local)
+        wire = tp.wire_bytes()
+    return {"loss": loss, "wire": wire,
+            "split": sum(p.shape != s.shape for p, s in zip(
+                model.parameters(), model.specs().values())),
+            "m": {n: tp.whole_of(t, mesh, layout[n]) for n, t in m.items()}}
+
+
+def test_pod_and_data_average_fsdp_gradients():
+    """The same world with FSDP over ``data``: a gathered weight's gradient
+    leaves the backward pass summed over ``data`` and is summed over
+    ``pod`` alone, then divided by pod·data = 4, so the loss and the first
+    moments are one device's; the flattened (pod, data) group carries
+    only the other leaves' gradients."""
+    out = run_local_world(pod_fsdp_rank, 4, 0, timeout=WORLD_TIMEOUT_S)
+    cfg = get_reduced_config(TL)
+    model = build_model(cfg, device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    loss, m = _step(model, cfg, _pod_batch(cfg))
+    for got in out:
+        assert got["split"] == 30          # 4 layers' 7 weights, the tables
+        assert set(got["wire"]) == {"data", "pod", "pod_data"}
         assert abs(got["loss"] - loss) <= LOSS_RTOL * abs(loss)
         for n, want in m.items():
             scale = want.abs().max().item()

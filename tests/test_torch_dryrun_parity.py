@@ -28,11 +28,12 @@ same ``OVERRIDES`` (16 heads, 4 KV heads, head_dim 16): equal
 ``param_count``, ``param_bytes_per_device`` (27,648), ``model_flops``
 (2.76824064e8) and keys.  Its ``flops_per_device`` and collective bytes
 are printed beside the reference's (2.994448e7; 270,880 B, of which
-208,384 B the FSDP gathers the port does not place, item 5b) and held,
-set before the first run, to the counts worked out from the shapes.  A
-rank holds 8 of the 128 rows, 1 of the 16 query heads, all 4 KV heads
-(4 does not split 16 ways), 2,048 of the cache's 32,768 slots, 32 of the
-512 MLP columns and 64 of the 1,024 vocabulary rows; activations bf16:
+208,384 B its FSDP all-gathers) and held, set before the first run, to
+the counts worked out from the shapes.  A rank holds 8 of the 128 rows,
+1 of the 16 query heads, all 4 KV heads (4 does not split 16 ways),
+2,048 of the cache's 32,768 slots, 32 of the 512 MLP columns and 64 of
+the 1,024 vocabulary rows, and of each weight 1/16 of its ``"fsdp"`` dim
+(d_model 256) over ``data`` (``DEFAULT_RULES``); activations bf16:
 - products (``DECODE_FLOPS``, 2·M·N·K each): wq 2·8·256·16 = 65,536; wk
   and wv 2·8·256·64 each, 524,288; every head's scores and weighted sum
   over the rank's slots, 2·(8·4·4)·2,048·16 each, 16,777,216; wo
@@ -43,7 +44,18 @@ rank holds 8 of the 128 rows, 1 of the 16 query heads, all 4 KV heads
   maxima 8·16·4 = 512, the rescaled outputs and sums (8·16·16 + 8·16)·4
   = 8,704, wo's and the MLP's partial sums 8,192 each, the greedy token's
   max (8·4 = 32) and min (int64, 8·8 = 64): 33,888 B in 7 calls; the
-  all-gather of the query heads, 16 ranks' 8·16 bf16, 4,096 B in 1 call.
+  all-gather of the query heads, 16 ranks' 8·16 bf16, 4,096 B in 1 call;
+  FSDP's all-gathers over ``data`` of every weight's model slice in f32,
+  as held: ``embed``'s 64 rows and ``unembed``'s 64 columns by 256,
+  65,536 B each, wq and wo (one head) 16,384 each, wk and wv (4 KV heads)
+  65,536 each, the MLP's three 256·32·4 = 32,768 each: 393,216 B in 9
+  calls, 397,312 B of all-gathers in 10 calls in all.  The reference's
+  compiled step (``hlo.txt``'s all-gathers) gathers in f32 too, but only
+  wq, wo, the MLP's three and ``unembed``, 196,608 B in 6 calls of its
+  208,384: XLA looks the tokens up in the rank's slice of ``embed``
+  rather than gather the table, and multiplies by the rank's d_model
+  slice of wk/wv, then moves the partial K/V activations; the port
+  gathers every weight a layer uses before the layer runs.
 
 The MoE cells ``granite-moe-1b-a400m x prefill_32k`` (32 experts: EP, 2 a
 rank, the router split) and ``granite-moe-3b-a800m x prefill_32k`` (40
@@ -84,8 +96,16 @@ vocabulary rows.  Products (2·M·N·K each; T = 65,536 tokens):
 Collectives (f32): all-reduces of the embedding's rows, wo's partial sums
 and the MoE's partial output, T·256·4 = 67,108,864 B each, and the routed
 fractions' mean over ``data`` (E·4 B): 201,326,720 (EP) and 201,326,752
-(FF) in 4 calls; EP's all-gather of the router, 256·32·4 = 32,768 B in 1
-call.
+(FF) in 4 calls; EP's all-gather of the router over ``model``, 256·32·4 =
+32,768 B in 1 call.  FSDP's all-gathers over ``data`` (f32, as held),
+each weight's model slice whole along d_model: the tied table's 64 rows
+twice (lookup and logits), 65,536 B each; wq and wo (one head) 16,384
+each; wk and wv (8 KV heads, whole over ``model``) 131,072 each; EP: the
+router's 2 columns 2,048, each of the experts' three (2 experts)
+2·256·64·4 = 131,072: 821,248 B in 10 calls (854,016 B of all-gathers
+in 11 in all); FF: the router whole over ``model``, 40,960, each of the
+experts' three (40 experts, 4 ``d_ff`` columns) 163,840: 958,464 B in 10
+calls.
 The RWKV cell ``rwkv6-7b x train_4k`` on the single mesh at
 ``RWKV_OVERRIDES`` (one layer, width 256, 16 WKV heads of 16, d_ff 512,
 vocabulary 1,024): equal keys, ``param_count``,
@@ -120,10 +140,20 @@ recompute), the gradients of the logits' input, of the time mix's input
 and of the channel mix's two mixed inputs, T·256·4 = 67,108,864 B each
 (9); the cross entropy's max, sum and target logit, 16·4,095·4 = 262,080
 each (3); the time mix's 8 replicated parameters' gradients, 466,944 (8);
-the global norm's 4 (1); over ``data`` the rank's 191,760 gradient
-elements, 767,040, the loss and the aux loss, 4 each (3):
-606,000,012 B in 24 calls; the receptance's all-gathers, forward and
-recompute, 67,108,864 each: 134,217,728 B in 2 calls.
+the global norm's sums over the axes that split its leaves, (model,
+data), data alone (the LoRAs), model alone (``u``), 4 each (4); over
+``data`` the gradients of the 3,344 elements FSDP does not split (the
+mixes, ``w0``, ``u``'s slice, the norm scales), 13,376, the loss and the
+aux loss, 4 each (3): 605,246,360 B in 27 calls; the receptance's
+all-gathers, forward and recompute, 67,108,864 each, and FSDP's over
+``data`` (f32, as held) of the layer's twelve weights' model slices,
+``tm_w1`` and ``tm_w2`` 163,840 each, the LoRAs of the decay 65,536 each,
+wr/wk/wv/wg 16,384 each, wo 16,384, ``cm_wk`` and ``cm_wv`` 32,768 each,
+``cm_wr`` 16,384, 622,592 B, twice (forward and recompute), and of
+``embed`` and ``unembed`` 65,536 each: 135,593,984 B in 28 calls; the
+reduce-scatters of the gathered weights' gradients over ``data``, once a
+forward gather, 753,664 B in 14 calls (the 188,416 gradient elements the
+all-reduce over ``data`` no longer carries).
 
 The whisper cell ``whisper-tiny x train_4k`` on the single mesh at full
 width, cut to one encoder and one decoder layer (``WHISPER_OVERRIDES``):
@@ -157,11 +187,23 @@ ones once more in the recompute: 3·(88,915,968,000 + 707,927,212,032 +
 the encoder's F·384·4 = 36,864,000 B and the decoder's N·384·4 =
 100,663,296 B, each twice; the global norm's 4; over ``data`` the rank's
 21,909,504 gradient elements, 87,638,016, the loss and the aux loss, 4
-each: 362,692,620 B in 8 calls.  (Worked out first as 9 calls and
+each: 362,692,620 B in 8 calls with FSDP off.  (Worked out first as 9 calls and
 463,355,916 B, with the decoder MLP's sum counted again in the
 recompute: the checkpoint's recompute stops once it has remade the
 tensors the backward saved, and no saved tensor follows the block's last
-sum, so it is never rerun.)
+sum, so it is never rerun.)  With FSDP (``DEFAULT_RULES``): over
+``data`` only the 2,688 norm-scale elements' gradients are all-reduced,
+10,752 B, and the global norm sums over ``data`` alone (the attention
+and the table), (model, data) (the MLPs): 3 calls of 4 B for 1; in all
+275,065,364 B of all-reduces in 10 calls.  The all-gathers over ``data``
+(f32, as held), each weight's model slice whole along d_model: the
+encoder layer's wq, wk, wv and wo, 384·384·4 = 589,824 each, and MLP,
+384·96·4 = 147,456 each, 2,801,664 B once; the decoder layer's self and
+cross attention's eight 589,824 and MLP's three 147,456, 5,160,960 B,
+twice (forward and recompute); the tied table, 51,865·384·4 =
+79,664,640, twice (lookup and logits): 172,452,864 B in 31 calls.  The
+reduce-scatters of their gradients, once a forward gather:
+167,291,904 B in 20 calls.
 
 The VLM cell ``qwen2-vl-2b x train_4k`` on the single mesh at full width,
 cut to one layer (``VLM_OVERRIDES``): equal keys, ``param_count``,
@@ -188,7 +230,21 @@ logits' input and of the MLP's input, T·1,536·4 = 402,653,184 B each
 cross entropy's max, sum and target logit, 16·4,095·4 = 262,080 each;
 the global norm's 4; over ``data`` the rank's 22,678,016 gradient
 elements, 90,712,064, the loss and the aux loss, 4 each:
-1,702,111,052 B in 11 calls.
+1,702,111,052 B in 11 calls with FSDP off.  With FSDP
+(``DEFAULT_RULES``): over ``data`` only the 6,656 elements FSDP does not
+split (the norm scales, the q/k/v biases), 26,624 B, and the global norm
+over (model, data) and ``data`` alone: 3 calls of 4 B for 1; in all
+1,611,425,620 B of all-reduces in 13 calls.  The all-gathers over
+``data`` (f32, as held): wq and wo 1,536·12·128·4 = 9,437,184 each, wk
+and wv 1,572,864 each, the MLP's three 1,536·560·4 = 3,440,640 each,
+32,342,016 B, twice (forward and recompute); the table's 9,496 rows,
+58,343,424, twice (lookup and logits): 181,370,880 B in 16 calls.  The
+reduce-scatters of their gradients, once a forward gather:
+149,028,864 B in 9 calls.
+
+Every cell's parameters as the port holds them, laid out by
+``DEFAULT_RULES`` on the production mesh of a fake world, add up to the
+reference's ``param_bytes_per_device``.
 """
 import dataclasses
 import json
@@ -216,8 +272,8 @@ OVERRIDES = {"num_layers": 1, "d_model": 256, "num_heads": 16,
              "num_kv_heads": 4, "d_ff": 512, "vocab_size": 1024}
 FLOPS_RTOL = 0.2
 DECODE_FLOPS = 18_087_936
-DECODE_COLLECTIVES = {"by_op": {"all-reduce": 33_888, "all-gather": 4_096},
-                      "counts": {"all-reduce": 7, "all-gather": 1}}
+DECODE_COLLECTIVES = {"by_op": {"all-reduce": 33_888, "all-gather": 397_312},
+                      "counts": {"all-reduce": 7, "all-gather": 10}}
 REF_TIMEOUT_S = 300
 MOE_OVERRIDES = {"num_layers": 1, "d_model": 256, "num_heads": 16,
                  "num_kv_heads": 8, "d_ff": 64, "vocab_size": 1024}
@@ -226,12 +282,12 @@ MOE_OVERRIDES = {"num_layers": 1, "d_model": 256, "num_heads": 16,
 MOE_CELLS = {
     ("granite-moe-1b-a400m", "prefill_32k", "single"): (
         "EP", 2_040_576, 50_304, 1.80388626432e12, 176_160_768_000,
-        {"by_op": {"all-reduce": 201_326_720, "all-gather": 32_768},
-         "counts": {"all-reduce": 4, "all-gather": 1}}),
+        {"by_op": {"all-reduce": 201_326_720, "all-gather": 854_016},
+         "counts": {"all-reduce": 4, "all-gather": 11}}),
     ("granite-moe-3b-a800m", "prefill_32k", "single"): (
         "FF", 2_435_840, 58_880, 1.808181231616e12, 503_584_915_456,
-        {"by_op": {"all-reduce": 201_326_752},
-         "counts": {"all-reduce": 4}}),
+        {"by_op": {"all-reduce": 201_326_752, "all-gather": 958_464},
+         "counts": {"all-reduce": 4, "all-gather": 10}}),
 }
 
 RWKV_CELL = ("rwkv6-7b", "train_4k", "single")
@@ -241,16 +297,24 @@ RWKV_FLOPS = 66_974_679_040
 WHISPER_CELL = ("whisper-tiny", "train_4k", "single")
 WHISPER_OVERRIDES = {"num_layers": 1, "encoder_layers": 1}
 WHISPER_FLOPS = 10_785_194_115_072
-WHISPER_COLLECTIVES = {"by_op": {"all-reduce": 362_692_620},
-                       "counts": {"all-reduce": 8}}
+WHISPER_COLLECTIVES = {"by_op": {"all-reduce": 275_065_364,
+                                  "all-gather": 172_452_864,
+                                  "reduce-scatter": 167_291_904},
+                       "counts": {"all-reduce": 10, "all-gather": 31,
+                                  "reduce-scatter": 20}}
 VLM_CELL = ("qwen2-vl-2b", "train_4k", "single")
 VLM_OVERRIDES = {"num_layers": 1}
 VLM_FLOPS = 15_511_811_260_416
-VLM_COLLECTIVES = {"by_op": {"all-reduce": 1_702_111_052},
-                   "counts": {"all-reduce": 11}}
-RWKV_COLLECTIVES = {"by_op": {"all-reduce": 606_000_012,
-                              "all-gather": 134_217_728},
-                    "counts": {"all-reduce": 24, "all-gather": 2}}
+VLM_COLLECTIVES = {"by_op": {"all-reduce": 1_611_425_620,
+                              "all-gather": 181_370_880,
+                              "reduce-scatter": 149_028_864},
+                   "counts": {"all-reduce": 13, "all-gather": 16,
+                              "reduce-scatter": 9}}
+RWKV_COLLECTIVES = {"by_op": {"all-reduce": 605_246_360,
+                              "all-gather": 135_593_984,
+                              "reduce-scatter": 753_664},
+                    "counts": {"all-reduce": 27, "all-gather": 28,
+                               "reduce-scatter": 14}}
 
 _REFERENCE = r"""
 import dataclasses, json, sys
@@ -503,6 +567,41 @@ def test_decode_flops_and_collectives_from_the_shapes(ref_decode,
     assert got["collective_counts"] == DECODE_COLLECTIVES["counts"]
     assert got["collective_bytes_per_device"] == sum(
         DECODE_COLLECTIVES["by_op"].values())
+
+
+def _held_bytes(arch: str, overrides: dict, multi: bool = False) -> int:
+    """The bytes of the parameters rank 0 holds, laid out by
+    ``DEFAULT_RULES`` on a production mesh of a fake world, as
+    ``dryrun.run_cell`` lays them out."""
+    import dataclasses as dc
+
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.registry import build_model
+    cfg = dc.replace(get_config(arch), **overrides)
+    with dryrun.fake_world(512 if multi else 256):
+        mesh = make_production_mesh(multi_pod=multi, device="cpu")
+        model = build_model(cfg, device="meta")
+        tp.shard_parameters(model, tp.parameter_layout(
+            model, mesh, DEFAULT_RULES), mesh)
+        return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def test_held_parameter_bytes_equal_the_references(ref, ref_decode, moe_cell,
+                                                   rwkv_cell, whisper_cell,
+                                                   vlm_cell):
+    """Each cell's parameters as a rank of the port holds them add up to
+    the reference's ``param_bytes_per_device`` (and to the port's record,
+    which ``run_cell`` checks against the layout it ran)."""
+    cells = [(CELL, OVERRIDES, ref[0]), (DECODE_CELL, OVERRIDES, ref_decode),
+             (moe_cell[0], MOE_OVERRIDES, moe_cell[1]),
+             (RWKV_CELL, RWKV_OVERRIDES, rwkv_cell[0]),
+             (WHISPER_CELL, WHISPER_OVERRIDES, whisper_cell[0]),
+             (VLM_CELL, VLM_OVERRIDES, vlm_cell[0])]
+    for (arch, _, mesh), overrides, want in cells:
+        held = _held_bytes(arch, overrides, mesh == "multi")
+        assert held == want["param_bytes_per_device"], (arch, held)
 
 
 def test_cells_equal():

@@ -93,7 +93,8 @@ def test_sources_import_no_jax_and_no_repro():
               root / "tests" / "test_torch_rwkv_parallel.py",
               root / "tests" / "torch_rwkv_cases.py",
               root / "tests" / "test_torch_whisper_parallel.py",
-              root / "tests" / "test_torch_vlm_parallel.py"]
+              root / "tests" / "test_torch_vlm_parallel.py",
+              root / "tests" / "test_torch_fsdp.py"]
     paths += sorted((root / "examples").glob("*_torch.py"))
     assert len([p for p in paths if p.parent.name == "examples"]) == 8
     paths += sorted((root / "scripts").glob("*.py"))
