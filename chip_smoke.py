@@ -307,7 +307,17 @@ multi-pod dry run on the host's CPU.
    phase (K5 36, ``conv1d_bwd`` 18, K6 16, each K6-bwd kernel 8) and the
    split_decode phase's decode (none) launched on the card, and
    tinyllama's, granite's, rwkv6's, whisper's and qwen2-vl's must be
-   none.
+   none.  A second CPU subprocess, beside the first, counts on meta
+   (``launch.dryrun.count_memory``, ``meta_memory_counts``) the memory
+   of three steps the card runs, each built by the card's own builder
+   (``prefill_setup``, ``train_setup``, ``fsdp_setup``): the lm phase's
+   prefill, the train phase's second step and rank 0 of the fsdp
+   phase's RecurrentGemma step, each of which the card read around the
+   step (``card_memory``: the caching allocator's requested bytes, their
+   peak less the reading before, ``max_memory_allocated`` beside them).
+   A ``memory`` line each: the counted arguments must equal the card's
+   inputs' bytes and the counted temp come within 2% or 64 MiB of the
+   card's, whichever is larger.
 
 Any build error, launch error, mismatch or kernel that its path did not
 launch exits non-zero without the last line.  Needs a CUDA device: without
@@ -401,6 +411,8 @@ from repro_torch.distributed.sharding import (DEFAULT_RULES,  # noqa: E402
                                               make_mesh_compat, mesh_context,
                                               named_sharding, placements,
                                               resolve_spec, shard_offsets)
+from repro_torch.launch.dryrun import (count_memory,  # noqa: E402
+                                       fake_world, tensor_leaves)
 from repro_torch.launch.mesh import (make_local_mesh,  # noqa: E402
                                      run_local_world)
 from repro_torch.telemetry import (Telemetry, bottleneck_table,  # noqa: E402
@@ -470,6 +482,33 @@ PREFILL_LAUNCHES = {"conv1d": 18, "swa": 8}
 # launches and one train step's (the dryrun phase holds its meta tally to
 # them)
 ON_CARD: dict[str, dict[str, int]] = {}
+# the steps whose memory the dryrun phase counts on meta and holds to the
+# card's (MEM_ON_CARD, filled by the lm, train and fsdp phases): the
+# prefill, one step of the whole model's training, rank 0 of the FSDP
+# step at (2, 1); the counted temp within MEMORY_RTOL of the card's or
+# MEMORY_ATOL bytes, whichever is larger, the arguments equal
+MEMORY_STEPS = ("prefill", "train", "fsdp")
+MEM_ON_CARD: dict[str, dict[str, int]] = {}
+MEMORY_RTOL, MEMORY_ATOL = 0.02, 64 << 20
+
+
+def card_memory(step, inputs, dev: torch.device) -> tuple:
+    """``step()`` once, the caching allocator read around it: (what it
+    returned, its record).  ``argument``: the bytes of the step's
+    ``inputs`` (Σ numel × element size); ``temp``: the peak of the bytes
+    requested (before the allocator rounds them) less those requested
+    just before the step; ``allocated_peak``: ``max_memory_allocated``
+    over the step, whole blocks (the allocator's peaks are reset for
+    the step)."""
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = step()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.memory_stats(dev)["requested_bytes.all.peak"]
+    return out, {"argument": _build.nbytes(*tensor_leaves(inputs)),
+                 "temp": peak - before, "requested_before": before,
+                 "allocated_peak": torch.cuda.max_memory_allocated(dev)}
 KERNELS = {   # kernel -> (route, source, the TPU kernel it replaces)
     "stencil1d_vpu": ("cuda", "src/repro_torch/csrc/stencil1d.cu",
                       "src/repro/kernels/stencil1d/kernel.py:147"),
@@ -983,6 +1022,22 @@ def device_profile(fn) -> dict:
                                 kernels.items(), key=lambda kv: -kv[1][0])[:10]]}
 
 
+def prefill_setup(dev: torch.device, seed: int) -> tuple:
+    """The lm phase's prefill of RecurrentGemma-2B, (PREFILL_BATCH,
+    PREFILL_SEQ), on ``dev``; on meta, for the dryrun phase's count, its
+    weights unset: (the model, the prefill to call, its inputs: the
+    parameters and the batch)."""
+    cfg = get_config(ARCH)
+    model = build_model(cfg, device=dev)
+    if dev.type != "meta":
+        model.init(torch.Generator(device=dev).manual_seed(seed))
+    batch = input_arrays(cfg, ShapeSpec("prefill_chip", PREFILL_SEQ,
+                                        PREFILL_BATCH, "prefill"), seed,
+                         device=dev)
+    prefill = make_prefill(model, cfg)
+    return model, (lambda: prefill(batch)), (list(model.parameters()), batch)
+
+
 def lm_phase(dev: torch.device, seed: int, part: str,
              failures: list[str]) -> list[dict]:
     """K5/K6 at the model's shapes, then prefill, serving and the
@@ -1037,16 +1092,11 @@ def lm_phase(dev: torch.device, seed: int, part: str,
                     "strides": list(y.stride()), "ok": good}))
 
     # -- prefill at published width and depth, counted ---------------------
-    model = build_model(cfg, device=dev)
-    model.init(torch.Generator(device=dev).manual_seed(seed))
-    n_params = sum(p.numel() for p in model.parameters())
-    batch = input_arrays(cfg, ShapeSpec("prefill_chip", PREFILL_SEQ,
-                                        PREFILL_BATCH, "prefill"), seed,
-                         device=dev)
-    prefill = make_prefill(model, cfg)
+    model, prefill, (params, batch) = prefill_setup(dev, seed)
+    n_params = sum(p.numel() for p in params)
     torch.cuda.synchronize()
     _build.reset_launches()
-    logits = prefill(batch)
+    logits = prefill()
     torch.cuda.synchronize()
     launches = {k: _build.LAUNCHES.get(k, 0) for k in PREFILL_LAUNCHES}
     ON_CARD["prefill"] = launches
@@ -1059,7 +1109,12 @@ def lm_phase(dev: torch.device, seed: int, part: str,
                         f"{PREFILL_LAUNCHES}), logits {tuple(logits.shape)} "
                         f"{logits.dtype}, finite {finite}")
     del logits
-    ms = time_host(lambda: prefill(batch), reps=3)
+    # a second call, the first's costs held, its memory read for the
+    # dryrun phase's count on meta
+    logits, MEM_ON_CARD["prefill"] = card_memory(prefill, (params, batch),
+                                                 dev)
+    del logits
+    ms = time_host(prefill, reps=3)
     tokens = PREFILL_BATCH * PREFILL_SEQ
     print(json.dumps({"phase": "prefill", "arch": ARCH,
                       "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -1070,7 +1125,7 @@ def lm_phase(dev: torch.device, seed: int, part: str,
                       "launches": launches, "logits_finite": finite,
                       "ms": ms, "tokens_per_s": tokens / ms * 1e3, "ok": ok}))
     print(json.dumps({"phase": "prefill_profile",
-                      **device_profile(lambda: prefill(batch))}))
+                      **device_profile(prefill)}))
 
     # -- serving at full width and depth -----------------------------------
     rng = np.random.default_rng(seed)
@@ -1098,7 +1153,7 @@ def lm_phase(dev: torch.device, seed: int, part: str,
     print(json.dumps({"phase": "decode_step_profile", "batch": 2,
                       **device_profile(lambda: step(cache, one, 0))}))
     del cache
-    del model, engine, prefill
+    del model, engine, prefill, params
     torch.cuda.empty_cache()
 
     # -- kernel-free check: decode token by token against forward -----------
@@ -1450,6 +1505,29 @@ def whole_step_check(dev: torch.device, seed: int,
     torch.cuda.empty_cache()
 
 
+def train_setup(dev: torch.device, seed: int, steps: int) -> tuple:
+    """The train phase's RecurrentGemma-2B at its published width and
+    depth on ``dev``, AdamW for TRAIN_STEPS + 1 steps and ``steps``
+    SyntheticLM markov batches of (TRAIN_BATCH, TRAIN_SEQ); on meta, for
+    the dryrun phase's count, its weights unset: (the model, its
+    parameters, the optimizer's state, the step function, the
+    batches)."""
+    cfg = get_config(ARCH)
+    model = build_model(cfg, device=dev)
+    if dev.type != "meta":
+        model.init(torch.Generator(device=dev).manual_seed(seed))
+    params = dict(model.named_parameters())
+    opt_cfg = OptConfig(warmup_steps=2, total_steps=TRAIN_STEPS + 1)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=seed, pattern="markov"))
+    batches = [{k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+                for k, v in data.next_batch().items()}
+               for _ in range(steps)]
+    return (model, params, init_opt_state(params, opt_cfg),
+            make_train_step(model, cfg, opt_cfg, remat=TRAIN_REMAT), batches)
+
+
 def full_training(dev: torch.device, seed: int,
                   failures: list[str]) -> dict[str, int]:
     """RecurrentGemma-2B at its published width and depth trains on
@@ -1457,19 +1535,11 @@ def full_training(dev: torch.device, seed: int,
     steps, then one more under torch.profiler; returns the counted steps'
     launches."""
     cfg = get_config(ARCH)
-    model = build_model(cfg, device=dev)
-    model.init(torch.Generator(device=dev).manual_seed(seed))
-    params = dict(model.named_parameters())
+    model, params, state, step_fn, batches = train_setup(dev, seed,
+                                                         TRAIN_STEPS + 1)
     n_params = sum(p.numel() for p in params.values())
-    opt_cfg = OptConfig(warmup_steps=2, total_steps=TRAIN_STEPS + 1)
-    opt = [init_opt_state(params, opt_cfg)]
-    step_fn = make_train_step(model, cfg, opt_cfg, remat=TRAIN_REMAT)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                                  seed=seed, pattern="markov"))
-    batches = [{k: torch.as_tensor(v, dtype=torch.int64, device=dev)
-                for k, v in data.next_batch().items()}
-               for _ in range(TRAIN_STEPS + 1)]
+    opt = [state]
+    del state
     losses, times = [], []
 
     def step(batch):
@@ -1478,15 +1548,21 @@ def full_training(dev: torch.device, seed: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
-    for batch in batches[:TRAIN_STEPS]:
+    peak = 0            # over every step: card_memory resets the count
+    for i, batch in enumerate(batches[:TRAIN_STEPS]):
         t0 = time.perf_counter()
-        step(batch)
+        if i == 1:      # the second step's memory, for the dryrun phase
+            peak = torch.cuda.max_memory_allocated(dev)
+            _, MEM_ON_CARD["train"] = card_memory(
+                lambda: step(batch), (params, opt[0], batch), dev)
+        else:
+            step(batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = {k: _build.LAUNCHES.get(k, 0)
                 for k in train_launches(cfg, TRAIN_REMAT)}
     ON_CARD["train"] = {k: n // TRAIN_STEPS for k, n in launches.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = max(peak, torch.cuda.max_memory_allocated(dev))
     want = {k: TRAIN_STEPS * n for k, n in
             train_launches(cfg, TRAIN_REMAT).items()}
     step_ms = statistics.median(times[1:])
@@ -3255,22 +3331,24 @@ def fsdp_wire_want(mdl, cfg, data: int, model: int) -> dict:
             "calls": calls + buckets + 2 + norm}
 
 
-def fsdp_step(name: str, seed: int, rules, whole: dict, mesh, dev,
-              warm: bool = False) -> dict:
-    """One make_train_step of FSDP_CASES[name] from the weights ``whole``
-    laid out by ``rules`` on ``mesh``: the loss, the step's host ms (it
-    ends in the loss's read), the kernels launched and the bytes and calls
-    a mesh axis (counts zeroed just before the step and read just after),
-    the rank's parameters after the update, parameter and moment bytes,
-    the step's peak device memory.  ``warm``: first the loss's gradients once, untimed, so that the
-    step's time holds none of the process's first-call costs (the
-    kernels' loading, cuBLAS, the allocator's first blocks)."""
+def fsdp_setup(name: str, seed: int, rules, mesh, dev,
+               whole: dict | None = None, warm: bool = False) -> tuple:
+    """FSDP_CASES[name]'s model on ``dev`` from the weights ``whole``
+    (None on meta, for the dryrun phase's count: unset), laid out by
+    ``rules`` on ``mesh``, this rank's slice of the batch, and AdamW's
+    state and the step function, made under the mesh.  ``warm``: first
+    the loss's gradients once, untimed, so that the step holds none of
+    the process's first-call costs (the kernels' loading, cuBLAS, the
+    allocator's first blocks): (the model, its parameters, the
+    optimizer's state, the step function, the rank's inputs)."""
     arch, layers, (batch, seq), _ = FSDP_CASES[name]
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     mdl = build_model(cfg, device=dev)
-    mdl.load_state_dict(whole)
+    if whole is not None:
+        mdl.load_state_dict(whole)
     tp.shard_parameters(mdl, tp.parameter_layout(mdl, mesh, rules), mesh)
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed + 1))
     glob = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
                                     device=dev, generator=gen)}
     if cfg.family == "audio":
@@ -3286,21 +3364,35 @@ def fsdp_step(name: str, seed: int, rules, whole: dict, mesh, dev,
             total = make_loss_fn(mdl, cfg, TRAIN_REMAT)(step_in)[0]
             torch.autograd.grad(total, list(params.values()))
             del total
-        opt = init_opt_state(params, opt_cfg)
-        fn = make_train_step(mdl, cfg, opt_cfg, remat=TRAIN_REMAT)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        return (mdl, params, init_opt_state(params, opt_cfg),
+                make_train_step(mdl, cfg, opt_cfg, remat=TRAIN_REMAT),
+                step_in)
+
+
+def fsdp_step(name: str, seed: int, rules, whole: dict, mesh, dev,
+              warm: bool = False) -> dict:
+    """One make_train_step of FSDP_CASES[name] from the weights ``whole``
+    laid out by ``rules`` on ``mesh``: the loss, the step's host ms (it
+    ends in the loss's read), the kernels launched and the bytes and calls
+    a mesh axis (counts zeroed just before the step and read just after),
+    the rank's parameters after the update, parameter and moment bytes,
+    the step's peak device memory and its record (:func:`card_memory`).
+    ``warm``: see :func:`fsdp_setup`."""
+    mdl, params, opt, fn, step_in = fsdp_setup(name, seed, rules, mesh, dev,
+                                               whole, warm)
+    with mesh_context(mesh):
         _build.reset_launches()
         tp.reset_wire()
         t0 = time.perf_counter()
-        opt, met = fn(opt, step_in)
+        (opt, met), mem = card_memory(lambda: fn(opt, step_in),
+                                      (params, opt, step_in), dev)
         loss = float(met["loss"])
         ms = (time.perf_counter() - t0) * 1e3
         launches = {k: n for k, n in _build.LAUNCHES.items() if n}
         wire = tp.wire_bytes()
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        peak = mem["allocated_peak"] / 1e9
     return {"loss": loss, "ms": ms, "launches": launches, "wire": wire,
-            "peak_gb": peak,
+            "peak_gb": peak, "memory": mem,
             "params": {n: p.detach() for n, p in params.items()},
             "param_bytes": sum(p.numel() * p.element_size()
                                for p in params.values()),
@@ -3414,6 +3506,8 @@ def fsdp_phase(seed: int, failures: list[str]) -> None:
         ranks = run_local_world(fsdp_run, d * m, name, seed,
                                 timeout=FSDP_TIMEOUT_S)
         torch.cuda.empty_cache()
+        if name == ARCH:        # rank 0's FSDP step, for the dryrun phase
+            MEM_ON_CARD["fsdp"] = ranks[0]["on"]["memory"]
         checks = []
         for r in ranks:
             on, off = r["on"], r["off"]
@@ -3521,31 +3615,127 @@ for arch, shape in json.loads(sys.argv[1]):
 """
 
 
-def dryrun_phase(failures: list[str]) -> None:
-    """``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` in a CPU subprocess
-    (no card, no jax): each record's ``ok``, flops, parameter and
-    collective bytes a device and roofline step time printed
-    (``dryrun`` lines), its K5/K6 launches on meta beside the card's."""
-    t0 = time.perf_counter()
+MEMORY_CODE = """
+import json
+import chip_smoke
+print(json.dumps(chip_smoke.meta_memory_counts()), flush=True)
+"""
+
+
+def meta_memory_counts(seed: int = 0) -> dict[str, dict]:
+    """MEMORY_STEPS counted on meta (``launch.dryrun.count_memory``), each
+    step built by the card's own builder: the lm phase's prefill of
+    RecurrentGemma-2B (:func:`prefill_setup`), the train phase's step of
+    the whole model (:func:`train_setup`), and rank 0 of the fsdp phase's
+    step of one period at (2, 1), FSDP on (DEFAULT_RULES,
+    :func:`fsdp_setup`), in a fake world of 2 ranks.  Over gloo the card
+    stages each payload on the host and copies the result back, where the
+    fake backend leaves it in place: the same device bytes, so the count
+    takes no term for the transport (the all-gather's staging copy of its
+    input, which the fake backend holds on meta and gloo on the host,
+    lives only while the gathered parts are made, fewer bytes than the
+    parts and their concatenation that follow)."""
+    meta = torch.device("meta")
+    out = {}
+    _, prefill, inputs = prefill_setup(meta, seed)
+    out["prefill"] = count_memory(prefill, inputs)[1]
+    del prefill, inputs
+
+    _, params, state, step_fn, (batch,) = train_setup(meta, seed, 1)
+    out["train"] = count_memory(lambda: step_fn(state, batch),
+                                (params, state, batch), params)[1]
+    del params, state, step_fn, batch
+
+    d, m = FSDP_CASES[ARCH][3]
+    with fake_world(d * m):
+        mesh = make_local_mesh(d, m, device="cpu")
+        _, params, opt, fn, step_in = fsdp_setup(ARCH, seed, DEFAULT_RULES,
+                                                 mesh, meta)
+        with mesh_context(mesh):
+            out["fsdp"] = count_memory(lambda: fn(opt, step_in),
+                                       (params, opt, step_in), params)[1]
+    return out
+
+
+def memory_lines(counted: dict[str, dict], failures: list[str]) -> None:
+    """Each of MEMORY_STEPS counted on meta against the card's reading
+    (MEM_ON_CARD): a ``memory`` line each; arguments unequal or a temp
+    past max(MEMORY_RTOL of the card's, MEMORY_ATOL) fails the phase.
+    A step the card has not run (the phase run alone) is printed, not
+    held; ``main`` runs every one."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    for name in MEMORY_STEPS:
+        mine, card = counted[name], MEM_ON_CARD.get(name)
+        line = {"phase": "memory", "step": name,
+                "counted": {k.removesuffix("_size_in_bytes")
+                            .removesuffix("_memory_in_bytes"): v
+                            for k, v in mine.items()
+                            if k != "generated_code_size_in_bytes"},
+                "card": card, "card_total_memory": total,
+                "card_name": torch.cuda.get_device_name(0)}
+        if card is None:        # the phase run alone: counted, not held
+            print(json.dumps({**line, "ok": None}))
+            continue
+        gap = mine["temp_size_in_bytes"] - card["temp"]
+        bar = max(MEMORY_RTOL * card["temp"], MEMORY_ATOL)
+        args_equal = mine["argument_size_in_bytes"] == card["argument"]
+        ok = args_equal and abs(gap) <= bar
+        if not ok:
+            failures.append(f"memory {name}: counted {mine}, card {card}, "
+                            f"temp gap {gap} (bar {bar}), arguments equal "
+                            f"{args_equal}")
+        print(json.dumps({**line, "card_peak": card["argument"]
+                          + card["temp"], "temp_gap": gap,
+                          "temp_gap_rel": gap / card["temp"], "bar": bar,
+                          "arguments_equal": args_equal, "ok": ok}))
+
+
+def host_process(code: str, *argv: str) -> subprocess.Popen:
+    """``python -c code argv`` started from the repo's root with the card
+    hidden."""
     root = Path(__file__).resolve().parent
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
            "PYTHONPATH": os.pathsep.join(
                [str(root / "src")] + [p for p in [os.environ.get(
                    "PYTHONPATH")] if p])}
+    return subprocess.Popen([sys.executable, "-c", code, *argv], cwd=root,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def dryrun_phase(failures: list[str]) -> None:
+    """``launch.dryrun.run_cell`` on ``DRYRUN_CELLS`` in a CPU subprocess
+    (no card, no jax): each record's ``ok``, flops, parameter and
+    collective bytes a device and roofline step time printed
+    (``dryrun`` lines), its K5/K6 launches on meta beside the card's;
+    MEMORY_STEPS counted on meta in a second one, beside it, each held
+    to the card's reading (``memory`` lines)."""
+    t0 = time.perf_counter()
     cells = [[a, s] for a, s, _ in DRYRUN_CELLS]
+    procs = [host_process(DRYRUN_CODE, json.dumps(cells)),
+             host_process(MEMORY_CODE)]
+    outs = []
     try:
-        proc = subprocess.run([sys.executable, "-c", DRYRUN_CODE,
-                               json.dumps(cells)], cwd=root, env=env,
-                              capture_output=True, text=True,
-                              timeout=DRYRUN_TIMEOUT_S)
+        for p in procs:
+            left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
+            outs.append(p.communicate(timeout=left) + (p.returncode,))
     except subprocess.TimeoutExpired:
         failures.append(f"dryrun: not done in {DRYRUN_TIMEOUT_S} s")
         return
-    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    (stdout, stderr, rc), (mem_out, mem_err, mem_rc) = outs
+    lines = [json.loads(ln) for ln in stdout.splitlines()
              if ln.startswith("{")]
-    if proc.returncode != 0 or len(lines) != len(DRYRUN_CELLS):
-        failures.append(f"dryrun: exit {proc.returncode}, {len(lines)} of "
-                        f"{len(DRYRUN_CELLS)} records:\n{proc.stderr[-3000:]}")
+    if rc != 0 or len(lines) != len(DRYRUN_CELLS):
+        failures.append(f"dryrun: exit {rc}, {len(lines)} of "
+                        f"{len(DRYRUN_CELLS)} records:\n{stderr[-3000:]}")
+        return
+    if mem_rc != 0:
+        failures.append(f"dryrun memory counts: exit {mem_rc}:\n"
+                        f"{mem_err[-3000:]}")
         return
     for (arch, shape, on_card), out in zip(DRYRUN_CELLS, lines):
         rec, launches = out["record"], out["launches"]
@@ -3569,11 +3759,13 @@ def dryrun_phase(failures: list[str]) -> None:
             "collective_bytes_per_device":
                 rec["collective_bytes_per_device"],
             "wkv_analytic_flops": rec["wkv_analytic_flops"],
+            "memory_analysis": rec["memory_analysis"],
             "roofline_step_time_s": rec["roofline"]["step_time_s"],
             "roofline_dominant": rec["roofline"]["dominant"],
             "lower_s": rec["lower_s"], "launches_meta": launches,
             "launches_card": want, "counts_want": counts or None,
             "checks_ok": ok}))
+    memory_lines(json.loads(mem_out.splitlines()[-1]), failures)
     print(json.dumps({"phase": "dryrun_wall",
                       "s": time.perf_counter() - t0}))
 
@@ -3706,6 +3898,8 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     # -- the multi-pod dry run on the CPU, its tally against the card's ----
+    failures += [f"memory {n}: no reading on the card"
+                 for n in MEMORY_STEPS if n not in MEM_ON_CARD]
     dryrun_phase(failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)

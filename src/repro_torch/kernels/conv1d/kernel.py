@@ -22,7 +22,11 @@ so the result is deterministic.  Its plain version is
 
 On meta tensors both wrappers return meta outputs of the kernel's shapes
 and types, launch nothing, and count the launch and its work
-(:func:`conv1d_work`, :func:`conv1d_bwd_work`) in ``_build.META``.
+(:func:`conv1d_work`, :func:`conv1d_bwd_work`) in ``_build.META``.  They
+allocate what the card's launch allocates, the backward's f32 workspace
+too, so that a dry run counts a step's memory as the card holds it; meta
+tensors have no address, so the backward plans the card's usual case,
+every tensor 16-byte aligned.
 """
 from __future__ import annotations
 
@@ -260,23 +264,27 @@ def conv1d_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     dw = torch.empty_like(w) if need_wb else None
     db = (torch.empty(b.shape, dtype=b.dtype, device=x.device)
           if need_wb and b is not None else None)
-    if x.device.type == "meta":
-        if x.numel():
-            _build.count_meta("conv1d_bwd", *conv1d_bwd_work(
-                x, w, b, need_x=need_x, need_wb=need_wb))
-        return dx, dw, db
+    meta = x.device.type == "meta"
     if x.numel() == 0:
         for t in (dw, db):
-            if t is not None:
+            if t is not None and not meta:
                 t.zero_()
         return dx, dw, db
     if launch is None:
-        aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, w))
+        # meta has no addresses: the card's usual case, aligned (the
+        # caching allocator starts every block on a 512-byte boundary)
+        aligned = meta or all(t.data_ptr() % 16 == 0 for t in (x, dy, w))
         launch = plan_bwd(bs, s, c, kk, x.element_size(), aligned)
     _check_plan(launch, kk)
     groups = bwd_groups(launch, bs, s)
+    # the per-group f32 sums, on meta too: a dry run's count of a step's
+    # memory sees what the launch holds
     part = (torch.empty((groups, kk + 1, c), dtype=torch.float32,
                         device=x.device) if need_wb else None)
+    if meta:
+        _build.count_meta("conv1d_bwd", *conv1d_bwd_work(
+            x, w, b, need_x=need_x, need_wb=need_wb))
+        return dx, dw, db
     with torch.cuda.device(x.device):
         _build.launch("conv1d_bwd", "conv1d", _BWD_ARGTYPES, x.data_ptr(),
                       dy.data_ptr(), w.data_ptr(),

@@ -42,7 +42,9 @@ would not.  No atomics: the same inputs give the same bits.  Shared memory
 On meta tensors every wrapper returns meta outputs of its kernel's shapes
 and types, launches nothing, and counts the launch and its work
 (:func:`swa_work`, :func:`swa_bwd_work`, :func:`swa_bwd_fold_work`) in
-``_build.META``.
+``_build.META``.  Each allocates what its card branch allocates (the
+copies of inputs without a unit D stride too), so that a dry run counts a
+step's memory as the card holds it.
 """
 from __future__ import annotations
 
@@ -216,14 +218,16 @@ def swa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return swa_ref(q, k, v, window=window)
     if d > MAX_HEAD_DIM:
         raise ValueError(f"swa kernel takes head_dim <= {MAX_HEAD_DIM}, got {d}")
+    # copies of any input without a unit D stride, held through the
+    # launch, on meta as on the card
+    q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+    out = torch.empty_like(q)           # q's layout where q is dense
     if q.device.type == "meta":
         if q.numel():
             _build.count_meta("swa", *swa_work(q, k, window))
-        return torch.empty_like(_unit_last(q))
+        return out
     smem = smem_bytes(d, q.dtype)
     _build.require_smem(f"swa at head_dim {d}", smem, q.device)
-    q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
-    out = torch.empty_like(q)           # q's layout where q is dense
     if out.numel() == 0:
         return out
     tensors = (q, k, v, out)

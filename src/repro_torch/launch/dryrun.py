@@ -24,12 +24,28 @@ Then record, per device:
   * collective bytes, by the reference's op names and per-device convention
     (``analysis/hlo.py``), from the c10d ops the step dispatches;
   * the three roofline terms at the H100's peaks
-    (``core/roofline.TpuRooflineTerms``).
+    (``core/roofline.TpuRooflineTerms``);
+  * ``memory_analysis``, the reference's five keys: the bytes of the
+    step's arguments (the held parameters; for training AdamW's m, v and
+    step; for decode the rank's cache and tokens; the rank's batch) and of
+    its output (what it hands back and the parameters and moments it
+    updated in place), ``temp`` the most bytes live beyond the arguments
+    while it ran (:class:`MemoryCounter`), ``peak`` argument + temp, no
+    generated code.
 
 What differs from the reference, by design:
   * nothing is compiled: ``compile_s`` is 0, ``lower_s`` the step's time on
-    meta, ``memory_analysis`` unavailable, ``hlo_lines`` the number of aten
-    ops dispatched and ``remat_duplication`` None;
+    meta under its three counters (ops, flops, memory), ``hlo_lines`` the
+    number of aten ops dispatched and ``remat_duplication`` None;
+  * ``memory_analysis``' temp and peak are eager PyTorch's, not XLA's
+    buffer assignment: every op's output is a buffer of its own from the
+    moment it is made until its last reference dies (autograd's saved
+    tensors and remat's kept products too), with no fusion and no reuse
+    in place; the output counts no tuple table (XLA's
+    8 B a leaf) and each leaf as the port holds it (XLA may return a
+    leaf split otherwise than it took it); the count is on meta, so
+    RWKV's WKV loop holds its one step's tensors, not the S steps' that
+    the card's loop keeps for the backward pass;
   * the port has no layer scan and counts every layer as it runs:
     ``scan_correction`` is ``{"applied": False}``;
   * RWKV's WKV recurrence, a loop over the sequence, runs its first step
@@ -82,11 +98,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
 import time
 import traceback
+import weakref
 from collections import defaultdict
 from typing import Any
 
@@ -222,12 +240,113 @@ def fake_world(ranks: int):
         dist.destroy_process_group()
 
 
-def _tensors(x) -> list[torch.Tensor]:
+def tensor_leaves(x) -> list[torch.Tensor]:
+    """Every tensor in ``x``, through lists, tuples (named ones too) and
+    dicts, in order; anything else holds none."""
     if isinstance(x, torch.Tensor):
         return [x]
     if isinstance(x, (list, tuple)):
-        return [t for a in x for t in _tensors(a)]
+        return [t for a in x for t in tensor_leaves(a)]
+    if isinstance(x, dict):
+        return [t for a in x.values() for t in tensor_leaves(a)]
     return []
+
+
+def _storage_identity() -> bool:
+    """Whether a tensor's ``untyped_storage()`` is one object call after
+    call, which :class:`MemoryCounter` keys its storages by."""
+    probe = torch.empty(1, device="meta")
+    return probe.untyped_storage() is probe.untyped_storage()
+
+
+_STORAGE_IDENTITY = _storage_identity()
+
+
+class MemoryCounter(TorchDispatchMode):
+    """Live bytes of the storages a step makes, and their peak.
+
+    Every tensor an op returns (factory calls such as ``aten.empty`` too)
+    is looked at once: a storage not seen before is counted with its
+    ``nbytes()`` when it appears and taken off in a ``weakref`` callback
+    when it dies.  A storage is known by its object, which torch keeps for
+    as long as any view of it lives (never by ``data_ptr()``, 0 on meta).
+    An output is new where its storage is none of the op's inputs': views
+    and in-place ops return an input's and add nothing, and so do ops that
+    may alias (``aten.to``, ``reshape``, ``contiguous``, which reach a mode
+    whole under ``inference_mode``) where they return their input, while
+    the copy they make otherwise counts.  A storage first met as an input's
+    was made before the step and is never counted; ``aten.lift_fresh``,
+    which hands on a constant made outside the dispatcher during the step,
+    counts (on the host: a step on the card holds such a 0-dim constant
+    in the host's memory, not the card's).  ``args``: the step's inputs,
+    known before it starts and never counted.  The autograd engine's ops
+    (gradients, their sums, remat's recompute) dispatch here too.
+
+    The count is of op outputs: scratch that an op's kernel takes from the
+    allocator without returning it (cuBLAS's workspace, a reduction's
+    partials) is not seen, on meta or anywhere else."""
+
+    def __init__(self, args=()):
+        super().__init__()
+        if not _STORAGE_IDENTITY:
+            raise RuntimeError("this torch makes a new storage object a "
+                               "call: storages cannot be told apart")
+        self.live = 0
+        self.peak = 0
+        self._known: dict[int, weakref.ref] = {}
+        for t in tensor_leaves(args):
+            self._see(t, count=False)
+
+    def _see(self, t: torch.Tensor, count: bool) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._known:
+            return
+        n = st.nbytes() if count else 0
+
+        def gone(_, key=key, n=n):
+            self._known.pop(key, None)
+            self.live -= n
+        self._known[key] = weakref.ref(st, gone)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        inputs = {t.untyped_storage()._cdata
+                  for t in tensor_leaves([args, kwargs])}
+        lifted = func is torch.ops.aten.lift_fresh.default
+        for t in tensor_leaves(out):
+            self._see(t, count=lifted
+                      or t.untyped_storage()._cdata not in inputs)
+        return out
+
+
+def memory_analysis(args, out, updated, temp: int) -> dict:
+    """The reference's five ``memory_analysis`` keys for a step that took
+    ``args``, returned ``out`` and updated ``updated`` in place (their
+    leaves' bytes, Σ numel × element size: the output is what the step
+    hands back, the updated tensors with it, as the reference's count is
+    where nothing is donated), with ``temp`` the bytes live beyond the
+    arguments at the step's peak (:class:`MemoryCounter`)."""
+    argument = _build.nbytes(*tensor_leaves(args))
+    return {"argument_size_in_bytes": argument,
+            "output_size_in_bytes": _build.nbytes(*tensor_leaves(updated),
+                                                  *tensor_leaves(out)),
+            "temp_size_in_bytes": int(temp),
+            "peak_memory_in_bytes": argument + int(temp),
+            "generated_code_size_in_bytes": 0}
+
+
+def count_memory(step, args, updated=()) -> tuple[Any, dict]:
+    """``step()`` run once under a :class:`MemoryCounter` that knows
+    ``args``, Python's garbage collected before it, so that no dead cycle
+    holds a storage: (what it returned, :func:`memory_analysis`)."""
+    gc.collect()
+    with MemoryCounter(args) as counter:
+        out = step()
+    return out, memory_analysis(args, out, updated, counter.peak)
 
 
 class StepCounter(TorchDispatchMode):
@@ -253,7 +372,7 @@ class StepCounter(TorchDispatchMode):
             op = _COLLECTIVE_OPS.get(name, name)
             # the output lists come first; reduce-scatter counts its input
             arg = args[1] if op == "reduce-scatter" else args[0]
-            self.coll_bytes[op] += _build.nbytes(*_tensors(arg))
+            self.coll_bytes[op] += _build.nbytes(*tensor_leaves(arg))
             self.coll_counts[op] += 1
             return out
         if func.namespace != "aten":
@@ -264,7 +383,8 @@ class StepCounter(TorchDispatchMode):
         if name in _ALLOCATIONS or (alias is not None and not alias.is_write):
             return out
         self.bytes += _build.nbytes(
-            *_tensors(list(args) + list(kwargs.values())), *_tensors(out))
+            *tensor_leaves(list(args) + list(kwargs.values())),
+            *tensor_leaves(out))
         return out
 
     def collectives(self) -> dict:
@@ -276,19 +396,23 @@ class StepCounter(TorchDispatchMode):
 
 def _step(cfg: ArchConfig, shape: ShapeSpec, mesh, model, remat: str):
     """The cell's step on this rank's meta slices; returns (the callable,
-    model_flops)."""
+    model_flops, its arguments, the tensors it updates in place): the
+    reference's ``jit`` arguments, the held parameters, for training
+    AdamW's state, for decode the rank's cache and tokens (the step, a
+    Python int, holds no bytes), and the rank's batch."""
     ins = input_specs(cfg, shape)
     batch = {k: tp.shard_of(v, mesh, p)
              for (k, v), p in zip(ins.items(),
                                   batch_shardings(mesh, ins).values())}
+    params = dict(model.named_parameters())
     if shape.kind == "train":
         opt = OptConfig()
-        params = dict(model.named_parameters())
         state = init_opt_state(params, opt)        # f32 moments, on meta
         fn = make_train_step(model, cfg, opt, remat=remat)
         tokens = shape.global_batch * shape.seq_len
         return (lambda: fn(state, batch),
-                6 * cfg.params_billion_estimate() * 1e9 * tokens)
+                6 * cfg.params_billion_estimate() * 1e9 * tokens,
+                (params, state, batch), params)
     tokens = shape.global_batch * (shape.seq_len if shape.kind == "prefill"
                                    else 1)
     model_flops = 2 * cfg.params_billion_estimate() * 1e9 * tokens
@@ -299,12 +423,13 @@ def _step(cfg: ArchConfig, shape: ShapeSpec, mesh, model, remat: str):
                 return model(batch["tokens"], batch["frames"])[0]
             return model(batch["tokens"], positions=batch.get("positions"),
                          patches=batch.get("patches"))[0]
-        return prefill, model_flops
+        return prefill, model_flops, (params, batch), ()
     # under mesh_context: this rank's slice of the whole batch's cache, as
     # cache_shardings places it
     cache = model.init_cache(shape.global_batch, shape.seq_len)
     step_fn = make_decode_step(model, cfg)
-    return (lambda: step_fn(cache, batch["tokens"], 0)), model_flops
+    return (lambda: step_fn(cache, batch["tokens"], 0), model_flops,
+            (params, cache, batch), ())
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
@@ -330,13 +455,17 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                                                            rules), mesh)
             held = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-            step, model_flops = _step(cfg, shape, mesh, model, remat)
+            step, model_flops, args, updated = _step(cfg, shape, mesh, model,
+                                                     remat)
             _build.reset_meta()
-            counter = StepCounter()
+            gc.collect()
+            counter, mem = StepCounter(), MemoryCounter(args)
             t0 = time.time()
-            with FlopCounterMode(display=False) as flops, counter:
-                step()
+            with FlopCounterMode(display=False) as flops, counter, mem:
+                out = step()
             lower_s = time.time() - t0
+            memory = memory_analysis(args, out, updated, mem.peak)
+            del out
         kernels = _build.meta_work()
         structs = pr.shape_tree(specs, cfg.param_dtype)
         pbytes = param_bytes_per_device(
@@ -365,8 +494,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         "collective_by_op": coll["by_op"],
         "collective_counts": coll["counts"],
         "remat_duplication": None,
-        "memory_analysis": {"unavailable": "nothing is compiled: the step "
-                            "ran once on meta tensors"},
+        "memory_analysis": memory,
         "scan_correction": {"applied": False},
         "wkv_analytic_flops": wkv_extra,
         "param_count": pr.param_count(specs),

@@ -9,8 +9,24 @@ Tolerances, set before the runs:
   one device's, relative (float32 activations; the ranks' row means are
   summed in another order), and its first Adam moments, the averaged
   gradient times 1 - beta1, within 1e-5 of their largest magnitude;
-- a CPU input into K5's and K6's wrappers: the plain version's bits.
+- a CPU input into K5's and K6's wrappers: the plain version's bits;
+- ``MemoryCounter``: bytes exact.  The hand case, x (4, 8) times W
+  (8, 16), f32, summed, W's gradient: x (128 B) and W (512 B) are the
+  arguments; the forward makes x @ W (256 B) and its sum (4 B), and x @ W
+  dies once summed (the product's backward saves x alone), so 260 B live
+  at its peak; the backward adds the seed gradient ``ones_like`` (4 B),
+  viewed as (4, 16) by the sum's backward, and W's gradient x^T @ g (512
+  B) while the seed lives, 520 B, the step's peak.  The conversion case,
+  x (4, 8, 16) bf16, with and without ``inference_mode`` (under which
+  ``aten.to`` and ``aten.reshape`` reach the counter whole, ops that may
+  alias): x to bf16 is x and adds nothing, x to f32 a copy of 2,048 B,
+  x^T reshaped flat a copy of 1,024 B, x reshaped flat a view: 3,072 B.
+  Reduced tinyllama-1.1b's train and decode steps run no kernel on the
+  CPU, so the count on meta and on CPU tensors is the same to the byte.
+- ``hlo_lines``: a cell's count of aten ops the same with
+  ``MemoryCounter`` and without it, which dispatches none of its own.
 """
+import contextlib
 import json
 import math
 import os
@@ -44,9 +60,11 @@ from repro_torch.kernels.swa.kernel import (band_pairs, bwd_parts, swa_bwd_dq,
                                             swa_work)
 from repro_torch.kernels.swa.ops import sliding_window_attention
 from repro_torch.kernels.swa.ref import swa_bwd_ref, swa_ref
+from repro_torch.kernels.conv1d.kernel import bwd_groups, plan_bwd
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh, run_local_world
 from repro_torch.models.registry import build_model
+from repro_torch.serving.serve_step import make_decode_step
 from repro_torch.train.optim import OptConfig, init_opt_state
 from repro_torch.train.train_step import make_train_step
 
@@ -441,3 +459,179 @@ def test_roofline_terms_on_fixed_inputs():
     assert t.as_dict()["dominant"] == "collective"
     assert TpuRooflineTerms(1e15, 1.0, 0.0, 1).dominant == "compute"
     assert TpuRooflineTerms(1.0, 1e13, 0.0, 1).dominant == "memory"
+
+
+MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
+               "temp_size_in_bytes", "peak_memory_in_bytes",
+               "generated_code_size_in_bytes")
+
+
+@pytest.mark.parametrize("cell", list(CLI_CELLS), ids="__".join)
+def test_cli_memory_analysis(cli, cell):
+    """Every record carries the reference's five keys as ints, peak =
+    argument + temp, the arguments at least the held parameters."""
+    mem = cli[0][cell]["memory_analysis"]
+    assert tuple(mem) == MEMORY_KEYS
+    assert all(type(v) is int for v in mem.values())
+    assert mem["peak_memory_in_bytes"] == (mem["argument_size_in_bytes"]
+                                           + mem["temp_size_in_bytes"])
+    assert mem["argument_size_in_bytes"] > \
+        cli[0][cell]["param_bytes_per_device"]
+    assert mem["temp_size_in_bytes"] > 0 and mem["output_size_in_bytes"] > 0
+    assert mem["generated_code_size_in_bytes"] == 0
+
+
+def test_rooflines_prints_every_peak(cli, capsys, monkeypatch):
+    """Every ok row of the dry-run table names its peak in bytes."""
+    _, _, out = cli
+    monkeypatch.setattr(sys, "argv", ["rooflines", "--dir", str(out),
+                                      "--what", "dryrun"])
+    rooflines.main()
+    rows = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.endswith("| OK |")]
+    assert len(rows) == len(CLI_CELLS)
+    for row in rows:
+        cell = row.split(" | ")
+        rec = cli[0][(cell[0].strip("| "), cell[1])]
+        assert cell[6] == rooflines.fmt_bytes(
+            rec["memory_analysis"]["peak_memory_in_bytes"])
+        assert cell[6] != "-"
+
+
+def _hand_step(device: str, backward: bool):
+    x = torch.ones(4, 8, device=device)
+    w = torch.ones(8, 16, device=device, requires_grad=True)
+
+    def step():
+        loss = (x @ w).sum()
+        return torch.autograd.grad(loss, [w]) if backward else loss
+    return step, (x, w)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("backward,temp", [(False, 260), (True, 520)])
+def test_memory_counter_hand_count(device, backward, temp):
+    """The hand case of the module's docstring, forward alone and with the
+    backward pass, whose gradients the counter sees."""
+    step, args = _hand_step(device, backward)
+    _, mem = dryrun.count_memory(step, args)
+    assert mem == {"argument_size_in_bytes": 640,
+                   "output_size_in_bytes": 512 if backward else 4,
+                   "temp_size_in_bytes": temp,
+                   "peak_memory_in_bytes": 640 + temp,
+                   "generated_code_size_in_bytes": 0}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("inference", [False, True])
+def test_memory_counter_counts_conversions(device, inference):
+    """The conversion case of the module's docstring: a copy that an op
+    which may alias makes counts, the input it hands back does not."""
+    x = torch.ones(4, 8, 16, dtype=torch.bfloat16, device=device)
+    mode = torch.inference_mode if inference else contextlib.nullcontext
+
+    def step():
+        with mode():
+            return (x.to(torch.bfloat16), x.float(),
+                    x.transpose(0, 2).reshape(-1), x.reshape(-1))
+    out, mem = dryrun.count_memory(step, (x,))
+    assert out[0] is x and out[3].untyped_storage() is x.untyped_storage()
+    assert mem["temp_size_in_bytes"] == 2048 + 1024
+    assert mem["output_size_in_bytes"] == 1024 + 2048 + 1024 + 1024
+
+
+class _NoMemoryCount(contextlib.nullcontext):
+    """Stands for ``MemoryCounter`` in ``run_cell``: no mode at all."""
+    peak = 0
+
+    def __init__(self, args=()):
+        super().__init__()
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_hlo_lines_hold_no_memory_count(monkeypatch, shape):
+    """A reduced cell's ``hlo_lines``, flops and bytes are those of its
+    step run with no ``MemoryCounter``."""
+    small = {"num_layers": 1, "d_model": 256, "num_heads": 16,
+             "num_kv_heads": 4, "d_ff": 512, "vocab_size": 1024}
+    counted = dryrun.run_cell(TL, shape, "single", overrides=small)
+    monkeypatch.setattr(dryrun, "MemoryCounter", _NoMemoryCount)
+    bare = dryrun.run_cell(TL, shape, "single", overrides=small)
+    for key in ("hlo_lines", "flops_per_device", "bytes_per_device"):
+        assert counted[key] == bare[key], key
+    assert counted["memory_analysis"]["temp_size_in_bytes"] > 0
+    assert bare["memory_analysis"]["temp_size_in_bytes"] == 0
+
+
+def test_memory_counter_skips_views_and_old_storages():
+    """A view, an in-place op and a storage made before the step add
+    nothing; a fresh tensor counts once however many views it has."""
+    old = torch.empty(8, 8, device="meta")
+
+    def step():
+        old.add_(1)
+        v = old[2:].t()
+        fresh = torch.empty(3, 5, device="meta")
+        return v, fresh, fresh.view(15), fresh[1]
+    with dryrun.MemoryCounter() as counter:
+        out = step()
+    assert counter.peak == counter.live == 60
+    del out
+    assert counter.live == 0
+
+
+def _reduced_step(kind: str, device: str):
+    cfg = get_reduced_config(TL)
+    model = build_model(cfg, device=device)
+    if device == "cpu":
+        model.init(torch.Generator().manual_seed(0))
+    params = dict(model.named_parameters())
+    tokens = torch.zeros((2, 64), dtype=torch.int32, device=device)
+    if kind == "train":
+        opt = OptConfig()
+        state = init_opt_state(params, opt)
+        fn = make_train_step(model, cfg, opt, remat="dots")
+        batch = {"tokens": tokens, "labels": tokens.clone()}
+        return (lambda: fn(state, batch)), (params, state, batch), params
+    cache = model.init_cache(2, 64)
+    fn = make_decode_step(model, cfg)
+    one = tokens[:, :1].clone()
+    return (lambda: fn(cache, one, 0)), (params, cache, one), ()
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_memory_meta_equals_cpu(kind):
+    """Reduced tinyllama-1.1b's step counted on meta and on CPU tensors:
+    the same five numbers, to the byte."""
+    counts = [dryrun.count_memory(*_reduced_step(kind, dev))[1]
+              for dev in ("meta", "cpu")]
+    assert counts[0] == counts[1]
+    assert counts[0]["temp_size_in_bytes"] > 0
+
+
+def test_k5_backward_meta_holds_its_workspace():
+    """``conv1d_bwd`` on meta allocates the card's f32 per-group sums,
+    (groups, K + 1, C) of the aligned plan, beside dx, dw and db."""
+    x, w, b, dy = (t.to("meta") for t in _k5_args("cpu"))
+    _, mem = dryrun.count_memory(lambda: conv1d_bwd(x, dy, w, b),
+                                 (x, w, b, dy))
+    groups = bwd_groups(plan_bwd(2, 24, 16, 4, 4, True), 2, 24)
+    part = groups * (4 + 1) * 16 * 4
+    assert mem["temp_size_in_bytes"] == _build.nbytes(x, w, b) + part
+    assert mem["output_size_in_bytes"] == _build.nbytes(x, w, b)
+
+
+@pytest.mark.parametrize("unit_d", [True, False])
+def test_k6_meta_copies_as_the_card(unit_d):
+    """``swa_kernel`` on meta holds copies of q, k and v where their D
+    stride is not 1, as its card branch does; head-transposed views of
+    (B, S, H, D), the model's, are read in place."""
+    q, k, v = (torch.empty(1, 40, h, 16, device="meta").transpose(1, 2)
+               for h in (4, 2, 2))
+    if not unit_d:
+        q, k, v = (t.transpose(2, 3).contiguous().transpose(2, 3)
+                   for t in (q, k, v))
+    _, mem = dryrun.count_memory(lambda: swa_kernel(q, k, v, window=9),
+                                 (q, k, v))
+    copies = 0 if unit_d else _build.nbytes(q, k, v)
+    assert mem["temp_size_in_bytes"] == q.numel() * 4 + copies

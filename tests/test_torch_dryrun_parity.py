@@ -12,8 +12,9 @@ record's keys, ``configs.cells()``, the private copies ``_clone_cfg`` and
 ``_wkv_analytic_flops`` on every cell; ``analysis.hlo``'s
 ``collective_bytes`` and ``remat_duplication`` on that HLO text;
 ``analysis.rooflines``' ``dryrun_table`` and ``roofline_table`` on the
-reference's records.  Not compared: times, memory analysis, bytes and
-collective bytes (XLA's fused counts against the port's op-by-op ones).
+reference's records; ``memory_analysis``' argument and output bytes (see
+below).  Not compared: times, bytes and collective bytes (XLA's fused
+counts against the port's op-by-op ones).
 
 Tolerance, set before the first run: ``flops_per_device`` within
 ``FLOPS_RTOL`` 0.2, relative to the reference's.  The port counts matrix
@@ -245,6 +246,42 @@ reduce-scatters of their gradients, once a forward gather:
 Every cell's parameters as the port holds them, laid out by
 ``DEFAULT_RULES`` on the production mesh of a fake world, add up to the
 reference's ``param_bytes_per_device``.
+
+``memory_analysis``: in every cell above, ``argument_size_in_bytes`` and
+``output_size_in_bytes`` equal the reference's, or differ by the bytes in
+``MEMORY_DIFF`` (the port's less the reference's), worked out from the
+shapes before the port's first count.  Not compared: ``temp`` and
+``peak``, XLA's buffer assignment against eager PyTorch's live bytes.
+The reference's arguments are its ``jit``'s: the held parameters, for
+training AdamW's m, v (f32) and step (int32, 4 B), for decode the cache
+and the tokens, and the rank's batch (tokens and labels int32, frames and
+patches bf16, M-RoPE positions int32); ``jit`` drops an argument the step
+never reads (the decode step's ``step``, without M-RoPE).  Its output
+size counts each leaf of the returned tuple once plus the tuple's table,
+8 B a leaf; the port's counts the leaves it hands back and the
+parameters it updated in place, with no table.
+- tinyllama train: arguments 27,648 + 2·27,648 + 4 + 2·16·4,096·4 =
+  607,236, equal; output 27,648 + 55,296 + 4 (step) + 12 (loss, aux
+  loss, step) = 82,960, 320 B below the reference's: its 40 leaves'
+  table;
+- tinyllama decode: the port's cache holds its write position ``pos`` as
+  a Python int, the reference's as an int32 (4 B): arguments 4 B below;
+  output: the greedy token (8, 1) is int64 in the port (64 B, the
+  reference's int32 32 B), no ``pos`` (-4), no table for 5 leaves (-40):
+  12 B below;
+- the MoE prefill cells: arguments (parameters and 2·32,768 int32
+  tokens) and output (the rank's logits, (2, 32,768, 64) f32, one array:
+  no table) equal;
+- rwkv6 train: arguments equal; output: XLA hands back ``w0`` and
+  ``ln_x_scale`` (256 f32 each, replicated by the rules: 1,024 B a rank)
+  split over ``model`` (64 B), in the parameters and both moments,
+  6·960 = 5,760 B fewer than the port's, and a table for 76 leaves, 608
+  B more: the port's output is 5,152 B above;
+- whisper train: arguments equal (frames (16, 1,500, 384) bf16,
+  18,432,000 B); output 656 B below (82 leaves);
+- qwen2-vl train: arguments equal (patches (16, 256, 1,536) bf16,
+  12,582,912 B; positions (3, 16, 4,096) int32, 786,432 B); output 368 B
+  below (46 leaves).
 """
 import dataclasses
 import json
@@ -310,6 +347,12 @@ VLM_COLLECTIVES = {"by_op": {"all-reduce": 1_611_425_620,
                               "reduce-scatter": 149_028_864},
                    "counts": {"all-reduce": 13, "all-gather": 16,
                               "reduce-scatter": 9}}
+# cell -> (argument, output) bytes of the port's memory_analysis less the
+# reference's (the module's docstring)
+MEMORY_DIFF = {CELL: (0, -320), DECODE_CELL: (-4, -12),
+               **{cell: (0, 0) for cell in MOE_CELLS},
+               RWKV_CELL: (0, 5_152), WHISPER_CELL: (0, -656),
+               VLM_CELL: (0, -368)}
 RWKV_COLLECTIVES = {"by_op": {"all-reduce": 605_246_360,
                               "all-gather": 135_593_984,
                               "reduce-scatter": 753_664},
@@ -637,3 +680,40 @@ def test_tables_equal_on_the_reference_records(ref):
                 == ref_rooflines.dryrun_table(recs, mesh))
     assert rooflines.roofline_table(recs) == ref_rooflines.roofline_table(
         recs)
+
+
+def _memory_diff(cell, want: dict, got: dict) -> None:
+    mine, ref = got["memory_analysis"], want["memory_analysis"]
+    print(f"{cell[0]} x {cell[1]} memory_analysis: port {mine}, reference "
+          f"{ref}")
+    assert set(mine) == set(ref)
+    assert all(isinstance(v, int) for v in mine.values())
+    assert mine["peak_memory_in_bytes"] == (mine["argument_size_in_bytes"]
+                                            + mine["temp_size_in_bytes"])
+    args, out = MEMORY_DIFF[cell]
+    assert mine["argument_size_in_bytes"] == \
+        ref["argument_size_in_bytes"] + args
+    assert mine["output_size_in_bytes"] == ref["output_size_in_bytes"] + out
+
+
+def test_memory_arguments_and_outputs(ref, port, ref_decode, port_decode):
+    """The tinyllama train and decode cells' argument and output bytes
+    against the reference's (607,236 and 83,280 for the train cell)."""
+    assert ref[0]["memory_analysis"]["argument_size_in_bytes"] == 607_236
+    assert ref[0]["memory_analysis"]["output_size_in_bytes"] == 83_280
+    _memory_diff(CELL, ref[0], port)
+    _memory_diff(DECODE_CELL, ref_decode, port_decode)
+
+
+def test_moe_memory_arguments_and_outputs(moe_cell):
+    cell, want, got = moe_cell
+    _memory_diff(cell, want, got)
+
+
+def test_family_memory_arguments_and_outputs(rwkv_cell, whisper_cell,
+                                             vlm_cell):
+    """rwkv6's, whisper's and qwen2-vl's train cells."""
+    for cell, (want, got) in ((RWKV_CELL, rwkv_cell),
+                              (WHISPER_CELL, whisper_cell),
+                              (VLM_CELL, vlm_cell)):
+        _memory_diff(cell, want, got)

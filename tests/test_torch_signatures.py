@@ -156,18 +156,21 @@ DIFFERENCES = {
         "placements (a dict tree), not NamedShardings", contract=True),
     "launch.dryrun.run_cell": Diff(
         "the step runs once on meta tensors as rank 0 of a fake world: "
-        "nothing compiled (compile_s 0, memory_analysis unavailable, "
-        "hlo_lines the aten ops dispatched, remat_duplication None), "
-        "flops FlopCounterMode's plus K5/K6's own, bytes every aten op's "
-        "inputs and outputs (an unfused upper bound), collectives the c10d "
-        "ops dispatched; correction is taken and ignored (no layer scan: "
-        "every layer counted); FSDP over data not ported (ROADMAP item "
-        "5b): the step's placement is the model-axis splits, training's "
-        "and serving's alike, param_bytes_per_device counts the rules' "
-        "FSDP; a decode cell "
-        "decodes on the rank's slice of the cache its placements give, "
-        "its logits split over the vocabulary and its token their "
-        "vocabulary-parallel argmax", contract=True),
+        "nothing compiled (compile_s 0, hlo_lines the aten ops "
+        "dispatched, remat_duplication None), flops FlopCounterMode's "
+        "plus K5/K6's own, bytes every aten op's inputs and outputs (an "
+        "unfused upper bound), collectives the c10d ops dispatched; "
+        "memory_analysis the reference's five keys as eager PyTorch uses "
+        "memory: the arguments' and the output's bytes (the updated "
+        "parameters and moments with what the step returns, no tuple "
+        "table), temp the most bytes live beyond the arguments "
+        "(MemoryCounter on meta, not XLA's buffer assignment), peak "
+        "argument + temp, generated code 0; correction is taken and "
+        "ignored (no layer scan: every layer counted); parameters and "
+        "moments laid out by the rules (FSDP over data, gathered a layer "
+        "at a time); a decode cell decodes on the rank's slice of the "
+        "cache its placements give, its logits split over the vocabulary "
+        "and its token their vocabulary-parallel argmax", contract=True),
     "launch.dryrun.main": Diff(
         "writes results/dryrun_torch/ (the reference: results/dryrun/); "
         "an ok cell's line also names the K5/K6 launches counted on meta",
