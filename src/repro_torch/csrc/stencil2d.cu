@@ -40,6 +40,19 @@
 // No integer division runs in any inner loop: threads are indexed in 2D.
 // The tile is planned on the host against the card's opt-in shared memory
 // per block (up to 227 KB); a tile that cannot fit is refused there.
+//
+// A clocked instance of the same body (kClock, never on the main path; the
+// host launches it inside repro_torch.telemetry.recording(clocks=True))
+// splits a block's time as its thread 0 sees it, in clock64() laps: issuing
+// the tile's loads, waiting until the tile is in shared memory (the
+// cp.async wait, the bf16 widening and the barrier), summing, and storing
+// to global memory.  It also counts the bytes the block's loads requested
+// (each thread its own cp.async and element loads, summed a warp at a
+// time).  Thread 0 adds its laps into one of kClockSlots rows of a
+// persistent buffer, chosen by the block's index so that few blocks share
+// an address; the host reads it once, when recording ends.  Its outputs
+// are the main instance's bit for bit; with kClock false every addition
+// compiles away.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +75,31 @@ struct Taps {
   int oy[kMaxTaps], ox[kMaxTaps];
   float cy[kMaxTaps], cx[kMaxTaps];
   float dy[kMaxTaps], dx[kMaxTaps];
+};
+
+// The clocked instance's record, one row per slot (kernels/stencil2d/
+// kernel.py: CLOCK_FIELDS, CLOCK_SLOTS): thread 0's clock64() laps by
+// phase, the blocks, and the bytes their loads requested.
+enum : int { cIssue, cWait, cSum, cStore, kPhases, cBlocks = kPhases, cBytes,
+             kClockFields };
+constexpr int kClockSlots = 256;
+
+// Per-phase clock laps of one thread; compiles to nothing when kClock is
+// false.
+template <bool kClock>
+struct Laps {
+  long long acc[kPhases] = {};
+  long long t = 0;
+  __device__ __forceinline__ void start() {
+    if (kClock) t = clock64();
+  }
+  __device__ __forceinline__ void lap(int phase) {
+    if (kClock) {
+      const long long now = clock64();
+      acc[phase] += now - t;
+      t = now;
+    }
+  }
 };
 
 __host__ __device__ inline int pad8(int v) { return (v + 7) & ~7; }
@@ -161,12 +199,17 @@ __device__ __forceinline__ void micro_any(const float* in, int w0, int i, int j,
   }
 }
 
-// R > 0: the compile-time instance; R == 0: any radii
-template <typename T, int R>
+// R > 0: the compile-time instance; R == 0: any radii.  kClock: the
+// clocked instance, which adds into `clocks` (unused otherwise).
+template <typename T, int R, bool kClock>
 __global__ void __launch_bounds__(kTX * kTY, 2)
 stencil2d_kernel(const T* __restrict__ x, T* __restrict__ y, const Taps tp,
                  int ny, int nx, int ry, int rx, int steps, int by, int bx,
-                 int tiles_y, int tiles_x, int vec) {
+                 int tiles_y, int tiles_x, int vec,
+                 unsigned long long* __restrict__ clocks) {
+  Laps<kClock> laps;
+  laps.start();
+  unsigned requested = 0;                     // bytes this thread's loads ask for
   extern __shared__ float4 smem4[];
   const int hy = ry * steps, hx = rx * steps;
   const int mx = steps > 1 ? 8 : 0;           // column margin on each side
@@ -208,23 +251,32 @@ stencil2d_kernel(const T* __restrict__ x, T* __restrict__ y, const Taps tp,
         if (whole) {
           cp_async16(smem_addr(dst), in_grid ? src + gx : xb, in_grid ? 16 : 0);
           cp_async16(smem_addr(dst + 4), in_grid ? src + gx + 4 : xb, in_grid ? 16 : 0);
+          if (kClock && in_grid) requested += 32;
         } else {
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            dst[e] = (row_in && gx + e >= 0 && gx + e < nx) ? to_f32(src[gx + e]) : 0.f;
+          for (int e = 0; e < 8; ++e) {
+            const bool load = row_in && gx + e >= 0 && gx + e < nx;
+            dst[e] = load ? to_f32(src[gx + e]) : 0.f;
+            if (kClock && load) requested += sizeof(T);
+          }
         }
       } else {
         T* dst = reinterpret_cast<T*>(in + i * w0 + w0 / 2) + mx + 8 * c;
         if (whole) {
           cp_async16(smem_addr(dst), in_grid ? src + gx : xb, in_grid ? 16 : 0);
+          if (kClock && in_grid) requested += 16;
         } else {
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            dst[e] = (row_in && gx + e >= 0 && gx + e < nx) ? src[gx + e] : from_f32<T>(0.f);
+          for (int e = 0; e < 8; ++e) {
+            const bool load = row_in && gx + e >= 0 && gx + e < nx;
+            dst[e] = load ? src[gx + e] : from_f32<T>(0.f);
+            if (kClock && load) requested += sizeof(T);
+          }
         }
       }
     }
   }
+  laps.lap(cIssue);
   cp_async_wait_all();
   if constexpr (sizeof(T) == 2) {
     // bf16 -> f32 in place.  Each lane widens the chunks it copied itself
@@ -259,6 +311,7 @@ stencil2d_kernel(const T* __restrict__ x, T* __restrict__ y, const Taps tp,
     }
   }
   __syncthreads();
+  laps.lap(cWait);
 
   for (int s = 1; s <= steps; ++s) {
     const bool last = s == steps;
@@ -278,8 +331,10 @@ stencil2d_kernel(const T* __restrict__ x, T* __restrict__ y, const Taps tp,
 #pragma unroll
           for (int o = 0; o < kMY; ++o)
             *reinterpret_cast<float4*>(out + (i + o) * w0 + j) = acc[o];
+          laps.lap(cSum);
           continue;
         }
+        laps.lap(cSum);
         const bool col_ok[kMX] = {gx >= hx && gx < nx - hx,
                                   gx + 1 >= hx && gx + 1 < nx - hx,
                                   gx + 2 >= hx && gx + 2 < nx - hx,
@@ -302,44 +357,73 @@ stencil2d_kernel(const T* __restrict__ x, T* __restrict__ y, const Taps tp,
               if (gx + e < nx) dst[e] = from_f32<T>(vals[e]);
           }
         }
+        laps.lap(cStore);
       }
     }
     if (!last) {
       __syncthreads();
+      laps.lap(cSum);
       float* t = in; in = out; out = t;
+    }
+  }
+  if constexpr (kClock) {
+    unsigned long long* row = clocks + (blockIdx.x & (kClockSlots - 1)) * kClockFields;
+    const unsigned warp_bytes = __reduce_add_sync(0xffffffffu, requested);
+    if (tx == 0) atomicAdd(row + cBytes, (unsigned long long)warp_bytes);
+    if (tx == 0 && ty == 0) {
+#pragma unroll
+      for (int p = 0; p < kPhases; ++p)
+        atomicAdd(row + p, (unsigned long long)laps.acc[p]);
+      atomicAdd(row + cBlocks, 1ull);
     }
   }
 }
 
-template <typename T, int R>
-cudaError_t launch_r(const void* x, void* y, const Taps& tp, int64_t batch,
+template <typename T, int R, bool kClock>
+cudaError_t launch_k(const void* x, void* y, const Taps& tp, int64_t batch,
                      int ny, int nx, int ry, int rx, int steps, int by, int bx,
-                     int vec, size_t smem, cudaStream_t stream) {
+                     int vec, size_t smem, unsigned long long* clocks,
+                     cudaStream_t stream) {
   const int tiles_y = (ny + by - 1) / by, tiles_x = (nx + bx - 1) / bx;
   const int64_t tiles = batch * tiles_y * tiles_x;
   if (tiles > INT32_MAX) return cudaErrorInvalidConfiguration;
   cudaError_t e = cudaFuncSetAttribute(
-      (const void*)stencil2d_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      (const void*)stencil2d_kernel<T, R, kClock>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return e;
-  stencil2d_kernel<T, R><<<(unsigned)tiles, dim3(kTX, kTY), smem, stream>>>(
-      (const T*)x, (T*)y, tp, ny, nx, ry, rx, steps, by, bx, tiles_y, tiles_x, vec);
+  stencil2d_kernel<T, R, kClock><<<(unsigned)tiles, dim3(kTX, kTY), smem, stream>>>(
+      (const T*)x, (T*)y, tp, ny, nx, ry, rx, steps, by, bx, tiles_y, tiles_x, vec, clocks);
   return cudaGetLastError();
+}
+
+// the clocked instance where `clocks` is given
+template <typename T, int R>
+cudaError_t launch_r(const void* x, void* y, const Taps& tp, int64_t batch,
+                     int ny, int nx, int ry, int rx, int steps, int by, int bx,
+                     int vec, size_t smem, unsigned long long* clocks,
+                     cudaStream_t stream) {
+  if (clocks)
+    return launch_k<T, R, true>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem,
+                                clocks, stream);
+  return launch_k<T, R, false>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem,
+                               nullptr, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* x, void* y, const Taps& tp, int64_t batch,
                    int ny, int nx, int ry, int rx, int steps, int by, int bx,
-                   int vec, size_t smem, cudaStream_t stream) {
+                   int vec, size_t smem, unsigned long long* clocks,
+                   cudaStream_t stream) {
   if (ry == rx) {
     switch (ry) {
-      case 1: return launch_r<T, 1>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, stream);
-      case 2: return launch_r<T, 2>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, stream);
-      case 3: return launch_r<T, 3>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, stream);
-      case 12: return launch_r<T, 12>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, stream);
+      case 1: return launch_r<T, 1>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, clocks, stream);
+      case 2: return launch_r<T, 2>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, clocks, stream);
+      case 3: return launch_r<T, 3>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, clocks, stream);
+      case 12: return launch_r<T, 12>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, clocks, stream);
       default: break;
     }
   }
-  return launch_r<T, 0>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, stream);
+  return launch_r<T, 0>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, clocks, stream);
 }
 
 }  // namespace
@@ -351,11 +435,15 @@ extern "C" {
 // copy as its argument).  by, bx: multiples of 8.  vec: nx is a multiple of
 // 16 bytes' worth of elements and x, y are 16-byte aligned.  smem: dynamic
 // shared memory of one tile, as kernels/stencil2d/kernel.py:smem_bytes lays
-// it out.  Returns cudaGetLastError().
+// it out.  clocks: null for the main instance; else the clocked instance
+// runs and adds into this int64 (kClockSlots, kClockFields) buffer on the
+// device.  Returns cudaGetLastError().
 int stencil2d_launch(const void* x, void* y, const void* taps, int dtype,
                      int64_t batch, int ny, int nx, int ry, int rx, int steps,
-                     int by, int bx, int vec, size_t smem, void* stream) {
+                     int by, int bx, int vec, size_t smem, void* clocks,
+                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long* c = (unsigned long long*)clocks;
   Taps tp;
   memcpy(&tp, taps, sizeof(Taps));
   if (by < kMY || by % 8 || bx < 8 || bx % 8 || tp.ny < 0 || tp.ny > kMaxTaps
@@ -363,15 +451,19 @@ int stencil2d_launch(const void* x, void* y, const void* taps, int dtype,
       || 2 * rx + 1 > kMaxTaps || steps < 1)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, s);
+    return launch<float>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, c, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, s);
+    return launch<__nv_bfloat16>(x, y, tp, batch, ny, nx, ry, rx, steps, by, bx, vec, smem, c, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // sizeof(struct Taps): kernels/stencil2d/kernel.py refuses a library whose
 // struct is not the buffer it packs.
 int stencil2d_taps_bytes() { return (int)sizeof(Taps); }
+
+// The clocked instance's buffer: kClockSlots rows of kClockFields int64
+// (kernels/stencil2d/kernel.py checks both against its own).
+int stencil2d_clock_shape(int which) { return which ? kClockFields : kClockSlots; }
 
 const char* stencil2d_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

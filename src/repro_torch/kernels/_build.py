@@ -13,7 +13,9 @@ its library (:func:`build_log`).
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises if that is not 0 and counts
-the launch in :data:`LAUNCHES`, the only place a launch is counted.
+the launch in :data:`LAUNCHES`, the only place a launch is counted, and
+the work its wrapper gives (``work=``) in :data:`WORK`.  Inside
+``repro_torch.telemetry.recording`` it is the span ``launch.<kernel>``.
 K5's and K6's wrappers also take meta tensors: they return meta outputs of
 the kernel's shapes, launch nothing and add the work the launch would do
 to :data:`META` (:func:`count_meta`).
@@ -30,6 +32,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.telemetry import host
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +48,10 @@ LAUNCHES: dict[str, int] = {}
 # launch/dryrun.py, reads it).  A meta call launches nothing and is not
 # counted in LAUNCHES.
 META: dict[str, list[int]] = {}
+# kernel name -> [launches, operations, bytes] of the launches whose wrapper
+# gave their work (launch(..., work=)): what each made the card do, from the
+# formula beside the kernel (K3: stencil2d_work, K4: stencil3d_work).
+WORK: dict[str, list[int]] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -127,23 +135,28 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def launch(kernel: str, lib_name: str, argtypes: list, *args,
-           entry: str | None = None) -> None:
+           entry: str | None = None,
+           work: tuple[int, int] | None = None) -> None:
     """Call ``<entry>_launch`` of ``csrc/<lib_name>.cu`` (``entry`` defaults
     to ``lib_name``; the function launches its kernel on the stream it is
     given and returns ``cudaGetLastError()``), raise on a non-zero code, and
-    count the launch under ``kernel``."""
-    lib = library(lib_name)
-    fn = getattr(lib, f"{entry or lib_name}_launch")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    err = fn(*args)
-    if err != 0:
-        what = getattr(lib, f"{lib_name}_error_string")
-        what.argtypes = [ctypes.c_int]
-        what.restype = ctypes.c_char_p
-        raise RuntimeError(f"{kernel} failed to launch: CUDA error {err} "
-                           f"({what(err).decode()})")
-    LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+    count the launch under ``kernel``, with ``work`` = (operations, bytes)
+    in :data:`WORK`."""
+    with host.span(kernel, prefix="launch."):
+        lib = library(lib_name)
+        fn = getattr(lib, f"{entry or lib_name}_launch")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = fn(*args)
+        if err != 0:
+            what = getattr(lib, f"{lib_name}_error_string")
+            what.argtypes = [ctypes.c_int]
+            what.restype = ctypes.c_char_p
+            raise RuntimeError(f"{kernel} failed to launch: CUDA error {err} "
+                               f"({what(err).decode()})")
+        LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+        if work is not None:
+            _tally(WORK, kernel, *work)
 
 
 def reset_launches() -> None:
@@ -151,13 +164,29 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def count_meta(kernel: str, ops: int, nbytes: int) -> None:
-    """Count one call of ``kernel``'s wrapper on meta tensors, which stands
-    for a launch doing ``ops`` operations and moving ``nbytes`` bytes."""
-    rec = META.setdefault(kernel, [0, 0, 0])
+def _tally(table: dict[str, list[int]], kernel: str, ops: int,
+           nbytes: int) -> None:
+    rec = table.get(kernel) or table.setdefault(kernel, [0, 0, 0])
     rec[0] += 1
     rec[1] += ops
     rec[2] += nbytes
+
+
+def _work_of(table: dict[str, list[int]]) -> dict[str, dict[str, int]]:
+    return {k: {"launches": n, "ops": ops, "bytes": nb}
+            for k, (n, ops, nb) in table.items()}
+
+
+def count_meta(kernel: str, ops: int, nbytes: int) -> None:
+    """Count one call of ``kernel``'s wrapper on meta tensors, which stands
+    for a launch doing ``ops`` operations and moving ``nbytes`` bytes."""
+    _tally(META, kernel, ops, nbytes)
+
+
+def overlap(lo: int, hi: int, n: int) -> int:
+    """Points of [lo, hi) inside [0, n): a tile's haloed extent clipped to
+    the grid, as the work formulas count it."""
+    return max(0, min(hi, n) - max(lo, 0))
 
 
 def nbytes(*ts) -> int:
@@ -171,8 +200,23 @@ def reset_meta() -> None:
 
 def meta_work() -> dict[str, dict[str, int]]:
     """Launches, operations and bytes per kernel since :func:`reset_meta`."""
-    return {k: {"launches": n, "ops": ops, "bytes": nb}
-            for k, (n, ops, nb) in META.items()}
+    return _work_of(META)
+
+
+def reset_work() -> None:
+    WORK.clear()
+
+
+def launch_work() -> dict[str, dict[str, int]]:
+    """Launches, operations and bytes per kernel launched with its work
+    since :func:`reset_work`."""
+    return _work_of(WORK)
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether a kernel wrapper launches on ``x`` (a CUDA tensor) rather
+    than running its plain version."""
+    return x.device.type == "cuda"
 
 
 def check_backend(backend: str, x: torch.Tensor) -> None:

@@ -1,5 +1,7 @@
 """Public entry point for the 2D stencil: planning and backend dispatch
-(the same contract as ``stencil1d/ops.py``, over the last two axes)."""
+(the same contract as ``stencil1d/ops.py``, over the last two axes).  A
+call is the span ``stencil2d``, its planning ``stencil2d.plan``
+(``repro_torch.telemetry.host``)."""
 from __future__ import annotations
 
 import torch
@@ -7,6 +9,7 @@ import torch
 from repro_torch.core.spec import StencilSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.stencil2d.kernel import smem_bytes, stencil2d_kernel
+from repro_torch.telemetry import host
 
 MAX_BLOCK_Y = 128     # the tile grows to 128 x 128 outputs at most
 MAX_BLOCK_X = 128
@@ -47,17 +50,19 @@ def stencil2d(x: torch.Tensor, cy: tuple[float, ...], cx: tuple[float, ...], *,
               block: tuple[int, int] | None = None) -> torch.Tensor:
     """Batched 2D star stencil over the last two axes (y=-2, x=-1).  On the
     card the radius of each axis is at most 63 (the kernel's tap struct)."""
-    cy = tuple(float(c) for c in cy)
-    cx = tuple(float(c) for c in cx)
-    _build.check_backend(backend, x)
-    ry, rx = (len(cy) - 1) // 2, (len(cx) - 1) // 2
-    ny, nx = x.shape[-2:]
-    xb = x.reshape(-1, ny, nx).contiguous()
-    if block is None and xb.is_cuda:
-        block = plan_2d_blocks(ny, nx, ry, rx, timesteps,
-                               _build.smem_per_block(xb.device))
-    y = stencil2d_kernel(xb, cy, cx, timesteps=timesteps, block=block)
-    return y.reshape(x.shape)
+    with host.span("stencil2d"):
+        with host.span("stencil2d.plan"):
+            cy = tuple(float(c) for c in cy)
+            cx = tuple(float(c) for c in cx)
+            _build.check_backend(backend, x)
+            ry, rx = (len(cy) - 1) // 2, (len(cx) - 1) // 2
+            ny, nx = x.shape[-2:]
+            xb = x.reshape(-1, ny, nx).contiguous()
+            if block is None and xb.is_cuda:
+                block = plan_2d_blocks(ny, nx, ry, rx, timesteps,
+                                       _build.smem_per_block(xb.device))
+        y = stencil2d_kernel(xb, cy, cx, timesteps=timesteps, block=block)
+        return y.reshape(x.shape)
 
 
 def stencil2d_from_spec(x: torch.Tensor, spec: StencilSpec, **kw) -> torch.Tensor:

@@ -17,7 +17,8 @@ all ``2·rz+1`` planes of the z taps (:func:`instance`).  The taps go to the ker
 The kernel zero-fills outside the grid and zeroes within ``r·step`` of every
 face, so the T-sweep loop in ops.py needs no padding and no separate
 re-mask.  On a CPU tensor the wrapper runs the plain version,
-:func:`stencil3d_sweep_ref`.
+:func:`stencil3d_sweep_ref`.  Each launch adds its work to ``_build.WORK``
+(:func:`stencil3d_work`).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.stencil2d.kernel import compact_taps
 from repro_torch.kernels.stencil3d.ref import stencil3d_sweep_ref
+from repro_torch.telemetry import host
 
 MAX_TAPS = 64           # kMaxTaps in stencil3d.cu: 2r + 1 <= 64 per axis
 MICRO = (4, 4)          # kMY, kMX: rows x columns a thread owns
@@ -84,6 +86,37 @@ def smem_bytes(rz: int, ry: int, rx: int, by: int, bx: int,
             * itemsize)
 
 
+@functools.lru_cache(maxsize=256)
+def stencil3d_work(b: int, nz: int, ny: int, nx: int, rz: int, ry: int,
+                   rx: int, bz: int, by: int, bx: int, itemsize: int,
+                   queued: bool, taps: int) -> tuple[int, int]:
+    """(multiply-adds, bytes) of one launch over ``b`` grids of nz x ny x nx
+    in (bz, by, bx) tiles, ``taps`` non-zero taps a point (the generic
+    instance walks the compacted taps; a compile-time instance's star
+    pattern has no zero tap).  Bytes: every haloed plane a tile's z-march
+    loads into its ring, ``(by + 2ry) x (bx + 2px)`` with ``px`` = rx
+    rounded up to a 16-byte chunk, clipped to the grid where the kernel
+    zero-fills instead of loading (planes z0 .. z1 + rz, from z0 - rz in the
+    generic instance); in a compile-time instance (``queued``) also the rz
+    planes before each z chunk, each thread's own columns read from global
+    memory; then every output stored once.  Multiply-adds: every column of
+    every tile, past the grid's end too, at every plane of its chunk.  The
+    tiles of each axis contribute independently."""
+    chunk = 16 // itemsize
+    px = -(-rx // chunk) * chunk
+    zs, ys, xs = range(0, nz, bz), range(0, ny, by), range(0, nx, bx)
+    first = 0 if queued else rz
+    planes = sum(_build.overlap(z0 - first, min(z0 + bz, nz) + rz, nz)
+                 for z0 in zs)
+    rows = sum(_build.overlap(y0 - ry, y0 + by + ry, ny) for y0 in ys)
+    cols = sum(_build.overlap(x0 - px, x0 + bx + px, nx) for x0 in xs)
+    loaded = planes * rows * cols
+    if queued:
+        loaded += sum(_build.overlap(z0 - rz, z0, nz) for z0 in zs) * ny * nx
+    ops = b * nz * len(ys) * by * len(xs) * bx * taps
+    return ops, b * (loaded + nz * ny * nx) * itemsize
+
+
 @functools.lru_cache(maxsize=64)
 def pack_taps(cz: tuple[float, ...], cy: tuple[float, ...],
               cx: tuple[float, ...]) -> np.ndarray:
@@ -127,32 +160,39 @@ def stencil3d_kernel(x: torch.Tensor, cz: tuple[float, ...],
     """x: (B, nz, ny, nx) float32/bfloat16 -> same: sweep number ``step``
     (its rim is ``r·step``).  Launches K4 on a CUDA tensor (``block``
     required there); runs :func:`stencil3d_sweep_ref` on a CPU one."""
-    dtype_code = _build.check_grid(x, 4, "stencil3d")
-    if step < 1:
-        raise ValueError("step must be >= 1")
-    if x.device.type == "cpu":
-        return stencil3d_sweep_ref(x, tuple(cz), tuple(cy), tuple(cx), step)
-    rz, ry, rx = (_build.radius(c, "stencil3d") for c in (cz, cy, cx))
-    if block is None:
-        raise ValueError("stencil3d_kernel needs a block on the card")
-    check_block(block)
-    bz, by, bx = block
-    cz, cy, cx = (tuple(float(v) for v in c) for c in (cz, cy, cx))
-    taps = pack_taps(cz, cy, cx)
-    _check_taps_layout()
-    inst = instance(cz, cy, cx)
-    smem = smem_bytes(rz, ry, rx, by, bx, x.element_size(), inst > 0)
-    _build.require_smem(f"stencil3d block {block} at r=({rz}, {ry}, {rx})",
-                        smem, x.device)
-    b, nz, ny, nx = x.shape
-    out = torch.empty_like(x)
-    if out.numel() == 0:
+    with host.span("stencil3d.kernel"):
+        dtype_code = _build.check_grid(x, 4, "stencil3d")
+        if step < 1:
+            raise ValueError("step must be >= 1")
+        if not _build.on_card(x):
+            return stencil3d_sweep_ref(x, tuple(cz), tuple(cy), tuple(cx),
+                                       step)
+        rz, ry, rx = (_build.radius(c, "stencil3d") for c in (cz, cy, cx))
+        if block is None:
+            raise ValueError("stencil3d_kernel needs a block on the card")
+        check_block(block)
+        bz, by, bx = block
+        cz, cy, cx = (tuple(float(v) for v in c) for c in (cz, cy, cx))
+        taps = pack_taps(cz, cy, cx)
+        _check_taps_layout()
+        inst = instance(cz, cy, cx)
+        smem = smem_bytes(rz, ry, rx, by, bx, x.element_size(), inst > 0)
+        _build.require_smem(f"stencil3d block {block} at r=({rz}, {ry}, {rx})",
+                            smem, x.device)
+        b, nz, ny, nx = x.shape
+        with host.span("stencil3d.alloc"):
+            out = torch.empty_like(x)
+        if out.numel() == 0:
+            return out
+        vec = int(nx % (16 // x.element_size()) == 0
+                  and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+        work = stencil3d_work(b, nz, ny, nx, rz, ry, rx, bz, by, bx,
+                              x.element_size(), inst > 0,
+                              int(taps[0]) + int(taps[1]) + int(taps[2]))
+        with torch.cuda.device(x.device):
+            _build.launch("stencil3d", "stencil3d", _ARGTYPES, x.data_ptr(),
+                          out.data_ptr(), taps.ctypes.data, dtype_code, b,
+                          inst, nz, ny, nx, rz, ry, rx, rz * step, ry * step,
+                          rx * step, bz, by, bx, vec, smem,
+                          _build.stream_handle(x.device), work=work)
         return out
-    vec = int(nx % (16 // x.element_size()) == 0
-              and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    with torch.cuda.device(x.device):
-        _build.launch("stencil3d", "stencil3d", _ARGTYPES, x.data_ptr(),
-                      out.data_ptr(), taps.ctypes.data, dtype_code, b, inst,
-                      nz, ny, nx, rz, ry, rx, rz * step, ry * step, rx * step,
-                      bz, by, bx, vec, smem, _build.stream_handle(x.device))
-    return out

@@ -5,6 +5,8 @@ JAX package does: fused-T 3D star sweeps have diamond composite support, and
 the device-memory round trip between sweeps is the documented trade.  Launch
 ``t`` zeroes the ``r·t`` rim and casts to the grid's type, which is the
 re-mask and cast between sweeps of ``repro.kernels.stencil3d.ops``.
+A call is the span ``stencil3d``, its planning ``stencil3d.plan``
+(``repro_torch.telemetry.host``); each sweep's wrapper is a span of its own.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.stencil3d.kernel import (MAX_THREADS, MICRO,
                                                   instance, smem_bytes,
                                                   stencil3d_kernel)
+from repro_torch.telemetry import host
 
 # z chunk, then a 32 x 128 column tile: 256 threads of 4 x 4 columns
 DEFAULT_BLOCK = (32, 32, 128)
@@ -77,21 +80,24 @@ def stencil3d(x: torch.Tensor, cz, cy, cx, *, timesteps: int = 1,
     shared memory per block; a tuple is used as given.  On the card the
     radius of each axis is at most 31 (the kernel's tap struct).
     """
-    cz = tuple(float(c) for c in cz)
-    cy = tuple(float(c) for c in cy)
-    cx = tuple(float(c) for c in cx)
-    _build.check_backend(backend, x)
-    nz, ny, nx = x.shape[-3:]
-    if x.is_cuda and (block is None or block == "plan"):
-        budget = _build.smem_per_block(x.device)
-        if block is None:
-            radii = tuple((len(c) - 1) // 2 for c in (cz, cy, cx))
-            block = fit_block(DEFAULT_BLOCK, radii, x.element_size(), budget,
-                              instance(cz, cy, cx) > 0)
-        else:
-            block = _auto_block((nz, ny, nx), cz, cy, cx,
-                                str(x.dtype).removeprefix("torch."), budget)
-    out = x.reshape(-1, nz, ny, nx).contiguous()
-    for t in range(1, timesteps + 1):
-        out = stencil3d_kernel(out, cz, cy, cx, block=block, step=t)
-    return out.reshape(x.shape)
+    with host.span("stencil3d"):
+        with host.span("stencil3d.plan"):
+            cz = tuple(float(c) for c in cz)
+            cy = tuple(float(c) for c in cy)
+            cx = tuple(float(c) for c in cx)
+            _build.check_backend(backend, x)
+            nz, ny, nx = x.shape[-3:]
+            if x.is_cuda and (block is None or block == "plan"):
+                budget = _build.smem_per_block(x.device)
+                if block is None:
+                    radii = tuple((len(c) - 1) // 2 for c in (cz, cy, cx))
+                    block = fit_block(DEFAULT_BLOCK, radii, x.element_size(),
+                                      budget, instance(cz, cy, cx) > 0)
+                else:
+                    block = _auto_block((nz, ny, nx), cz, cy, cx,
+                                        str(x.dtype).removeprefix("torch."),
+                                        budget)
+            out = x.reshape(-1, nz, ny, nx).contiguous()
+        for t in range(1, timesteps + 1):
+            out = stencil3d_kernel(out, cz, cy, cx, block=block, step=t)
+        return out.reshape(x.shape)

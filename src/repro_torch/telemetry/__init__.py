@@ -13,9 +13,14 @@ stats, across both engines) and free when absent (``telemetry=None`` keeps
 the engines on their uninstrumented hot paths).  The mapping auto-tuner
 records a search span per evaluation into the same sink (``explore(...,
 telemetry=tel)``), so one trace file can hold a whole sweep.
+
+The stencil kernels' host path records its spans into the same sink inside
+``recording(tel)`` (:mod:`repro_torch.telemetry.host`); ``__all__`` stays
+the reference's.
 """
 from repro_torch.telemetry.attribution import (CycleAccounting, attribute,
                                                render_attribution, stage_label)
+from repro_torch.telemetry.host import recording  # noqa: F401
 from repro_torch.telemetry.metrics import (append_history, case_records,
                                            load_history)
 from repro_torch.telemetry.probe import (ST_FIRED, ST_INACTIVE, ST_INPUT_STARVED,

@@ -16,6 +16,9 @@ The mapping from probes to tracks:
 * one process for tuner search spans (``repro_torch.explore`` evaluations),
   on the wall-clock timebase — a whole sweep becomes one inspectable
   artifact.
+* one process, ``host``, for the kernels' host spans (track ``host``,
+  :mod:`repro_torch.telemetry.host`), on the same wall-clock timebase; each
+  slice's ``args`` carry its parent span's index in the sink and its call.
 
 Events are emitted globally sorted by timestamp with integer ``ts``/``dur``
 — :func:`validate_trace` checks that (plus the required keys) and is run by
@@ -33,6 +36,7 @@ __all__ = ["trace_events", "write_trace", "validate_trace"]
 
 _PID_SPANS = 1                      # tuner/search spans
 _PID_LINKS = 2                      # per-link occupancy counters
+_PID_HOST = 3                       # the kernels' host spans
 _PID_GROUP0 = 10                    # first PE / worker-stage group
 
 
@@ -93,24 +97,38 @@ def _link_events(tel: Telemetry) -> list[dict]:
     return evs
 
 
+def _process_of(track: str) -> tuple[int, str]:
+    """(pid, name) of the process a span track belongs to: ``host`` for the
+    kernels' host spans, ``tuner`` for every other."""
+    if track.split("/")[0] == "host":
+        return _PID_HOST, "host"
+    return _PID_SPANS, "tuner"
+
+
 def _span_events(tel: Telemetry) -> list[dict]:
     evs: list[dict] = []
     tracks: dict[str, int] = {}
-    if tel.spans:
-        evs.append({"ph": "M", "pid": _PID_SPANS, "ts": 0,
-                    "name": "process_name", "args": {"name": "tuner"}})
+    named: set[int] = set()
     for sp in tel.spans:
         track = sp.get("track", "spans")
+        pid, process = _process_of(track)
+        if pid not in named:
+            named.add(pid)
+            evs.append({"ph": "M", "pid": pid, "ts": 0,
+                        "name": "process_name", "args": {"name": process}})
         if track not in tracks:
             tid = len(tracks)
             tracks[track] = tid
-            evs.append({"ph": "M", "pid": _PID_SPANS, "tid": tid, "ts": 0,
+            evs.append({"ph": "M", "pid": pid, "tid": tid, "ts": 0,
                         "name": "thread_name", "args": {"name": track}})
-        evs.append({"ph": "X", "pid": _PID_SPANS, "tid": tracks[track],
+        args = sp.get("args", {})
+        if "call" in sp:
+            args = {**args, "parent": sp["parent"], "call": sp["call"]}
+        evs.append({"ph": "X", "pid": pid, "tid": tracks[track],
                     "ts": int(sp["t0"] * 1e6),
                     "dur": max(1, int(sp["dur"] * 1e6)),
                     "name": sp["name"], "cat": sp.get("cat", "span"),
-                    "args": sp.get("args", {})})
+                    "args": args})
     return evs
 
 

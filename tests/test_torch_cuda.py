@@ -27,8 +27,13 @@ from repro_torch.kernels import (_build, causal_conv1d,
 from repro_torch.kernels.conv1d import kernel as k5
 from repro_torch.kernels.conv1d.ref import conv1d_bwd_ref, conv1d_ref
 from repro_torch.kernels.stencil1d.ref import stencil1d_ref
+from repro_torch.kernels.stencil2d.kernel import CLOCK_FIELDS, stencil2d_work
+from repro_torch.kernels.stencil2d.ops import plan_2d_blocks
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref
+from repro_torch.kernels.stencil3d.kernel import instance, stencil3d_work
+from repro_torch.kernels.stencil3d.ops import DEFAULT_BLOCK, fit_block
 from repro_torch.kernels.stencil3d.ref import stencil3d_ref
+from repro_torch.telemetry import Telemetry, recording
 from repro_torch.kernels.swa.ops import swa_plain
 from repro_torch.kernels.swa.kernel import swa_bwd_kernel
 from repro_torch.kernels.swa.ref import swa_bwd_ref
@@ -227,6 +232,68 @@ def test_stencil2d_kernel(dev, rng, b, ny, nx, ry, rx, t, dtype):
     _close(y, stencil2d_ref(x, cy, cx, t), TOL[dtype])
     y = stencil2d(x, cy, cx, timesteps=t, backend="cuda", block=(8, 128))
     _close(y, stencil2d_ref(x, cy, cx, t), TOL[dtype])
+
+
+@pytest.mark.parametrize("b,ny,nx,ry,rx,t,dtype", CASES_2D + [
+    (4, 449, 960, 12, 12, 1, "float32")])
+def test_stencil2d_clocked_instance(dev, rng, b, ny, nx, ry, rx, t, dtype):
+    """K3's clocked instance (``recording(clocks=True)``) writes the main
+    instance's outputs bit for bit, counts as ``stencil2d_clocked`` alone,
+    and its blocks' device count of the bytes their loads requested equals
+    the loads of ``stencil2d_work``; the work tally adds the formula."""
+    cy = tuple((rng.normal(size=2 * ry + 1) / (2 * ry + 1)).tolist())
+    cx = rng.normal(size=2 * rx + 1) / (2 * rx + 1)
+    cx[rx] = 0.0
+    cx = tuple(cx.tolist())
+    x = _x(rng, (b, ny, nx), dtype, dev)
+    main = stencil2d(x, cy, cx, timesteps=t, backend="cuda")
+    before = dict(_build.LAUNCHES)
+    work = list(_build.WORK.get("stencil2d_clocked", [0, 0, 0]))
+    tel = Telemetry()
+    with recording(tel, clocks=True) as rec:
+        clocked = stencil2d(x, cy, cx, timesteps=t, backend="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(clocked, main)
+    assert _build.LAUNCHES["stencil2d"] == before["stencil2d"]
+    assert _build.LAUNCHES["stencil2d_clocked"] == \
+        before.get("stencil2d_clocked", 0) + 1
+    by, bx = plan_2d_blocks(ny, nx, ry, rx, t, _build.smem_per_block(dev))
+    taps = sum(c != 0.0 for c in cy) + sum(c != 0.0 for c in cx)
+    ops, nbytes = stencil2d_work(b, ny, nx, ry, rx, t, by, bx,
+                                 x.element_size(), taps)
+    assert _build.WORK["stencil2d_clocked"] == [work[0] + 1, work[1] + ops,
+                                                work[2] + nbytes]
+    c = rec.clocks["stencil2d_clocked"]
+    assert set(c) == set(CLOCK_FIELDS)
+    assert c["bytes"] == nbytes - b * ny * nx * x.element_size()
+    assert c["blocks"] == b * -(-ny // by) * -(-nx // bx)
+    assert all(c[p] > 0 for p in ("issue", "wait", "sum", "store"))
+    names = [s["name"] for s in tel.spans]
+    assert names.count("launch.stencil2d_clocked") == 1
+
+
+@pytest.mark.parametrize("b,nz,ny,nx,rz,ry,rx,t,dtype", CASES_3D[:6])
+def test_stencil3d_launches_add_their_work(dev, rng, b, nz, ny, nx, rz, ry,
+                                           rx, t, dtype):
+    """Each of K4's T launches adds ``stencil3d_work`` to the work tally, in
+    the compile-time instances (the star pattern: y and x centres zero) and
+    the generic one."""
+    cz = tuple((rng.normal(size=2 * rz + 1) / (2 * rz + 1)).tolist())
+    cy = rng.normal(size=2 * ry + 1) / (2 * ry + 1)
+    cx = rng.normal(size=2 * rx + 1) / (2 * rx + 1)
+    cy[ry] = cx[rx] = 0.0
+    cy, cx = tuple(cy.tolist()), tuple(cx.tolist())
+    x = _x(rng, (b, nz, ny, nx), dtype, dev)
+    work = list(_build.WORK.get("stencil3d", [0, 0, 0]))
+    stencil3d(x, cz, cy, cx, timesteps=t, backend="cuda")
+    queued = instance(cz, cy, cx) > 0
+    block = fit_block(DEFAULT_BLOCK, (rz, ry, rx), x.element_size(),
+                      _build.smem_per_block(dev), queued)
+    taps = sum(v != 0.0 for c in (cz, cy, cx) for v in c)
+    ops, nbytes = stencil3d_work(b, nz, ny, nx, rz, ry, rx, *block,
+                                 x.element_size(), queued, taps)
+    assert _build.WORK["stencil3d"] == [work[0] + t, work[1] + t * ops,
+                                        work[2] + t * nbytes]
 
 
 @pytest.mark.parametrize("b,nz,ny,nx,rz,ry,rx,t,dtype", CASES_3D)

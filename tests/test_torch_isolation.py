@@ -65,7 +65,8 @@ def test_import_loads_no_jax_and_no_repro():
                 "kernels.simbatch.kernel", "kernels.simbatch.ref",
                 "program.lower", "program.oracle", "explore.search",
                 "explore.space", "telemetry.metrics", "telemetry.report",
-                "telemetry.trace", "analysis.lint", "testing.minihyp",
+                "telemetry.trace", "telemetry.host", "analysis.lint",
+                "testing.minihyp",
                 "models.rwkv6", "models.encdec", "models.mlp",
                 "models.registry", "configs.whisper_tiny",
                 "configs.granite_moe_3b_a800m", "configs.qwen2_vl_2b",
@@ -94,7 +95,8 @@ def test_sources_import_no_jax_and_no_repro():
               root / "tests" / "torch_rwkv_cases.py",
               root / "tests" / "test_torch_whisper_parallel.py",
               root / "tests" / "test_torch_vlm_parallel.py",
-              root / "tests" / "test_torch_fsdp.py"]
+              root / "tests" / "test_torch_fsdp.py",
+              root / "tests" / "test_torch_trace.py"]
     paths += sorted((root / "examples").glob("*_torch.py"))
     assert len([p for p in paths if p.parent.name == "examples"]) == 8
     paths += sorted((root / "scripts").glob("*.py"))
